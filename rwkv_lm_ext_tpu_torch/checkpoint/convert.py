@@ -1,0 +1,66 @@
+"""BlinkDL flat state dicts <-> the port's RWKV module.
+
+Counterpart of rwkv_lm_ext_tpu/checkpoint/convert.py:34-198. The JAX package
+converts the flat dict into its own parameter tree (transposed kernels,
+flattened vectors); the port's module already uses the flat keys and
+shapes, so loading is a checked copy. The flat dict of fp32 numpy arrays
+(what the JAX ``params_to_state_dict`` emits) is also how weights are
+carried between the two packages.
+
+The JAX loader also runs ``apply_wkv_dispatch``; the port's WKV kernel is
+exact at any decay, so there is nothing to dispatch.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from rwkv_lm_ext_tpu_torch.checkpoint.pth import sniff_model_config, strip_prefix
+from rwkv_lm_ext_tpu_torch.config import ModelConfig
+from rwkv_lm_ext_tpu_torch.models.rwkv import RWKV
+
+
+def load_state_dict_into(model: RWKV, state_dict: Dict) -> RWKV:
+    """Copy a flat BlinkDL dict ({key: numpy array or tensor}, prefix
+    already stripped) into `model`, casting to the model's dtype and device.
+    Vectors stored flat, e.g. (C,) for a (1, 1, C) time_maa, are reshaped.
+    Raises on missing or unknown keys and on a size mismatch."""
+    params = model.state_dict()
+    missing = sorted(params.keys() - state_dict.keys())
+    unknown = sorted(state_dict.keys() - params.keys())
+    if missing or unknown:
+        raise KeyError(f"state dict mismatch: missing {missing[:8]}, unknown {unknown[:8]}")
+    with torch.no_grad():
+        for key, p in params.items():
+            src = state_dict[key]
+            if not isinstance(src, torch.Tensor):
+                src = torch.tensor(np.asarray(src))
+            if src.numel() != p.numel():
+                raise ValueError(f"{key}: {tuple(src.shape)} does not fit {tuple(p.shape)}")
+            p.copy_(src.reshape(p.shape))
+    return model
+
+
+def params_to_state_dict(model: RWKV) -> Dict[str, np.ndarray]:
+    """The model's weights as a flat BlinkDL dict of fp32 numpy arrays."""
+    return {
+        k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()
+    }
+
+
+def save_rwkv_checkpoint(model: RWKV, path: str) -> None:
+    """Write the model as a BlinkDL .pth: a plain {key: tensor} dict (no
+    OrderedDict metadata, which torch-free readers such as the JAX
+    package's load_torch_pth do not take)."""
+    torch.save({k: v.detach() for k, v in model.state_dict().items()}, path)
+
+
+def load_rwkv_checkpoint(path: str, *, device, **cfg_overrides) -> Tuple[RWKV, ModelConfig]:
+    """.pth -> (RWKV module on `device` in cfg.dtype, ModelConfig).
+    cfg_overrides are ModelConfig fields, e.g. dtype="float32"."""
+    sd = strip_prefix(torch.load(path, map_location="cpu", weights_only=True))
+    cfg = sniff_model_config(sd, **cfg_overrides)
+    model = RWKV(cfg, device=device)
+    return load_state_dict_into(model, sd), cfg

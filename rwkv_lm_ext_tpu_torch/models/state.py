@@ -1,0 +1,51 @@
+"""Recurrent model state in the logical layout.
+
+Counterpart of rwkv_lm_ext_tpu/models/state.py:70-96 (init_model_state).
+The state is a dict of stacked fp32 tensors with a leading layer axis:
+
+    att_shift: (L, B, C)        last ln1 output row fed to each time mix
+    wkv:       (L, B, H, N, N)  WKV state in (K, V) layout
+    ffn_shift: (L, B, C)        last ln2 output row fed to each channel mix
+
+The JAX package keeps ``wkv`` tile-packed as (L, B, H, N*N/128, 128), a
+workaround for the TPU's 128-lane tiles; the port keeps it logical. The two
+numpy helpers below convert a JAX state to the port's layout and back, the
+same reshape as ``unpack_wkv``/``pack_wkv`` (state.py:53-67).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+ModelState = Dict[str, torch.Tensor]
+
+
+def init_model_state(cfg, batch_size: int, *, device) -> ModelState:
+    L, B, C = cfg.n_layer, batch_size, cfg.n_embd
+    H, N = cfg.n_head, cfg.head_size
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "att_shift": torch.zeros(L, B, C, **f32),
+        "wkv": torch.zeros(L, B, H, N, N, **f32),
+        "ffn_shift": torch.zeros(L, B, C, **f32),
+    }
+
+
+def state_from_jax(state: Dict[str, np.ndarray], head_size: int) -> Dict[str, np.ndarray]:
+    """JAX model state (packed or logical ``wkv``) -> the logical layout."""
+    out = {k: np.asarray(v, np.float32) for k, v in state.items()}
+    wkv = out["wkv"]
+    out["wkv"] = wkv.reshape(wkv.shape[:3] + (head_size, head_size))
+    return out
+
+
+def state_to_jax(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Logical state -> the JAX package's canonical layout (``wkv`` packed
+    to (..., N*N/128, 128) where N*N is a multiple of 128)."""
+    out = {k: np.asarray(v, np.float32) for k, v in state.items()}
+    n = out["wkv"].shape[-1]
+    if (n * n) % 128 == 0:
+        out["wkv"] = out["wkv"].reshape(out["wkv"].shape[:3] + ((n * n) // 128, 128))
+    return out

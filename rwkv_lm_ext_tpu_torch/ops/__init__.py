@@ -1,0 +1,19 @@
+"""Kernels of the port and their plain versions.
+
+Each kernel's wrapper carries an integer ``launches`` attribute that it
+raises by one where it launches the kernel, and nowhere else.
+"""
+from rwkv_lm_ext_tpu_torch.ops.ddlerp import tmix_prologue
+from rwkv_lm_ext_tpu_torch.ops.ln import layer_norm
+from rwkv_lm_ext_tpu_torch.ops.wkv_fused import wkv6_fused_output
+
+KERNEL_WRAPPERS = (layer_norm, tmix_prologue, wkv6_fused_output)
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0

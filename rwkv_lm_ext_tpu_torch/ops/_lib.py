@@ -1,0 +1,139 @@
+"""Build, load and launch the port's CUDA kernels.
+
+No JAX counterpart: the Pallas kernels were compiled by XLA inside jit. Here
+every source under ``csrc/`` is compiled by ``nvcc`` for sm_90a, at first
+use, into ONE shared library with a plain C interface, loaded with ctypes.
+The library's file name carries a hash of the sources and flags, so editing
+a source rebuilds it. It is written to ``rwkv_lm_ext_tpu_torch/build/``
+(git-ignored). Importing this module builds nothing, so the package imports
+on a machine without nvcc or a GPU and runs the plain versions on the CPU.
+
+Each C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`launch` raises on anything but ``cudaSuccess``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Sequence
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+# dtype codes of csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    # x, scale, bias, y, M, C, eps, dtype, stream
+    "rwkv_layer_norm": [_P, _P, _P, _P, _L, _I, _F, _I, _P],
+    # x, shift, ln_scale, ln_bias, maa, w1, w2, out, B, T, C, D, eps, dtype, stream
+    "rwkv_tmix_prologue": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+    # r, k, v, w, u, g, scale, bias, s0, out, sT, B, T, H, N, eps, dtype, stream
+    "rwkv_wkv6_fused": [_P] * 11 + [_I] * 4 + [_F, _I, _P],
+}
+
+_load_lock = threading.Lock()
+_library = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError(
+        "nvcc not found (searched PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+        "the CUDA kernels of rwkv_lm_ext_tpu_torch cannot be built"
+    )
+
+
+def build(extra_flags: Sequence[str] = ()) -> tuple[Path, str]:
+    """Compile csrc/*.cu into the build directory unless a library of the
+    same sources and flags is already there. Returns (library path, nvcc's
+    stderr, empty when nothing was compiled). Raises with nvcc's stderr if
+    the build fails."""
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    digest = hashlib.sha256()
+    for f in sources + sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(f.name.encode() + b"\0" + f.read_bytes())
+    flags = NVCC_FLAGS + tuple(extra_flags)
+    digest.update(" ".join(flags).encode())
+    out = BUILD_DIR / f"librwkv_kernels_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n"
+            f"{' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out, proc.stderr
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built and loaded on first call."""
+    global _library
+    with _load_lock:
+        if _library is None:
+            path, _ = build()
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.rwkv_error_string.argtypes = [ctypes.c_int]
+            lib.rwkv_error_string.restype = ctypes.c_char_p
+            lib.rwkv_tmix_prologue_smem_bytes.argtypes = [_I, _I]
+            lib.rwkv_tmix_prologue_smem_bytes.restype = _L
+            _library = lib
+        return _library
+
+
+def check_cuda(**tensors: torch.Tensor) -> torch.device:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device
+    in a dtype the kernels take; returns that device."""
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    for name, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}, not a CUDA device")
+        if t.dtype not in DTYPE_CODES:
+            raise TypeError(f"{name} has dtype {t.dtype}; kernels take {list(DTYPE_CODES)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    return devices.pop()
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call C entry point `name` on `device`; tensors in `args` are passed
+    as device pointers, and the current stream is appended. Raises if the
+    launch is refused."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+        code = getattr(lib, name)(*cargs, stream)
+    if code != 0:
+        raise RuntimeError(
+            f"{name}: CUDA error {code} ({lib.rwkv_error_string(code).decode()})"
+        )
