@@ -12,11 +12,12 @@ exact at any decay, so there is nothing to dispatch.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from rwkv_lm_ext_tpu_torch.adapters.quant import quantize_model
 from rwkv_lm_ext_tpu_torch.checkpoint.pth import sniff_model_config, strip_prefix
 from rwkv_lm_ext_tpu_torch.config import ModelConfig
 from rwkv_lm_ext_tpu_torch.models.rwkv import RWKV
@@ -57,10 +58,17 @@ def save_rwkv_checkpoint(model: RWKV, path: str) -> None:
     torch.save({k: v.detach() for k, v in model.state_dict().items()}, path)
 
 
-def load_rwkv_checkpoint(path: str, *, device, **cfg_overrides) -> Tuple[RWKV, ModelConfig]:
+def load_rwkv_checkpoint(
+    path: str, *, device, quant: Optional[str] = None, **cfg_overrides
+) -> Tuple[RWKV, ModelConfig]:
     """.pth -> (RWKV module on `device` in cfg.dtype, ModelConfig).
-    cfg_overrides are ModelConfig fields, e.g. dtype="float32"."""
+    cfg_overrides are ModelConfig fields, e.g. dtype="float32". ``quant``
+    ("int8" or "int8c") quantizes the block projections from the
+    checkpoint's own values upcast to fp32, before any cast to cfg.dtype,
+    as the JAX loader hands fp32 params to quantize_tree."""
     sd = strip_prefix(torch.load(path, map_location="cpu", weights_only=True))
     cfg = sniff_model_config(sd, **cfg_overrides)
-    model = RWKV(cfg, device=device)
-    return load_state_dict_into(model, sd), cfg
+    model = load_state_dict_into(RWKV(cfg, device=device), sd)
+    if quant is not None:
+        quantize_model(model, quant, weights=sd)
+    return model, cfg

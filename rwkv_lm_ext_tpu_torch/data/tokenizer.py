@@ -1,7 +1,7 @@
 """RWKV "world" tokenizer: greedy longest match over a byte trie.
 
-Counterpart of rwkv_lm_ext_tpu/data/tokenizer.py:81-176 (WorldTokenizer),
-pure-Python trie path only. The vocabulary is the JAX package's data file,
+Counterpart of rwkv_lm_ext_tpu/data/tokenizer.py:81-176 (WorldTokenizer,
+pure-Python trie path only, and StreamingDecoder). The vocabulary is the JAX package's data file,
 read by path: rwkv_lm_ext_tpu/data/assets/rwkv_vocab_v20230424.txt. Lines
 are ``<id> <python-literal str|bytes> <byte length>``.
 """
@@ -71,6 +71,38 @@ class WorldTokenizer:
     def encode(self, text: str) -> List[int]:
         return self.encode_bytes(text.encode("utf-8"))
 
+    def decode_bytes(self, ids: Iterable[int]) -> bytes:
+        return b"".join(self.idx_to_token[i] for i in ids if i in self.idx_to_token)
+
     def decode(self, ids: Iterable[int]) -> str:
-        data = b"".join(self.idx_to_token[i] for i in ids if i in self.idx_to_token)
-        return data.decode("utf-8", errors="replace")
+        return self.decode_bytes(ids).decode("utf-8", errors="replace")
+
+    def streaming_decoder(self) -> "StreamingDecoder":
+        return StreamingDecoder(self)
+
+
+class StreamingDecoder:
+    """Incremental decoder that emits only complete UTF-8 sequences, so a
+    character split across tokens (CJK, emoji) streams as one piece."""
+
+    def __init__(self, tok: WorldTokenizer):
+        self._tok = tok
+        self._pending = b""
+
+    def push(self, token_id: int) -> str:
+        self._pending += self._tok.idx_to_token.get(token_id, b"")
+        # the longest prefix that is valid UTF-8 (an incomplete sequence at
+        # the end is at most 3 bytes)
+        for cut in range(len(self._pending), max(len(self._pending) - 4, -1), -1):
+            try:
+                text = self._pending[:cut].decode("utf-8")
+            except UnicodeDecodeError:
+                continue
+            self._pending = self._pending[cut:]
+            return text
+        return ""
+
+    def flush(self) -> str:
+        text = self._pending.decode("utf-8", errors="replace")
+        self._pending = b""
+        return text

@@ -14,10 +14,14 @@ Parameter names are the BlinkDL flat keys (``blocks.{i}.att.time_maa_x``,
 
 There is one route, the fused one: ln1 + token shift + ddlerp in K2, the
 r/k/v/g/output projections and the fp32 decay low-rank as matrix products,
-WKV + GroupNorm + gate in K1, and LayerNorm in K3. On CPU tensors every
-kernel wrapper runs its plain version. ``reference=True`` runs the plain
-versions on any device: it is the on-card reference that the kernels are
-checked against, not a serving path.
+WKV + GroupNorm + gate in K1, and LayerNorm in K3. A projection is a
+``Linear`` or, after adapters.quant.quantize_model, a ``QuantLinear``
+(int8 dequantized on use, or int8c through the B.4 quantizer and an int8
+product). Plain T=1 calls take the decode step (models/decode.py), which
+swaps K1 for the decode kernel B.9, as ``rwkv_forward`` routes them
+(:777-800). On CPU tensors every kernel wrapper runs its plain version.
+``reference=True`` runs the plain versions on any device: it is the on-card
+reference that the kernels are checked against, not a serving path.
 
 Precision: weights and activations in cfg.dtype; LayerNorm/GroupNorm
 statistics, the WKV state and the decay low-rank in fp32.
@@ -33,6 +37,11 @@ from torch import nn
 from rwkv_lm_ext_tpu_torch.models.state import ModelState, init_model_state
 from rwkv_lm_ext_tpu_torch.ops.ddlerp import tmix_prologue, tmix_prologue_plain
 from rwkv_lm_ext_tpu_torch.ops.ln import layer_norm, layer_norm_plain
+from rwkv_lm_ext_tpu_torch.ops.quant import quantize_rows, quantize_rows_plain
+from rwkv_lm_ext_tpu_torch.ops.wkv_decode import (
+    wkv6_decode_step,
+    wkv6_decode_step_plain,
+)
 from rwkv_lm_ext_tpu_torch.ops.wkv_fused import (
     wkv6_fused_output,
     wkv6_fused_output_plain,
@@ -43,10 +52,15 @@ class Ops(NamedTuple):
     layer_norm: object
     tmix_prologue: object
     wkv6_fused_output: object
+    wkv6_decode_step: object
+    quantize_rows: object
 
 
-KERNEL_OPS = Ops(layer_norm, tmix_prologue, wkv6_fused_output)
-PLAIN_OPS = Ops(layer_norm_plain, tmix_prologue_plain, wkv6_fused_output_plain)
+KERNEL_OPS = Ops(layer_norm, tmix_prologue, wkv6_fused_output, wkv6_decode_step, quantize_rows)
+PLAIN_OPS = Ops(
+    layer_norm_plain, tmix_prologue_plain, wkv6_fused_output_plain,
+    wkv6_decode_step_plain, quantize_rows_plain,
+)
 
 LayerState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -57,13 +71,15 @@ def _param(*shape, device, dtype) -> nn.Parameter:
 
 
 class Linear(nn.Module):
-    """Bias-free projection with a torch-layout (out, in) weight."""
+    """Bias-free projection with a torch-layout (out, in) weight. Like
+    adapters.quant.QuantLinear it takes the route's Ops, which a dense
+    product does not need."""
 
     def __init__(self, n_in: int, n_out: int, **kw):
         super().__init__()
         self.weight = _param(n_out, n_in, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ops: Optional[Ops] = None) -> torch.Tensor:
         return F.linear(x, self.weight)
 
 
@@ -101,15 +117,10 @@ class TimeMix(nn.Module):
         self.output = Linear(A, C, **kw)
         self.ln_x = Norm(A, **kw)
 
-    def forward(
-        self, x: torch.Tensor, ln1: Norm, att_shift: torch.Tensor,
-        wkv_state: torch.Tensor, ops: Ops,
-    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """x: (B, T, C) raw residual stream; att_shift: (B, C) fp32, the
-        previous token's ln1 output; wkv_state: (B, H, N, N) fp32. Returns
-        (out (B, T, C), new att_shift, new wkv_state)."""
-        B, T, C = x.shape
-        H, N = self.cfg.n_head, self.cfg.head_size
+    def _mix(self, x: torch.Tensor, ln1: Norm, att_shift: torch.Tensor, ops: Ops):
+        """K2, the r/k/v/g projections and the fp32 decay: (r, k, v, g) of
+        shape (B, T, A) in x's dtype, w (B, T, A) fp32 and the ln1 output."""
+        C = x.shape[-1]
         dt = x.dtype
         maa = torch.cat([
             self.time_maa_x, self.time_maa_w, self.time_maa_k,
@@ -119,20 +130,48 @@ class TimeMix(nn.Module):
             x, att_shift.to(dt), ln1.weight, ln1.bias, maa,
             self.time_maa_w1, self.time_maa_w2, eps=1e-5,
         )
-        r = self.receptance(xr)
-        k = self.key(xk)
-        v = self.value(xv)
-        g = F.silu(self.gate(xg))
+        r = self.receptance(xr, ops)
+        k = self.key(xk, ops)
+        v = self.value(xv, ops)
+        g = F.silu(self.gate(xg, ops))
         # data-dependent decay in fp32: it feeds exp(-exp(w))
         ww = torch.tanh(xw.float() @ self.time_decay_w1.float())
         w = self.time_decay.float().reshape(-1) + ww @ self.time_decay_w2.float()
+        return r, k, v, g, w, xln
+
+    def forward(
+        self, x: torch.Tensor, ln1: Norm, att_shift: torch.Tensor,
+        wkv_state: torch.Tensor, ops: Ops,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """x: (B, T, C) raw residual stream; att_shift: (B, C) fp32, the
+        previous token's ln1 output; wkv_state: (B, H, N, N) fp32. Returns
+        (out (B, T, C), new att_shift, new wkv_state)."""
+        B, T, _ = x.shape
+        H, N = self.cfg.n_head, self.cfg.head_size
+        r, k, v, g, w, xln = self._mix(x, ln1, att_shift, ops)
         heads = (B, T, H, N)
         gated, new_wkv = ops.wkv6_fused_output(
             r.view(heads), k.view(heads), v.view(heads), w.view(heads),
             self.time_faaaa, g.view(heads), self.ln_x.weight, self.ln_x.bias,
             wkv_state, eps=self.cfg.ln_x_eps,
         )
-        return self.output(gated), xln[:, -1].float(), new_wkv
+        return self.output(gated, ops), xln[:, -1].float(), new_wkv
+
+    def step(
+        self, x: torch.Tensor, ln1: Norm, att_shift: torch.Tensor,
+        wkv_state: torch.Tensor, out_wkv: torch.Tensor, ops: Ops,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One token: x (B, 1, C). The decode kernel takes K1's place and
+        writes the new WKV state into ``out_wkv``, which may be
+        ``wkv_state`` itself. Returns (out (B, 1, C), new att_shift)."""
+        B = x.shape[0]
+        r, k, v, g, w, xln = self._mix(x, ln1, att_shift, ops)
+        gated, _ = ops.wkv6_decode_step(
+            r.view(B, -1), k.view(B, -1), v.view(B, -1), w.view(B, -1),
+            g.view(B, -1), self.time_faaaa, self.ln_x.weight, self.ln_x.bias,
+            wkv_state, eps=self.cfg.ln_x_eps, out_state=out_wkv,
+        )
+        return self.output(gated.view(B, 1, -1), ops), xln[:, -1].float()
 
 
 class ChannelMix(nn.Module):
@@ -148,15 +187,15 @@ class ChannelMix(nn.Module):
         self.value = Linear(F_, C, **kw)
 
     def forward(
-        self, x: torch.Tensor, ffn_shift: torch.Tensor
+        self, x: torch.Tensor, ffn_shift: torch.Tensor, ops: Ops
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (B, T, C), the ln2 output. Returns (out, new ffn_shift)."""
         prev = torch.cat([ffn_shift.to(x.dtype)[:, None], x[:, :-1]], dim=1)
         xx = prev - x
         xk = x + xx * self.time_maa_k
         xr = x + xx * self.time_maa_r
-        kv = self.value(torch.relu(self.key(xk)) ** 2)
-        return torch.sigmoid(self.receptance(xr)) * kv, x[:, -1].float()
+        kv = self.value(torch.relu(self.key(xk, ops)) ** 2, ops)
+        return torch.sigmoid(self.receptance(xr, ops)) * kv, x[:, -1].float()
 
 
 class Block(nn.Module):
@@ -180,9 +219,28 @@ class Block(nn.Module):
         att_out, att_shift, wkv_state = self.att(x, self.ln1, att_shift, wkv_state, ops)
         x = x + att_out
         ffn_out, ffn_shift = self.ffn(
-            ops.layer_norm(x, self.ln2.weight, self.ln2.bias), ffn_shift
+            ops.layer_norm(x, self.ln2.weight, self.ln2.bias), ffn_shift, ops
         )
         return x + ffn_out, (att_shift, wkv_state, ffn_shift)
+
+    def step(
+        self, x: torch.Tensor, state: ModelState, out: ModelState, i: int, ops: Ops
+    ) -> torch.Tensor:
+        """One token through layer i: x (B, 1, C). Reads layer i of
+        ``state`` and writes layer i of ``out``, which may be ``state``
+        itself (each slice is read before it is written, in stream order)."""
+        if self.ln0 is not None:
+            x = ops.layer_norm(x, self.ln0.weight, self.ln0.bias)
+        att_out, att_shift = self.att.step(
+            x, self.ln1, state["att_shift"][i], state["wkv"][i], out["wkv"][i], ops
+        )
+        x = x + att_out
+        ffn_out, ffn_shift = self.ffn(
+            ops.layer_norm(x, self.ln2.weight, self.ln2.bias), state["ffn_shift"][i], ops
+        )
+        out["att_shift"][i].copy_(att_shift)
+        out["ffn_shift"][i].copy_(ffn_shift)
+        return x + ffn_out
 
 
 class RWKV(nn.Module):
@@ -216,13 +274,22 @@ class RWKV(nn.Module):
         return_hidden: bool = False,
         return_logits: bool = True,
         reference: bool = False,
+        t1_step: bool = True,
     ):
         """tokens: (B, T) int. state: a models.state dict, or None for zeros.
 
         Returns (logits (B, T, V), new_state); with return_hidden and not
         return_logits, (hidden (B, T, C), new_state); with both,
         ((logits, hidden), new_state). reference=True runs the kernels'
-        plain versions (see the module docstring)."""
+        plain versions (see the module docstring). A plain T=1 call (logits
+        only) goes through models.decode.rwkv_decode_step unless
+        ``t1_step=False``; either way ``state`` is left as it was."""
+        from rwkv_lm_ext_tpu_torch.models.decode import decode_supported, rwkv_decode_step
+
+        if (t1_step and tokens.shape[1] == 1 and return_logits and not return_hidden
+                and decode_supported(self.cfg)):
+            logits, new_state = rwkv_decode_step(self, tokens[:, 0], state, reference=reference)
+            return logits[:, None], new_state
         ops = PLAIN_OPS if reference else KERNEL_OPS
         B = tokens.shape[0]
         if state is None:
@@ -238,7 +305,7 @@ class RWKV(nn.Module):
         x = ops.layer_norm(x, self.ln_out.weight, self.ln_out.bias)
         if return_hidden and not return_logits:
             return x, new_state
-        logits = self.head(x)
+        logits = self.head(x, ops)
         if return_hidden:
             return (logits, x), new_state
         return logits, new_state

@@ -5,9 +5,11 @@ raises by one where it launches the kernel, and nowhere else.
 """
 from rwkv_lm_ext_tpu_torch.ops.ddlerp import tmix_prologue
 from rwkv_lm_ext_tpu_torch.ops.ln import layer_norm
+from rwkv_lm_ext_tpu_torch.ops.quant import quantize_rows
+from rwkv_lm_ext_tpu_torch.ops.wkv_decode import wkv6_decode_step
 from rwkv_lm_ext_tpu_torch.ops.wkv_fused import wkv6_fused_output
 
-KERNEL_WRAPPERS = (layer_norm, tmix_prologue, wkv6_fused_output)
+KERNEL_WRAPPERS = (layer_norm, tmix_prologue, wkv6_fused_output, wkv6_decode_step, quantize_rows)
 
 
 def launch_counts() -> dict:

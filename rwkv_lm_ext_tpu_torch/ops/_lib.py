@@ -2,11 +2,15 @@
 
 No JAX counterpart: the Pallas kernels were compiled by XLA inside jit. Here
 every source under ``csrc/`` is compiled by ``nvcc`` for sm_90a, at first
-use, into ONE shared library with a plain C interface, loaded with ctypes.
-The library's file name carries a hash of the sources and flags, so editing
-a source rebuilds it. It is written to ``rwkv_lm_ext_tpu_torch/build/``
-(git-ignored). Importing this module builds nothing, so the package imports
-on a machine without nvcc or a GPU and runs the plain versions on the CPU.
+use, one ``nvcc -c`` per source, all started together, and the objects are
+linked into ONE shared library with a plain C interface, loaded with
+ctypes. The library's file name carries a hash of the sources and flags, so
+editing a source rebuilds it. It is written to
+``rwkv_lm_ext_tpu_torch/build/`` (git-ignored). Importing this module
+builds nothing, so the package imports on a machine without nvcc or a GPU
+and runs the plain versions on the CPU. There is no fast-math flag: the
+int8 quantizer (csrc/quant.cu) must stay bit-identical to its plain
+version.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`launch` raises on anything but ``cudaSuccess``.
@@ -29,7 +33,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 # dtype codes of csrc/common.cuh
@@ -43,6 +47,10 @@ _SIGNATURES = {
     "rwkv_tmix_prologue": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
     # r, k, v, w, u, g, scale, bias, s0, out, sT, B, T, H, N, eps, dtype, stream
     "rwkv_wkv6_fused": [_P] * 11 + [_I] * 4 + [_F, _I, _P],
+    # x, q, s, M, C, dtype, stream
+    "rwkv_quantize_rows": [_P] * 3 + [_L, _I, _I, _P],
+    # r, k, v, w, u, g, scale, bias, state, out, out_state, B, H, N, eps, dtype, stream
+    "rwkv_wkv6_decode": [_P] * 11 + [_I] * 3 + [_F, _I, _P],
 }
 
 _load_lock = threading.Lock()
@@ -73,20 +81,41 @@ def build(extra_flags: Sequence[str] = ()) -> tuple[Path, str]:
         digest.update(f.name.encode() + b"\0" + f.read_bytes())
     flags = NVCC_FLAGS + tuple(extra_flags)
     digest.update(" ".join(flags).encode())
-    out = BUILD_DIR / f"librwkv_kernels_{digest.hexdigest()[:16]}.so"
+    tag = digest.hexdigest()[:16]
+    out = BUILD_DIR / f"librwkv_kernels_{tag}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{f.stem}_{tag}.{os.getpid()}.o" for f in sources]
+    # one compiler per source, all running at once; then one link
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for cmd in ([nvcc, *flags, "-c", "-o", str(o), str(f)] for f, o in zip(sources, objs))
+    ]
+    logs = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            for _, other in procs:
+                other.kill()
+                other.wait()
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{err}"
+            )
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, sources)]
+    cmd = [nvcc, *flags, "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    for o in objs:
+        o.unlink(missing_ok=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
+            f"nvcc link failed with exit code {proc.returncode}:\n"
             f"{' '.join(cmd)}\n{proc.stderr}"
         )
     os.replace(tmp, out)
-    return out, proc.stderr
+    return out, "".join(logs) + proc.stderr
 
 
 def library() -> ctypes.CDLL:

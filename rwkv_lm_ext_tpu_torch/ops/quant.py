@@ -1,0 +1,47 @@
+"""Per-row int8 activation quantization: kernel B.4 (csrc/quant.cu) and its
+plain version.
+
+Counterpart of rwkv_lm_ext_tpu/ops/quant_pallas.py: ``quantize_rows`` (:67,
+the Pallas kernel ``_quant_kernel`` at :29) and, as the plain version,
+``quantize_rows_xla`` (:37) as XLA compiles it under jit: the division of
+the row absmax by the constant 127 becomes a multiply by the fp32
+reciprocal (``INV_127``), in the Pallas kernel too, while ``x / sx`` stays
+an IEEE division. The kernel and the plain version are bit-identical.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from rwkv_lm_ext_tpu_torch.ops import _lib
+
+INV_127 = float(np.float32(1.0 / 127.0))
+
+
+def quantize_rows_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    xf = x.float()
+    sx = (xf.abs().amax(-1, keepdim=True) * INV_127).clamp_min(1e-12)
+    return torch.round(xf / sx).to(torch.int8), sx
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., C) -> int8 (..., C) and fp32 row scales (..., 1), with
+    ``x ~= q * s``. CPU tensors take the plain version; CUDA tensors launch
+    B.4, for any row count and any C, in fp32 or bf16."""
+    if x.device.type == "cpu":
+        return quantize_rows_plain(x)
+    C = x.shape[-1]
+    device = _lib.check_cuda(x=x)
+    q = torch.empty(x.shape, dtype=torch.int8, device=device)
+    s = torch.empty(*x.shape[:-1], 1, dtype=torch.float32, device=device)
+    _lib.launch(
+        "rwkv_quantize_rows", device, x, q, s, x.numel() // max(C, 1), C,
+        _lib.DTYPE_CODES[x.dtype],
+    )
+    quantize_rows.launches += 1
+    return q, s
+
+
+quantize_rows.launches = 0

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at the edge shapes the main path does not reach: ragged T and C, T=1, both
 head sizes, fp32 as well as bf16, and no initial state. The plain version runs
-in fp32 on the same (dtype-rounded) inputs.
+in fp32 on the same (dtype-rounded) inputs, except the int8 row quantizer,
+which is held bit-equal to its plain version on the same input.
 
 These tests need an NVIDIA GPU and skip elsewhere. The GPU machine has no
 JAX, so run them there without the repository's conftest:
@@ -16,13 +17,17 @@ import numpy as np
 import pytest
 import torch
 
+from rwkv_lm_ext_tpu_torch.adapters.quant import int8_product, quantize_model
 from rwkv_lm_ext_tpu_torch.config import ModelConfig
 from rwkv_lm_ext_tpu_torch.checkpoint.convert import load_state_dict_into
+from rwkv_lm_ext_tpu_torch.models.decode import rwkv_decode_step
 from rwkv_lm_ext_tpu_torch.models.init import init_rwkv_params
 from rwkv_lm_ext_tpu_torch.models.rwkv import RWKV
 from rwkv_lm_ext_tpu_torch.ops import launch_counts
 from rwkv_lm_ext_tpu_torch.ops.ddlerp import tmix_prologue, tmix_prologue_plain
 from rwkv_lm_ext_tpu_torch.ops.ln import layer_norm, layer_norm_plain
+from rwkv_lm_ext_tpu_torch.ops.quant import quantize_rows, quantize_rows_plain
+from rwkv_lm_ext_tpu_torch.ops.wkv_decode import wkv6_decode_step, wkv6_decode_step_plain
 from rwkv_lm_ext_tpu_torch.ops.wkv_fused import wkv6_fused_output, wkv6_fused_output_plain
 
 pytestmark = pytest.mark.cuda
@@ -108,6 +113,67 @@ def test_wkv6_fused_kernel(dev, dtype, N, T, with_state):
     _close(sT, want_s, 1e-4)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(37, 2050), (1, 2048), (2, 3, 7168), (5, 40000), (3, 7)])
+def test_quantize_rows_kernel_is_bit_equal(dev, dtype, shape):
+    """Ragged rows and C (the vector and the generic paths), zero rows, and
+    a row whose x / s land exactly on k + 0.5 (absmax 127 gives
+    s = 127 * fl(1/127) = 1.0 exactly, so the halves are exact ties)."""
+    rng = np.random.default_rng(len(shape))
+    x = _on(dev, dtype, rng, *shape, scale=3.0)
+    flat = x.view(-1, shape[-1])
+    flat[0] = 0
+    if flat.shape[0] > 1 and shape[-1] >= 8:
+        flat[1] = 0
+        flat[1, :8] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5])
+    q, s = _counted("quantize_rows", lambda: quantize_rows(x))
+    want_q, want_s = quantize_rows_plain(x)
+    assert q.dtype == torch.int8 and s.shape == shape[:-1] + (1,)
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+    assert q.view(-1, shape[-1])[0].abs().sum() == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N", [32, 64])
+@pytest.mark.parametrize("B", [1, 3, 64])
+def test_wkv6_decode_kernel(dev, dtype, N, B):
+    """Against the plain version, in place (out_state is state), and
+    against K1 at T=1 on the same inputs."""
+    rng = np.random.default_rng(B * N)
+    H, eps = 4, 6.4e-4
+    C = H * N
+    r, k, v, g = (_on(dev, dtype, rng, B, C) for _ in range(4))
+    w = torch.from_numpy(rng.uniform(-8, 2.5, size=(B, C)).astype(np.float32)).to(dev)
+    u = _on(dev, dtype, rng, H, N, scale=0.5)
+    sc, bi = _on(dev, dtype, rng, C, scale=0.1, loc=1.0), _on(dev, dtype, rng, C, scale=0.1)
+    state = _on(dev, torch.float32, rng, B, H, N, N, scale=0.3)
+    args = (r, k, v, w, g, u, sc, bi)
+    want_out, want_s = wkv6_decode_step_plain(*(a.float() for a in args), state, eps=eps)
+    inplace = state.clone()
+    out, s = _counted("wkv6_decode_step",
+                      lambda: wkv6_decode_step(*args, inplace, eps=eps, out_state=inplace))
+    assert s.data_ptr() == inplace.data_ptr()
+    assert out.dtype == dtype and out.shape == (B, C)
+    _close(out, want_out, REL[dtype])
+    _close(s, want_s, 1e-5)
+    heads = (B, 1, H, N)
+    k1_out, k1_s = wkv6_fused_output(*(t.view(heads) for t in (r, k, v, w)), u, g.view(heads),
+                                     sc, bi, state, eps=eps)
+    _close(out, k1_out.view(B, C), REL[dtype])
+    _close(s, k1_s, 1e-5)
+
+
+@pytest.mark.parametrize("M", [1, 16, 17, 64])
+def test_int8_product_pads_small_row_counts(dev, M):
+    """torch._int_mm takes more than 16 rows only; the product pads."""
+    gen = torch.Generator(device=dev).manual_seed(M)
+    xq = torch.randint(-127, 128, (M, 2048), generator=gen, device=dev, dtype=torch.int8)
+    q = torch.randint(-127, 128, (512, 2048), generator=gen, device=dev, dtype=torch.int8)
+    y = int8_product(xq, q)
+    assert y.dtype == torch.int32 and y.shape == (M, 512)
+    assert torch.equal(y.cpu(), xq.cpu().int() @ q.cpu().int().t())
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     before = launch_counts()
     x = torch.zeros(2, 8, 64, device=dev)
@@ -121,6 +187,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="head size"):
         wkv6_fused_output(r, r, r, r, torch.zeros(2, 48, device=dev), r,
                           torch.ones(96, device=dev), torch.zeros(96, device=dev), eps=1e-3)
+    r = torch.zeros(1, 96, device=dev)
+    with pytest.raises(ValueError, match="head size"):
+        wkv6_decode_step(r, r, r, r, r, torch.zeros(2, 48, device=dev), torch.ones(96, device=dev),
+                         torch.zeros(96, device=dev), torch.zeros(1, 2, 48, 48, device=dev), eps=1e-3)
+    with pytest.raises(TypeError, match="dtype"):
+        quantize_rows(torch.zeros(4, 64, device=dev, dtype=torch.float16))
     assert launch_counts() == before
 
 
@@ -141,8 +213,41 @@ def test_model_kernel_route_matches_plain_route(dev):
         after = launch_counts()
         want, want_state = model(tokens, return_hidden=True, return_logits=False, reference=True)
     assert {k: after[k] - before[k] for k in after} == {
-        "layer_norm": 4, "tmix_prologue": 2, "wkv6_fused_output": 2}
+        "layer_norm": 4, "tmix_prologue": 2, "wkv6_fused_output": 2,
+        "wkv6_decode_step": 0, "quantize_rows": 0}
     assert launch_counts() == after        # the plain route launches nothing
     _close(got, want, 1e-4)
     for key in want_state:
         _close(got_state[key], want_state[key], 1e-4)
+
+
+@pytest.mark.parametrize("quant", [None, "int8c"])
+def test_model_decode_kernel_route_matches_plain_route(dev, quant):
+    """A 2-layer fp32 model, decode steps from a prefilled state: the
+    kernel route against the plain route on the card, logits and state,
+    with the launches of one step (8 quantize_rows a layer under int8c)."""
+    cfg = ModelConfig(n_layer=2, n_embd=256, vocab_size=1000, head_size=64, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sd = init_rwkv_params(cfg, generator=gen, device=dev)
+    for key in [k for k in sd if k.endswith(("att.output.weight", "ffn.value.weight",
+                                              "ffn.receptance.weight"))]:
+        sd[key] = torch.randn(sd[key].shape, generator=gen, device=dev) * 0.5 / sd[key].shape[1] ** 0.5
+    model = load_state_dict_into(RWKV(cfg, device=dev), sd)
+    if quant:
+        quantize_model(model, quant)
+    tokens = torch.randint(4, 1000, (3, 20), generator=gen, device=dev)
+    with torch.inference_mode():
+        _, state = model(tokens[:, :12])
+        plain_state = {k: v.clone() for k, v in state.items()}
+        for t in range(12, 20):
+            before = launch_counts()
+            got, state = rwkv_decode_step(model, tokens[:, t], state, out=state)
+            after = launch_counts()
+            want, plain_state = rwkv_decode_step(model, tokens[:, t], plain_state, reference=True)
+            assert launch_counts() == after
+            assert {k: after[k] - before[k] for k in after} == {
+                "layer_norm": 4, "tmix_prologue": 2, "wkv6_fused_output": 0,
+                "wkv6_decode_step": 2, "quantize_rows": 16 if quant else 0}
+            _close(got, want, 1e-4)
+    for key in state:
+        _close(state[key], plain_state[key], 1e-4)
