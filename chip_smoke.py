@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -11,7 +11,10 @@ Phases, each printing its own lines:
      (torch.profiler, host overhead excluded): K1-K3 at
      B=64, T=512; the int8 row quantizer B.4 (bit-identical) at the
      prefill and decode shapes; the decode step B.9 at B=64 and B=1, also
-     against K1 at T=1;
+     against K1 at T=1; the backward kernels B.5 (ddlerp prologue) and
+     B.6 + B.7 (fused WKV) at the training shape B=8, T=512 and ragged
+     shapes, fp32 and bf16, against autograd through their plain versions,
+     each called twice and held bit-equal;
   3. a synthetic RWKV-6-World-1B6 (24 layers, C=2048, bf16, seeded weights)
      serving embeddings over HTTP: answers, launch counts, the served
      embeddings against the plain fp32 route; plus a 2-layer full-width
@@ -25,9 +28,20 @@ Phases, each printing its own lines:
      then built in this process by the same CLI code, served, and held
      against the int8c plain route; int8c embeddings against the int8c plain
      route;
-  6. readings (not benchmark cells): embedded seq/s at B=64, T=512, decode
-     tok/s of generate_batch at B=64, single-stream tok/s of generate, bf16
-     and int8c.
+  6. serving readings (not benchmark cells): embedded seq/s at B=64, T=512,
+     decode tok/s of generate_batch at B=64, single-stream tok/s of
+     generate, bf16 and int8c;
+  7. training gradients of a 2-layer full-width model at B=8, T=512, kernel
+     route against plain route: LoRA A/B in fp32 and in bf16, remat on
+     against off, and state tuning's time_state;
+  8. LoRA train steps of the 24-layer model at B=8, T=512: the launch
+     counts of one step (remat on and off), step time and Kt/s readings,
+     and a profile of one step;
+  9. training through `python -m rwkv_lm_ext_tpu_torch.train.cli sft` on the
+     saved model (LoRA 8 steps, state tuning 4 steps, subprocesses): falling
+     losses, the adapter files, the merged adapter against the unfused
+     forward; then the same CLI in this process, whose launch counts are
+     the training path's.
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no result. Without a CUDA device it exits non-zero
@@ -50,13 +64,21 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
+from rwkv_lm_ext_tpu_torch.adapters.lora import (
+    LoraConfig,
+    apply_lora,
+    init_lora_params,
+    lora_state_dict_to_tree,
+    merge_lora,
+)
 from rwkv_lm_ext_tpu_torch.adapters.quant import QuantLinear, quantize_model
 from rwkv_lm_ext_tpu_torch.checkpoint.convert import (
     load_rwkv_checkpoint,
     load_state_dict_into,
     save_rwkv_checkpoint,
 )
-from rwkv_lm_ext_tpu_torch.config import EMB_ID, rwkv6_1b6
+from rwkv_lm_ext_tpu_torch.config import EMB_ID, TrainConfig, rwkv6_1b6
+from rwkv_lm_ext_tpu_torch.data.sft import encode_sft_example
 from rwkv_lm_ext_tpu_torch.data.tokenizer import WorldTokenizer
 from rwkv_lm_ext_tpu_torch.infer.encoders import BiEncoder
 from rwkv_lm_ext_tpu_torch.infer.engine import GenerationEngine
@@ -67,13 +89,26 @@ from rwkv_lm_ext_tpu_torch.models.init import init_rwkv_params
 from rwkv_lm_ext_tpu_torch.models.rwkv import KERNEL_OPS, PLAIN_OPS, RWKV
 from rwkv_lm_ext_tpu_torch.models.state import init_model_state
 from rwkv_lm_ext_tpu_torch.ops import _lib, launch_counts, reset_launch_counts
-from rwkv_lm_ext_tpu_torch.ops.ddlerp import tmix_prologue, tmix_prologue_plain
+from rwkv_lm_ext_tpu_torch.ops.ddlerp import (
+    tmix_prologue,
+    tmix_prologue_bwd,
+    tmix_prologue_bwd_plain,
+    tmix_prologue_plain,
+)
 from rwkv_lm_ext_tpu_torch.ops.ln import layer_norm, layer_norm_plain
 from rwkv_lm_ext_tpu_torch.ops.quant import quantize_rows, quantize_rows_plain
 from rwkv_lm_ext_tpu_torch.ops.wkv_decode import wkv6_decode_step, wkv6_decode_step_plain
-from rwkv_lm_ext_tpu_torch.ops.wkv_fused import wkv6_fused_output, wkv6_fused_output_plain
+from rwkv_lm_ext_tpu_torch.ops.wkv_fused import (
+    wkv6_fused_output,
+    wkv6_fused_output_bwd,
+    wkv6_fused_output_bwd_plain,
+    wkv6_fused_output_plain,
+)
 from rwkv_lm_ext_tpu_torch.serve import cli
 from rwkv_lm_ext_tpu_torch.serve.api import ServingService, serve_http
+from rwkv_lm_ext_tpu_torch.train import cli as train_cli
+from rwkv_lm_ext_tpu_torch.train.loop import make_train_step
+from rwkv_lm_ext_tpu_torch.train.losses import causal_lm_loss
 
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
@@ -93,14 +128,35 @@ KERNELS = {
                              replaces="rwkv_lm_ext_tpu/ops/wkv_decode.py:68"),
     "quantize_rows": dict(source="rwkv_lm_ext_tpu_torch/csrc/quant.cu",
                           replaces="rwkv_lm_ext_tpu/ops/quant_pallas.py:29"),
+    "tmix_prologue_bwd": dict(source="rwkv_lm_ext_tpu_torch/csrc/ddlerp_bwd.cu",
+                              replaces="rwkv_lm_ext_tpu/ops/ddlerp_pallas.py:166"),
+    "wkv6_bwd_forward_pass": dict(source="rwkv_lm_ext_tpu_torch/csrc/wkv_fused_bwd.cu",
+                                  replaces="rwkv_lm_ext_tpu/ops/wkv_pallas.py:1132"),
+    "wkv6_bwd_reverse_pass": dict(source="rwkv_lm_ext_tpu_torch/csrc/wkv_fused_bwd.cu",
+                                  replaces="rwkv_lm_ext_tpu/ops/wkv_pallas.py:1209"),
 }
+NO_BACKWARD = {"tmix_prologue_bwd": 0, "wkv6_bwd_forward_pass": 0, "wkv6_bwd_reverse_pass": 0}
 # launches per forward of the 24-layer model: ln0 + 24 ln2 + ln_out, and one
 # prologue and one WKV per layer; a decode step swaps K1 for the decode
 # kernel; int8c adds 8 row quantizations a layer (5 att + 3 ffn projections)
 PER_FORWARD = {"layer_norm": 26, "tmix_prologue": 24, "wkv6_fused_output": 24,
-               "wkv6_decode_step": 0, "quantize_rows": 0}
+               "wkv6_decode_step": 0, "quantize_rows": 0, **NO_BACKWARD}
 PER_STEP = {"layer_norm": 26, "tmix_prologue": 24, "wkv6_fused_output": 0,
-            "wkv6_decode_step": 24, "quantize_rows": 0}
+            "wkv6_decode_step": 24, "quantize_rows": 0, **NO_BACKWARD}
+
+
+def train_step_counts(n_layer: int, remat: bool) -> dict:
+    """Launches of one LoRA or state-tuning train step: the forward's, and
+    under remat each block's forward kernels again (ln_out is outside the
+    blocks); the backward runs B.6 and B.7 in every layer and B.5 in every
+    layer but the first, whose prologue inputs (the frozen embedding after
+    ln0) and weights need no gradient."""
+    fwd = 2 if remat else 1
+    return dict(PER_FORWARD, layer_norm=(1 + n_layer) * fwd + 1, tmix_prologue=n_layer * fwd,
+                wkv6_fused_output=n_layer * fwd, tmix_prologue_bwd=n_layer - 1,
+                wkv6_bwd_forward_pass=n_layer, wkv6_bwd_reverse_pass=n_layer)
+
+
 INT8C_PER_LAYER = 8
 GREEDY = SamplingParams(temperature=0.0, top_p=1.0, alpha_presence=0.0,
                         alpha_frequency=0.0, token_stop=())
@@ -129,6 +185,22 @@ def device_ms(fn, reps: int) -> float:
     ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     check(bool(ops), "the profiler recorded no device operations")
     return sum(e.self_device_time_total for e in ops) / reps / 1e3
+
+
+def device_ms_by_kernel(fn, reps: int, groups: dict) -> dict:
+    """As device_ms, split by kernel name: {group: ms of one call} for the
+    device operations whose name holds one of the group's substrings."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out = {g: sum(e.self_device_time_total for e in ops if any(k in e.name for k in keys))
+           / reps / 1e3 for g, keys in groups.items()}
+    check(all(v > 0 for v in out.values()), f"the profiler recorded no kernel of a group: {out}")
+    return out
 
 
 class Inputs:
@@ -269,6 +341,101 @@ def phase_kernels() -> dict:
     out["wkv6_decode_step"] = dict(max_abs_err=max(errs), ms=times[B][0], plain_ms=times[B][1])
     for name, r in out.items():
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms (main-path shape)")
+    return out
+
+
+BWD_REL = {torch.float32: 5e-4, BF16: 2e-2}        # B.5, x max|plain|
+WKV_BWD_REL = {torch.float32: 1e-4, BF16: 2e-2}    # B.6 + B.7
+TB = 8                                             # the training batch
+
+
+def bit_equal(a, b) -> bool:
+    return all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_backward_kernels() -> dict:
+    """B.5 and B.6 + B.7 against autograd through their plain versions, on
+    the same inputs and cotangents (the plain side in fp32), at the training
+    shape and a ragged one, fp32 and bf16; two calls bit-equal. Then timed
+    at B=8, T=512, bf16 beside their plain versions and their forwards.
+    Returns {kernel: {max_abs_err, ms, plain_ms}}; the errors are those at
+    the training shape in bf16, the main path's dtype."""
+    rng = Inputs(2)
+    out = {}
+
+    def prologue_case(b, t, dtype):
+        args = (rng.normal(b, t, C, dtype=dtype), rng.normal(b, C, dtype=dtype),
+                rng.normal(C, scale=0.2, dtype=dtype) + 1, rng.normal(C, scale=0.2, dtype=dtype),
+                rng.uniform(6, C, lo=0.0, hi=1.0, dtype=dtype),
+                rng.normal(C, 5 * D, scale=0.1, dtype=dtype),
+                rng.normal(5, D, C, scale=0.1, dtype=dtype))
+        # dxln is unused on the model's path: a missing cotangent
+        return args, [rng.normal(b, t, C, dtype=dtype) for _ in range(5)] + [None]
+
+    names = ("dx", "dshift", "dln_scale", "dln_bias", "dmaa", "dw1", "dw2")
+    main_err = 0.0
+    for b, t in ((TB, T), (3, 37)):
+        for dtype in (torch.float32, BF16):
+            args, cts = prologue_case(b, t, dtype)
+            got = tmix_prologue_bwd(*args, cts)
+            check(bit_equal(got, tmix_prologue_bwd(*args, cts)), f"B.5 ({b}, {t}) {dtype}: two calls differ")
+            dx_only = tmix_prologue_bwd(*args, cts, weights=False)
+            check(bit_equal(dx_only[:2], got[:2]) and dx_only[2:] == (None,) * 5,
+                  "B.5 without weight gradients differs in dx/dshift")
+            want = tmix_prologue_bwd_plain(*f32(*args), [None if c is None else c.float() for c in cts])
+            errs = [err_line(f"B.5 (B,T,C,D)=({b},{t},{C},{D}) {str(dtype)[6:]} {n}", g, w, BWD_REL[dtype])
+                    for n, g, w in zip(names, got, want)]
+            if (b, t, dtype) == (TB, T, BF16):
+                main_err = max(errs)
+    args, cts = prologue_case(TB, T, BF16)
+    out["tmix_prologue_bwd"] = dict(
+        max_abs_err=main_err,
+        ms=device_ms(lambda: tmix_prologue_bwd(*args, cts), 5),
+        plain_ms=device_ms(lambda: tmix_prologue_bwd_plain(*args, cts), 3),
+    )
+    print(f"  B.5 at B={TB}, T={T}, bf16: kernel {out['tmix_prologue_bwd']['ms']:.4f} ms with the "
+          f"weight gradients, {device_ms(lambda: tmix_prologue_bwd(*args, cts, weights=False), 5):.4f} "
+          f"ms dx and dshift only (LoRA), plain {out['tmix_prologue_bwd']['plain_ms']:.4f} ms; "
+          f"forward K2 {device_ms(lambda: tmix_prologue(*args), 5):.4f} ms")
+
+    def wkv_case(b, t, h, n, dtype):
+        r, k, v, g = (rng.normal(b, t, h, n, dtype=dtype) for _ in range(4))
+        w = rng.uniform(b, t, h, n, lo=-8.0, hi=3.0, dtype=torch.float32)   # decays 1 .. e^-20
+        return (r, k, v, w, rng.normal(h, n, scale=0.5, dtype=dtype), g,
+                rng.normal(h * n, scale=0.1, dtype=dtype) + 1, rng.normal(h * n, scale=0.1, dtype=dtype),
+                rng.normal(b, h, n, n, scale=0.1, dtype=torch.float32),
+                rng.normal(b, t, h * n, dtype=dtype), rng.normal(b, h, n, n, scale=0.1, dtype=torch.float32))
+
+    names = ("dr", "dk", "dv", "dw", "du", "ds0", "dg", "dln_scale", "dln_bias")
+    main_errs = {}
+    for shape in ((TB, T, H, N), (3, 37, 4, 32), (1, 1, H, N)):
+        for dtype in (torch.float32, BF16):
+            args = wkv_case(*shape, dtype)
+            got = wkv6_fused_output_bwd(*args, eps=LN_X_EPS)
+            check(bit_equal(got, wkv6_fused_output_bwd(*args, eps=LN_X_EPS)),
+                  f"B.6 + B.7 {shape} {dtype}: two calls differ")
+            want = wkv6_fused_output_bwd_plain(*f32(*args), eps=LN_X_EPS)
+            errs = {n: err_line(f"B.6+B.7 (B,T,H,N)={shape} {str(dtype)[6:]} {n}", g, w, WKV_BWD_REL[dtype])
+                    for n, g, w in zip(names, got, want)}
+            if shape == (TB, T, H, N) and dtype == BF16:
+                main_errs = errs
+    # the LoRA path's call: no initial state, the final state unused
+    args = wkv_case(TB, T, H, N, BF16)
+    args = args[:8] + (None, args[9], None)
+    split = device_ms_by_kernel(lambda: wkv6_fused_output_bwd(*args, eps=LN_X_EPS), 5,
+                                {"B.6": ("wkv6_bwd_forward",), "B.7": ("wkv6_bwd_reverse",)})
+    whole = device_ms(lambda: wkv6_fused_output_bwd(*args, eps=LN_X_EPS), 5)
+    plain = device_ms(lambda: wkv6_fused_output_bwd_plain(*args, eps=LN_X_EPS), 2)
+    k1 = device_ms(lambda: wkv6_fused_output(*args[:8], eps=LN_X_EPS), 5)
+    print(f"  B.6 + B.7 at B={TB}, T={T}, H={H}, N={N}, bf16: B.6 {split['B.6']:.4f} ms, B.7 "
+          f"{split['B.7']:.4f} ms, whole backward wrapper {whole:.4f} ms; plain (autograd through "
+          f"the sequential reference) {plain:.4f} ms; forward K1 {k1:.4f} ms")
+    out["wkv6_bwd_forward_pass"] = dict(
+        max_abs_err=max(main_errs[n] for n in ("dg", "dln_scale", "dln_bias")),
+        ms=split["B.6"], plain_ms=plain)
+    out["wkv6_bwd_reverse_pass"] = dict(
+        max_abs_err=max(main_errs[n] for n in ("dr", "dk", "dv", "dw", "du", "ds0")),
+        ms=split["B.7"], plain_ms=plain)
     return out
 
 
@@ -552,7 +719,8 @@ def phase_int8c_cli(path: str) -> tuple:
         counts = launch_counts()
     check(code == 200 and events[-1]["output"] == out["output"], "in-process int8c /generate")
     print(f"  in-process CLI build, /generate blocking + SSE: launches {counts}")
-    check(all(n > 0 for n in counts.values()), f"a kernel did not run in /generate: {counts}")
+    check(all(n > 0 for k, n in counts.items() if k not in NO_BACKWARD),
+          f"a kernel did not run in /generate: {counts}")
     return model_q, counts
 
 
@@ -698,9 +866,278 @@ def phase_decode_readings(model, label: str, smi: str) -> None:
           f"block_size=16, {label}, {single_s:.2f} s) on {smi}")
 
 
+LORA = LoraConfig(r=8, alpha=32.0)
+
+
+def train_batch(gen, vocab: int, b: int = TB, t: int = T) -> dict:
+    tokens = torch.randint(4, vocab, (b, t), device=DEV, generator=gen)
+    labels = torch.full_like(tokens, -100)
+    labels[:, :-1] = tokens[:, 1:]
+    return {"input_ids": tokens, "labels": labels}
+
+
+def loss_grads(model, batch, *, reference: bool, remat: bool = True,
+               use_state_params: bool = False) -> dict:
+    """Gradients of the causal-LM loss for every parameter that trains; each
+    must exist and be non-zero."""
+    model.zero_grad(set_to_none=True)
+    logits, _ = model(batch["input_ids"], reference=reference, remat=remat,
+                      use_state_params=use_state_params, t1_step=False)
+    causal_lm_loss(logits, batch["labels"]).backward()
+    grads = {}
+    for n, p in model.named_parameters():
+        if p.requires_grad:
+            check(p.grad is not None and bool(p.grad.abs().max() > 0),
+                  f"{n} got no gradient ({'plain' if reference else 'kernel'} route)")
+            grads[n] = p.grad.detach().clone()
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def two_layer_sd(path: str) -> dict:
+    """Layers 0 and 1 (and the embedding, ln_out and head) of the saved
+    full-width model."""
+    sd = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    return {k: v for k, v in sd.items()
+            if not k.startswith("blocks.") or int(k.split(".")[1]) < 2}
+
+
+def phase_train_grads(path: str) -> None:
+    """A 2-layer full-width model (C=2048, H=32, F=7168, vocab 65536) at
+    B=8, T=512 with remat on: LoRA r=8 (B seeded non-zero: with B = 0 every
+    dA is 0) and state tuning, kernel route against plain route."""
+    sd2 = two_layer_sd(path)
+    gen = torch.Generator(device=DEV).manual_seed(8)
+
+    def model_of(dtype):
+        return load_state_dict_into(RWKV(rwkv6_1b6(n_layer=2, dtype=dtype), device=DEV), sd2)
+
+    m32 = model_of("float32")
+    adapter = init_lora_params(m32, LORA, gen)
+    for ab in adapter.values():
+        ab["B"].normal_(0.0, 0.01, generator=gen)
+    apply_lora(m32, LORA, adapter)
+    batch = train_batch(gen, m32.cfg.vocab_size)
+    k32 = loss_grads(m32, batch, reference=False)
+    p32 = loss_grads(m32, batch, reference=True)
+    check(len(k32) == 2 * 8 * 2, f"{len(k32)} trainable tensors, expected 32")
+    worst = max((k32[n] - p32[n]).abs().max().item() / p32[n].abs().max().item() for n in p32)
+    print(f"  LoRA fp32, {len(p32)} A/B gradients: max |kernel - plain| / max|plain| = {worst:.3e} "
+          f"(limit 1e-3)")
+    check(worst <= 1e-3, f"LoRA fp32 gradients off by {worst} of their largest value")
+    del m32
+
+    m16 = model_of("bfloat16")
+    apply_lora(m16, LORA, adapter)
+    k16 = loss_grads(m16, batch, reference=False)
+    p16 = loss_grads(m16, batch, reference=True)
+    margins = {n: cosine(k16[n], p32[n]) - cosine(p16[n], p32[n]) for n in p32}
+    worst = min(margins, key=margins.get)
+    print(f"  LoRA bf16 vs the fp32 plain route, per gradient tensor: min cosine kernel route "
+          f"{min(cosine(k16[n], p32[n]) for n in p32):.6f}, plain route in bf16 "
+          f"{min(cosine(p16[n], p32[n]) for n in p32):.6f}; worst margin {margins[worst]:+.2e} "
+          f"({worst}; the kernel route may trail bf16's own by 1e-3)")
+    check(margins[worst] >= -1e-3, f"bf16 kernel-route gradient {worst} trails bf16 itself")
+    off = loss_grads(m16, batch, reference=False, remat=False)
+    check(all(torch.equal(off[n], k16[n]) for n in k16), "remat on and off give other gradients")
+    print("  kernel route, bf16: remat on and off give bit-equal gradients")
+    del m16
+
+    ms = model_of("float32")
+    ms.requires_grad_(False)
+    ms.add_state_params()
+    with torch.no_grad():
+        for blk in ms.blocks:
+            blk.att.time_state.normal_(0.0, 0.1, generator=gen)
+    ks = loss_grads(ms, batch, reference=False, use_state_params=True)
+    ps = loss_grads(ms, batch, reference=True, use_state_params=True)
+    worst = max((ks[n] - ps[n]).abs().max().item() / ps[n].abs().max().item() for n in ps)
+    print(f"  state tuning fp32, time_state gradients of {len(ps)} layers: max |kernel - plain| / "
+          f"max|plain| = {worst:.3e} (limit 1e-3)")
+    check(worst <= 1e-3, f"time_state gradients off by {worst} of their largest value")
+    del ms
+    torch.cuda.empty_cache()
+
+
+STEP_GROUPS = {
+    "K1 forward": ("wkv6_fused_kernel",), "K2 forward": ("tmix_prologue_kernel",),
+    "K3 forward": ("layer_norm_kernel",),
+    "B.5": ("prologue_bwd_chain", "prologue_bwd_ln", "atb_kernel"),
+    "B.6": ("wkv6_bwd_forward",), "B.7": ("wkv6_bwd_reverse",),
+    "partial sums": ("sum_partials",),
+    "GEMMs": ("gemm", "nvjet", "xmma", "cutlass"),
+    "optimizer (multi-tensor)": ("multi_tensor_apply",),
+}
+
+
+def step_profile(step, batch, step_ms: float) -> None:
+    """Device time of one train step by kernel group (torch.profiler,
+    device operations only); idle = the step's CUDA-event time less busy."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(batch)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ops) / 1e3
+    split = {g: 0.0 for g in STEP_GROUPS}
+    split["elementwise, reductions, copies"] = 0.0
+    for e in ops:
+        name = e.name.lower()
+        group = next((g for g, keys in STEP_GROUPS.items() if any(k.lower() in name for k in keys)),
+                     "elementwise, reductions, copies")
+        split[group] += e.self_device_time_total / 1e3
+    print(f"  profile of one step (remat on): {len(ops)} device ops, busy {busy:.3f} ms of "
+          f"{step_ms:.3f} ms, idle {100 * max(step_ms - busy, 0) / step_ms:.2f} %")
+    for g, v in split.items():
+        print(f"    {g}: {v:.3f} ms ({100 * v / busy:.1f} %)")
+
+
+def phase_train_readings(path: str, smi: str) -> None:
+    """LoRA r=8 train steps of the 24-layer bf16 model at B=8, T=512: the
+    launches of one step (remat on and off), then step time and Kt/s over
+    steps that chain through the optimizer's updates (CUDA events, after
+    warm-up), and a profile of one step."""
+    model, cfg = load_rwkv_checkpoint(path, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    apply_lora(model, LORA, init_lora_params(model, LORA, gen))
+    batch = train_batch(gen, cfg.vocab_size)
+    iters = 5
+    for remat in (True, False):
+        step = make_train_step(model, TrainConfig(lr_init=1e-4, warmup_steps=0, total_steps=100,
+                                                  grad_checkpoint=remat))
+        reset_launch_counts()
+        step(batch)
+        torch.cuda.synchronize()
+        counts, want = launch_counts(), train_step_counts(cfg.n_layer, remat)
+        print(f"  launches in one LoRA train step, remat {'on' if remat else 'off'}: {counts}")
+        check(counts == want, f"train-step launch counts {counts} != {want}")
+        step(batch)      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses = [step(batch)["loss"] for _ in range(iters)]
+        end.record()
+        torch.cuda.synchronize()
+        losses = torch.stack(losses)
+        check(bool(torch.isfinite(losses).all()), f"non-finite train losses {losses}")
+        ms = start.elapsed_time(end) / iters
+        print(f"  reading: LoRA train step {ms:.2f} ms, {TB * T / ms:.2f} Kt/s (r=8, B={TB}, T={T}, "
+              f"bf16, remat {'on' if remat else 'off'}, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, losses "
+              f"{losses[0].item():.4f} .. {losses[-1].item():.4f}) on {smi}")
+        if remat:
+            step_profile(step, batch, ms)
+    del model, step
+    torch.cuda.empty_cache()
+
+
+def sft_jsonl(path: Path, tok) -> None:
+    """64 identical rows whose tokenized length falls in the 512 bucket."""
+    row = {"instruction": "Repeat the passage.", "input": "The passage is about foxes.",
+           "output": " ".join(["The quick brown fox jumps over the lazy dog."] * 30)}
+    n = len(encode_sft_example(tok, row["instruction"], row["input"], row["output"])["input_ids"])
+    check(256 < n <= 512, f"the SFT row is {n} tokens, not in the 512 bucket")
+    path.write_text("".join(json.dumps(row) + "\n" for _ in range(64)))
+    print(f"  {path.name}: 64 identical rows of {n} tokens (bucket 512, batch 64 * 64 // 512 = 8)")
+
+
+def run_train_cli(args) -> list:
+    """`python -m rwkv_lm_ext_tpu_torch.train.cli sft ...` as a subprocess;
+    returns the logged losses."""
+    cmd = [sys.executable, "-m", "rwkv_lm_ext_tpu_torch.train.cli", "sft", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"{' '.join(cmd)} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    steps = [json.loads(ln.split(": ", 1)[1]) for ln in proc.stdout.splitlines()
+             if ln.startswith("step ")]
+    losses = [m["loss"] for m in steps]
+    shown = " ".join(a for a in args if not a.startswith("/"))
+    print(f"  python -m rwkv_lm_ext_tpu_torch.train.cli sft {shown}: "
+          f"{time.perf_counter() - t0:.1f} s, losses {[round(x, 4) for x in losses]}, last "
+          f"logged Kt/s {steps[-1].get('Kt/s', float('nan')):.2f}")
+    check(len(losses) >= 2 and all(np.isfinite(losses)), f"losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall on repeated rows: {losses}")
+    return losses
+
+
+def phase_train_cli(path: str, tmp: Path) -> dict:
+    """The trainer's normal entry point on the saved 24-layer model: LoRA (8
+    steps) and state tuning (4 steps) as subprocesses, their files, the
+    merged adapter; then LoRA again in this process, where the launches of
+    the training path are counted. Returns those counts."""
+    tok = WorldTokenizer()
+    data = tmp / "sft.jsonl"
+    sft_jsonl(data, tok)
+    common = ["--model", path, "--train-data", str(data), "--micro-bsz", "64", "--ctx-len", str(T),
+              "--lr-init", "1e-3", "--warmup-steps", "0", "--log-every", "1", "--platform", DEV]
+    out = tmp / "lora"
+    run_train_cli(common + ["--output-dir", str(out), "--train-type", "lora", "--lora-r", "8",
+                            "--lora-alpha", "32", "--max-steps", "8"])
+    check((out / "train_log.txt").is_file(), "no train_log.txt")
+    sd = torch.load(out / "lora-step8.pth", map_location=DEV, weights_only=True)
+    model, cfg = load_rwkv_checkpoint(path, device=DEV)
+    check(len(sd) == cfg.n_layer * 8 * 2, f"lora-step8.pth holds {len(sd)} keys, not 384")
+    for key, t in sd.items():
+        base, ab = key.rsplit(".lora_", 1)
+        n_out, n_in = model.get_submodule(base).weight.shape
+        want = (LORA.r, n_in) if ab == "A" else (n_out, LORA.r)
+        check(tuple(t.shape) == want and t.dtype == torch.float32, f"{key}: {tuple(t.shape)} {t.dtype}")
+    check(all(bool(sd[k].abs().max() > 0) for k in sd if k.endswith("lora_B")), "a lora_B did not train")
+    del model
+    adapter = lora_state_dict_to_tree(sd)
+    tokens = torch.randint(4, cfg.vocab_size, (2, 128), device=DEV,
+                           generator=torch.Generator(device=DEV).manual_seed(10))
+    logits = {}
+    for dtype in ("float32", "bfloat16"):
+        model, _ = load_rwkv_checkpoint(path, device=DEV, dtype=dtype)
+        apply_lora(model, LORA, adapter)
+        with torch.inference_mode():
+            logits[dtype, "unfused"] = model(tokens)[0].float()
+            logits[dtype, "merged"] = merge_lora(model)(tokens)[0].float()
+        del model
+    ref = logits["float32", "unfused"]
+    cos32 = min_cosine(logits["float32", "merged"], ref)
+    cos_m, cos_u = (min_cosine(logits["bfloat16", k], ref) for k in ("merged", "unfused"))
+    print(f"  lora-step8.pth: {len(sd)} keys in the reference layout (lora_A (8, in), lora_B "
+          f"(out, 8), fp32); min per-position logits cosine to the unfused LoRA forward in fp32: "
+          f"merged in fp32 {cos32:.6f} (limit 0.999); in bf16 merged {cos_m:.6f}, unfused "
+          f"{cos_u:.6f} (merged may trail unfused by 1e-3)")
+    check(cos32 >= 0.999, f"merged adapter logits cosine {cos32} in fp32")
+    check(cos_m >= cos_u - 1e-3, f"bf16 merged adapter cosine {cos_m} trails unfused {cos_u}")
+    del logits, ref
+    torch.cuda.empty_cache()
+
+    out = tmp / "states"
+    run_train_cli(common + ["--output-dir", str(out), "--train-type", "states", "--max-steps", "4"])
+    sd = torch.load(out / "states-step4.pth", map_location="cpu", weights_only=True)
+    check(sorted(sd) == sorted(f"blocks.{i}.att.time_state" for i in range(cfg.n_layer))
+          and all(tuple(t.shape) == (H, N, N) for t in sd.values()), f"states-step4.pth: {list(sd)[:3]}")
+    check(all(bool(t.abs().max() > 0) for t in sd.values()), "a time_state did not train")
+    print(f"  states-step4.pth: {len(sd)} blocks.{{i}}.att.time_state ({H}, {N}, {N}) fp32")
+
+    args = common + ["--output-dir", str(tmp / "lora_inproc"), "--train-type", "lora",
+                     "--max-steps", "2"]
+    reset_launch_counts()
+    train_cli.main(["sft", *args])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {k: 2 * n for k, n in train_step_counts(cfg.n_layer, remat=True).items()}
+    print(f"  in-process train.cli sft --train-type lora --max-steps 2: launches {counts}")
+    check(counts == want, f"CLI training launch counts {counts} != {want}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's kernels run only on an NVIDIA GPU")
+    t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -714,6 +1151,7 @@ def main() -> None:
 
     print("phase 2: kernels vs their plain versions")
     kernels = phase_kernels()
+    kernels.update(phase_backward_kernels())
 
     print("phase 3: synthetic RWKV-6-World-1B6, bf16, embeddings served over HTTP")
     cfg = rwkv6_1b6()
@@ -734,25 +1172,40 @@ def main() -> None:
         unquantized = embed_sequences(reference, torch.from_numpy(arr).to(DEV), normalize=True,
                                       reference=True).cpu().numpy()
     with tempfile.TemporaryDirectory() as tmp:
-        path = str(Path(tmp) / "rwkv6_1b6_synthetic.pth")
+        tmp = Path(tmp)
+        path = str(tmp / "rwkv6_1b6_synthetic.pth")
         t0 = time.perf_counter()
         save_rwkv_checkpoint(model, path)
         print(f"  saved the bf16 model ({Path(path).stat().st_size / 2**30:.2f} GiB) "
               f"in {time.perf_counter() - t0:.1f} s")
         model_q, generate_counts = phase_int8c_cli(path)
-    phase_int8c_checks(model_q, reference, weights=model.state_dict())
-    phase_int8c_embeddings(model_q, reference, unquantized)
-    del reference
+        phase_int8c_checks(model_q, reference, weights=model.state_dict())
+        phase_int8c_embeddings(model_q, reference, unquantized)
+        del reference
 
-    print("phase 6: readings (not benchmark cells)")
-    phase_throughput(model, cfg, "bf16", smi)
-    phase_decode_readings(model, "bf16", smi)
-    del model
-    phase_throughput(model_q, cfg, "int8c", smi)
-    phase_decode_readings(model_q, "int8c", smi)
+        print("phase 6: serving readings (not benchmark cells)")
+        phase_throughput(model, cfg, "bf16", smi)
+        phase_decode_readings(model, "bf16", smi)
+        del model
+        phase_throughput(model_q, cfg, "int8c", smi)
+        phase_decode_readings(model_q, "int8c", smi)
+        del model_q
+        torch.cuda.empty_cache()
+
+        print(f"phase 7: training gradients, kernel route vs plain route (2 layers, full width, "
+              f"B={TB}, T={T})")
+        phase_train_grads(path)
+
+        print(f"phase 8: LoRA train steps of the 24-layer model (B={TB}, T={T}, bf16)")
+        phase_train_readings(path, smi)
+
+        print("phase 9: training through python -m rwkv_lm_ext_tpu_torch.train.cli sft")
+        train_counts = phase_train_cli(path, tmp)
 
     launches = {k: embed_counts[k] for k in ("layer_norm", "tmix_prologue", "wkv6_fused_output")}
     launches.update({k: generate_counts[k] for k in ("wkv6_decode_step", "quantize_rows")})
+    launches.update({k: train_counts[k] for k in NO_BACKWARD})
+    print(f"whole script: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", **KERNELS[k], launches=launches[k], **kernels[k])
         for k in KERNELS

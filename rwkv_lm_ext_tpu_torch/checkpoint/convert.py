@@ -5,7 +5,8 @@ converts the flat dict into its own parameter tree (transposed kernels,
 flattened vectors); the port's module already uses the flat keys and
 shapes, so loading is a checked copy. The flat dict of fp32 numpy arrays
 (what the JAX ``params_to_state_dict`` emits) is also how weights are
-carried between the two packages.
+carried between the two packages; ``lora_tree_from_jax`` carries a LoRA
+adapter the same way.
 
 The JAX loader also runs ``apply_wkv_dispatch``; the port's WKV kernel is
 exact at any decay, so there is nothing to dispatch.
@@ -48,6 +49,17 @@ def params_to_state_dict(model: RWKV) -> Dict[str, np.ndarray]:
     """The model's weights as a flat BlinkDL dict of fp32 numpy arrays."""
     return {
         k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()
+    }
+
+
+def lora_tree_from_jax(adapter: Dict, *, device="cpu") -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX adapter tree ({"blocks.{i}.{att|ffn}.{name}": {"A": (in, r),
+    "B": (r, out)}}, arrays) -> the port's adapter dict (adapters.lora),
+    fp32 tensors on `device`: the keys and layouts are the same."""
+    return {
+        key: {ab: torch.tensor(np.asarray(ab_arr, np.float32), device=device)
+              for ab, ab_arr in entry.items()}
+        for key, entry in adapter.items()
     }
 
 

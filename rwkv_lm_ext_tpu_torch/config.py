@@ -1,7 +1,7 @@
-"""Model configuration of the PyTorch port.
+"""Model and training configuration of the PyTorch port.
 
-Counterpart of rwkv_lm_ext_tpu/config.py (ModelConfig, rwkv6_1b6 and the
-special token ids). The JAX ModelConfig also carries TPU kernel knobs
+Counterpart of rwkv_lm_ext_tpu/config.py (ModelConfig, TrainConfig,
+rwkv6_1b6 and the special token ids). The JAX ModelConfig also carries TPU kernel knobs
 (fused_chunk, fused_prologue, packed_decode, fused_decode, wkv_exact) and
 their RWKV_* environment overrides. They pick between Pallas code paths that
 the port does not have: its WKV kernel is a sequential recurrence that is
@@ -63,6 +63,34 @@ class ModelConfig:
     @property
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer and schedule settings, the JAX TrainConfig's fields and
+    defaults (rwkv_lm_ext_tpu/config.py:117-140). ``dp``/``tp`` and
+    ``shard_opt_state`` are kept for parity; the port trains on one device
+    so far. ``grad_checkpoint`` is on/off only (no ``dots`` policies)."""
+
+    lr_init: float = 3e-4
+    lr_final: float = 1e-5
+    warmup_steps: int = 50
+    beta1: float = 0.9
+    beta2: float = 0.99
+    adam_eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+    lr_schedule: str = "cosine"   # cosine | exp | linear | constant
+    total_steps: int = 10000
+    micro_bsz: int = 8
+    accumulate_grad_batches: int = 1
+    layerwise_lr: bool = True
+    grad_checkpoint: bool = True
+    chunk_ctx: int = 0
+    dp: int = 1
+    tp: int = 1
+    shard_opt_state: bool = True
+    seed: int = 0
 
 
 def rwkv6_1b6(**overrides) -> ModelConfig:

@@ -25,6 +25,15 @@ reference that the kernels are checked against, not a serving path.
 
 Precision: weights and activations in cfg.dtype; LayerNorm/GroupNorm
 statistics, the WKV state and the decay low-rank in fp32.
+
+Training (train/): the kernel wrappers are autograd Functions whenever an
+input requires grad, so a loss differentiates through K1-K3 (backward
+kernels B.5-B.7). ``remat=True`` recomputes each block in the backward
+(``torch.utils.checkpoint``, the counterpart of ``remat_wrap``,
+utils/remat.py); ``use_state_params=True`` feeds each layer's learnable
+``att.time_state`` (H, N, N) fp32, added by ``add_state_params``, as the WKV
+initial state of every sequence (state tuning,
+rwkv_lm_ext_tpu/models/rwkv.py:471-476).
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from rwkv_lm_ext_tpu_torch.models.state import ModelState, init_model_state
 from rwkv_lm_ext_tpu_torch.ops.ddlerp import tmix_prologue, tmix_prologue_plain
@@ -63,6 +73,17 @@ PLAIN_OPS = Ops(
 )
 
 LayerState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def normalize_remat(spec) -> bool:
+    """CLI spellings of per-block remat: on/true -> True, off/false -> False.
+    The JAX package's selective ``dots`` policies have no counterpart yet."""
+    value = spec.lower() if isinstance(spec, str) else spec
+    if value in (True, "on", "true", "1"):
+        return True
+    if value in (False, None, "off", "false", "0"):
+        return False
+    raise ValueError(f"unknown remat spec {spec!r}; expected on or off")
 
 
 def _param(*shape, device, dtype) -> nn.Parameter:
@@ -116,6 +137,9 @@ class TimeMix(nn.Module):
         self.gate = Linear(C, A, **kw)
         self.output = Linear(A, C, **kw)
         self.ln_x = Norm(A, **kw)
+        # state tuning's learnable initial WKV state, added by
+        # RWKV.add_state_params
+        self.register_parameter("time_state", None)
 
     def _mix(self, x: torch.Tensor, ln1: Norm, att_shift: torch.Tensor, ops: Ops):
         """K2, the r/k/v/g projections and the fp32 decay: (r, k, v, g) of
@@ -141,15 +165,20 @@ class TimeMix(nn.Module):
 
     def forward(
         self, x: torch.Tensor, ln1: Norm, att_shift: torch.Tensor,
-        wkv_state: torch.Tensor, ops: Ops,
+        wkv_state: torch.Tensor, ops: Ops, use_state_params: bool = False,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """x: (B, T, C) raw residual stream; att_shift: (B, C) fp32, the
-        previous token's ln1 output; wkv_state: (B, H, N, N) fp32. Returns
-        (out (B, T, C), new att_shift, new wkv_state)."""
+        previous token's ln1 output; wkv_state: (B, H, N, N) fp32, replaced
+        by ``time_state`` (shared by every sequence) with use_state_params.
+        Returns (out (B, T, C), new att_shift, new wkv_state)."""
         B, T, _ = x.shape
         H, N = self.cfg.n_head, self.cfg.head_size
         r, k, v, g, w, xln = self._mix(x, ln1, att_shift, ops)
         heads = (B, T, H, N)
+        if use_state_params:
+            if self.time_state is None:
+                raise ValueError("use_state_params needs RWKV.add_state_params() first")
+            wkv_state = self.time_state
         gated, new_wkv = ops.wkv6_fused_output(
             r.view(heads), k.view(heads), v.view(heads), w.view(heads),
             self.time_faaaa, g.view(heads), self.ln_x.weight, self.ln_x.bias,
@@ -211,12 +240,14 @@ class Block(nn.Module):
         self.ffn = ChannelMix(cfg, **kw)
 
     def forward(
-        self, x: torch.Tensor, layer_state: LayerState, ops: Ops
+        self, x: torch.Tensor, layer_state: LayerState, ops: Ops,
+        use_state_params: bool = False,
     ) -> Tuple[torch.Tensor, LayerState]:
         att_shift, wkv_state, ffn_shift = layer_state
         if self.ln0 is not None:
             x = ops.layer_norm(x, self.ln0.weight, self.ln0.bias)
-        att_out, att_shift, wkv_state = self.att(x, self.ln1, att_shift, wkv_state, ops)
+        att_out, att_shift, wkv_state = self.att(
+            x, self.ln1, att_shift, wkv_state, ops, use_state_params)
         x = x + att_out
         ffn_out, ffn_shift = self.ffn(
             ops.layer_norm(x, self.ln2.weight, self.ln2.bias), ffn_shift, ops
@@ -266,6 +297,16 @@ class RWKV(nn.Module):
         self.ln_out = Norm(cfg.n_embd, **kw)
         self.head = Linear(cfg.n_embd, cfg.vocab_size, **kw)
 
+    def add_state_params(self) -> None:
+        """Give every layer a zero fp32 ``att.time_state`` (H, N, N)
+        parameter, as the JAX trainer does for --train-type states
+        (train/cli.py:511-517); existing ones are kept."""
+        H, N = self.cfg.n_head, self.cfg.head_size
+        for block in self.blocks:
+            if block.att.time_state is None:
+                block.att.time_state = nn.Parameter(torch.zeros(
+                    H, N, N, dtype=torch.float32, device=self.emb.weight.device))
+
     def forward(
         self,
         tokens: torch.Tensor,
@@ -275,6 +316,8 @@ class RWKV(nn.Module):
         return_logits: bool = True,
         reference: bool = False,
         t1_step: bool = True,
+        remat: bool = False,
+        use_state_params: bool = False,
     ):
         """tokens: (B, T) int. state: a models.state dict, or None for zeros.
 
@@ -283,11 +326,14 @@ class RWKV(nn.Module):
         ((logits, hidden), new_state). reference=True runs the kernels'
         plain versions (see the module docstring). A plain T=1 call (logits
         only) goes through models.decode.rwkv_decode_step unless
-        ``t1_step=False``; either way ``state`` is left as it was."""
+        ``t1_step=False`` or ``use_state_params``; either way ``state`` is left
+        as it was. ``remat`` checkpoints each block while grad mode is on;
+        ``use_state_params`` (see the module docstring) replaces the WKV part
+        of ``state``."""
         from rwkv_lm_ext_tpu_torch.models.decode import decode_supported, rwkv_decode_step
 
         if (t1_step and tokens.shape[1] == 1 and return_logits and not return_hidden
-                and decode_supported(self.cfg)):
+                and not use_state_params and decode_supported(self.cfg)):
             logits, new_state = rwkv_decode_step(self, tokens[:, 0], state, reference=reference)
             return logits[:, None], new_state
         ops = PLAIN_OPS if reference else KERNEL_OPS
@@ -296,9 +342,13 @@ class RWKV(nn.Module):
             state = init_model_state(self.cfg, B, device=tokens.device)
         x = F.embedding(tokens, self.emb.weight)
         new_state = {key: [] for key in ("att_shift", "wkv", "ffn_shift")}
+        remat = remat and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
             ls = (state["att_shift"][i], state["wkv"][i], state["ffn_shift"][i])
-            x, ls = block(x, ls, ops)
+            if remat:
+                x, ls = checkpoint(block, x, ls, ops, use_state_params, use_reentrant=False)
+            else:
+                x, ls = block(x, ls, ops, use_state_params)
             for key, value in zip(new_state, ls):
                 new_state[key].append(value)
         new_state = {key: torch.stack(vs) for key, vs in new_state.items()}

@@ -51,6 +51,17 @@ _SIGNATURES = {
     "rwkv_quantize_rows": [_P] * 3 + [_L, _I, _I, _P],
     # r, k, v, w, u, g, scale, bias, state, out, out_state, B, H, N, eps, dtype, stream
     "rwkv_wkv6_decode": [_P] * 11 + [_I] * 3 + [_F, _I, _P],
+    # r, k, v, w, u, g, scale, bias, s0, dout, dsT, dy, drp, dg, dsc_p, dbi_p,
+    # cT, B, T, H, N, eps, dtype, stream
+    "rwkv_wkv6_bwd_forward": [_P] * 17 + [_I] * 4 + [_F, _I, _P],
+    # r, k, v, w, u, dy, drp, cT, dsT, dr, dk, dv, dw, du_p, ds0, B, T, H, N,
+    # dtype, stream
+    "rwkv_wkv6_bwd_reverse": [_P] * 15 + [_I] * 5 + [_P],
+    # x, shift, ln_scale, ln_bias, maa, w1, w1T, w2, w2T, d0..d4, dxln, dx,
+    # dshift, dw1, dw2, 8 scratch buffers, B, T, C, D, eps, dtype, stream
+    "rwkv_tmix_prologue_bwd": [_P] * 27 + [_I] * 4 + [_F, _I, _P],
+    # in, out, P, M, stream
+    "rwkv_sum_partials": [_P, _P, _I, _L, _P],
 }
 
 _load_lock = threading.Lock()
@@ -131,8 +142,9 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.rwkv_error_string.argtypes = [ctypes.c_int]
             lib.rwkv_error_string.restype = ctypes.c_char_p
-            lib.rwkv_tmix_prologue_smem_bytes.argtypes = [_I, _I]
-            lib.rwkv_tmix_prologue_smem_bytes.restype = _L
+            for fn in (lib.rwkv_tmix_prologue_smem_bytes, lib.rwkv_tmix_prologue_bwd_smem_bytes):
+                fn.argtypes = [_I, _I]
+                fn.restype = _L
             _library = lib
         return _library
 
@@ -155,8 +167,8 @@ def check_cuda(**tensors: torch.Tensor) -> torch.device:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry point `name` on `device`; tensors in `args` are passed
-    as device pointers, and the current stream is appended. Raises if the
-    launch is refused."""
+    as device pointers (None as a null pointer), and the current stream is
+    appended. Raises if the launch is refused."""
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -166,3 +178,28 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(
             f"{name}: CUDA error {code} ({lib.rwkv_error_string(code).decode()})"
         )
+
+
+def sum_partials(partials: torch.Tensor) -> torch.Tensor:
+    """(P, ...) fp32 CUDA partial sums -> their sum over the leading axis,
+    added in increasing p by csrc/wkv_fused_bwd.cu's rwkv_sum_partials (no
+    atomics: the same partials give the same bits). Part of the launch of
+    the backward kernel whose partials it reduces; not counted on its own."""
+    device = check_cuda(partials=partials)
+    if partials.dtype != torch.float32:
+        raise TypeError(f"partials must be fp32, not {partials.dtype}")
+    out = torch.empty(partials.shape[1:], dtype=torch.float32, device=device)
+    launch("rwkv_sum_partials", device, partials, out, partials.shape[0], out.numel())
+    return out
+
+
+def needs_grad(*tensors) -> bool:
+    """True when autograd would record a call on these inputs: grad mode is
+    on and one of them (None allowed) requires grad. The kernel wrappers
+    take their autograd.Function, or refuse, only then; serving, under
+    inference_mode, keeps the direct launch."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def smem_limit(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin

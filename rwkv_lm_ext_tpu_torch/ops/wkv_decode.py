@@ -61,10 +61,18 @@ def wkv6_decode_step(
     (B, H, N, N) fp32, written into ``out_state`` when given. ``out_state``
     may be ``state`` itself: the step then updates the state in place, which
     is how the generation engine runs it. CPU tensors take the plain
-    version; CUDA tensors launch B.9, for N in HEAD_SIZES."""
+    version; CUDA tensors launch B.9, for N in HEAD_SIZES. B.9 has no
+    backward yet (training through decode waits for it): on the CUDA route
+    an input that requires grad, with grad mode on, raises instead of giving
+    outputs detached from the graph."""
     if r.device.type == "cpu":
         return wkv6_decode_step_plain(
             r, k, v, w, g, u, ln_scale, ln_bias, state, eps=eps, out_state=out_state
+        )
+    if _lib.needs_grad(r, k, v, w, g, u, ln_scale, ln_bias, state):
+        raise RuntimeError(
+            "wkv6_decode_step (B.9) has no backward on the CUDA route: run it under "
+            "torch.no_grad() or torch.inference_mode(), or on inputs that need no grad"
         )
     B, C = r.shape
     H, N = u.shape

@@ -1,0 +1,68 @@
+"""Training callbacks: metrics logging and adapter checkpoints.
+
+Counterpart of rwkv_lm_ext_tpu/train/callbacks.py:28-135: ``MetricsLogger``
+(it/s, Kt/s, ``train_log.txt`` lines), ``save_lora_checkpoint`` and
+``save_states_checkpoint``. The JAX logger takes Kt/s as ctx_len *
+micro_bsz tokens over the time since its previous log; the bucket sampler's
+batch holds micro_bsz * 64 // bucket rows of the bucket's length, and a log
+every N steps spans N steps, so both rates were off (ROADMAP.md C.8). This
+one divides the steps and tokens actually trained since the previous log by
+the time they took. The files
+are plain {key: fp32 tensor} dicts written with torch.save, so the JAX
+package's torch-free ``load_torch_pth`` reads them. wandb and LISA wait.
+"""
+from __future__ import annotations
+
+import math
+import os
+import time
+from typing import Any, Dict, Optional
+
+import torch
+
+from rwkv_lm_ext_tpu_torch.adapters.lora import lora_state_dict
+
+
+class MetricsLogger:
+    def __init__(self, log_dir: Optional[str] = None):
+        self.log_dir = log_dir
+        self._t_last = None
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
+
+    def on_step(self, step: int, metrics: Dict[str, Any], lr: float, *,
+                steps: int, tokens: int) -> Dict:
+        """The step's metrics and lr, with it/s and Kt/s over the `steps`
+        steps and `tokens` tokens trained since the previous call (none at
+        the first call)."""
+        now = time.time()
+        out = {k: float(v) for k, v in metrics.items()}
+        out["lr"] = float(lr)
+        if self._t_last is not None:
+            dt = now - self._t_last
+            out["it/s"] = steps / dt if dt > 0 else float("inf")
+            out["Kt/s"] = tokens / dt / 1000.0 if dt > 0 else float("inf")
+        self._t_last = now
+        return out
+
+    def on_epoch_end(self, epoch: int, epoch_loss: float, lr: float) -> None:
+        if not self.log_dir:
+            return
+        with open(os.path.join(self.log_dir, "train_log.txt"), "a") as f:
+            f.write(
+                f"{epoch} {epoch_loss:.6f} {math.exp(epoch_loss):.4f} "
+                f"{lr:.8f} {time.strftime('%Y-%m-%d %H:%M:%S')}\n"
+            )
+
+
+def save_lora_checkpoint(model, path: str) -> None:
+    """``<path>.lora_A`` (r, in) and ``.lora_B`` (out, r), fp32."""
+    torch.save(lora_state_dict(model), path)
+
+
+def save_states_checkpoint(model, path: str) -> None:
+    """``blocks.{i}.att.time_state`` (H, N, N) fp32 only."""
+    torch.save({
+        f"blocks.{i}.att.time_state": block.att.time_state.detach().float().contiguous().cpu()
+        for i, block in enumerate(model.blocks) if block.att.time_state is not None
+    }, path)

@@ -11,12 +11,16 @@ JAX, so run them there without the repository's conftest:
 
 Tolerances: out <= REL[dtype] * max|plain| (fp32: summation order only;
 bf16: one rounding of each output), the WKV state <= 1e-4 * max|plain|
-(fp32 in both).
+(fp32 in both). Backward kernels, each gradient against autograd through
+the plain version: B.5 <= 5e-4 (fp32) / 2e-2 (bf16) * max|plain|, B.6 + B.7
+<= 1e-4 / 2e-2; model gradients (kernel route vs plain route, fp32) <=
+1e-3 * max|plain|. Two calls of a backward kernel are bit-equal.
 """
 import numpy as np
 import pytest
 import torch
 
+from rwkv_lm_ext_tpu_torch.adapters.lora import LoraConfig, apply_lora, init_lora_params
 from rwkv_lm_ext_tpu_torch.adapters.quant import int8_product, quantize_model
 from rwkv_lm_ext_tpu_torch.config import ModelConfig
 from rwkv_lm_ext_tpu_torch.checkpoint.convert import load_state_dict_into
@@ -24,16 +28,30 @@ from rwkv_lm_ext_tpu_torch.models.decode import rwkv_decode_step
 from rwkv_lm_ext_tpu_torch.models.init import init_rwkv_params
 from rwkv_lm_ext_tpu_torch.models.rwkv import RWKV
 from rwkv_lm_ext_tpu_torch.ops import launch_counts
-from rwkv_lm_ext_tpu_torch.ops.ddlerp import tmix_prologue, tmix_prologue_plain
+from rwkv_lm_ext_tpu_torch.ops.ddlerp import (
+    tmix_prologue,
+    tmix_prologue_bwd,
+    tmix_prologue_bwd_plain,
+    tmix_prologue_plain,
+)
 from rwkv_lm_ext_tpu_torch.ops.ln import layer_norm, layer_norm_plain
 from rwkv_lm_ext_tpu_torch.ops.quant import quantize_rows, quantize_rows_plain
 from rwkv_lm_ext_tpu_torch.ops.wkv_decode import wkv6_decode_step, wkv6_decode_step_plain
-from rwkv_lm_ext_tpu_torch.ops.wkv_fused import wkv6_fused_output, wkv6_fused_output_plain
+from rwkv_lm_ext_tpu_torch.ops.wkv_fused import (
+    wkv6_fused_output,
+    wkv6_fused_output_bwd,
+    wkv6_fused_output_bwd_plain,
+    wkv6_fused_output_plain,
+)
+from rwkv_lm_ext_tpu_torch.train.losses import causal_lm_loss
 
 pytestmark = pytest.mark.cuda
 
 REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 DTYPES = [torch.float32, torch.bfloat16]
+NO_LAUNCH = {"layer_norm": 0, "tmix_prologue": 0, "wkv6_fused_output": 0, "wkv6_decode_step": 0,
+             "quantize_rows": 0, "tmix_prologue_bwd": 0, "wkv6_bwd_forward_pass": 0,
+             "wkv6_bwd_reverse_pass": 0}
 
 
 @pytest.fixture
@@ -48,10 +66,12 @@ def _on(dev, dtype, rng, *shape, scale=1.0, loc=0.0):
     return torch.from_numpy(a).to(dev, dtype)
 
 
-def _close(got, want, rel):
+def _close(got, want, rel, name="", scale=None):
+    """max|got - want| <= rel * scale, scale = max|want| unless given."""
     got, want = got.float(), want.float()
     err = (got - want).abs().max().item()
-    assert err <= rel * want.abs().max().item(), (err, want.abs().max().item())
+    scale = want.abs().max().item() if scale is None else scale
+    assert err <= rel * scale, (name, err, scale)
 
 
 def _counted(name, fn):
@@ -212,9 +232,8 @@ def test_model_kernel_route_matches_plain_route(dev):
         got, got_state = model(tokens, return_hidden=True, return_logits=False)
         after = launch_counts()
         want, want_state = model(tokens, return_hidden=True, return_logits=False, reference=True)
-    assert {k: after[k] - before[k] for k in after} == {
-        "layer_norm": 4, "tmix_prologue": 2, "wkv6_fused_output": 2,
-        "wkv6_decode_step": 0, "quantize_rows": 0}
+    assert {k: after[k] - before[k] for k in after} == dict(
+        NO_LAUNCH, layer_norm=4, tmix_prologue=2, wkv6_fused_output=2)
     assert launch_counts() == after        # the plain route launches nothing
     _close(got, want, 1e-4)
     for key in want_state:
@@ -245,9 +264,183 @@ def test_model_decode_kernel_route_matches_plain_route(dev, quant):
             after = launch_counts()
             want, plain_state = rwkv_decode_step(model, tokens[:, t], plain_state, reference=True)
             assert launch_counts() == after
-            assert {k: after[k] - before[k] for k in after} == {
-                "layer_norm": 4, "tmix_prologue": 2, "wkv6_fused_output": 0,
-                "wkv6_decode_step": 2, "quantize_rows": 16 if quant else 0}
+            assert {k: after[k] - before[k] for k in after} == dict(
+                NO_LAUNCH, layer_norm=4, tmix_prologue=2, wkv6_decode_step=2,
+                quantize_rows=16 if quant else 0)
             _close(got, want, 1e-4)
     for key in state:
         _close(state[key], plain_state[key], 1e-4)
+
+
+BWD_REL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
+WKV_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C", [256, 2048])
+@pytest.mark.parametrize("T", [1, 37, 64, 65])
+def test_tmix_prologue_bwd_kernel(dev, dtype, C, T):
+    """B.5 against autograd through the plain version (fp32, same inputs and
+    cotangents), every gradient; dxln missing as in the model; bit-equal
+    twice."""
+    rng = np.random.default_rng(T * C)
+    B, D = 2, 32
+    args = (
+        _on(dev, dtype, rng, B, T, C), _on(dev, dtype, rng, B, C),
+        _on(dev, dtype, rng, C, scale=0.2, loc=1.0), _on(dev, dtype, rng, C, scale=0.2),
+        torch.from_numpy(rng.uniform(0, 1, size=(6, C)).astype(np.float32)).to(dev, dtype),
+        _on(dev, dtype, rng, C, 5 * D, scale=0.1), _on(dev, dtype, rng, 5, D, C, scale=0.1),
+    )
+    cts = [_on(dev, dtype, rng, B, T, C) for _ in range(5)] + [None]
+    got = _counted("tmix_prologue_bwd", lambda: tmix_prologue_bwd(*args, cts))
+    again = tmix_prologue_bwd(*args, cts)
+    want = tmix_prologue_bwd_plain(*(a.float() for a in args),
+                                   [c.float() if c is not None else None for c in cts])
+    assert got[0].dtype == dtype
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape and torch.equal(g, a)
+        _close(g, w, BWD_REL[dtype])
+    dx_only = tmix_prologue_bwd(*args, cts, weights=False)
+    assert torch.equal(dx_only[0], got[0]) and torch.equal(dx_only[1], got[1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N", [32, 64])
+@pytest.mark.parametrize("T", [1, 37, 512])
+@pytest.mark.parametrize("with_state", [True, False])
+def test_wkv6_fused_bwd_kernel(dev, dtype, N, T, with_state):
+    """B.6 + B.7 against autograd through the plain version, decays from ~1
+    to e^-20 (w up to +3), with and without s0 and dsT; bit-equal twice."""
+    rng = np.random.default_rng(N + T)
+    B, H, eps = 2, 4, 6.4e-4
+    r, k, v, g = (_on(dev, dtype, rng, B, T, H, N) for _ in range(4))
+    w = torch.from_numpy(rng.uniform(-8, 3, size=(B, T, H, N)).astype(np.float32)).to(dev)
+    u = _on(dev, dtype, rng, H, N, scale=0.5)
+    sc, bi = _on(dev, dtype, rng, H * N, scale=0.1, loc=1.0), _on(dev, dtype, rng, H * N, scale=0.1)
+    s0 = _on(dev, torch.float32, rng, B, H, N, N, scale=0.1) if with_state else None
+    dout = _on(dev, dtype, rng, B, T, H * N)
+    dsT = _on(dev, torch.float32, rng, B, H, N, N, scale=0.1) if with_state else None
+    args = (r, k, v, w, u, g, sc, bi, s0, dout, dsT)
+    before = launch_counts()
+    got = wkv6_fused_output_bwd(*args, eps=eps)
+    after = launch_counts()
+    assert after["wkv6_bwd_forward_pass"] == before["wkv6_bwd_forward_pass"] + 1
+    assert after["wkv6_bwd_reverse_pass"] == before["wkv6_bwd_reverse_pass"] + 1
+    again = wkv6_fused_output_bwd(*args, eps=eps)
+    want = wkv6_fused_output_bwd_plain(
+        *(a.float() if a is not None else None for a in args), eps=eps)
+    names = ["dr", "dk", "dv", "dw", "du", "ds0", "dg", "dln_scale", "dln_bias"]
+    # At T=1 from a zero state the output is the u-bonus alone, y = (r.(u k)) v,
+    # so the GroupNorm adjoint leaves v.dy = 0: dr, dk and du are zero in
+    # exact arithmetic and both sides give rounding noise. They are held
+    # against the scale of dv, the gradient that the same dy carries.
+    zero = ("dr", "dk", "du") if T == 1 and not with_state else ()
+    dv_max = want[2].abs().max().item()
+    for name, gr, a, wa in zip(names, got, again, want):
+        if wa is None:
+            assert gr is None, name
+            continue
+        assert gr.shape == wa.shape and torch.equal(gr, a), name
+        _close(gr, wa, WKV_BWD_REL[dtype], name, dv_max if name in zero else None)
+
+
+def _model(dev, seed, n_embd=256):
+    cfg = ModelConfig(n_layer=2, n_embd=n_embd, vocab_size=1000, head_size=64, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sd = init_rwkv_params(cfg, generator=gen, device=dev)
+    for key in [k for k in sd if k.endswith(("att.output.weight", "ffn.value.weight",
+                                              "ffn.receptance.weight"))]:
+        sd[key] = torch.randn(sd[key].shape, generator=gen, device=dev) * 0.5 / sd[key].shape[1] ** 0.5
+    return load_state_dict_into(RWKV(cfg, device=dev), sd), gen
+
+
+def _grads(model, tokens, labels, *, reference, remat=False):
+    model.zero_grad()
+    logits, _ = model(tokens, reference=reference, remat=remat, t1_step=False)
+    causal_lm_loss(logits, labels).backward()
+    return {n: p.grad.clone() for n, p in model.named_parameters() if p.requires_grad}
+
+
+def test_model_backward_reaches_every_parameter(dev):
+    """Every parameter trains: the kernel route's gradients (through K1-K3
+    and B.5-B.7) against the plain route's, each one present and within
+    1e-3 * max|plain|."""
+    model, gen = _model(dev, 2)
+    tokens = torch.randint(4, 1000, (2, 45), generator=gen, device=dev)
+    labels = torch.randint(4, 1000, (2, 45), generator=gen, device=dev)
+    before = launch_counts()
+    got = _grads(model, tokens, labels, reference=False)
+    after = launch_counts()
+    want = _grads(model, tokens, labels, reference=True)
+    assert launch_counts() == after
+    assert {k: after[k] - before[k] for k in after} == dict(
+        NO_LAUNCH, layer_norm=4, tmix_prologue=2, wkv6_fused_output=2, tmix_prologue_bwd=2,
+        wkv6_bwd_forward_pass=2, wkv6_bwd_reverse_pass=2)
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert got[name] is not None and bool(got[name].abs().max() > 0), name
+        _close(got[name], want[name], 1e-3)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_lora_train_step_kernel_route_matches_plain_route(dev, remat):
+    """2-layer LoRA (B seeded non-zero): A/B gradients of the kernel route
+    against the plain route, and the launches of one step. Layer 0's K2
+    inputs need no gradient (frozen embedding and ln0), so B.5 runs for
+    layer 1 only; remat runs each block's forward kernels twice."""
+    model, gen = _model(dev, 3)
+    lc = LoraConfig(r=8, alpha=32.0)
+    adapter = init_lora_params(model, lc, gen)
+    for ab in adapter.values():
+        ab["B"] = torch.randn(ab["B"].shape, generator=gen, device=dev) * 0.05
+    apply_lora(model, lc, adapter)
+    tokens = torch.randint(4, 1000, (2, 45), generator=gen, device=dev)
+    labels = torch.randint(4, 1000, (2, 45), generator=gen, device=dev)
+    before = launch_counts()
+    got = _grads(model, tokens, labels, reference=False, remat=remat)
+    after = launch_counts()
+    want = _grads(model, tokens, labels, reference=True)
+    fwd = 2 if remat else 1
+    assert {k: after[k] - before[k] for k in after} == dict(
+        NO_LAUNCH, layer_norm=3 * fwd + 1, tmix_prologue=2 * fwd, wkv6_fused_output=2 * fwd,
+        tmix_prologue_bwd=1, wkv6_bwd_forward_pass=2, wkv6_bwd_reverse_pass=2)
+    assert len(got) == 2 * 8 * 2
+    for name in want:
+        assert bool(got[name].abs().max() > 0), name
+        _close(got[name], want[name], 1e-3)
+
+
+def test_state_params_grads_kernel_route_match_plain_route(dev):
+    model, gen = _model(dev, 4)
+    model.requires_grad_(False)
+    model.add_state_params()
+    with torch.no_grad():
+        for blk in model.blocks:
+            blk.att.time_state.normal_(0, 0.1, generator=gen)
+    tokens = torch.randint(4, 1000, (3, 40), generator=gen, device=dev)
+    labels = torch.randint(4, 1000, (3, 40), generator=gen, device=dev)
+    grads = []
+    for reference in (False, True):
+        model.zero_grad()
+        logits, _ = model(tokens, reference=reference, use_state_params=True, t1_step=False)
+        causal_lm_loss(logits, labels).backward()
+        grads.append([blk.att.time_state.grad.clone() for blk in model.blocks])
+    for g, w in zip(*grads):
+        _close(g, w, 1e-3)
+
+
+def test_wrappers_without_a_backward_raise_under_grad(dev):
+    """B.4 and B.9 refuse inputs that require grad instead of returning
+    outputs detached from the graph; under no_grad they run."""
+    x = torch.randn(4, 64, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        quantize_rows(x)
+    with torch.no_grad():
+        quantize_rows(x)
+    r = torch.randn(1, 64, device=dev, requires_grad=True)
+    args = (r, r, r, r, r, torch.ones(2, 32, device=dev), torch.ones(64, device=dev),
+            torch.zeros(64, device=dev), torch.zeros(1, 2, 32, 32, device=dev))
+    with pytest.raises(RuntimeError, match="no backward"):
+        wkv6_decode_step(*args, eps=1e-3)
+    with torch.inference_mode():
+        wkv6_decode_step(*args, eps=1e-3)
