@@ -6,7 +6,8 @@ flattened vectors); the port's module already uses the flat keys and
 shapes, so loading is a checked copy. The flat dict of fp32 numpy arrays
 (what the JAX ``params_to_state_dict`` emits) is also how weights are
 carried between the two packages; ``lora_tree_from_jax`` carries a LoRA
-adapter the same way.
+adapter the same way and ``one_layer_decoder_from_jax`` the RetroMAE
+decoder's parameter tree.
 
 The JAX loader also runs ``apply_wkv_dispatch``; the port's WKV kernel is
 exact at any decay, so there is nothing to dispatch.
@@ -21,12 +22,14 @@ import torch
 from rwkv_lm_ext_tpu_torch.adapters.quant import quantize_model
 from rwkv_lm_ext_tpu_torch.checkpoint.pth import sniff_model_config, strip_prefix
 from rwkv_lm_ext_tpu_torch.config import ModelConfig
+from rwkv_lm_ext_tpu_torch.models.bidirectional import OneLayerDecoder
 from rwkv_lm_ext_tpu_torch.models.rwkv import RWKV
 
 
-def load_state_dict_into(model: RWKV, state_dict: Dict) -> RWKV:
+def load_state_dict_into(model, state_dict: Dict):
     """Copy a flat BlinkDL dict ({key: numpy array or tensor}, prefix
-    already stripped) into `model`, casting to the model's dtype and device.
+    already stripped) into `model` (an RWKV, or any module with flat keys),
+    casting to the parameters' dtype and device.
     Vectors stored flat, e.g. (C,) for a (1, 1, C) time_maa, are reshaped.
     Raises on missing or unknown keys and on a size mismatch."""
     params = model.state_dict()
@@ -63,6 +66,30 @@ def lora_tree_from_jax(adapter: Dict, *, device="cpu") -> Dict[str, Dict[str, to
     }
 
 
+def one_layer_decoder_from_jax(tree: Dict, cfg: ModelConfig, *, device="cpu") -> OneLayerDecoder:
+    """The JAX package's ``onelayer_decoder`` parameter tree (arrays:
+    ``ln1``/``ln2``/``ln_out`` {scale, bias}, ``att`` and ``ffn`` with
+    (in, out) kernels and flat vectors, ``head`` (C, V)) -> the port's
+    OneLayerDecoder on `device`."""
+    def arr(x):
+        return np.asarray(x, np.float32)
+
+    sd = {}
+    for ln in ("ln1", "ln2", "ln_out"):
+        sd[f"{ln}.weight"], sd[f"{ln}.bias"] = arr(tree[ln]["scale"]), arr(tree[ln]["bias"])
+    for part, linears in (("att", ("receptance", "key", "value", "gate", "output")),
+                          ("ffn", ("key", "value", "receptance"))):
+        for name, value in tree[part].items():
+            if name == "ln_x":
+                sd["att.ln_x.weight"], sd["att.ln_x.bias"] = arr(value["scale"]), arr(value["bias"])
+            elif name in linears:
+                sd[f"{part}.{name}.weight"] = arr(value).T
+            else:
+                sd[f"{part}.{name}"] = arr(value)
+    sd["head.weight"] = arr(tree["head"]).T
+    return load_state_dict_into(OneLayerDecoder(cfg, device=device), sd)
+
+
 def save_rwkv_checkpoint(model: RWKV, path: str) -> None:
     """Write the model as a BlinkDL .pth: a plain {key: tensor} dict (no
     OrderedDict metadata, which torch-free readers such as the JAX
@@ -73,8 +100,9 @@ def save_rwkv_checkpoint(model: RWKV, path: str) -> None:
 def load_rwkv_checkpoint(
     path: str, *, device, quant: Optional[str] = None, **cfg_overrides
 ) -> Tuple[RWKV, ModelConfig]:
-    """.pth -> (RWKV module on `device` in cfg.dtype, ModelConfig).
-    cfg_overrides are ModelConfig fields, e.g. dtype="float32". ``quant``
+    """.pth -> (RWKV module on `device`, ModelConfig). cfg_overrides are
+    ModelConfig fields, e.g. dtype="float32", or param_dtype="float32" for
+    fp32 master weights under the default bf16 compute. ``quant``
     ("int8" or "int8c") quantizes the block projections from the
     checkpoint's own values upcast to fp32, before any cast to cfg.dtype,
     as the JAX loader hands fp32 params to quantize_tree."""

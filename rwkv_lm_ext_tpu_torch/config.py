@@ -30,8 +30,15 @@ class ModelConfig:
     # activations and weights; WKV state, norm statistics and the decay
     # low-rank stay fp32
     dtype: str = "bfloat16"
+    # what the parameters are stored in. "" = the same as dtype, which is
+    # what serving and the adapter trainers hold; the full-parameter encoder
+    # trainers hold "float32" master weights and cast to dtype at each use,
+    # as the JAX package does everywhere (its param_dtype, config.py:47)
+    param_dtype: str = ""
 
     def __post_init__(self):
+        if not self.param_dtype:
+            object.__setattr__(self, "param_dtype", self.dtype)
         if self.dim_att == 0:
             object.__setattr__(self, "dim_att", self.n_embd)
         if self.dim_ffn == 0:
@@ -63,6 +70,10 @@ class ModelConfig:
     @property
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def params_dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
 
 
 @dataclasses.dataclass(frozen=True)

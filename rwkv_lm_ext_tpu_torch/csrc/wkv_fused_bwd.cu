@@ -58,6 +58,15 @@
 // two (pass 2) or six (pass 1) block barriers; like K1 the passes are
 // latency-bound by their serial T loop, not by the ~12 bytes a channel they
 // read and write per step.
+//
+// The unfused WKV (B.8, csrc/wkv.cu) shares this backward, as the JAX package
+// runs the same two kernels with the GroupNorm/gate stages compiled out
+// (gn=False, ops/wkv_pallas.py:597-602). Its cotangent is dy itself, so its
+// pass 1 (wkv6_bwd_state_kernel) only carries the state forward to form dr'
+// and c_T, and pass 2 is the one above. B.8 may walk each row's valid prefix
+// (`lengths`) in either direction (`reverse`); both passes then map the same
+// step index s to the time t that the forward mapped it to, pass 2 walks s
+// downwards, and the rows at and beyond the prefix get zero gradients.
 #include "common.cuh"
 
 namespace rwkv {
@@ -166,15 +175,72 @@ __global__ void __launch_bounds__(N) wkv6_bwd_forward_kernel(
   cT[(size_t)bh * N + j] = c;
 }
 
+// Pass 1 without the GroupNorm and the gate: B.8's forward state again, given
+// dy. Writes dr'_t[i] = sum_j S_{t-1}[i,j] dy_t[j] (fp64) for the steps of the
+// walk and c_T[i] = sum_j S_T[i,j] dsT[i,j]; nothing beyond the prefix, where
+// pass 2 reads nothing.
+template <typename T, int N>
+__global__ void __launch_bounds__(N) wkv6_bwd_state_kernel(
+    const T* __restrict__ k, const T* __restrict__ v, const float* __restrict__ w,
+    const float* __restrict__ s0, const float* __restrict__ dy_in,
+    const float* __restrict__ dsT, const int* __restrict__ lengths,
+    double* __restrict__ drp_out, double* __restrict__ cT, int T_len, int H, int reverse) {
+  __shared__ float k_s[N];
+  __shared__ float ew_s[N];
+  __shared__ double tile[N][N + 1];
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int j = threadIdx.x;
+
+  double S[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) S[i] = s0 ? s0[((size_t)bh * N + i) * N + j] : 0.f;
+  const int L = lengths ? min(max(lengths[b], 0), T_len) : T_len;
+
+  for (int s = 0; s < L; ++s) {
+    const size_t cur = bthn(b, reverse ? L - 1 - s : s, h, j, T_len, H, N);
+    const float k_j = to_f(k[cur]), v_j = to_f(v[cur]);
+    const double dy = dy_in[cur];
+    // the stage is read only before the tile barrier and rewritten after it;
+    // the tile is read only after its barrier and rewritten after the next
+    // step's stage barrier
+    k_s[j] = k_j;
+    ew_s[j] = expf(-expf(w[cur]));
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      tile[i][j] = S[i] * dy;
+      S[i] = fma(S[i], (double)ew_s[i], (double)k_s[i] * (double)v_j);
+    }
+    __syncthreads();
+    double drp = 0.0;
+#pragma unroll
+    for (int jj = 0; jj < N; ++jj) drp += tile[j][jj];   // thread j as row i = j
+    drp_out[cur] = drp;
+  }
+
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < N; ++i) tile[i][j] = S[i];
+  __syncthreads();
+  const float* dsTp = dsT ? dsT + ((size_t)bh * N + j) * N : nullptr;
+  double c = 0.0;
+  if (dsTp)
+#pragma unroll
+    for (int jj = 0; jj < N; ++jj) c = fma(tile[j][jj], (double)dsTp[jj], c);
+  cT[(size_t)bh * N + j] = c;
+}
+
 template <typename T, int N>
 __global__ void __launch_bounds__(N) wkv6_bwd_reverse_kernel(
     const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ w, const float* __restrict__ u,
     const float* __restrict__ dy_in, const double* __restrict__ drp_in,
     const double* __restrict__ cT, const float* __restrict__ dsT,
+    const int* __restrict__ lengths,
     T* __restrict__ dr_out, T* __restrict__ dk_out, T* __restrict__ dv_out,
     float* __restrict__ dw_out, float* __restrict__ du_p, float* __restrict__ ds0,
-    int T_len, int H) {
+    int T_len, int H, int reverse) {
   __shared__ __align__(16) float v_s[N];
   __shared__ __align__(16) float dy_s[N];
   __shared__ __align__(16) float ruk_s[N];
@@ -187,12 +253,19 @@ __global__ void __launch_bounds__(N) wkv6_bwd_reverse_kernel(
   const float* dsTp = dsT ? dsT + ((size_t)bh * N + i) * N : nullptr;
 #pragma unroll
   for (int jj = 0; jj < N; ++jj) dS[jj] = dsTp ? dsTp[jj] : 0.f;
-  const float u_i = u[h * N + i];
+  const float u_i = u ? u[h * N + i] : 0.f;
   double c = cT[(size_t)bh * N + i];   // c_m[i], from c_T down
   float du = 0.f;
+  const int L = lengths ? min(max(lengths[b], 0), T_len) : T_len;
 
-  for (int t = T_len - 1; t >= 0; --t) {
+  // no gradient reaches the rows that the forward did not walk
+  for (int t = L; t < T_len; ++t) {
     const size_t cur = bthn(b, t, h, i, T_len, H, N);
+    dr_out[cur] = dk_out[cur] = dv_out[cur] = from_f<T>(0.f);
+    dw_out[cur] = 0.f;
+  }
+  for (int s = L - 1; s >= 0; --s) {
+    const size_t cur = bthn(b, reverse ? L - 1 - s : s, h, i, T_len, H, N);
     const float r_i = to_f(r[cur]), k_i = to_f(k[cur]), v_i = to_f(v[cur]);
     const float w_i = w[cur];
     const float dy_i = dy_in[cur];
@@ -283,12 +356,39 @@ extern "C" int rwkv_wkv6_bwd_forward(const void* r, const void* k, const void* v
   return cudaErrorInvalidValue;
 }
 
+extern "C" int rwkv_wkv6_bwd_state(const void* k, const void* v, const void* w,
+                                   const void* s0, const void* dy, const void* dsT,
+                                   const void* lengths, void* drp, void* cT, int B,
+                                   int T_len, int H, int N, int reverse, int dtype,
+                                   void* stream) {
+  using namespace rwkv;
+  if (B <= 0 || H <= 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+#define RWKV_BWD1S_CASE(TYPE, NN)                                                           \
+  do {                                                                                      \
+    wkv6_bwd_state_kernel<TYPE, NN><<<B * H, NN, 0, s>>>(                                    \
+        static_cast<const TYPE*>(k), static_cast<const TYPE*>(v),                           \
+        static_cast<const float*>(w), static_cast<const float*>(s0),                        \
+        static_cast<const float*>(dy), static_cast<const float*>(dsT),                      \
+        static_cast<const int*>(lengths), static_cast<double*>(drp),                        \
+        static_cast<double*>(cT), T_len, H, reverse);                                        \
+    return cudaGetLastError();                                                              \
+  } while (0)
+  if (dtype == kFloat32 && N == 32) RWKV_BWD1S_CASE(float, 32);
+  if (dtype == kFloat32 && N == 64) RWKV_BWD1S_CASE(float, 64);
+  if (dtype == kBFloat16 && N == 32) RWKV_BWD1S_CASE(__nv_bfloat16, 32);
+  if (dtype == kBFloat16 && N == 64) RWKV_BWD1S_CASE(__nv_bfloat16, 64);
+#undef RWKV_BWD1S_CASE
+  return cudaErrorInvalidValue;
+}
+
+// u and lengths may be null (no bonus; every row walks all T steps).
 extern "C" int rwkv_wkv6_bwd_reverse(const void* r, const void* k, const void* v,
                                      const void* w, const void* u, const void* dy,
                                      const void* drp, const void* cT, const void* dsT,
-                                     void* dr, void* dk, void* dv, void* dw, void* du_p,
-                                     void* ds0, int B, int T_len, int H, int N, int dtype,
-                                     void* stream) {
+                                     const void* lengths, void* dr, void* dk, void* dv,
+                                     void* dw, void* du_p, void* ds0, int B, int T_len,
+                                     int H, int N, int reverse, int dtype, void* stream) {
   using namespace rwkv;
   if (B <= 0 || H <= 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
@@ -299,9 +399,10 @@ extern "C" int rwkv_wkv6_bwd_reverse(const void* r, const void* k, const void* v
         static_cast<const TYPE*>(v), static_cast<const float*>(w),                          \
         static_cast<const float*>(u), static_cast<const float*>(dy),                        \
         static_cast<const double*>(drp), static_cast<const double*>(cT),                     \
-        static_cast<const float*>(dsT), static_cast<TYPE*>(dr), static_cast<TYPE*>(dk),     \
+        static_cast<const float*>(dsT), static_cast<const int*>(lengths),                   \
+        static_cast<TYPE*>(dr), static_cast<TYPE*>(dk),                                     \
         static_cast<TYPE*>(dv), static_cast<float*>(dw), static_cast<float*>(du_p),         \
-        static_cast<float*>(ds0), T_len, H);                                                \
+        static_cast<float*>(ds0), T_len, H, reverse);                                       \
     return cudaGetLastError();                                                              \
   } while (0)
   if (dtype == kFloat32 && N == 32) RWKV_BWD2_CASE(float, 32);

@@ -16,7 +16,6 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from rwkv_lm_ext_tpu_torch.models.rwkv import KERNEL_OPS, PLAIN_OPS
 from rwkv_lm_ext_tpu_torch.models.state import ModelState, init_model_state
@@ -48,7 +47,7 @@ def rwkv_decode_step(
         state = init_model_state(model.cfg, tokens.shape[0], device=tokens.device)
     if out is None:
         out = {key: torch.empty_like(value) for key, value in state.items()}
-    x = F.embedding(tokens[:, None], model.emb.weight)            # (B, 1, C)
+    x = model.embed(tokens[:, None])                              # (B, 1, C)
     for i, block in enumerate(model.blocks):
         x = block.step(x, state, out, i, ops)
     x = ops.layer_norm(x, model.ln_out.weight, model.ln_out.bias)

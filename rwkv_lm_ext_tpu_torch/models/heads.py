@@ -1,9 +1,12 @@
-"""Sequence-embedding head.
+"""Sequence-embedding and MLM heads.
 
 Counterpart of rwkv_lm_ext_tpu/models/heads.py:26-102
-(first_token_position, pool_hidden, embed_sequences).
+(first_token_position, pool_hidden, embed_sequences) and :134-147
+(mlm_logits).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -65,3 +68,16 @@ def embed_sequences(
     if normalize:
         emb = emb / emb.norm(dim=-1, keepdim=True).clamp_min(1e-12)
     return emb
+
+
+def mlm_logits(
+    model, hidden: torch.Tensor, *, share_emb: bool = True,
+    lm_head: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """MLM prediction head in fp32: tied to the embedding matrix
+    (hidden @ emb.T), or a separate (C, V) projection ``lm_head``."""
+    if share_emb:
+        return hidden.float() @ model.emb.weight.float().T
+    if lm_head is None:
+        raise ValueError("share_emb=False needs lm_head")
+    return hidden.float() @ lm_head.float()

@@ -24,7 +24,17 @@ swaps K1 for the decode kernel B.9, as ``rwkv_forward`` routes them
 reference that the kernels are checked against, not a serving path.
 
 Precision: weights and activations in cfg.dtype; LayerNorm/GroupNorm
-statistics, the WKV state and the decay low-rank in fp32.
+statistics, the WKV state and the decay low-rank in fp32. The parameters
+are stored in cfg.param_dtype, cfg.dtype unless told otherwise. With fp32
+master weights (param_dtype="float32" under bf16 compute, what the
+full-parameter encoder trainers hold) every use casts to the compute dtype,
+as ``as_weight`` does (rwkv_lm_ext_tpu/models/rwkv.py:27); when the two are
+equal the cast returns the parameter itself and launches nothing.
+
+``TimeMix.projections`` and ``TimeMix.gn_output`` are the two halves of the time
+mix as plain torch ops (``tmix_v6_projections`` :260 and ``tmix_v6_output``
+:300, outside any Pallas kernel in the JAX package too); the bidirectional
+encoders (models/bidirectional.py) put the unfused WKV between them.
 
 Training (train/): the kernel wrappers are autograd Functions whenever an
 input requires grad, so a loss differentiates through K1-K3 (backward
@@ -101,7 +111,7 @@ class Linear(nn.Module):
         self.weight = _param(n_out, n_in, **kw)
 
     def forward(self, x: torch.Tensor, ops: Optional[Ops] = None) -> torch.Tensor:
-        return F.linear(x, self.weight)
+        return F.linear(x, self.weight.to(x.dtype))
 
 
 class Norm(nn.Module):
@@ -163,6 +173,41 @@ class TimeMix(nn.Module):
         w = self.time_decay.float().reshape(-1) + ww @ self.time_decay_w2.float()
         return r, k, v, g, w, xln
 
+    def projections(self, x: torch.Tensor, att_shift: torch.Tensor):
+        """The ddlerp and projection half in plain torch ops: x (B, T, C) is
+        already ln1's output, att_shift (B, C) the previous token's. Returns
+        r, k, v, g (B, T, A) in x's dtype and the fp32 decay w (B, T, A)."""
+        B, T, _ = x.shape
+        dt = x.dtype
+        prev = torch.cat([att_shift.to(dt)[:, None], x[:, :-1]], dim=1)
+        xx = prev - x
+        xxx = x + xx * self.time_maa_x.to(dt)
+        m = torch.tanh(xxx @ self.time_maa_w1.to(dt)).reshape(B, T, 5, -1)
+        mw, mk, mv, mr, mg = torch.einsum("btfd,fdc->fbtc", m, self.time_maa_w2.to(dt))
+        xw = x + xx * (self.time_maa_w.to(dt) + mw)
+        xk = x + xx * (self.time_maa_k.to(dt) + mk)
+        xv = x + xx * (self.time_maa_v.to(dt) + mv)
+        xr = x + xx * (self.time_maa_r.to(dt) + mr)
+        xg = x + xx * (self.time_maa_g.to(dt) + mg)
+        r, k, v = self.receptance(xr), self.key(xk), self.value(xv)
+        g = F.silu(self.gate(xg))
+        # data-dependent decay in fp32: it feeds exp(-exp(w))
+        ww = torch.tanh(xw.float() @ self.time_decay_w1.float())
+        w = self.time_decay.float() + ww @ self.time_decay_w2.float()
+        return r, k, v, g, w
+
+    def gn_output(self, y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        """GroupNorm(ln_x) per head with fp32 statistics, the gate and the
+        output projection: y (B, T, A) is cast to g's dtype first."""
+        dt = g.dtype
+        H, N = self.cfg.n_head, self.cfg.head_size
+        yf = y.to(dt).float().unflatten(-1, (H, N))
+        mu = yf.mean(-1, keepdim=True)
+        var = yf.var(-1, unbiased=False, keepdim=True)
+        yn = ((yf - mu) * torch.rsqrt(var + self.cfg.ln_x_eps)).flatten(-2)
+        yn = (yn * self.ln_x.weight.float() + self.ln_x.bias.float()).to(dt)
+        return self.output(yn * g)
+
     def forward(
         self, x: torch.Tensor, ln1: Norm, att_shift: torch.Tensor,
         wkv_state: torch.Tensor, ops: Ops, use_state_params: bool = False,
@@ -221,8 +266,8 @@ class ChannelMix(nn.Module):
         """x: (B, T, C), the ln2 output. Returns (out, new ffn_shift)."""
         prev = torch.cat([ffn_shift.to(x.dtype)[:, None], x[:, :-1]], dim=1)
         xx = prev - x
-        xk = x + xx * self.time_maa_k
-        xr = x + xx * self.time_maa_r
+        xk = x + xx * self.time_maa_k.to(x.dtype)
+        xr = x + xx * self.time_maa_r.to(x.dtype)
         kv = self.value(torch.relu(self.key(xk, ops)) ** 2, ops)
         return torch.sigmoid(self.receptance(xr, ops)) * kv, x[:, -1].float()
 
@@ -277,7 +322,7 @@ class Block(nn.Module):
 class RWKV(nn.Module):
     """Full RWKV-6 model: emb -> blocks -> ln_out -> head.
 
-    Built with uninitialised parameters in cfg.dtype on `device`; fill them
+    Built with uninitialised parameters in cfg.param_dtype on `device`; fill them
     with checkpoint.convert.load_state_dict_into (from a checkpoint or from
     models.init.init_rwkv_params)."""
 
@@ -289,13 +334,21 @@ class RWKV(nn.Module):
             )
         # the fp32 decay low-rank must not run in TF32
         torch.backends.cuda.matmul.allow_tf32 = False
-        kw = dict(device=device, dtype=cfg.compute_dtype)
+        kw = dict(device=device, dtype=cfg.params_dtype)
         self.cfg = cfg
         self.emb = nn.Module()
         self.emb.weight = _param(cfg.vocab_size, cfg.n_embd, **kw)
         self.blocks = nn.ModuleList(Block(cfg, i, **kw) for i in range(cfg.n_layer))
         self.ln_out = Norm(cfg.n_embd, **kw)
         self.head = Linear(cfg.n_embd, cfg.vocab_size, **kw)
+        # the RetroMAE trainer's one-layer decoder
+        # (models.bidirectional.OneLayerDecoder), attached after loading
+        self.register_module("onelayer_decoder", None)
+
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token embeddings in the compute dtype (looked up in param_dtype,
+        then cast)."""
+        return F.embedding(tokens, self.emb.weight).to(self.cfg.compute_dtype)
 
     def add_state_params(self) -> None:
         """Give every layer a zero fp32 ``att.time_state`` (H, N, N)
@@ -340,7 +393,7 @@ class RWKV(nn.Module):
         B = tokens.shape[0]
         if state is None:
             state = init_model_state(self.cfg, B, device=tokens.device)
-        x = F.embedding(tokens, self.emb.weight)
+        x = self.embed(tokens)
         new_state = {key: [] for key in ("att_shift", "wkv", "ffn_shift")}
         remat = remat and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):

@@ -2,12 +2,13 @@
 
 Each kernel's wrapper carries an integer ``launches`` attribute that it
 raises by one where it launches the kernel, and nowhere else. The backward
-wrappers (B.5, B.6, B.7) count a launch each time an autograd backward, or
+wrappers (B.5, B.6 and its GroupNorm-free variant, B.7) count a launch each time an autograd backward, or
 a direct call, runs them.
 """
 from rwkv_lm_ext_tpu_torch.ops.ddlerp import tmix_prologue, tmix_prologue_bwd
 from rwkv_lm_ext_tpu_torch.ops.ln import layer_norm
 from rwkv_lm_ext_tpu_torch.ops.quant import quantize_rows
+from rwkv_lm_ext_tpu_torch.ops.wkv import wkv, wkv_bwd_state_pass
 from rwkv_lm_ext_tpu_torch.ops.wkv_decode import wkv6_decode_step
 from rwkv_lm_ext_tpu_torch.ops.wkv_fused import (
     wkv6_bwd_forward_pass,
@@ -18,6 +19,7 @@ from rwkv_lm_ext_tpu_torch.ops.wkv_fused import (
 KERNEL_WRAPPERS = (
     layer_norm, tmix_prologue, wkv6_fused_output, wkv6_decode_step, quantize_rows,
     tmix_prologue_bwd, wkv6_bwd_forward_pass, wkv6_bwd_reverse_pass,
+    wkv, wkv_bwd_state_pass,
 )
 
 

@@ -54,9 +54,13 @@ _SIGNATURES = {
     # r, k, v, w, u, g, scale, bias, s0, dout, dsT, dy, drp, dg, dsc_p, dbi_p,
     # cT, B, T, H, N, eps, dtype, stream
     "rwkv_wkv6_bwd_forward": [_P] * 17 + [_I] * 4 + [_F, _I, _P],
-    # r, k, v, w, u, dy, drp, cT, dsT, dr, dk, dv, dw, du_p, ds0, B, T, H, N,
-    # dtype, stream
-    "rwkv_wkv6_bwd_reverse": [_P] * 15 + [_I] * 5 + [_P],
+    # r, k, v, w, u, dy, drp, cT, dsT, lengths, dr, dk, dv, dw, du_p, ds0, B, T,
+    # H, N, reverse, dtype, stream
+    "rwkv_wkv6_bwd_reverse": [_P] * 16 + [_I] * 6 + [_P],
+    # r, k, v, w, u, s0, lengths, y, sT, B, T, H, N, reverse, dtype, stream
+    "rwkv_wkv6": [_P] * 9 + [_I] * 6 + [_P],
+    # k, v, w, s0, dy, dsT, lengths, drp, cT, B, T, H, N, reverse, dtype, stream
+    "rwkv_wkv6_bwd_state": [_P] * 9 + [_I] * 6 + [_P],
     # x, shift, ln_scale, ln_bias, maa, w1, w1T, w2, w2T, d0..d4, dxln, dx,
     # dshift, dw1, dw2, 8 scratch buffers, B, T, C, D, eps, dtype, stream
     "rwkv_tmix_prologue_bwd": [_P] * 27 + [_I] * 4 + [_F, _I, _P],

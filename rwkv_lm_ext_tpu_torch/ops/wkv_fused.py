@@ -137,12 +137,15 @@ def wkv6_bwd_forward_pass(r, k, v, w, u, g, ln_scale, ln_bias, s0, dout, dsT, ep
     return dy, drp, dg, dsc_p, dbi_p, cT
 
 
-def wkv6_bwd_reverse_pass(r, k, v, w, u, dy, drp, cT, dsT):
+def wkv6_bwd_reverse_pass(r, k, v, w, u, dy, drp, cT, dsT, *, lengths=None, reverse=False):
     """B.7: the reverse-time adjoint. Returns dr, dk, dv (r's dtype), dw
-    (fp32), the (B, H, N) partials of du and ds0 (B, H, N, N)."""
+    (fp32), the (B, H, N) partials of du and ds0 (B, H, N, N). ``u`` may be
+    None (no bonus). ``lengths`` ((B,) int32, or None) and ``reverse`` are
+    the unfused WKV's walk over each row's valid prefix (ops/wkv.py); K1's
+    backward leaves them out."""
     B, T, H, N = r.shape
-    device = _lib.check_cuda(r=r, k=k, v=v, w=w, u=u, dy=dy,
-                             **({"dsT": dsT} if dsT is not None else {}))
+    device = _lib.check_cuda(r=r, k=k, v=v, w=w, dy=dy, **{
+        n: t for n, t in (("u", u), ("dsT", dsT)) if t is not None})
     for name, t in (("drp", drp), ("cT", cT)):   # B.6's fp64 outputs
         if t.dtype != torch.float64 or t.device != device or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous fp64 tensor on {device}")
@@ -152,8 +155,8 @@ def wkv6_bwd_reverse_pass(r, k, v, w, u, dy, drp, cT, dsT):
     du_p = torch.empty(B, H, N, **f32)
     ds0 = torch.empty(B, H, N, N, **f32)
     _lib.launch(
-        "rwkv_wkv6_bwd_reverse", device, r, k, v, w, u, dy, drp, cT, dsT, dr, dk, dv, dw,
-        du_p, ds0, B, T, H, N, _lib.DTYPE_CODES[r.dtype],
+        "rwkv_wkv6_bwd_reverse", device, r, k, v, w, u, dy, drp, cT, dsT, lengths,
+        dr, dk, dv, dw, du_p, ds0, B, T, H, N, int(reverse), _lib.DTYPE_CODES[r.dtype],
     )
     wkv6_bwd_reverse_pass.launches += 1
     return dr, dk, dv, dw, du_p, ds0

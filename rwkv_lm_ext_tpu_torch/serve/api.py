@@ -1,9 +1,14 @@
-"""Embedding and generation service over JSON HTTP.
+"""Embedding, generation and fill-mask service over JSON HTTP.
 
-Counterpart of rwkv_lm_ext_tpu/serve/api.py:42-325, 390-451 and 454-590
-with a bi-encoder and a generation engine:
+Counterpart of rwkv_lm_ext_tpu/serve/api.py:42-451 and 454-590 with a
+bi-encoder, a generation engine and a bidirectional encoder:
 
 - POST /embed {"texts": [...]}, POST /similarity {"texts_a", "texts_b"};
+- POST /fill_mask {"text", "top_k", "cumulative_prob"}: the text is split at
+  each ``[MASK]``, encoded with an emb terminator, padded to a bucket of
+  32 ... 2048 and run through the bidirectional encoder and its tied MLM
+  head; every mask slot answers its candidates in descending probability
+  until their sum reaches the cutoff, at most top_k;
 - POST /generate {"prompt", "max_tokens", sampling knobs}: blocking, or with
   "stream": true as text/event-stream, one ``data: {"token": piece}`` event
   per UTF-8-safe piece and a final ``data: {"done": true, "output": ...,
@@ -27,8 +32,15 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Iterator, List
 
 import numpy as np
+import torch
 
+from rwkv_lm_ext_tpu_torch.config import EMB_ID, MASK_ID
+from rwkv_lm_ext_tpu_torch.infer.encoders import bucketize, pad_batch
 from rwkv_lm_ext_tpu_torch.infer.sampling import SamplingParams
+from rwkv_lm_ext_tpu_torch.models.bidirectional import encoder_forward
+from rwkv_lm_ext_tpu_torch.models.heads import mlm_logits
+
+MASK_TOKEN = "[MASK]"
 
 # decode steps between host fetches for a blocking /generate; a stream
 # takes 1 so that every token goes out as soon as it exists
@@ -72,9 +84,17 @@ def _sse(obj: Dict) -> bytes:
 
 
 class ServingService:
-    def __init__(self, *, engine=None, bi_encoder=None):
+    def __init__(self, *, engine=None, bi_encoder=None, encoder=None, tokenizer=None,
+                 mask_id: int = MASK_ID):
+        """``encoder`` is an RWKV module served as the bidirectional encoder
+        behind /fill_mask; it needs ``tokenizer``."""
+        if encoder is not None and tokenizer is None:
+            raise ValueError("an encoder needs a tokenizer")
         self.engine = engine
         self.bi = bi_encoder
+        self.encoder = encoder
+        self.tokenizer = tokenizer
+        self.mask_id = mask_id
         self._lock = threading.Lock()          # one model call at a time
         self._stats_lock = threading.Lock()
         self._counts: Dict[str, int] = {}
@@ -85,6 +105,8 @@ class ServingService:
             self.routes |= {"/embed", "/similarity"}
         if engine is not None:
             self.routes.add("/generate")
+        if encoder is not None:
+            self.routes.add("/fill_mask")
 
     def warmup(self) -> None:
         """Run one short request per backend from the calling thread, so
@@ -93,6 +115,8 @@ class ServingService:
             self.bi.encode_texts(["warmup"])
         if self.engine is not None:
             self.engine.generate("warmup", max_tokens=2)
+        if self.encoder is not None:
+            self.fill_mask(f"warm {MASK_TOKEN} up")
 
     def embed(self, texts: List[str]) -> Dict:
         with self._lock:
@@ -104,6 +128,49 @@ class ServingService:
             ea = self.bi.encode_texts(texts_a)
             eb = self.bi.encode_texts(texts_b)
         return {"similarity": (ea @ eb.T).tolist()}
+
+    def fill_mask(self, text: str, *, top_k: int = 10, cumulative_prob: float = 0.95,
+                  reference: bool = False) -> Dict:
+        """``[MASK]`` slots -> {"masks": [[{"token", "token_id", "prob"},
+        ...], ...]}, one candidate list a slot. ``reference`` runs the
+        kernels' plain versions."""
+        parts = text.split(MASK_TOKEN)
+        ids: List[int] = []
+        mask_positions: List[int] = []
+        for i, part in enumerate(parts):
+            ids.extend(self.tokenizer.encode(part) if part else [])
+            if i < len(parts) - 1:
+                mask_positions.append(len(ids))
+                ids.append(self.mask_id)
+        ids.append(EMB_ID)   # emb terminator
+        tokens = torch.from_numpy(pad_batch([ids], bucketize([ids])))
+        with self._lock, torch.inference_mode():
+            tokens = tokens.to(self.encoder.emb.weight.device)
+            hidden = encoder_forward(self.encoder, tokens, reference=reference)
+            probs_dev = torch.softmax(mlm_logits(self.encoder, hidden), dim=-1)
+        probs = probs_dev[0].cpu().numpy().astype(np.float64)
+        results = []
+        for pos in mask_positions:
+            p = probs[pos]
+            cands, acc = [], 0.0
+            for tok in np.argsort(-p)[:top_k]:
+                cands.append({"token": self.tokenizer.decode([int(tok)]),
+                              "token_id": int(tok), "prob": float(p[tok])})
+                acc += float(p[tok])
+                if acc >= cumulative_prob:
+                    break
+            results.append(cands)
+        return {"masks": results}
+
+    def _fill_mask_args(self, payload: Dict) -> Dict:
+        text = payload.get("text")
+        if not isinstance(text, str):
+            raise BadRequest("'text' must be a string")
+        try:
+            return dict(text=text, top_k=int(payload.get("top_k", 10)),
+                        cumulative_prob=float(payload.get("cumulative_prob", 0.95)))
+        except (TypeError, ValueError) as e:
+            raise BadRequest(f"bad fill_mask option: {e}") from e
 
     def _generate_args(self, payload: Dict):
         """Validate a /generate payload: (prompt, max_tokens,
@@ -223,6 +290,8 @@ class ServingService:
             return self.embed(_texts(payload, "texts"))
         if route == "/similarity":
             return self.similarity(_texts(payload, "texts_a"), _texts(payload, "texts_b"))
+        if route == "/fill_mask":
+            return self.fill_mask(**self._fill_mask_args(payload))
         if payload.get("stream"):
             raise BadRequest("stream=true needs the SSE transport (serve_http)")
         return self.generate(payload)

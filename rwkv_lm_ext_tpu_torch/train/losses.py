@@ -1,9 +1,10 @@
-"""Causal-LM loss.
+"""Causal-LM and MLM losses.
 
-Counterpart of rwkv_lm_ext_tpu/train/losses.py:21-51 (``_ce_with_ignore``,
-``l2_wrap_penalty``, ``causal_lm_loss``): mean cross entropy over the labels
-that are not -100, plus the L2Wrap penalty 1e-4 * 0.5 * mean(max_logit^2),
-both in fp32. The contrastive and MLM losses wait for their trainers.
+Counterpart of rwkv_lm_ext_tpu/train/losses.py:21-55 (``_ce_with_ignore``,
+``l2_wrap_penalty``, ``causal_lm_loss``, ``mlm_loss``): mean cross entropy
+over the labels that are not -100, in fp32; the causal loss adds the L2Wrap
+penalty 1e-4 * 0.5 * mean(max_logit^2). The contrastive losses wait for
+their trainers.
 """
 from __future__ import annotations
 
@@ -35,3 +36,9 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, *, l2_wrap: bool 
     if l2_wrap:
         loss = loss + l2_wrap_penalty(logits)
     return loss
+
+
+def mlm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits (B, T, V), labels (B, T) with -100 on the unmasked positions;
+    no L2Wrap."""
+    return _ce_with_ignore(logits, labels)

@@ -48,8 +48,10 @@ def lr_scale_labels(named_params: Iterable[Tuple[str, torch.Tensor]]) -> Dict[st
 
 
 def decay_mask(named_params: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, bool]:
-    """True where weight decay applies (ndim >= 2)."""
-    return {name: p.dim() >= 2 for name, p in named_params}
+    """True where weight decay applies: ndim >= 2 in the JAX package's
+    layout, where the (1, 1, C) vectors of the flat schema (time_maa_*,
+    time_decay) are 1-D and get none."""
+    return {name: p.dim() >= 2 and tuple(p.shape[:-1]) != (1, 1) for name, p in named_params}
 
 
 def make_schedule(tc: TrainConfig) -> Callable[[int], float]:
@@ -105,9 +107,15 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
+        if all(p.grad is None for p in self.params):
+            raise RuntimeError("no trainable parameter got a gradient")
+        # a parameter the loss does not reach (the untied head under the MLM
+        # loss) has a zero gradient, as under jax.grad: Adam leaves it alone
+        # and weight decay still applies
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        if any(g is None for g in grads):
-            raise RuntimeError("a trainable parameter got no gradient")
         norm = global_norm(grads)
         if self.tc.grad_clip > 0:
             factor = torch.where(norm < self.tc.grad_clip, torch.ones_like(norm),
@@ -127,9 +135,11 @@ def make_optimizer(tc: TrainConfig, named_params) -> Optimizer:
 
 def trainable_mask(model: torch.nn.Module, train_type: str) -> Dict[str, bool]:
     """Which parameters train (the reference's requires_grad filters):
-    'lora' - LoRA factors, time_state and head_* leaves; 'states' - only
-    att.time_state."""
+    'full' - everything; 'lora' - LoRA factors, time_state and head_* leaves;
+    'states' - only att.time_state."""
     def keep(name: str) -> bool:
+        if train_type == "full":
+            return True
         if train_type in ("state", "states"):
             return "time_state" in name
         if train_type == "lora":

@@ -187,8 +187,10 @@ def test_schedule_matches_jax(schedule):
 
 
 def test_three_optimizer_steps_match_the_optax_chain():
-    """Clip active (norm above grad_clip), weight decay on the ndim >= 2
-    leaves, the 2x (time_decay) and 3x (time_first) lr groups."""
+    """Clip active (norm above grad_clip), weight decay on the leaves that
+    are ndim >= 2 in the JAX package's layout (its time_decay is a flat
+    vector, the port's (1, 1, A)), the 2x (time_decay) and 3x (time_first) lr
+    groups."""
     rng = np.random.default_rng(6)
     shapes = {"blocks.0.att.time_decay": (1, 1, 16), "blocks.0.att.time_first": (4, 4),
               "blocks.0.att.key.weight": (8, 16), "blocks.0.ln1.weight": (16,)}
@@ -197,12 +199,15 @@ def test_three_optimizer_steps_match_the_optax_chain():
              for _ in range(3)]
     kw = dict(lr_init=1e-2, lr_final=1e-3, warmup_steps=1, total_steps=3, weight_decay=0.1,
               grad_clip=1.0)
-    # JAX: a dict tree whose paths hold the same names
-    jparams = {n: jnp.asarray(p) for n, p in params.items()}
+    # JAX: a dict tree whose paths hold the same names, vectors flat
+    def jax_layout(a):
+        return jnp.asarray(a.reshape(-1) if a.shape[:-1] == (1, 1) else a)
+
+    jparams = {n: jax_layout(p) for n, p in params.items()}
     tx = jax_make_optimizer(JaxTrainConfig(**kw), jparams)
     state = tx.init(jparams)
     for gr in grads:
-        upd, state = tx.update({n: jnp.asarray(g) for n, g in gr.items()}, state, jparams)
+        upd, state = tx.update({n: jax_layout(g) for n, g in gr.items()}, state, jparams)
         jparams = optax.apply_updates(jparams, upd)
     tparams = {n: torch.nn.Parameter(torch.tensor(p)) for n, p in params.items()}
     opt = make_optimizer(TrainConfig(**kw), list(tparams.items()))
@@ -213,7 +218,7 @@ def test_three_optimizer_steps_match_the_optax_chain():
         norms.append(float(opt.step()))
     assert norms[0] > 1.0    # the clip was active
     for n in shapes:
-        _close_rel(tparams[n].detach().numpy(), jparams[n], 1e-6, n)
+        _close_rel(tparams[n].detach().numpy().reshape(jparams[n].shape), jparams[n], 1e-6, n)
 
 
 def _swap_kernels_for_plain(monkeypatch):
