@@ -17,7 +17,11 @@ Phases, each printing its own lines:
      each called twice and held bit-equal; the unfused WKV B.8 and its
      two-pass backward the same way, with and without a bonus, an initial
      state, `reverse` and ragged `lengths`, and `wkv6_bi` against the flip
-     composition. Beside every time stands the kernel's bound on this card
+     composition; the fused decode kernels B.10 (attention prologue), B.11
+     (channel-mix prologue) and B.12 (whole channel mix) at B=64 and B=1,
+     fp32 and bf16, beside the calls each replaces on the unfused step, and
+     the transposed-state decode step B.13 against B.9 (state bit-equal).
+     Beside every time stands the kernel's bound on this card
      (bytes over 3.35 TB/s against operations over the peak of their type)
      and, for LayerNorm, the time of `F.layer_norm`;
   3. a synthetic RWKV-6-World-1B6 (24 layers, C=2048, bf16, seeded weights)
@@ -60,7 +64,16 @@ Phases, each printing its own lines:
      --dup-mae` (2 steps) on the 24-layer model as subprocesses, the saved
      encoder, then `mlm` in this process for its launch counts;
  13. encoder readings (not benchmark cells): sequences a second at B=64,
-     T=512 in both modes, the `mlm` step time, Kt/s, peak memory and profile.
+     T=512 in both modes, the `mlm` step time, Kt/s, peak memory and profile;
+ 14. the fused decode route, `rwkv_decode_step(fused_prep=True, out=state)`,
+     on the 24-layer bf16 model (B.10, B.9, B.12) and the int8c model (B.10,
+     B.9, B.11, B.4): 16 teacher-forced steps at B=64 against the fp32 plain
+     route and the unfused route, the state after them, the launch counts of
+     a step, greedy tokens against the unfused route; then readings: the
+     decode-step ablation (step, step_fused, step_attprep, step_ffnblk at
+     B=64 and B=1: ms a step over a data chain, device operations and busy
+     time of one step) and the op-level comparison of the decode step on the
+     logical and on the transposed state.
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no result. Without a CUDA device it exits non-zero
@@ -110,6 +123,14 @@ from rwkv_lm_ext_tpu_torch.models.init import init_rwkv_params
 from rwkv_lm_ext_tpu_torch.models.rwkv import KERNEL_OPS, PLAIN_OPS, RWKV
 from rwkv_lm_ext_tpu_torch.models.state import init_model_state
 from rwkv_lm_ext_tpu_torch.ops import _lib, launch_counts, reset_launch_counts
+from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
+    att_prep_fused,
+    att_prep_plain,
+    ffn_block_fused,
+    ffn_block_plain,
+    ffn_prep_fused,
+    ffn_prep_plain,
+)
 from rwkv_lm_ext_tpu_torch.ops.ddlerp import (
     tmix_prologue,
     tmix_prologue_bwd,
@@ -126,7 +147,12 @@ from rwkv_lm_ext_tpu_torch.ops.wkv import (
     wkv_bwd_plain,
     wkv_plain,
 )
-from rwkv_lm_ext_tpu_torch.ops.wkv_decode import wkv6_decode_step, wkv6_decode_step_plain
+from rwkv_lm_ext_tpu_torch.ops.wkv_decode import (
+    transpose_state,
+    wkv6_decode_step,
+    wkv6_decode_step_plain,
+    wkv6_decode_step_transposed,
+)
 from rwkv_lm_ext_tpu_torch.ops.wkv_fused import (
     wkv6_fused_output,
     wkv6_fused_output_bwd,
@@ -145,6 +171,7 @@ DEV = "cuda"
 BF16 = torch.bfloat16
 # main-path geometry of RWKV-6-World-1B6 at the headline batch
 B, T, C, H, N, D, F = 64, 512, 2048, 32, 64, 32, 7168
+DD = 64                # width of the decay low-rank
 LN_X_EPS = 6.4e-4
 
 KERNELS = {
@@ -169,21 +196,42 @@ KERNELS = {
     # pass 1 of the unfused WKV's backward: B.6 with gn=False
     "wkv_bwd_state_pass": dict(source="rwkv_lm_ext_tpu_torch/csrc/wkv_fused_bwd.cu",
                                replaces="rwkv_lm_ext_tpu/ops/wkv_pallas.py:1132"),
+    # the fused T=1 decode route
+    "att_prep_fused": dict(source="rwkv_lm_ext_tpu_torch/csrc/decode_fused.cu",
+                           replaces="rwkv_lm_ext_tpu/ops/decode_fused.py:101"),
+    "ffn_prep_fused": dict(source="rwkv_lm_ext_tpu_torch/csrc/decode_fused.cu",
+                           replaces="rwkv_lm_ext_tpu/ops/decode_fused.py:251"),
+    "ffn_block_fused": dict(source="rwkv_lm_ext_tpu_torch/csrc/decode_fused.cu",
+                            replaces="rwkv_lm_ext_tpu/ops/decode_fused.py:354"),
+    # the decode step on a transposed state: a layout option of the op, reached
+    # by the op-level comparison only, as in the JAX package
+    "wkv6_decode_step_transposed": dict(source="rwkv_lm_ext_tpu_torch/csrc/wkv_decode.cu",
+                                        replaces="scripts/bench_decode_transposed.py:65"),
 }
 NO_BACKWARD = {"tmix_prologue_bwd": 0, "wkv6_bwd_forward_pass": 0, "wkv6_bwd_reverse_pass": 0,
                "wkv_bwd_state_pass": 0}
+# the kernels that only rwkv_decode_step(fused_prep=True) and the transposed
+# decode step launch: no other path runs them
+NO_FUSED = {"att_prep_fused": 0, "ffn_prep_fused": 0, "ffn_block_fused": 0,
+            "wkv6_decode_step_transposed": 0}
 # launches per forward of the 24-layer model: ln0 + 24 ln2 + ln_out, and one
 # prologue and one WKV per layer; a decode step swaps K1 for the decode
 # kernel; int8c adds 8 row quantizations a layer (5 att + 3 ffn projections)
 PER_FORWARD = {"layer_norm": 26, "tmix_prologue": 24, "wkv6_fused_output": 24,
-               "wkv6_decode_step": 0, "quantize_rows": 0, "wkv": 0, **NO_BACKWARD}
+               "wkv6_decode_step": 0, "quantize_rows": 0, "wkv": 0, **NO_BACKWARD, **NO_FUSED}
 PER_STEP = {"layer_norm": 26, "tmix_prologue": 24, "wkv6_fused_output": 0,
-            "wkv6_decode_step": 24, "quantize_rows": 0, "wkv": 0, **NO_BACKWARD}
+            "wkv6_decode_step": 24, "quantize_rows": 0, "wkv": 0, **NO_BACKWARD, **NO_FUSED}
 # one forward of the bidirectional encoder, either mode: ln0 + 24 x (ln1, ln2)
 # + ln_out through K3 (the plain projections take ln1's output), and the
 # unfused WKV twice a layer
 NO_LAUNCH = {k: 0 for k in PER_FORWARD}
 ENCODER_FORWARD = dict(NO_LAUNCH, layer_norm=50, wkv=48)
+# a decode step with fused_prep: K3 only for ln0 and ln_out, no K2; per layer
+# the attention prologue B.10, the decode kernel, and the whole channel mix
+# B.12 (dense weights) or its prologue B.11 (quantized weights)
+PER_FUSED_STEP = dict(NO_LAUNCH, layer_norm=2, att_prep_fused=24, wkv6_decode_step=24,
+                      ffn_block_fused=24)
+PER_FUSED_STEP_QUANT = dict(PER_FUSED_STEP, ffn_block_fused=0, ffn_prep_fused=24)
 
 
 def encoder_step_counts(n_layer: int, remat: bool) -> dict:
@@ -726,7 +774,8 @@ def teacher_forced(model, prompt, tokens, *, reference: bool) -> torch.Tensor:
     return torch.stack(out)
 
 
-def phase_generate_bf16(model, reference) -> None:
+def phase_generate_bf16(model, reference) -> torch.Tensor:
+    """Returns the prompt of its greedy generation."""
     gen = torch.Generator(device=DEV).manual_seed(5)
     vocab = model.cfg.vocab_size
     tokens = torch.randint(4, vocab, (4, 80), device=DEV, generator=gen)
@@ -763,6 +812,7 @@ def phase_generate_bf16(model, reference) -> None:
     print(f"  bf16 per-layer fidelity, kernel vs plain ops on the same input: min cosine "
           f"{fid:.7f} (limit 0.999)")
     check(fid >= 0.999, f"bf16 per-layer kernel-vs-plain cosine {fid}")
+    return prompt
 
 
 class CliServer:
@@ -857,7 +907,8 @@ def phase_int8c_cli(path: str) -> tuple:
         counts = launch_counts()
     check(code == 200 and events[-1]["output"] == out["output"], "in-process int8c /generate")
     print(f"  in-process CLI build, /generate blocking + SSE: launches {counts}")
-    check(all(n > 0 for k, n in counts.items() if k not in NO_BACKWARD and k != "wkv"),
+    check(all(n > 0 for k, n in counts.items()
+              if k not in NO_BACKWARD and k not in NO_FUSED and k != "wkv"),
           f"a kernel did not run in /generate: {counts}")
     return model_q, counts
 
@@ -884,8 +935,9 @@ def layer_fidelity(model, prompt: torch.Tensor, token: torch.Tensor) -> float:
     return worst
 
 
-def phase_int8c_checks(model_q, reference, weights) -> None:
-    """The int8c kernel route against the int8c plain route. Per layer
+def phase_int8c_checks(model_q, reference, weights) -> torch.Tensor:
+    """The int8c kernel route against the int8c plain route; quantizes
+    `reference` (int8c, fp32) and returns the prompt of its generation. Per layer
     (same inputs) the limit is 0.999. End to end, per-token int8
     quantization turns a one-ulp difference of a bf16 activation into a
     whole quantization step, so two int8c routes that round activations
@@ -916,6 +968,7 @@ def phase_int8c_checks(model_q, reference, weights) -> None:
     check(1 - cos_bf16 <= 1 - floor,
           f"int8c kernel route departs from its plain route ({cos_bf16}) by more than int8c "
           f"departs from unquantized ({floor})")
+    return prompt
 
 
 def phase_int8c_embeddings(model_q, reference, unquantized) -> None:
@@ -1002,6 +1055,251 @@ def phase_decode_readings(model, label: str, smi: str) -> None:
           f"prompts, 128 new tokens, {label}, {batch_s:.2f} s) on {smi}")
     print(f"  reading: single stream {128 / single_s:.1f} tok/s with generate (B=1, 128 tokens, "
           f"block_size=16, {label}, {single_s:.2f} s) on {smi}")
+
+
+def greedy_tokens(model, prompt: torch.Tensor, n: int, fused_prep: bool):
+    """n greedy tokens after `prompt` (B=1) by rwkv_decode_step alone, and the
+    logits each was picked from: (n,) tokens, (n, V) fp32 logits."""
+    with torch.inference_mode():
+        logits, state = model(prompt[None])
+        rows, toks = [logits[0, -1].float()], []
+        for _ in range(n):
+            toks.append(rows[-1].argmax())
+            if len(toks) < n:
+                lg, state = rwkv_decode_step(model, toks[-1].view(1), state, out=state,
+                                             fused_prep=fused_prep)
+                rows.append(lg[0].float())
+    return torch.stack(toks), torch.stack(rows)
+
+
+FUSED_STEPS = 16
+# least cosine of a (layer, stream) state row between the fused and the
+# unfused route after FUSED_STEPS steps: unquantized, int8c
+STATE_COS = {False: 0.999, True: 0.98}
+
+
+def phase_fused_decode(model, plain_model, prompt: torch.Tensor, label: str, seed: int) -> dict:
+    """rwkv_decode_step(fused_prep=True, out=state) on a 24-layer model:
+    FUSED_STEPS teacher-forced steps at B=64 from a prefilled state, against
+    the unfused kernel route and against the fp32 plain route (`plain_model`:
+    the same weights in fp32, quantized the same way); the launches of one
+    step; then greedy tokens at B=1 from `prompt`, fused against unfused.
+    Returns the launch counts of the teacher-forced run.
+
+    The limits. bf16: every step's logits hold cosine >= 0.999 to the fp32
+    plain route, as the unfused route does. int8c: two routes that round an
+    activation differently fall a whole quantization step apart (see
+    phase_int8c_checks), so the fused route is held to lie no farther from
+    the plain route than the unfused route does, within 2e-3. The state
+    after the steps is held by the cosine of each (layer, stream) row to the
+    unfused route's (STATE_COS): the fused route carries unrounded shift rows
+    and an unrounded xw where the unfused one rounds both to bf16, 16 steps
+    through 24 layers compound that, and under int8c each such rounding can
+    move an activation by a whole quantization step, so a largest absolute
+    difference says little."""
+    quantized = isinstance(model.blocks[0].ffn.key, QuantLinear)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    vocab = model.cfg.vocab_size
+    tokens = torch.randint(4, vocab, (B, 16 + FUSED_STEPS), device=DEV, generator=gen)
+    with torch.inference_mode():
+        _, state = model(tokens[:, :16])
+        _, plain_state = plain_model(tokens[:, :16], reference=True)
+        fused_state = {k: v.clone() for k, v in state.items()}
+        rows = {"fused": [], "unfused": [], "plain": []}
+        reset_launch_counts()
+        for t in range(16, 16 + FUSED_STEPS):
+            lg, fused_state = rwkv_decode_step(model, tokens[:, t], fused_state, out=fused_state,
+                                               fused_prep=True)
+            rows["fused"].append(lg.float())
+        counts = launch_counts()
+        for t in range(16, 16 + FUSED_STEPS):
+            lg, state = rwkv_decode_step(model, tokens[:, t], state, out=state)
+            rows["unfused"].append(lg.float())
+            lg, plain_state = rwkv_decode_step(plain_model, tokens[:, t], plain_state,
+                                               out=plain_state, reference=True)
+            rows["plain"].append(lg.float())
+    want = PER_FUSED_STEP_QUANT if quantized else PER_FUSED_STEP
+    want = dict(want, quantize_rows=INT8C_PER_LAYER * model.cfg.n_layer if quantized else 0)
+    print(f"  {label}: launches in {FUSED_STEPS} fused decode steps at B={B}: {counts}")
+    check(counts == {k: n * FUSED_STEPS for k, n in want.items()},
+          f"fused decode-step launch counts {counts} != {want} x {FUSED_STEPS}")
+    fused, unfused, plain = (torch.stack(rows[k], 1) for k in ("fused", "unfused", "plain"))
+    check(bool(torch.isfinite(fused).all()) and fused.shape == (B, FUSED_STEPS, vocab),
+          "fused decode logits: shape or values")
+    cos_f, cos_u, cos_fu = min_cosine(fused, plain), min_cosine(unfused, plain), min_cosine(fused, unfused)
+    print(f"  {label}: {FUSED_STEPS} teacher-forced steps at B={B}, min per-step logits cosine: fused "
+          f"route vs fp32 plain route {cos_f:.6f}, unfused route vs fp32 plain route {cos_u:.6f}, "
+          f"fused vs unfused {cos_fu:.6f}")
+    if quantized:
+        check(cos_f >= cos_u - 2e-3, f"{label}: the fused route ({cos_f}) lies farther from the plain "
+              f"route than the unfused route ({cos_u}) by more than 2e-3")
+    else:
+        check(cos_f >= 0.999, f"{label}: fused route vs fp32 plain route cosine {cos_f}")
+    for key in state:
+        rows_f, rows_u = (t[key].flatten(0, 1).flatten(1) for t in (fused_state, state))
+        cos = min_cosine(rows_f, rows_u)
+        err = (rows_f - rows_u).abs().max().item()
+        print(f"  {label}: state[{key}] after {FUSED_STEPS} steps, fused vs unfused: min cosine over "
+              f"the {rows_f.shape[0]} (layer, stream) rows {cos:.6f} (limit {STATE_COS[quantized]}), "
+              f"max |diff| {err:.3e} of max {rows_u.abs().max().item():.3e}")
+        check(cos >= STATE_COS[quantized], f"{label}: fused state[{key}] cosine {cos}")
+
+    n = 64
+    toks_f, logits_f = greedy_tokens(model, prompt, n, True)
+    toks_u, logits_u = greedy_tokens(model, prompt, n, False)
+    differ = (toks_f != toks_u).nonzero()
+    if differ.numel() == 0:
+        print(f"  {label}: {n} greedy tokens at B=1, fused route == unfused route")
+    else:
+        # up to the first divergence both routes saw the same tokens: the
+        # step is explained when the unfused route's margin between the two
+        # candidates is within the two routes' logit difference there
+        i = int(differ[0])
+        margin = float(logits_u[i, toks_u[i]] - logits_u[i, toks_f[i]])
+        gap = float((logits_f[i] - logits_u[i]).abs().max())
+        print(f"  {label}: greedy tokens at B=1 agree for {i} of {n}; at step {i} the unfused route "
+              f"prefers its token by {margin:.4f}, the two routes' logits differ by up to {gap:.4f}")
+        check(margin <= 2 * gap, f"{label}: greedy divergence at step {i} with margin {margin} "
+              f"beyond twice the routes' logit difference {gap}")
+    return counts
+
+
+def spliced_step(model, tokens, state, variant: str):
+    """A decode step with one side fused and the other not, in place:
+    `step_attprep` runs B.10 and the unfused channel mix, `step_ffnblk` K2
+    and B.12: the hand-spliced variants of scripts/ablate_decode_fused.py."""
+    ops = KERNEL_OPS
+    x = model.embed(tokens[:, None])
+    for i, blk in enumerate(model.blocks):
+        if blk.ln0 is not None:
+            x = ops.layer_norm(x, blk.ln0.weight, blk.ln0.bias)
+        shift, wkv_s = state["att_shift"][i], state["wkv"][i]
+        if variant == "step_attprep":
+            att_out, att_shift = blk.att.step_fused(x[:, 0], blk.ln1, shift, wkv_s, wkv_s, ops)
+            x = x + att_out[:, None]
+            ffn_out, ffn_shift = blk.ffn(ops.layer_norm(x, blk.ln2.weight, blk.ln2.bias),
+                                         state["ffn_shift"][i], ops)
+            x = x + ffn_out
+        else:
+            att_out, att_shift = blk.att.step(x, blk.ln1, shift, wkv_s, wkv_s, ops)
+            x, ffn_shift = blk.ffn.step_fused((x + att_out)[:, 0], blk.ln2, state["ffn_shift"][i], ops)
+            x = x[:, None]
+        state["att_shift"][i].copy_(att_shift)
+        state["ffn_shift"][i].copy_(ffn_shift)
+    x = ops.layer_norm(x, model.ln_out.weight, model.ln_out.bias)
+    return model.head(x, ops)[:, 0], state
+
+
+ABLATION = ("step", "step_fused", "step_attprep", "step_ffnblk")
+FUSED_GROUPS = {
+    "B.10": ("att_prep_kernel",), "B.11": ("ffn_prep_kernel",),
+    "B.12 products": ("ffn_gemm_",), "B.12 gated residual": ("ffn_out_kernel",),
+    "B.9": ("wkv6_decode_kernel",), "K2": ("tmix_prologue_kernel",), "K3": ("layer_norm_kernel",),
+    "B.4": ("quant_rows_",),
+    "GEMMs": ("gemm", "nvjet", "xmma", "cutlass", "gemv"),
+}
+
+
+def phase_decode_ablation(model, label: str, smi: str, variants=ABLATION) -> None:
+    """Readings, not checks: ms a step and aggregate tok/s of the decode step
+    alone, greedy without sampling, at B=64 and B=1. Each variant runs 32
+    steps in place over a data chain (the next token is the argmax of the last
+    logits) between CUDA events, after 4 warm-up steps, in turns and twice;
+    then one step under the profiler for its device operations, busy time
+    and split."""
+    def one(variant, tok, state):
+        if variant in ("step", "step_fused"):
+            lg, state = rwkv_decode_step(model, tok, state, out=state,
+                                         fused_prep=variant == "step_fused")
+        else:
+            lg, state = spliced_step(model, tok, state, variant)
+        return lg.argmax(-1), state
+
+    iters = 32
+
+    def timed(variant, b):
+        state = init_model_state(model.cfg, b, device=DEV)
+        tok = torch.full((b,), 5, device=DEV)
+        for _ in range(4):
+            tok, state = one(variant, tok, state)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            tok, state = one(variant, tok, state)
+        end.record()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(state["wkv"]).all()), f"{variant}: non-finite state")
+        return start.elapsed_time(end) / iters, tok, state
+
+    for b in (B, 1):
+        with torch.inference_mode():
+            # every variant in turns, twice: the host's clock decides these
+            # times and the two rounds show its spread
+            rounds = [{v: timed(v, b) for v in variants} for _ in range(2)]
+            for variant in variants:
+                ms, tok, state = rounds[1][variant]
+                ops = device_ops(lambda: one(variant, tok, state), 1)
+                busy = sum(e.self_device_time_total for e in ops) / 1e3
+                shown = ", ".join(f"{g} {v:.3f}" for g, v in split_by_group(ops, FUSED_GROUPS).items()
+                                  if v > 0)
+                first = rounds[0][variant][0]
+                print(f"  reading: {variant} B={b} {label}: {ms:.3f} ms a step ({first:.3f} in the first "
+                      f"round), {b / ms * 1e3:.1f} tok/s aggregate; one step: {len(ops)} device ops, "
+                      f"busy {busy:.3f} ms ({100 * busy / ms:.1f} % of the step); ms by group: {shown}; "
+                      f"on {smi}")
+
+
+def phase_transposed_bench(smi: str) -> dict:
+    """The op-level comparison that reaches B.13, as
+    scripts/bench_decode_transposed.py runs it for the TPU kernel: the inputs
+    of that script (w ~ U(-3, -0.3), state 0.1 x normal) at the 1B6 decode
+    shape, B=64 and B=1; numerics against the plain step; then a chain of 200
+    in-place steps on each layout, the state being the data dependency: time
+    an op between CUDA events (which at these sizes is the time to launch one
+    from Python) and its device time from the profiler. Returns the launch
+    counts of the chains."""
+    rng = Inputs(20)
+    iters = 200
+    reset_launch_counts()
+    for b in (B, 1):
+        r, k, v, g = (rng.normal(b, C) for _ in range(4))
+        w = rng.uniform(b, C, lo=-3.0, hi=-0.3, dtype=torch.float32)
+        u = rng.normal(H, N, scale=0.5, dtype=torch.float32)
+        sc = rng.normal(C, scale=0.1, dtype=torch.float32) + 1
+        bi = rng.normal(C, scale=0.1, dtype=torch.float32)
+        s_log = rng.normal(b, H, N, N, scale=0.1, dtype=torch.float32)
+        args = (r, k, v, w, g, u, sc, bi)
+        po, ps = wkv6_decode_step_plain(*f32(*args), s_log, eps=LN_X_EPS)
+        o, s_t = wkv6_decode_step_transposed(*args, transpose_state(s_log), eps=LN_X_EPS)
+        err_line(f"op bench B={b}: transposed step out", o, po, 2e-2)
+        err_line(f"op bench B={b}: transposed step state", transpose_state(s_t), ps, 1e-5)
+        for name, step, s0 in (("logical state (B.9)", wkv6_decode_step, s_log.clone()),
+                               ("transposed state (B.13)", wkv6_decode_step_transposed,
+                                transpose_state(s_log))):
+            def chain(n, state=s0, step=step):
+                total = torch.zeros((), device=DEV)
+                for _ in range(n):
+                    out, _ = step(*args, state, eps=LN_X_EPS, out_state=state)
+                    total += out.float().sum()       # keeps the y path alive
+                return total
+            chain(8)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            total = chain(iters)
+            end.record()
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(total)) and bool(torch.isfinite(s0).all()),
+                  f"op bench {name}: non-finite chain")
+            dev_us = device_ms_by_kernel(lambda: chain(20), 1, {"step": ("wkv6_decode",)})["step"] / 20 * 1e3
+            print(f"  reading: op bench B={b}, {name}: {start.elapsed_time(end) / iters * 1e3:.1f} us an "
+                  f"op between CUDA events over {iters} chained in-place steps (with the sum that "
+                  f"keeps y alive), {dev_us:.1f} us of device time a step; on {smi}")
+    counts = launch_counts()
+    check(counts["wkv6_decode_step_transposed"] > 2 * iters and counts["wkv6_decode_step"] > 2 * iters,
+          f"the op bench launched {counts}")
+    return counts
 
 
 LORA = LoraConfig(r=8, alpha=32.0)
@@ -1113,11 +1411,10 @@ STEP_GROUPS = {
 }
 
 
-def step_profile(step, batch, step_ms: float, groups: dict = STEP_GROUPS) -> None:
-    """Device time of one train step by kernel group (torch.profiler,
-    device operations only); idle = the step's CUDA-event time less busy."""
-    ops = device_ops(lambda: step(batch), 1)
-    busy = sum(e.self_device_time_total for e in ops) / 1e3
+def split_by_group(ops, groups: dict) -> dict:
+    """Device ms of `ops` by kernel group: an operation counts for the first
+    group one of whose substrings its name holds (case-insensitive), else
+    for "elementwise, reductions, copies"."""
     split = {g: 0.0 for g in groups}
     split["elementwise, reductions, copies"] = 0.0
     for e in ops:
@@ -1125,9 +1422,17 @@ def step_profile(step, batch, step_ms: float, groups: dict = STEP_GROUPS) -> Non
         group = next((g for g, keys in groups.items() if any(k.lower() in name for k in keys)),
                      "elementwise, reductions, copies")
         split[group] += e.self_device_time_total / 1e3
+    return split
+
+
+def step_profile(step, batch, step_ms: float, groups: dict = STEP_GROUPS) -> None:
+    """Device time of one train step by kernel group (torch.profiler,
+    device operations only); idle = the step's CUDA-event time less busy."""
+    ops = device_ops(lambda: step(batch), 1)
+    busy = sum(e.self_device_time_total for e in ops) / 1e3
     print(f"  profile of one step (remat on): {len(ops)} device ops, busy {busy:.3f} ms of "
           f"{step_ms:.3f} ms, idle {100 * max(step_ms - busy, 0) / step_ms:.2f} %")
-    for g, v in split.items():
+    for g, v in split_by_group(ops, groups).items():
         print(f"    {g}: {v:.3f} ms ({100 * v / busy:.1f} %)")
 
 
@@ -1410,6 +1715,174 @@ def phase_wkv_kernels() -> dict:
                 # update, the dr' tile and its row sums in fp64
                 **roofline(nbytes(c["k"], c["v"], c["w"], c["dy"]) + 2 * y_bytes + 8 * TB * H * N,
                            {"fp64": 5 * steps}))
+    return out
+
+
+PREP_REL = {torch.float32: 2e-5, BF16: 1e-2}     # B.10, B.11, x max|plain|
+BLOCK_REL = {torch.float32: 3e-5, BF16: 1e-2}    # B.12: three products deep
+
+
+def phase_fused_kernels() -> dict:
+    """The fused decode kernels B.10, B.11, B.12 at the 1B6 widths, B=64 and
+    B=1, fp32 and bf16, each against its plain version on the same inputs
+    (which repeats the kernel's roundings) and called twice bit-equal; B.13
+    against the plain step and against B.9, whose new state it must equal bit
+    for bit after a transpose. Timed in bf16 at both batch sizes, beside the
+    calls each replaces on the unfused decode step: for B.10, K2 at T=1 and
+    the plain decay low-rank; for B.12, K3 + the mixes + three F.linear; for
+    B.13, B.9. Returns {kernel: {max_abs_err, ms, plain_ms, bound...}} at
+    B=64, bf16."""
+    rng = Inputs(17)
+    out = {}
+    lin = torch.nn.functional.linear
+
+    def att_args(b, dtype):
+        return (rng.normal(b, C, dtype=dtype), rng.normal(b, C, dtype=torch.float32),
+                rng.normal(C, scale=0.1, dtype=dtype) + 1, rng.normal(C, scale=0.1, dtype=dtype),
+                rng.normal(6, C, scale=0.5, dtype=dtype), rng.normal(C, 5 * D, scale=0.05, dtype=dtype),
+                rng.normal(5, D, C, scale=0.1, dtype=dtype), rng.normal(C, DD, scale=0.05, dtype=dtype),
+                rng.normal(DD, C, scale=0.1, dtype=dtype), rng.normal(C, dtype=dtype))
+
+    def ffn_weights(dtype):
+        return (rng.normal(F, C, scale=0.03, dtype=dtype), rng.normal(C, F, scale=0.03, dtype=dtype),
+                rng.normal(C, C, scale=0.03, dtype=dtype))
+
+    def held(name, fn, plain, args, names, rel):
+        got = fn(*args)
+        check(bit_equal(got, fn(*args)), f"{name}: two calls differ")
+        return max(err_line(f"{name} {n}", g, w, rel) for n, g, w in zip(names, got, plain(*args)))
+
+    def k2_and_decay(a):
+        """What B.10 replaces on the unfused step: K2 at T=1 and the fp32
+        decay low-rank on its xw (TimeMix._mix)."""
+        x, shift, sc, bi, maas, w1, w2, dw1, dw2, td = a
+        xw = tmix_prologue(x[:, None], shift.to(x.dtype), sc, bi, maas, w1, w2)[0]
+        return td.float() + torch.tanh(xw[:, 0].float() @ dw1.float()) @ dw2.float()
+
+    def unfused_channel_mix(a):
+        """What B.12 replaces: K3 (ln2), the two mixes, three F.linear and the
+        gated residual, as Block.step runs them without fused_prep."""
+        x, shift, sc, bi, maa_k, maa_r, wk, wv, wr = a
+        xn = layer_norm(x[:, None], sc, bi)
+        xx = shift.to(x.dtype)[:, None] - xn
+        kv = lin(torch.relu(lin(xn + xx * maa_k, wk)) ** 2, wv)
+        return x[:, None] + torch.sigmoid(lin(xn + xx * maa_r, wr)) * kv
+
+    errs, times = {}, {}
+    for b in (B, 1):
+        for dtype in (torch.float32, BF16):
+            tag = f"(B,C)=({b},{C}) {str(dtype)[6:]}"
+            a = att_args(b, dtype)
+            f = a[:4] + (a[4][2], a[4][4])            # x, shift, ln, maa_k, maa_r
+            blk = f + ffn_weights(dtype)
+            e = dict(
+                att_prep_fused=held(f"B.10 {tag} D={D} Dd={DD}", att_prep_fused, att_prep_plain, a,
+                                    ("xr", "xk", "xv", "xg", "w", "xn"), PREP_REL[dtype]),
+                ffn_prep_fused=held(f"B.11 {tag}", ffn_prep_fused, ffn_prep_plain, f,
+                                    ("xk", "xr", "xn"), PREP_REL[dtype]),
+                ffn_block_fused=held(f"B.12 {tag} F={F}", ffn_block_fused, ffn_block_plain, blk,
+                                     ("out", "xn"), BLOCK_REL[dtype]))
+            if dtype != BF16:
+                continue
+            errs[b] = e
+            times[b] = t = dict(
+                att_prep_fused=(device_ms(lambda: att_prep_fused(*a), 20),
+                                device_ms(lambda: att_prep_plain(*a), 10),
+                                device_ms(lambda: k2_and_decay(a), 20)),
+                ffn_prep_fused=(device_ms(lambda: ffn_prep_fused(*f), 20),
+                                device_ms(lambda: ffn_prep_plain(*f), 10), None),
+                ffn_block_fused=(device_ms(lambda: ffn_block_fused(*blk), 20),
+                                 device_ms(lambda: ffn_block_plain(*blk), 5),
+                                 device_ms(lambda: unfused_channel_mix(blk), 20)))
+            split = device_ms_by_kernel(lambda: ffn_block_fused(*blk), 20, {
+                "prologue": ("ffn_prep_kernel",), "key product": ("ffn_gemm_bf16_kernel<true>",
+                                                                   "ffn_gemm_bf16_kernel<(bool)1>"),
+                "value + receptance products": ("ffn_gemm_bf16_kernel<false>",
+                                                "ffn_gemm_bf16_kernel<(bool)0>"),
+                "gated residual": ("ffn_out_kernel",)})
+            print(f"  B={b}, bf16: B.10 {t['att_prep_fused'][0]:.4f} ms (plain {t['att_prep_fused'][1]:.4f} "
+                  f"ms; K2 at T=1 + the plain decay low-rank it replaces {t['att_prep_fused'][2]:.4f} ms); "
+                  f"B.11 {t['ffn_prep_fused'][0]:.4f} ms (plain {t['ffn_prep_fused'][1]:.4f} ms); "
+                  f"B.12 {t['ffn_block_fused'][0]:.4f} ms (plain {t['ffn_block_fused'][1]:.4f} ms; the "
+                  f"unfused channel mix it replaces, K3 + mixes + three F.linear, "
+                  f"{t['ffn_block_fused'][2]:.4f} ms)")
+            print("    B.12 by launch: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
+            if b == B:
+                main = dict(att_prep_fused=a, ffn_prep_fused=f, ffn_block_fused=blk)
+    a, f, blk = main["att_prep_fused"], main["ffn_prep_fused"], main["ffn_block_fused"]
+    rows_bf16, rows_f32 = 2 * B * C, 4 * B * C      # one (B, C) output in each type
+    bounds = dict(
+        # xr, xk, xv, xg and fp32 w, xn out; the ddlerp products (C x 5D,
+        # 5 x D x C) of bf16 operands, the decay products (C x Dd, Dd x C) in
+        # fp32, LayerNorm and six mixes (~40 fp32 an element)
+        att_prep_fused=roofline(nbytes(*a) + 4 * rows_bf16 + 2 * rows_f32, {
+            "bf16 mma": 2 * 2 * B * C * 5 * D, "fp32": 2 * 2 * B * C * DD + 40 * B * C}),
+        # LayerNorm and two mixes: ~14 fp32 an element
+        ffn_prep_fused=roofline(nbytes(*f) + 2 * rows_bf16 + rows_f32, {"fp32": 14 * B * C}),
+        # the three weight matrices once; their products of bf16 operands
+        ffn_block_fused=roofline(nbytes(*blk) + rows_bf16 + rows_f32, {
+            "bf16 mma": 2 * B * (2 * C * F + C * C), "fp32": 20 * B * C + 3 * B * F}))
+    for name, bound in bounds.items():
+        ms, plain_ms, replaced = times[B][name]
+        # no single PyTorch call computes one of these functions: library_ms
+        # stays null and the calls each replaces stand beside it
+        out[name] = dict(max_abs_err=max(errs[B][name], errs[1][name]), ms=ms, plain_ms=plain_ms,
+                         **bound, replaced_ms=replaced, ms_at_b1=times[1][name][0])
+
+    def decode_args(b):
+        r, k, v, g = (rng.normal(b, C) for _ in range(4))
+        w = rng.uniform(b, C, lo=-8.0, hi=2.5, dtype=torch.float32)
+        return (r, k, v, w, g, rng.normal(H, N, scale=0.5), rng.normal(C, scale=0.1) + 1,
+                rng.normal(C, scale=0.1), rng.normal(b, H, N, N, scale=0.3, dtype=torch.float32))
+
+    t13, e13 = {}, []
+    for b in (B, 1):
+        args = decode_args(b)
+        state = args[-1]
+        po, ps = wkv6_decode_step_plain(*f32(*args), eps=LN_X_EPS)
+        o9, s9 = wkv6_decode_step(*args, eps=LN_X_EPS)
+        buf = transpose_state(state)
+        o, s_t = wkv6_decode_step_transposed(*args[:-1], buf, eps=LN_X_EPS, out_state=buf)
+        check(s_t.data_ptr() == buf.data_ptr(), "B.13 did not update its state in place")
+        e13.append(err_line(f"B.13 B={b} out", o, po, 1e-2))
+        err_line(f"B.13 B={b} state (in place, transposed back)", transpose_state(s_t), ps, 1e-5)
+        same = torch.equal(transpose_state(s_t), s9)
+        print(f"  B.13 B={b}: new state {'bit-equal' if same else 'NOT bit-equal'} to B.9's after a "
+              f"transpose; outputs differ by {(o.float() - o9.float()).abs().max().item():.3e} (y is "
+              f"summed in another order)")
+        check(same, "B.13's state is not B.9's")
+        fresh = wkv6_decode_step_transposed(*args[:-1], transpose_state(state), eps=LN_X_EPS)
+        check(bit_equal(fresh, (o, s_t)), "B.13: two calls differ")
+        b9, b13 = state.clone(), transpose_state(state)
+        t13[b] = (device_ms(lambda: wkv6_decode_step_transposed(
+                      *args[:-1], b13, eps=LN_X_EPS, out_state=b13), 50),
+                  device_ms(lambda: wkv6_decode_step(*args[:-1], b9, eps=LN_X_EPS, out_state=b9), 50),
+                  device_ms(lambda: wkv6_decode_step_plain(*args, eps=LN_X_EPS), 20))
+        print(f"  B.13 B={b}: transposed state {t13[b][0]:.4f} ms, B.9 (logical state) {t13[b][1]:.4f} "
+              f"ms, plain {t13[b][2]:.4f} ms")
+        if b == B:
+            # One buffer updated in place again and again partly stays in the
+            # 50 MB L2 (33.5 MB of state); a decode step walks 24 layers'
+            # states and finds each cold. Six buffers in turn (201 MB) put
+            # both layouts in that condition.
+            cold = {}
+            for name, step, make in (("B.13", wkv6_decode_step_transposed, transpose_state),
+                                     ("B.9", wkv6_decode_step, torch.clone)):
+                bufs, turn = [make(state) for _ in range(6)], [0]
+
+                def rotate(step=step, bufs=bufs, turn=turn):
+                    buf = bufs[turn[0] % len(bufs)]
+                    turn[0] += 1
+                    step(*args[:-1], buf, eps=LN_X_EPS, out_state=buf)
+                cold[name] = device_ms(rotate, 48)
+                del bufs
+            print(f"  B.13 B={b}, each launch on a state that is cold in L2 (six buffers in turn): "
+                  f"transposed state {cold['B.13']:.4f} ms, B.9 {cold['B.9']:.4f} ms")
+        if b == B:
+            bound = roofline(nbytes(*args) + nbytes(args[0], state), {"fp32": 5 * B * H * N * N})
+    out["wkv6_decode_step_transposed"] = dict(
+        max_abs_err=max(e13), ms=t13[B][0], plain_ms=t13[B][2], **bound, replaced_ms=t13[B][1],
+        ms_at_b1=t13[1][0])
     return out
 
 
@@ -1760,6 +2233,7 @@ def main() -> None:
     kernels = phase_kernels()
     kernels.update(phase_backward_kernels())
     kernels.update(phase_wkv_kernels())
+    kernels.update(phase_fused_kernels())
 
     phase("phase 3: synthetic RWKV-6-World-1B6, bf16, embeddings served over HTTP")
     cfg = rwkv6_1b6()
@@ -1772,7 +2246,10 @@ def main() -> None:
     embed_counts = phase_serve(model, cfg, reference)
 
     phase("phase 4: generation, bf16")
-    phase_generate_bf16(model, reference)
+    prompt = phase_generate_bf16(model, reference)
+
+    phase(f"phase 14a: fused decode (rwkv_decode_step(fused_prep=True)), 24 layers, bf16, B={B}")
+    fused_counts = phase_fused_decode(model, reference, prompt, "bf16", seed=18)
 
     phase(f"phase 10a: the bidirectional encoder, 24 layers, B={TB}, T={T}")
     phase_encoder(model, reference)
@@ -1790,17 +2267,26 @@ def main() -> None:
         print(f"  saved the bf16 model ({Path(path).stat().st_size / 2**30:.2f} GiB) "
               f"in {time.perf_counter() - t0:.1f} s")
         model_q, generate_counts = phase_int8c_cli(path)
-        phase_int8c_checks(model_q, reference, weights=model.state_dict())
+        prompt_q = phase_int8c_checks(model_q, reference, weights=model.state_dict())
         phase_int8c_embeddings(model_q, reference, unquantized)
+
+        phase(f"phase 14b: fused decode, 24 layers, int8c, B={B}")
+        fused_counts_q = phase_fused_decode(model_q, reference, prompt_q, "int8c", seed=19)
         del reference
 
         phase("phase 6: serving readings (not benchmark cells)")
         phase_throughput(model, cfg, "bf16", smi)
         phase_decode_readings(model, "bf16", smi)
+        phase("phase 14c: decode-step ablation, bf16 (readings)")
+        phase_decode_ablation(model, "bf16", smi)
         del model
         phase_throughput(model_q, cfg, "int8c", smi)
         phase_decode_readings(model_q, "int8c", smi)
+        phase("phase 14d: decode-step ablation, int8c (readings)")
+        phase_decode_ablation(model_q, "int8c", smi, variants=("step", "step_fused"))
         del model_q
+        phase("phase 14e: the decode step on a transposed state, op-level comparison (readings)")
+        bench_counts = phase_transposed_bench(smi)
         torch.cuda.empty_cache()
 
         phase(f"phase 7: training gradients, kernel route vs plain route (2 layers, full width, "
@@ -1828,11 +2314,15 @@ def main() -> None:
         phase_encoder_readings(path, smi)
 
     # each kernel's launches on a main path that runs it: embedding serving,
-    # int8c generation, LoRA training, /fill_mask and the mlm trainer
+    # int8c generation, LoRA training, /fill_mask, the mlm trainer, and the
+    # fused decode route on the bf16 model (B.10, B.12) and the int8c one (B.11)
     launches = {k: embed_counts[k] for k in ("layer_norm", "tmix_prologue", "wkv6_fused_output")}
     launches.update({k: generate_counts[k] for k in ("wkv6_decode_step", "quantize_rows")})
     launches.update({k: train_counts[k] for k in NO_BACKWARD})
     launches.update(wkv=fill_mask_counts["wkv"], wkv_bwd_state_pass=mlm_counts["wkv_bwd_state_pass"])
+    launches.update({k: fused_counts[k] for k in ("att_prep_fused", "ffn_block_fused")})
+    launches.update(ffn_prep_fused=fused_counts_q["ffn_prep_fused"],
+                    wkv6_decode_step_transposed=bench_counts["wkv6_decode_step_transposed"])
     check(all(n > 0 for n in launches.values()) and mlm_counts["wkv"] > 0
           and mlm_counts["wkv6_bwd_reverse_pass"] > 0 and fill_mask_counts["layer_norm"] > 0,
           f"a kernel was launched no time on its main path: {launches}")

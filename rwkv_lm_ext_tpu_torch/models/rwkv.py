@@ -19,7 +19,8 @@ WKV + GroupNorm + gate in K1, and LayerNorm in K3. A projection is a
 (int8 dequantized on use, or int8c through the B.4 quantizer and an int8
 product). Plain T=1 calls take the decode step (models/decode.py), which
 swaps K1 for the decode kernel B.9, as ``rwkv_forward`` routes them
-(:777-800). On CPU tensors every kernel wrapper runs its plain version.
+(:777-800); its opt-in ``fused_prep`` route runs ``TimeMix.step_fused`` and
+``ChannelMix.step_fused`` (kernels B.10-B.12). On CPU tensors every kernel wrapper runs its plain version.
 ``reference=True`` runs the plain versions on any device: it is the on-card
 reference that the kernels are checked against, not a serving path.
 
@@ -56,6 +57,14 @@ from torch.utils.checkpoint import checkpoint
 
 from rwkv_lm_ext_tpu_torch.models.state import ModelState, init_model_state
 from rwkv_lm_ext_tpu_torch.ops.ddlerp import tmix_prologue, tmix_prologue_plain
+from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
+    att_prep_fused,
+    att_prep_plain,
+    ffn_block_fused,
+    ffn_block_plain,
+    ffn_prep_fused,
+    ffn_prep_plain,
+)
 from rwkv_lm_ext_tpu_torch.ops.ln import layer_norm, layer_norm_plain
 from rwkv_lm_ext_tpu_torch.ops.quant import quantize_rows, quantize_rows_plain
 from rwkv_lm_ext_tpu_torch.ops.wkv_decode import (
@@ -74,12 +83,19 @@ class Ops(NamedTuple):
     wkv6_fused_output: object
     wkv6_decode_step: object
     quantize_rows: object
+    att_prep: object
+    ffn_prep: object
+    ffn_block: object
 
 
-KERNEL_OPS = Ops(layer_norm, tmix_prologue, wkv6_fused_output, wkv6_decode_step, quantize_rows)
+KERNEL_OPS = Ops(
+    layer_norm, tmix_prologue, wkv6_fused_output, wkv6_decode_step, quantize_rows,
+    att_prep_fused, ffn_prep_fused, ffn_block_fused,
+)
 PLAIN_OPS = Ops(
     layer_norm_plain, tmix_prologue_plain, wkv6_fused_output_plain,
     wkv6_decode_step_plain, quantize_rows_plain,
+    att_prep_plain, ffn_prep_plain, ffn_block_plain,
 )
 
 LayerState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -151,15 +167,18 @@ class TimeMix(nn.Module):
         # RWKV.add_state_params
         self.register_parameter("time_state", None)
 
+    def _maas(self) -> torch.Tensor:
+        """(6, C) stacked [maa_x, maa_w, maa_k, maa_v, maa_r, maa_g]."""
+        return torch.cat([
+            self.time_maa_x, self.time_maa_w, self.time_maa_k,
+            self.time_maa_v, self.time_maa_r, self.time_maa_g,
+        ]).reshape(6, -1)
+
     def _mix(self, x: torch.Tensor, ln1: Norm, att_shift: torch.Tensor, ops: Ops):
         """K2, the r/k/v/g projections and the fp32 decay: (r, k, v, g) of
         shape (B, T, A) in x's dtype, w (B, T, A) fp32 and the ln1 output."""
-        C = x.shape[-1]
         dt = x.dtype
-        maa = torch.cat([
-            self.time_maa_x, self.time_maa_w, self.time_maa_k,
-            self.time_maa_v, self.time_maa_r, self.time_maa_g,
-        ]).reshape(6, C)
+        maa = self._maas()
         xw, xk, xv, xr, xg, xln = ops.tmix_prologue(
             x, att_shift.to(dt), ln1.weight, ln1.bias, maa,
             self.time_maa_w1, self.time_maa_w2, eps=1e-5,
@@ -247,6 +266,31 @@ class TimeMix(nn.Module):
         )
         return self.output(gated.view(B, 1, -1), ops), xln[:, -1].float()
 
+    def step_fused(
+        self, x: torch.Tensor, ln1: Norm, att_shift: torch.Tensor,
+        wkv_state: torch.Tensor, out_wkv: torch.Tensor, ops: Ops,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``step`` with the fused prologue (``_att_step_fused``,
+        rwkv_lm_ext_tpu/models/decode.py:65-107): x (B, C). Kernel B.10 does
+        ln1 + shift + ddlerp + the decay low-rank in one call; the four
+        projections, the decode kernel and the output projection stay as in
+        ``step``. Returns (out (B, C), new att_shift: the unrounded fp32 ln1
+        row)."""
+        xr, xk, xv, xg, w, xn = ops.att_prep(
+            x, att_shift, ln1.weight, ln1.bias, self._maas(),
+            self.time_maa_w1, self.time_maa_w2, self.time_decay_w1, self.time_decay_w2,
+            self.time_decay, 1e-5,
+        )
+        r = self.receptance(xr, ops)
+        k = self.key(xk, ops)
+        v = self.value(xv, ops)
+        g = F.silu(self.gate(xg, ops))
+        gated, _ = ops.wkv6_decode_step(
+            r, k, v, w, g, self.time_faaaa, self.ln_x.weight, self.ln_x.bias,
+            wkv_state, eps=self.cfg.ln_x_eps, out_state=out_wkv,
+        )
+        return self.output(gated, ops), xn
+
 
 class ChannelMix(nn.Module):
     """blocks.{i}.ffn: RWKV-6 channel mix with the relu^2 key."""
@@ -270,6 +314,26 @@ class ChannelMix(nn.Module):
         xr = x + xx * self.time_maa_r.to(x.dtype)
         kv = self.value(torch.relu(self.key(xk, ops)) ** 2, ops)
         return torch.sigmoid(self.receptance(xr, ops)) * kv, x[:, -1].float()
+
+    def step_fused(
+        self, x: torch.Tensor, ln2: Norm, ffn_shift: torch.Tensor, ops: Ops
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One token with the fused prologue (``_ffn_step_fused``,
+        rwkv_lm_ext_tpu/models/decode.py:110-145): x (B, C) is the RAW
+        residual stream and the residual is folded in. Dense projections take
+        the whole-block kernel B.12; any other leaf (quantized, LoRA) takes
+        the prologue kernel B.11 and its own projections. Returns
+        (x + ffn_out (B, C), new ffn_shift in fp32)."""
+        vectors = (ffn_shift, ln2.weight, ln2.bias, self.time_maa_k, self.time_maa_r)
+        if all(type(m) is Linear for m in (self.key, self.value, self.receptance)):
+            dt = x.dtype
+            return ops.ffn_block(
+                x, *vectors, self.key.weight.to(dt), self.value.weight.to(dt),
+                self.receptance.weight.to(dt), 1e-5,
+            )
+        xk, xr, xn = ops.ffn_prep(x, *vectors, 1e-5)
+        kv = self.value(torch.relu(self.key(xk, ops)) ** 2, ops)
+        return x + torch.sigmoid(self.receptance(xr, ops)) * kv, xn
 
 
 class Block(nn.Module):
@@ -300,13 +364,25 @@ class Block(nn.Module):
         return x + ffn_out, (att_shift, wkv_state, ffn_shift)
 
     def step(
-        self, x: torch.Tensor, state: ModelState, out: ModelState, i: int, ops: Ops
+        self, x: torch.Tensor, state: ModelState, out: ModelState, i: int, ops: Ops,
+        fused_prep: bool = False,
     ) -> torch.Tensor:
         """One token through layer i: x (B, 1, C). Reads layer i of
         ``state`` and writes layer i of ``out``, which may be ``state``
-        itself (each slice is read before it is written, in stream order)."""
+        itself (each slice is read before it is written, in stream order).
+        ``fused_prep`` takes the fused decode glue (``step_fused`` of the two
+        mixes) in place of K2, K3 and the plain channel mix."""
         if self.ln0 is not None:
             x = ops.layer_norm(x, self.ln0.weight, self.ln0.bias)
+        if fused_prep:
+            x = x[:, 0]
+            att_out, att_shift = self.att.step_fused(
+                x, self.ln1, state["att_shift"][i], state["wkv"][i], out["wkv"][i], ops
+            )
+            x, ffn_shift = self.ffn.step_fused(x + att_out, self.ln2, state["ffn_shift"][i], ops)
+            out["att_shift"][i].copy_(att_shift)
+            out["ffn_shift"][i].copy_(ffn_shift)
+            return x[:, None]
         att_out, att_shift = self.att.step(
             x, self.ln1, state["att_shift"][i], state["wkv"][i], out["wkv"][i], ops
         )

@@ -66,6 +66,24 @@ _SIGNATURES = {
     "rwkv_tmix_prologue_bwd": [_P] * 27 + [_I] * 4 + [_F, _I, _P],
     # in, out, P, M, stream
     "rwkv_sum_partials": [_P, _P, _I, _L, _P],
+    # B.9's arguments, the state and out_state transposed
+    "rwkv_wkv6_decode_transposed": [_P] * 11 + [_I] * 3 + [_F, _I, _P],
+    # x, shift, ln_scale, ln_bias, maas, w1, w2, dw1, dw2, time_decay, xr, xk, xv,
+    # xg, w, xn, B, C, D, Dd, eps, dtype, param dtype, stream
+    "rwkv_att_prep": [_P] * 16 + [_I] * 4 + [_F, _I, _I, _P],
+    # x, shift, ln_scale, ln_bias, maa_k, maa_r, xk, xr, xn, B, C, eps, dtype,
+    # param dtype, stream
+    "rwkv_ffn_prep": [_P] * 9 + [_I] * 2 + [_F, _I, _I, _P],
+    # x, shift, ln_scale, ln_bias, maa_k, maa_r, wk, wv, wr, out, xn, and the
+    # scratch xk, xr, k, partials, B, C, F, eps, dtype, param dtype, stream
+    "rwkv_ffn_block": [_P] * 15 + [_I] * 3 + [_F, _I, _I, _P],
+}
+# entry points that return a size, not an error code
+_SIZE_FUNCTIONS = {
+    "rwkv_tmix_prologue_smem_bytes": [_I, _I],
+    "rwkv_tmix_prologue_bwd_smem_bytes": [_I, _I],
+    "rwkv_att_prep_smem_bytes": [_I, _I, _I],
+    "rwkv_ffn_block_slices": [_I],
 }
 
 _load_lock = threading.Lock()
@@ -146,8 +164,9 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.rwkv_error_string.argtypes = [ctypes.c_int]
             lib.rwkv_error_string.restype = ctypes.c_char_p
-            for fn in (lib.rwkv_tmix_prologue_smem_bytes, lib.rwkv_tmix_prologue_bwd_smem_bytes):
-                fn.argtypes = [_I, _I]
+            for name, argtypes in _SIZE_FUNCTIONS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
                 fn.restype = _L
             _library = lib
         return _library
@@ -203,6 +222,37 @@ def needs_grad(*tensors) -> bool:
     take their autograd.Function, or refuse, only then; serving, under
     inference_mode, keeps the direct launch."""
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def recompute_backward(launch, plain, tensors, **kw):
+    """``launch(*tensors, **kw)`` (a kernel) as a differentiable call whose
+    backward re-runs ``plain(*tensors, **kw)`` on the saved inputs and
+    differentiates that: what the JAX package's ``custom_vjp``s do for the
+    kernels that have no backward kernel. Both return a tuple of tensors."""
+    return _RecomputeBackward.apply(launch, plain, kw, *tensors)
+
+
+class _RecomputeBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, launch, plain, kw, *tensors):
+        ctx.set_materialize_grads(False)
+        ctx.plain, ctx.kw = plain, kw
+        ctx.save_for_backward(*tensors)
+        return tuple(launch(*tensors, **kw))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            outs = ctx.plain(*leaves, **ctx.kw)
+            pairs = [(o, ct) for o, ct in zip(outs, cts) if ct is not None and o.requires_grad]
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in pairs], wanted, [ct for _, ct in pairs], allow_unused=True,
+            ) if pairs else [None] * len(wanted))
+        return (None, None, None) + tuple(next(grads) if n else None for n in need)
 
 
 def smem_limit(device: torch.device) -> int:

@@ -1,5 +1,5 @@
-"""T=1 WKV6 decode step + GroupNorm(ln_x) + gate: kernel B.9
-(csrc/wkv_decode.cu) and its plain version.
+"""T=1 WKV6 decode step + GroupNorm(ln_x) + gate: kernels B.9 and B.13
+(csrc/wkv_decode.cu) and their plain versions.
 
 Counterpart of rwkv_lm_ext_tpu/ops/wkv_decode.py: ``wkv6_decode_step`` is
 ``wkv6_decode_step_packed_pallas`` (:163, the Pallas kernel
@@ -10,6 +10,17 @@ version is ``_decode_ref`` (:45).
 K1 (ops/wkv_fused.py) at T=1 computes the same function. This kernel exists
 for the decode shape: many (b, h) rows in flight, one step, and the state
 updated in place.
+
+``wkv6_decode_step_transposed`` (B.13) is the same step on a state stored
+transposed, (B, H, N_j, N_i): the counterpart of ``decode_step_transT``
+(scripts/bench_decode_transposed.py:132, the Pallas kernel ``_transT_kernel``
+at :65), with ``transpose_state`` in the place of ``pack_T`` / ``unpack_T``
+(:51-62). As there, it is a layout option of the op that only an op-level
+bench reaches; the model keeps the logical layout.
+
+The JAX kernel is a ``custom_vjp`` whose backward recomputes through the XLA
+composition (:338-354); on CUDA tensors that require grad both steps here
+differentiate through their plain version the same way.
 """
 from __future__ import annotations
 
@@ -41,39 +52,23 @@ def wkv6_decode_step_plain(
     return out.reshape(B, C).to(g.dtype), snew
 
 
-def wkv6_decode_step(
-    r: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    w: torch.Tensor,
-    g: torch.Tensor,
-    u: torch.Tensor,
-    ln_scale: torch.Tensor,
-    ln_bias: torch.Tensor,
-    state: torch.Tensor,
-    *,
-    eps: float,
-    out_state: Optional[torch.Tensor] = None,
+def transpose_state(state: torch.Tensor) -> torch.Tensor:
+    """(..., N, N) state S[i][j] <-> its transpose St[j][i], contiguous: the
+    layout ``wkv6_decode_step_transposed`` reads and writes. Its own inverse."""
+    return state.transpose(-1, -2).contiguous()
+
+
+def wkv6_decode_step_transposed_plain(
+    r, k, v, w, g, u, ln_scale, ln_bias, state_t, *, eps: float, out_state=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """r, k, v, g: (B, C), one dtype; w: (B, C) log-decay (run in fp32);
-    u: (H, N); ln_scale/ln_bias: (C,); state: (B, H, N, N) fp32, C = H*N.
-    Returns the gated output (B, C) in g's dtype and the new state
-    (B, H, N, N) fp32, written into ``out_state`` when given. ``out_state``
-    may be ``state`` itself: the step then updates the state in place, which
-    is how the generation engine runs it. CPU tensors take the plain
-    version; CUDA tensors launch B.9, for N in HEAD_SIZES. B.9 has no
-    backward yet (training through decode waits for it): on the CUDA route
-    an input that requires grad, with grad mode on, raises instead of giving
-    outputs detached from the graph."""
-    if r.device.type == "cpu":
-        return wkv6_decode_step_plain(
-            r, k, v, w, g, u, ln_scale, ln_bias, state, eps=eps, out_state=out_state
-        )
-    if _lib.needs_grad(r, k, v, w, g, u, ln_scale, ln_bias, state):
-        raise RuntimeError(
-            "wkv6_decode_step (B.9) has no backward on the CUDA route: run it under "
-            "torch.no_grad() or torch.inference_mode(), or on inputs that need no grad"
-        )
+    out, snew = wkv6_decode_step_plain(
+        r, k, v, w, g, u, ln_scale, ln_bias, state_t.transpose(-1, -2), eps=eps)
+    snew_t = snew.transpose(-1, -2)
+    return out, snew_t.contiguous() if out_state is None else out_state.copy_(snew_t)
+
+
+def _launch(entry, counter, r, k, v, w, g, u, ln_scale, ln_bias, state, *, eps, out_state=None):
+    """Check the CUDA route's inputs and launch C entry point ``entry``."""
     B, C = r.shape
     H, N = u.shape
     if N not in HEAD_SIZES:
@@ -105,11 +100,80 @@ def wkv6_decode_step(
         raise ValueError("state and out_state must be 16-byte aligned")
     out = torch.empty(B, C, dtype=g.dtype, device=device)
     _lib.launch(
-        "rwkv_wkv6_decode", device, r, k, v, w, u, g, ln_scale, ln_bias, state,
+        entry, device, r, k, v, w, u, g, ln_scale, ln_bias, state,
         out, out_state, B, H, N, eps, _lib.DTYPE_CODES[r.dtype],
     )
-    wkv6_decode_step.launches += 1
+    counter.launches += 1
     return out, out_state
 
 
+def _step(entry, counter, plain, r, k, v, w, g, u, ln_scale, ln_bias, state, eps, out_state):
+    args = (r, k, v, w, g, u, ln_scale, ln_bias, state)
+    if r.device.type == "cpu":
+        return plain(*args, eps=eps, out_state=out_state)
+    if not _lib.needs_grad(*args):
+        return _launch(entry, counter, *args, eps=eps, out_state=out_state)
+    if out_state is state:
+        raise RuntimeError(
+            f"{counter.__name__}: out_state is state (the in-place step) while an input "
+            "requires grad: the backward recomputes the step from the saved inputs, which the "
+            "kernel would have overwritten. Run it under torch.no_grad() or "
+            "torch.inference_mode(), or give another out_state")
+    out, snew = _lib.recompute_backward(
+        lambda *a, eps: _launch(entry, counter, *a, eps=eps), plain, args, eps=eps)
+    return out, snew if out_state is None else out_state.copy_(snew)
+
+
+def wkv6_decode_step(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    g: torch.Tensor,
+    u: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    state: torch.Tensor,
+    *,
+    eps: float,
+    out_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r, k, v, g: (B, C), one dtype; w: (B, C) log-decay (run in fp32);
+    u: (H, N); ln_scale/ln_bias: (C,); state: (B, H, N, N) fp32, C = H*N.
+    Returns the gated output (B, C) in g's dtype and the new state
+    (B, H, N, N) fp32, written into ``out_state`` when given. ``out_state``
+    may be ``state`` itself: the step then updates the state in place, which
+    is how the generation engine runs it. CPU tensors take the plain
+    version; CUDA tensors launch B.9, for N in HEAD_SIZES. When an input
+    requires grad (and grad mode is on) the CUDA route is differentiable, its
+    backward autograd through the plain version on the saved inputs; the
+    in-place form then raises."""
+    return _step("rwkv_wkv6_decode", wkv6_decode_step, wkv6_decode_step_plain,
+                 r, k, v, w, g, u, ln_scale, ln_bias, state, eps, out_state)
+
+
+def wkv6_decode_step_transposed(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    g: torch.Tensor,
+    u: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    state_t: torch.Tensor,
+    *,
+    eps: float,
+    out_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``wkv6_decode_step`` on a transposed state: ``state_t`` and the state
+    returned are (B, H, N_j, N_i) fp32, ``transpose_state`` of the logical
+    ones; everything else as there, ``out_state=state_t`` included. CPU
+    tensors take the plain version; CUDA tensors launch B.13."""
+    return _step("rwkv_wkv6_decode_transposed", wkv6_decode_step_transposed,
+                 wkv6_decode_step_transposed_plain,
+                 r, k, v, w, g, u, ln_scale, ln_bias, state_t, eps, out_state)
+
+
 wkv6_decode_step.launches = 0
+wkv6_decode_step_transposed.launches = 0

@@ -9,6 +9,12 @@ JAX, so run them there without the repository's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 
+The fused decode kernels B.10-B.12 are held to their plain versions at 2e-5
+(prologues) and 3e-5 (the whole block) of max|plain| in fp32 and one bf16
+rounding in bf16, B.13 as B.9 with its state bit-equal to B.9's; each is
+called twice and held bit-equal, and its gradients (a recompute through the
+plain version) equal autograd through the plain version.
+
 Tolerances: out <= REL[dtype] * max|plain| (fp32: summation order only;
 bf16: one rounding of each output), the WKV state <= 1e-4 * max|plain|
 (fp32 in both). Backward kernels, each gradient against autograd through
@@ -30,6 +36,14 @@ from rwkv_lm_ext_tpu_torch.models.decode import rwkv_decode_step
 from rwkv_lm_ext_tpu_torch.models.init import init_rwkv_params
 from rwkv_lm_ext_tpu_torch.models.rwkv import RWKV
 from rwkv_lm_ext_tpu_torch.ops import launch_counts
+from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
+    att_prep_fused,
+    att_prep_plain,
+    ffn_block_fused,
+    ffn_block_plain,
+    ffn_prep_fused,
+    ffn_prep_plain,
+)
 from rwkv_lm_ext_tpu_torch.ops.ddlerp import (
     tmix_prologue,
     tmix_prologue_bwd,
@@ -46,7 +60,12 @@ from rwkv_lm_ext_tpu_torch.ops.wkv import (
     wkv_bwd_plain,
     wkv_plain,
 )
-from rwkv_lm_ext_tpu_torch.ops.wkv_decode import wkv6_decode_step, wkv6_decode_step_plain
+from rwkv_lm_ext_tpu_torch.ops.wkv_decode import (
+    transpose_state,
+    wkv6_decode_step,
+    wkv6_decode_step_plain,
+    wkv6_decode_step_transposed,
+)
 from rwkv_lm_ext_tpu_torch.ops.wkv_fused import (
     wkv6_fused_output,
     wkv6_fused_output_bwd,
@@ -62,7 +81,9 @@ REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 DTYPES = [torch.float32, torch.bfloat16]
 NO_LAUNCH = {"layer_norm": 0, "tmix_prologue": 0, "wkv6_fused_output": 0, "wkv6_decode_step": 0,
              "quantize_rows": 0, "tmix_prologue_bwd": 0, "wkv6_bwd_forward_pass": 0,
-             "wkv6_bwd_reverse_pass": 0, "wkv": 0, "wkv_bwd_state_pass": 0}
+             "wkv6_bwd_reverse_pass": 0, "wkv": 0, "wkv_bwd_state_pass": 0,
+             "att_prep_fused": 0, "ffn_prep_fused": 0, "ffn_block_fused": 0,
+             "wkv6_decode_step_transposed": 0}
 
 
 @pytest.fixture
@@ -441,20 +462,24 @@ def test_state_params_grads_kernel_route_match_plain_route(dev):
 
 
 def test_wrappers_without_a_backward_raise_under_grad(dev):
-    """B.4 and B.9 refuse inputs that require grad instead of returning
-    outputs detached from the graph; under no_grad they run."""
+    """B.4 refuses inputs that require grad instead of returning outputs
+    detached from the graph; under no_grad it runs. B.9 differentiates by
+    recomputing from its saved inputs, so only its in-place form refuses."""
     x = torch.randn(4, 64, device=dev, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
         quantize_rows(x)
     with torch.no_grad():
         quantize_rows(x)
     r = torch.randn(1, 64, device=dev, requires_grad=True)
+    state = torch.zeros(1, 2, 32, 32, device=dev)
     args = (r, r, r, r, r, torch.ones(2, 32, device=dev), torch.ones(64, device=dev),
-            torch.zeros(64, device=dev), torch.zeros(1, 2, 32, 32, device=dev))
-    with pytest.raises(RuntimeError, match="no backward"):
-        wkv6_decode_step(*args, eps=1e-3)
+            torch.zeros(64, device=dev), state)
+    with pytest.raises(RuntimeError, match="in-place"):
+        wkv6_decode_step(*args, eps=1e-3, out_state=state)
+    out, _ = wkv6_decode_step(*args, eps=1e-3)
+    assert out.grad_fn is not None
     with torch.inference_mode():
-        wkv6_decode_step(*args, eps=1e-3)
+        wkv6_decode_step(*args, eps=1e-3, out_state=state)
 
 
 WKV_REL = 2e-5
@@ -644,3 +669,251 @@ def test_mlm_bf16_compute_keeps_fp32_masters_and_gradients(dev):
     for name, p in model.named_parameters():
         assert p.dtype == torch.float32
         assert name == "head.weight" or p.grad.dtype == torch.float32, name
+
+
+# ------------------------------------------- the fused decode route, B.10-B.13
+
+PREP_REL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+BLOCK_REL = {torch.float32: 3e-5, torch.bfloat16: 1e-2}
+
+
+def _att_prep_args(dev, dtype, pdtype, rng, B, C, D, Dd):
+    p = lambda *shape, **kw: _on(dev, pdtype, rng, *shape, **kw)
+    return (_on(dev, dtype, rng, B, C), _on(dev, torch.float32, rng, B, C),
+            p(C, scale=0.1, loc=1.0), p(C, scale=0.1), p(6, C, scale=0.5),
+            _on(dev, dtype, rng, C, 5 * D, scale=0.05), _on(dev, dtype, rng, 5, D, C, scale=0.1),
+            p(C, Dd, scale=0.05), p(Dd, C, scale=0.1), p(C))
+
+
+def _ffn_args(dev, dtype, pdtype, rng, B, C, F=None):
+    p = lambda *shape, **kw: _on(dev, pdtype, rng, *shape, **kw)
+    maa = lambda: torch.from_numpy(rng.uniform(size=C).astype(np.float32)).to(dev, pdtype)
+    args = (_on(dev, dtype, rng, B, C), _on(dev, torch.float32, rng, B, C),
+            p(C, scale=0.1, loc=1.0), p(C, scale=0.1), maa(), maa())
+    if F is not None:
+        args += tuple(_on(dev, dtype, rng, *shape, scale=0.03) for shape in ((F, C), (C, F), (C, C)))
+    return args
+
+
+def _same_bits(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype,pdtype", [(torch.float32, torch.float32),
+                                          (torch.bfloat16, torch.bfloat16),
+                                          (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("B", [1, 2, 7, 67])
+@pytest.mark.parametrize("C,D,Dd", [(2048, 32, 64), (256, 8, 16), (4096, 64, 128)])
+def test_att_prep_kernel(dev, dtype, pdtype, B, C, D, Dd):
+    """B.10 at B=1, odd and even row counts (a block takes two rows) and the
+    widths of the 1B6, a small and the 7B configuration; parameters in the
+    compute dtype or kept in fp32 (master weights)."""
+    rng = np.random.default_rng(B + C)
+    args = _att_prep_args(dev, dtype, pdtype, rng, B, C, D, Dd)
+    got = _counted("att_prep_fused", lambda: att_prep_fused(*args))
+    want = att_prep_plain(*args)
+    assert [g.dtype for g in got] == [dtype] * 4 + [torch.float32] * 2
+    for name, g, w in zip(("xr", "xk", "xv", "xg", "w", "xn"), got, want):
+        assert g.shape == (B, C)
+        _close(g, w, PREP_REL[dtype], name)
+    assert _same_bits(got, att_prep_fused(*args))
+
+
+@pytest.mark.parametrize("dtype,pdtype", [(torch.float32, torch.float32),
+                                          (torch.bfloat16, torch.bfloat16),
+                                          (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("B,C", [(1, 2048), (7, 2050), (67, 256), (3, 7)])
+def test_ffn_prep_kernel(dev, dtype, pdtype, B, C):
+    rng = np.random.default_rng(B * C)
+    args = _ffn_args(dev, dtype, pdtype, rng, B, C)
+    got = _counted("ffn_prep_fused", lambda: ffn_prep_fused(*args))
+    for name, g, w in zip(("xk", "xr", "xn"), got, ffn_prep_plain(*args)):
+        assert g.shape == (B, C)
+        _close(g, w, PREP_REL[dtype], name)
+    assert got[0].dtype == got[1].dtype == dtype and got[2].dtype == torch.float32
+    assert _same_bits(got, ffn_prep_fused(*args))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", [1, 7, 64, 67, 130])
+@pytest.mark.parametrize("C,F", [(2048, 7168), (256, 896), (96, 160)])
+def test_ffn_block_kernel(dev, dtype, B, C, F):
+    """B.12: B=1, row counts that fill no batch tile, more rows than one
+    block owns (64), and widths that are multiples of 32 only."""
+    rng = np.random.default_rng(B + F)
+    args = _ffn_args(dev, dtype, dtype, rng, B, C, F)
+    out, xn = _counted("ffn_block_fused", lambda: ffn_block_fused(*args))
+    want_out, want_xn = ffn_block_plain(*args)
+    assert out.dtype == dtype and out.shape == (B, C) and xn.dtype == torch.float32
+    _close(out, want_out, BLOCK_REL[dtype], "out")
+    _close(xn, want_xn, PREP_REL[torch.float32], "xn")
+    assert _same_bits((out, xn), ffn_block_fused(*args))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N", [32, 64])
+@pytest.mark.parametrize("B", [1, 3, 64])
+def test_wkv6_decode_transposed_kernel(dev, dtype, N, B):
+    """B.13 against the plain version and against B.9: the new state is
+    B.9's bit for bit after a transpose (the same fmaf per element), the
+    output differs by the order of y's sum; in place as B.9."""
+    rng = np.random.default_rng(B * N + 1)
+    H, eps = 4, 6.4e-4
+    C = H * N
+    r, k, v, g = (_on(dev, dtype, rng, B, C) for _ in range(4))
+    w = torch.from_numpy(rng.uniform(-8, 2.5, size=(B, C)).astype(np.float32)).to(dev)
+    u = _on(dev, dtype, rng, H, N, scale=0.5)
+    sc, bi = _on(dev, dtype, rng, C, scale=0.1, loc=1.0), _on(dev, dtype, rng, C, scale=0.1)
+    state = _on(dev, torch.float32, rng, B, H, N, N, scale=0.3)
+    args = (r, k, v, w, g, u, sc, bi)
+    want_out, want_s = wkv6_decode_step_plain(*(a.float() for a in args), state, eps=eps)
+    b9_out, b9_s = wkv6_decode_step(*args, state, eps=eps)
+    buf = transpose_state(state)
+    out, s_t = _counted("wkv6_decode_step_transposed", lambda: wkv6_decode_step_transposed(
+        *args, buf, eps=eps, out_state=buf))
+    assert s_t.data_ptr() == buf.data_ptr() and out.dtype == dtype and out.shape == (B, C)
+    _close(out, want_out, REL[dtype])
+    _close(transpose_state(s_t), want_s, 1e-5)
+    assert torch.equal(transpose_state(s_t), b9_s)
+    _close(out, b9_out, REL[dtype])
+    fresh_out, fresh_s = wkv6_decode_step_transposed(*args, transpose_state(state), eps=eps)
+    assert torch.equal(fresh_out, out) and torch.equal(fresh_s, s_t)
+
+
+@pytest.mark.parametrize("name", ["att_prep", "ffn_prep", "ffn_block", "decode", "decode_transposed"])
+def test_recompute_backward_on_the_card(dev, name):
+    """Under grad the wrappers launch their kernel forward and differentiate
+    through the plain version: outputs are the kernel's, gradients equal
+    autograd through the plain version on the same inputs."""
+    rng = np.random.default_rng(7)
+    f32 = torch.float32
+    if name == "att_prep":
+        args = _att_prep_args(dev, f32, f32, rng, 5, 256, 8, 16)
+        fused, plain, counter, rel = att_prep_fused, att_prep_plain, "att_prep_fused", 2e-5
+    elif name == "ffn_prep":
+        args = _ffn_args(dev, f32, f32, rng, 5, 256)
+        fused, plain, counter, rel = ffn_prep_fused, ffn_prep_plain, "ffn_prep_fused", 2e-5
+    elif name == "ffn_block":
+        args = _ffn_args(dev, f32, f32, rng, 5, 256, 512)
+        fused, plain, counter, rel = ffn_block_fused, ffn_block_plain, "ffn_block_fused", 3e-5
+    else:
+        B, H, N, eps = 3, 2, 64, 6.4e-4
+        C = H * N
+        state = _on(dev, f32, rng, B, H, N, N, scale=0.3)
+        args = tuple(_on(dev, f32, rng, B, C) for _ in range(3)) + (
+            torch.from_numpy(rng.uniform(-8, 2.5, size=(B, C)).astype(np.float32)).to(dev),
+            _on(dev, f32, rng, B, C), _on(dev, f32, rng, H, N, scale=0.5),
+            _on(dev, f32, rng, C, scale=0.1, loc=1.0), _on(dev, f32, rng, C, scale=0.1),
+            transpose_state(state) if name == "decode_transposed" else state)
+        step = wkv6_decode_step_transposed if name == "decode_transposed" else wkv6_decode_step
+        fused = lambda *a: step(*a, eps=eps)
+        if name == "decode_transposed":
+            def plain(*a):
+                out, s = wkv6_decode_step_plain(*a[:-1], a[-1].transpose(-1, -2), eps=eps)
+                return out, s.transpose(-1, -2)
+        else:
+            plain = lambda *a: wkv6_decode_step_plain(*a, eps=eps)
+        counter, rel = step.__name__, 1e-4
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    ref_leaves = [a.detach().clone().requires_grad_() for a in args]
+    before = launch_counts()[counter]
+    outs = fused(*leaves)
+    assert launch_counts()[counter] == before + 1
+    assert all(o.grad_fn is not None for o in outs)
+    ref_outs = plain(*ref_leaves)
+    cts = [_on(dev, f32, rng, *o.shape) for o in outs]
+    for o, w in zip(outs, ref_outs):
+        _close(o, w, rel)
+    got = torch.autograd.grad(list(outs), leaves, cts, allow_unused=True)
+    want = torch.autograd.grad(list(ref_outs), ref_leaves, cts, allow_unused=True)
+    assert launch_counts()[counter] == before + 1      # the backward launches nothing
+    for i, (g_, w_) in enumerate(zip(got, want)):
+        assert (g_ is None) == (w_ is None), i
+        if w_ is not None:
+            _close(g_, w_, 1e-6, f"gradient {i}", scale=max(w_.abs().max().item(), 1e-30))
+
+
+def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    before = launch_counts()
+    rng = np.random.default_rng(9)
+    f32 = torch.float32
+    with pytest.raises(ValueError, match="multiples of 8"):
+        att_prep_fused(*_att_prep_args(dev, f32, f32, rng, 2, 64, 4, 8))
+    with pytest.raises(ValueError, match="multiples of 32"):
+        ffn_block_fused(*_ffn_args(dev, f32, f32, rng, 2, 48, 96))
+    args = _ffn_args(dev, f32, f32, rng, 2, 64, 128)
+    with pytest.raises(ValueError, match="out, in"):
+        ffn_block_fused(*args[:6], args[7], args[6], args[8])
+    with pytest.raises(ValueError, match="shift"):
+        ffn_prep_fused(args[0], args[1][:1], *args[2:6])
+    r = torch.zeros(1, 96, device=dev)
+    with pytest.raises(ValueError, match="head size"):
+        wkv6_decode_step_transposed(
+            r, r, r, r, r, torch.zeros(2, 48, device=dev), torch.ones(96, device=dev),
+            torch.zeros(96, device=dev), torch.zeros(1, 2, 48, 48, device=dev), eps=1e-3)
+    assert launch_counts() == before
+
+
+def _decode_model(dev, seed, quant=None, dtype="float32"):
+    cfg = ModelConfig(n_layer=2, n_embd=256, vocab_size=1000, head_size=64, dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sd = init_rwkv_params(cfg, generator=gen, device=dev)
+    for key in [k for k in sd if k.endswith(("att.output.weight", "ffn.value.weight",
+                                              "ffn.receptance.weight"))]:
+        sd[key] = torch.randn(sd[key].shape, generator=gen, device=dev) * 0.5 / sd[key].shape[1] ** 0.5
+    model = load_state_dict_into(RWKV(cfg, device=dev), sd)
+    if quant:
+        quantize_model(model, quant)
+    return model, gen
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "int8c"])
+@pytest.mark.parametrize("B", [1, 3])
+def test_model_fused_decode_route_matches_plain_route(dev, quant, B):
+    """rwkv_decode_step(fused_prep=True) on a 2-layer fp32 model, in place:
+    the kernel route against the plain route, logits and state, and against
+    the unfused route; the launches of one step (dense leaves take B.12,
+    quantized ones B.11; K2 and K3's ln2 calls are gone)."""
+    model, gen = _decode_model(dev, 2, quant)
+    tokens = torch.randint(4, 1000, (B, 20), generator=gen, device=dev)
+    with torch.inference_mode():
+        _, state = model(tokens[:, :12])
+        plain_state = {k: v.clone() for k, v in state.items()}
+        unfused_state = {k: v.clone() for k, v in state.items()}
+        for t in range(12, 20):
+            before = launch_counts()
+            got, state = rwkv_decode_step(model, tokens[:, t], state, out=state, fused_prep=True)
+            after = launch_counts()
+            want, plain_state = rwkv_decode_step(model, tokens[:, t], plain_state, reference=True,
+                                                 fused_prep=True)
+            assert launch_counts() == after
+            assert {k: after[k] - before[k] for k in after} == dict(
+                NO_LAUNCH, layer_norm=2, att_prep_fused=2, wkv6_decode_step=2,
+                ffn_block_fused=0 if quant else 2, ffn_prep_fused=2 if quant else 0,
+                quantize_rows=16 if quant == "int8c" else 0)
+            unfused, unfused_state = rwkv_decode_step(model, tokens[:, t], unfused_state,
+                                                      out=unfused_state)
+            _close(got, want, 1e-4)
+            if quant != "int8c":     # int8c turns an fp32 rounding into a quantization step
+                _close(got, unfused, 1e-4)
+    for key in state:
+        _close(state[key], plain_state[key], 1e-4)
+
+
+def test_model_fused_decode_route_bf16_stays_close_to_unfused(dev):
+    """In bf16 the fused route keeps the shift rows and xw unrounded: logits
+    within a few bf16 roundings of the unfused route's, cosine >= 0.999 (the
+    limit every bf16 route is held to), the state within 5e-2 of its largest
+    value after 8 steps."""
+    model, gen = _decode_model(dev, 3, dtype="bfloat16")
+    tokens = torch.randint(4, 1000, (4, 20), generator=gen, device=dev)
+    with torch.inference_mode():
+        _, state = model(tokens[:, :12])
+        other = {k: v.clone() for k, v in state.items()}
+        for t in range(12, 20):
+            fused, state = rwkv_decode_step(model, tokens[:, t], state, out=state, fused_prep=True)
+            unfused, other = rwkv_decode_step(model, tokens[:, t], other, out=other)
+            cos = torch.nn.functional.cosine_similarity(fused.double(), unfused.double(), dim=-1)
+            assert float(cos.min()) >= 0.999
+    for key in state:
+        _close(state[key], other[key], 5e-2)

@@ -214,7 +214,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import rwkv_lm_ext_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "for name in ('models.bidirectional', 'ops.wkv', 'train.cli', 'serve.cli'):\n"
+        "for name in ('models.bidirectional', 'ops.wkv', 'ops.decode_fused', 'train.cli', 'serve.cli'):\n"
         "    assert p.__name__ + '.' + name in sys.modules, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0].startswith('jax')\n"
         "             or m.split('.')[0] == 'rwkv_lm_ext_tpu')\n"

@@ -265,17 +265,22 @@ def test_autograd_functions_give_the_plain_gradients(monkeypatch):
 
 
 def test_wrappers_without_a_backward_refuse_grad_off_the_cpu():
-    """B.4 and B.9 have no backward: off the CPU, an input that requires
-    grad raises (before any launch) instead of detaching the graph."""
+    """B.4 has no backward: off the CPU, an input that requires grad raises
+    (before any launch) instead of detaching the graph. B.9's backward is a
+    recompute from the saved inputs, so only its in-place form refuses grad;
+    the out-of-place form goes on to the device checks."""
     before = launch_counts()
     x = torch.empty(4, 64, device="meta", requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
         quantize_rows(x)
     r = torch.empty(1, 64, device="meta", requires_grad=True)
     state = torch.empty(1, 2, 32, 32, device="meta")
-    with pytest.raises(RuntimeError, match="no backward"):
-        wkv6_decode_step(r, r, r, r, r, torch.ones(2, 32), torch.ones(64), torch.zeros(64),
-                         state, eps=1e-3)
+    meta = lambda *shape: torch.empty(*shape, device="meta")
+    args = (r, r, r, r, r, meta(2, 32), meta(64), meta(64), state)
+    with pytest.raises(RuntimeError, match="in-place"):
+        wkv6_decode_step(*args, eps=1e-3, out_state=state)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv6_decode_step(*args, eps=1e-3)
     with torch.no_grad(), pytest.raises(ValueError):      # no grad: on to the device checks
         quantize_rows(x)
     assert launch_counts() == before
