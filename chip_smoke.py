@@ -9,7 +9,11 @@ Phases, each printing its own lines:
   2. each hand-written kernel against its plain PyTorch version on the card,
      at the main paths' shapes, and both timed by their device time
      (torch.profiler, host overhead excluded): K1-K3 at
-     B=64, T=512; the int8 row quantizer B.4 (bit-identical) at the
+     B=64, T=512, K1 and K2 also body by body (the tensor-core and chunked
+     bodies that bf16 runs beside the CUDA-core and sequential ones that fp32
+     runs), K1 at strong, wide and no decay with its final state after T=512
+     and against its chunked factoring in plain PyTorch, K2 on ragged tiles
+     and at T=1; the int8 row quantizer B.4 (bit-identical) at the
      prefill and decode shapes; the decode step B.9 at B=64 and B=1, also
      against K1 at T=1; the backward kernels B.5 (ddlerp prologue) and
      B.6 + B.7 (fused WKV) at the training shape B=8, T=512 and ragged
@@ -37,9 +41,10 @@ Phases, each printing its own lines:
      then built in this process by the same CLI code, served, and held
      against the int8c plain route; int8c embeddings against the int8c plain
      route;
-  6. serving readings (not benchmark cells): embedded seq/s at B=64, T=512,
-     decode tok/s of generate_batch at B=64, single-stream tok/s of
-     generate, bf16 and int8c;
+  6. serving readings (not benchmark cells): embedded seq/s at B=64, T=512
+     (a data chain with a canary: its last result must come back from its
+     last input and move when that input changes), decode tok/s of
+     generate_batch at B=64, single-stream tok/s of generate, bf16 and int8c;
   7. training gradients of a 2-layer full-width model at B=8, T=512, kernel
      route against plain route: LoRA A/B in fp32 and in bf16, remat on
      against off, and state tuning's time_state;
@@ -81,6 +86,7 @@ before doing anything.
 """
 from __future__ import annotations
 
+import collections
 import json
 import queue
 import subprocess
@@ -132,6 +138,8 @@ from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
     ffn_prep_plain,
 )
 from rwkv_lm_ext_tpu_torch.ops.ddlerp import (
+    _launch_k2,
+    k2_body,
     tmix_prologue,
     tmix_prologue_bwd,
     tmix_prologue_bwd_plain,
@@ -154,9 +162,13 @@ from rwkv_lm_ext_tpu_torch.ops.wkv_decode import (
     wkv6_decode_step_transposed,
 )
 from rwkv_lm_ext_tpu_torch.ops.wkv_fused import (
+    _launch_k1,
+    _prepare as k1_prepare,
+    k1_body,
     wkv6_fused_output,
     wkv6_fused_output_bwd,
     wkv6_fused_output_bwd_plain,
+    wkv6_fused_output_chunked_plain,
     wkv6_fused_output_plain,
 )
 from rwkv_lm_ext_tpu_torch.serve import cli
@@ -279,38 +291,87 @@ def check(ok: bool, what: str) -> None:
 
 def device_ops(fn, reps: int) -> list:
     """The device operations that `reps` calls of fn() launch, as
-    torch.profiler records them, after one warm-up. A trace now and then
-    comes back without any device record (seen on an H100 for 50 launches
-    of a 10 us kernel): it is taken again, at most twice, before the script
-    fails."""
+    torch.profiler records them, after one warm-up. The canary of every time
+    read from such a trace: the operation that the record holds most often
+    must be there for (nearly) every one of the `reps` calls. The profiler
+    on an H100 was seen to return no record at all (50 launches of a 10 us
+    kernel) and to lose records (19 of 20, and 8 of 10, three traces in a
+    row each). One record in ten may be missing (one, from 4 calls on); a
+    trace that lost more is taken again, twice at most, each time waiting
+    longer between the last launch's end and the profiler's stop. The third
+    trace is taken as it is if it holds the operation for half the calls or
+    more (per_call_us works from the records that remain); if it holds
+    fewer, the timed calls did not run and the script fails."""
     fn()
-    for _ in range(3):
+    allowed = 0 if reps < 4 else max(1, reps // 10)
+    pauses = (0.0, 0.05, 0.25)
+    for attempt, pause in enumerate(pauses):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(pause)
         ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if ops:
+        most = max(collections.Counter(e.name for e in ops).values(), default=0)
+        if most >= reps - allowed:
             return ops
-        print("  (a profiler trace held no device operations; taken again)")
-    raise AssertionError("the profiler recorded no device operations in three traces")
+        last = attempt == len(pauses) - 1
+        print(f"  (a profiler trace held {len(ops)} device operations, the most frequent {most} "
+              f"times, for {reps} calls; {'taken as it is' if last else 'taken again'})")
+        if last and most > 0 and 2 * most >= reps:
+            return ops
+    raise AssertionError(f"three profiler traces in a row held their most frequent device operation "
+                         f"for fewer than half of {reps} calls: the timed calls did not run, or "
+                         "were not recorded")
+
+
+def per_call_us(ops: list, reps: int) -> float:
+    """Device microseconds of one call, from the records of `reps` calls: for
+    each kernel name its mean duration times the launches a call makes of it
+    (the count over `reps`, rounded), so that a record the profiler lost does
+    not shorten the time. A name seen in fewer than half the calls counts
+    with its sum over `reps`."""
+    durations = collections.defaultdict(list)
+    for e in ops:
+        durations[e.name].append(e.self_device_time_total)
+    total = 0.0
+    for d in durations.values():
+        launches = round(len(d) / reps)
+        total += sum(d) / len(d) * launches if launches else sum(d) / reps
+    return total
+
+
+def chain_canary(step, last_in: torch.Tensor, last_out: torch.Tensor, changed_in: torch.Tensor,
+                 what: str) -> None:
+    """The canary of a timed data chain: the loop's last result must be what
+    its last input gives when the step runs again outside the loop (the timed
+    work ran on that input, not on a stale or replayed one), and must move
+    when that input changes."""
+    with torch.inference_mode():
+        repeat = (step(last_in).float() - last_out.float()).abs().max().item()
+        moved = (step(changed_in).float() - last_out.float()).abs().max().item()
+    print(f"  canary, {what}: the chain's last result comes back from its last input "
+          f"(max diff {repeat:.3e}) and moves by {moved:.3e} when that input changes")
+    check(moved > 0 and repeat <= moved / 10,
+          f"{what}: the timed chain's last result does not depend on its last input "
+          f"(repeat {repeat}, changed {moved})")
 
 
 def device_ms(fn, reps: int) -> float:
-    """Device time of one fn() call: the summed durations of the device
-    operations of `reps` calls (device_ops). Host launch overhead and the
+    """Device time of one fn() call, from the device operations of `reps`
+    calls (device_ops, per_call_us). Host launch overhead and the
     gaps between launches do not count, so a kernel of a few microseconds is
     not read as the time its Python wrapper takes to launch it."""
-    return sum(e.self_device_time_total for e in device_ops(fn, reps)) / reps / 1e3
+    return per_call_us(device_ops(fn, reps), reps) / 1e3
 
 
 def device_ms_by_kernel(fn, reps: int, groups: dict) -> dict:
     """As device_ms, split by kernel name: {group: ms of one call} for the
     device operations whose name holds one of the group's substrings."""
     ops = device_ops(fn, reps)
-    out = {g: sum(e.self_device_time_total for e in ops if any(k in e.name for k in keys))
-           / reps / 1e3 for g, keys in groups.items()}
+    out = {g: per_call_us([e for e in ops if any(k in e.name for k in keys)], reps) / 1e3
+           for g, keys in groups.items()}
     check(all(v > 0 for v in out.values()), f"the profiler recorded no kernel of a group: {out}")
     return out
 
@@ -408,7 +469,27 @@ def phase_kernels() -> dict:
     names = ("xw", "xk", "xv", "xr", "xg", "xln")
     err = max(err_line(f"tmix_prologue B=8 T={T} {n}", g, w, 1e-2)
               for n, g, w in zip(names, got, want))
+    # which body runs: tensor cores for the served dtype, CUDA cores for fp32,
+    # each against the plain version: fp32 within 1e-4 (the order of its sums);
+    # ragged tiles that cross batch rows, and one step of 64 sequences
+    print(f"  tmix_prologue bodies: bf16 {k2_body(BF16, C, D)}, fp32 {k2_body(torch.float32, C, D)}")
+    check(k2_body(BF16, C, D) == "tensor_cores" and k2_body(torch.float32, C, D) == "cuda_cores",
+          "tmix_prologue does not run the body its dtype should")
+    for b, t in ((3, 37), (B, 1)):
+        small = prologue_args(b)
+        small = (small[0][:, :t].contiguous(),) + small[1:]
+        for n, g, w in zip(names, tmix_prologue(*small), tmix_prologue_plain(*f32(*small))):
+            err_line(f"tmix_prologue B={b} T={t} bf16 {n}", g, w, 1e-2)
+        for n, g, w in zip(names, tmix_prologue(*f32(*small)), tmix_prologue_plain(*f32(*small))):
+            err_line(f"tmix_prologue B={b} T={t} fp32 {n}", g, w, 1e-4)
     args = prologue_args(B)
+    both = {body: device_ms(lambda: _launch_k2(*args, 1e-5, body=body), 10)
+            for body in ("tensor_cores", "cuda_cores")}
+    args8 = prologue_args(8)
+    print(f"  tmix_prologue bf16, one body beside the other: B={B}, T={T} tensor cores "
+          f"{both['tensor_cores']:.4f} ms, CUDA cores {both['cuda_cores']:.4f} ms; B=8, T={T} tensor "
+          f"cores {device_ms(lambda: tmix_prologue(*args8), 10):.4f} ms, CUDA cores "
+          f"{device_ms(lambda: _launch_k2(*args8, 1e-5, body='cuda_cores'), 10):.4f} ms")
     out["tmix_prologue"] = dict(
         max_abs_err=err,
         ms=device_ms(lambda: tmix_prologue(*args), 10),
@@ -422,29 +503,69 @@ def phase_kernels() -> dict:
     args1 = (args1[0][:, :1].contiguous(),) + args1[1:]
     print(f"  tmix_prologue at T=1, B={B} (the decode step's call): "
           f"kernel {device_ms(lambda: tmix_prologue(*args1), 20):.4f} ms, "
+          f"CUDA-core body {device_ms(lambda: _launch_k2(*args1, 1e-5, body='cuda_cores'), 20):.4f} ms, "
           f"plain {device_ms(lambda: tmix_prologue_plain(*args1), 20):.4f} ms")
 
-    def wkv_args(b, t):
+    def wkv_args(b, t, lo=-8.0, hi=2.5):
         r, k, v, g = (rng.normal(b, t, H, N) for _ in range(4))
-        w = rng.uniform(b, t, H, N, lo=-8.0, hi=2.5, dtype=torch.float32)
+        w = rng.uniform(b, t, H, N, lo=lo, hi=hi, dtype=torch.float32)
         return (r, k, v, w, rng.normal(H, N, scale=0.5), g, rng.normal(H * N, scale=0.1) + 1,
                 rng.normal(H * N, scale=0.1), rng.normal(b, H, N, N, scale=0.1, dtype=torch.float32))
 
+    # which body runs: chunks of the library's length on the tensor cores for
+    # bf16, the sequential recurrence for fp32
+    chunk = _lib.library().rwkv_wkv6_fused_chunk()
+    print(f"  wkv6_fused_output bodies: bf16 {k1_body(BF16)} (chunks of {chunk} steps, "
+          f"{_lib.library().rwkv_wkv6_fused_blocks_per_sm(N)} blocks an SM at N={N}), "
+          f"fp32 {k1_body(torch.float32)}")
+    check(k1_body(BF16) == "chunked" and k1_body(torch.float32) == "sequential",
+          "wkv6_fused_output does not run the body its dtype should")
     errs = []
-    for t in (T, 37):
-        args = wkv_args(8, t)
-        (o, s) = wkv6_fused_output(*args, eps=LN_X_EPS)
-        (ro, rs) = wkv6_fused_output_plain(*f32(*args), eps=LN_X_EPS)
-        errs.append(err_line(f"wkv6_fused_output B=8 T={t} out", o, ro, 1e-2))
-        err_line(f"wkv6_fused_output B=8 T={t} state", s, rs, 1e-3)
+    # the wide decay range of the main path, strong decay (w in [2.5, 3.2]: a
+    # decay of 5e-6 .. 2e-11 a step, where a factoring by exp(+c) overflows)
+    # and no decay (w = -8: the state only grows); T = 512 with its final
+    # state and a ragged T. out within 1e-2 (bf16 output), state within 1e-3
+    # of the plain recurrence; state within 1e-4 of the chunked factoring in
+    # plain PyTorch on the same inputs (the same sums, the kernel's in two
+    # bf16 limbs)
+    for lo, hi in ((-8.0, 2.5), (2.5, 3.2), (-8.0, -8.0)):
+        for t in (T, 37):
+            args = wkv_args(8, t, lo, hi)
+            label = f"wkv6_fused_output B=8 T={t} w in [{lo}, {hi}]"
+            (o, s) = wkv6_fused_output(*args, eps=LN_X_EPS)
+            (o2, s2) = wkv6_fused_output(*args, eps=LN_X_EPS)
+            check(torch.equal(o, o2) and torch.equal(s, s2), f"{label}: two calls differ")
+            (ro, rs) = wkv6_fused_output_plain(*f32(*args), eps=LN_X_EPS)
+            errs.append(err_line(f"{label} out", o, ro, 1e-2))
+            err_line(f"{label} state", s, rs, 1e-3)
+            (mo, ms_) = wkv6_fused_output_chunked_plain(*f32(*args), eps=LN_X_EPS, chunk=chunk)
+            err_line(f"{label} out vs chunked mirror", o, mo, 1e-2)
+            err_line(f"{label} state vs chunked mirror", s, ms_, 1e-4)
+    args = f32(*wkv_args(2, 37))
+    (o, s) = wkv6_fused_output(*args, eps=LN_X_EPS)
+    (ro, rs) = wkv6_fused_output_plain(*args, eps=LN_X_EPS)
+    err_line("wkv6_fused_output B=2 T=37 fp32 out", o, ro, 1e-4)
+    err_line("wkv6_fused_output B=2 T=37 fp32 state", s, rs, 1e-4)
     args = wkv_args(B, T)
+    prepared = args[:3] + k1_prepare(*args)
+    both = {body: device_ms(lambda: _launch_k1(*prepared, LN_X_EPS, body=body), 10)
+            for body in ("chunked", "sequential")}
+    args8 = wkv_args(8, T)
+    prepared8 = args8[:3] + k1_prepare(*args8)
+    print(f"  wkv6_fused_output bf16, one body beside the other: B={B}, T={T} chunked "
+          f"{both['chunked']:.4f} ms, sequential {both['sequential']:.4f} ms; B=8, T={T} chunked "
+          f"{device_ms(lambda: wkv6_fused_output(*args8, eps=LN_X_EPS), 10):.4f} ms, sequential "
+          f"{device_ms(lambda: _launch_k1(*prepared8, LN_X_EPS, body='sequential'), 10):.4f} ms")
     out["wkv6_fused_output"] = dict(
         max_abs_err=max(errs),
         ms=device_ms(lambda: wkv6_fused_output(*args, eps=LN_X_EPS), 10),
         plain_ms=device_ms(lambda: wkv6_fused_output_plain(*args, eps=LN_X_EPS), 3),
-        # output in g's dtype and the final state; per step and head the
-        # recurrence is y (2 N^2), k v^T (N^2) and the state update (2 N^2) in fp32
-        **roofline(nbytes(*args) + nbytes(args[5], args[8]), {"fp32": 5 * B * T * H * N * N}),
+        # every input once, the output in g's dtype and the final state; per
+        # step and head the two products of the recurrence (r S and k v^T,
+        # 2 N^2 each) at the tensor cores' rate, the decay of the state (N^2)
+        # and the GroupNorm (~10 N) in fp32
+        **roofline(nbytes(*args) + nbytes(args[5], args[8]),
+                   {"bf16 mma": 4 * B * T * H * N * N, "fp32": B * T * H * (N * N + 10 * N)}),
     )
 
     # B.4: bit-identical at the prefill shapes (C and F), a ragged shape and
@@ -1018,6 +1139,7 @@ def phase_throughput(model, cfg, label: str, smi: str) -> None:
         start.record()
         checksum = torch.zeros((), device=DEV)
         for _ in range(iters):
+            last_in = tokens
             tokens, emb = step(tokens)
             checksum += emb.float().sum()
         end.record()
@@ -1027,6 +1149,12 @@ def phase_throughput(model, cfg, label: str, smi: str) -> None:
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  reading: {B * iters / seconds:.2f} seq/s embedded (B={B}, T={T}, {label}, "
           f"{seconds / iters * 1e3:.1f} ms/batch, peak {peak:.1f} GiB) on {smi}")
+    changed = last_in.clone()
+    changed[:, 0] = lo + (changed[:, 0] + 1 - lo) % (hi - lo)
+    chain_canary(lambda t: step(t)[1], last_in, emb, changed, f"embedding chain, {label}")
+    with torch.inference_mode():
+        step_profile(step, last_in, seconds / iters * 1e3, STEP_GROUPS,
+                     f"one embedding forward with its chain, {label}")
 
 
 def phase_decode_readings(model, label: str, smi: str) -> None:
@@ -1194,8 +1322,8 @@ ABLATION = ("step", "step_fused", "step_attprep", "step_ffnblk")
 FUSED_GROUPS = {
     "B.10": ("att_prep_kernel",), "B.11": ("ffn_prep_kernel",),
     "B.12 products": ("ffn_gemm_",), "B.12 gated residual": ("ffn_out_kernel",),
-    "B.9": ("wkv6_decode_kernel",), "K2": ("tmix_prologue_kernel",), "K3": ("layer_norm_kernel",),
-    "B.4": ("quant_rows_",),
+    "B.9": ("wkv6_decode_kernel",), "K2": ("tmix_prologue_tc_kernel", "tmix_prologue_simt_kernel"),
+    "K3": ("layer_norm_kernel",), "B.4": ("quant_rows_",),
     "GEMMs": ("gemm", "nvjet", "xmma", "cutlass", "gemv"),
 }
 
@@ -1401,7 +1529,8 @@ def phase_train_grads(path: str) -> None:
 
 
 STEP_GROUPS = {
-    "K1 forward": ("wkv6_fused_kernel",), "K2 forward": ("tmix_prologue_kernel",),
+    "K1 forward": ("wkv6_chunked_kernel", "wkv6_sequential_kernel"),
+    "K2 forward": ("tmix_prologue_tc_kernel", "tmix_prologue_simt_kernel"),
     "K3 forward": ("layer_norm_kernel",),
     "B.5": ("prologue_bwd_chain", "prologue_bwd_ln", "atb_kernel"),
     "B.6": ("wkv6_bwd_forward",), "B.7": ("wkv6_bwd_reverse",),
@@ -1425,12 +1554,14 @@ def split_by_group(ops, groups: dict) -> dict:
     return split
 
 
-def step_profile(step, batch, step_ms: float, groups: dict = STEP_GROUPS) -> None:
-    """Device time of one train step by kernel group (torch.profiler,
-    device operations only); idle = the step's CUDA-event time less busy."""
+def step_profile(step, batch, step_ms: float, groups: dict = STEP_GROUPS,
+                 what: str = "one step (remat on)") -> None:
+    """Device time of one train step (or forward) by kernel group
+    (torch.profiler, device operations only); idle = the step's CUDA-event
+    time less busy."""
     ops = device_ops(lambda: step(batch), 1)
     busy = sum(e.self_device_time_total for e in ops) / 1e3
-    print(f"  profile of one step (remat on): {len(ops)} device ops, busy {busy:.3f} ms of "
+    print(f"  profile of {what}: {len(ops)} device ops, busy {busy:.3f} ms of "
           f"{step_ms:.3f} ms, idle {100 * max(step_ms - busy, 0) / step_ms:.2f} %")
     for g, v in split_by_group(ops, groups).items():
         print(f"    {g}: {v:.3f} ms ({100 * v / busy:.1f} %)")

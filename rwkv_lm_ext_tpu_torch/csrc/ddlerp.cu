@@ -11,28 +11,51 @@
 //   out_i = xn + xx * (maa_i + m_i)
 // and writes xw, xk, xv, xr, xg and xn into one (6,B,T,C) buffer.
 //
-// Design: the TPU kernel walked T blocks in order and carried the previous
-// block's last ln'd row in scratch. Hopper runs blocks in no order, so the
-// block owning rows [t0, t0 + kRows) recomputes the LayerNorm of row t0 - 1
-// itself (or takes shift_ln at t0 = 0), as the Pallas backward already does.
-// Per block: LayerNorm statistics of kRows + 1 rows (one warp per row), xxx
-// for the tile kept transposed in shared memory ((C, kRows) fp32, so one
-// float4 pair feeds all rows of a column), the C -> 5D product with one
-// thread per output column, h kept transposed the same way, then the
-// 5D -> C products and the five lerps with threads striding over C. Both
-// low-rank products accumulate in fp32 on the CUDA cores; w1 and w2 (0.65 MB
-// each in bf16 at C=2048, D=32) are read from L2 by every block, kUnroll
-// loads at a time so that their latencies overlap.
+// Bound on the card: bytes. One call reads x once and writes six tensors of
+// its size (0.94 GB at B=64, T=512, C=2048 in bf16: 0.28 ms at 3.35 TB/s);
+// the two low-rank products are 43 GFLOP, 0.04 ms on the bf16 tensor cores
+// but 0.64 ms as fp32 FMAs, so they belong on the tensor cores and the
+// kernel should then be limited by its stores.
 //
-// Bound on the card: operations. 4 * C * 5D ~ 1.3 MFLOP a token, 43 GFLOP a
-// layer at B=64, T=512, C=2048, D=32, against 0.4 GB of activations moved;
-// without tensor cores this version is limited by CUDA-core FMA issue.
-// Shared memory is (C8 * kRows + kRows * 5D + 2 * (kRows + 1)) floats, C8 =
-// C rounded up to kUnroll: 70.7 KB at C=2048, D=32, opted in above the 48 KB
-// default.
-#include "common.cuh"
+// Two bodies; the wrapper (ops/ddlerp.py) picks one from dtype and shape.
+//
+// Tensor-core body (bf16, C % 8 == 0, D = 32 or 64), tmix_prologue_tc_kernel.
+//   * A block owns 64 flattened rows b*T + t, so a tile is full at T = 1 as
+//     well; the predecessor (the row before, or shift_ln[b] at t = 0) is
+//     chosen per row. The TPU kernel walked T blocks in order and carried the
+//     last ln'd row in scratch; blocks here run in no order, so the tile
+//     recomputes the LayerNorm statistics of the row before its first.
+//   * h = tanh(xxx @ w1) is a 64 x C x 5D product of mma.sync m16n8k16: C is
+//     walked in slabs of 64; xxx of a slab is made from x and the row
+//     statistics in fp32 and goes into shared memory as two bf16 limbs (hi +
+//     lo, about 16 bits): one limb, the TPU kernel's default-precision MXU
+//     arithmetic, left xw close to its limit of 1e-2 of the largest value
+//     against the fp32 plain version at C = 4096, D = 64; two keep the
+//     first version's error, and the product is small beside the stores. h is
+//     rounded to bf16 once; accumulation is fp32. The w1 slab arrives by
+//     cp.async, double-buffered, so the weights are read once per 64 rows
+//     (the first version read them once per 8).
+//   * m_i = h_i @ w2[i] walks C in slabs of 64 columns again. The columns of
+//     a w2 slab are permuted on their way into shared memory so that the
+//     accumulators of one thread cover 8 neighbouring columns: the five
+//     lerps, xn and the six stores are the product's epilogue at 16 bytes a
+//     thread, a warp storing 64 contiguous bytes of each of 8 rows.
+//   * Few tiles (T = 1: one): the column slabs of the second product are
+//     spread over gridDim.y blocks, each repeating the small first product,
+//     until about two blocks an SM are in flight.
+// LayerNorm statistics, xx, the lerps and tanh stay fp32.
+//
+// CUDA-core body (fp32, and the bf16 shapes the other does not take),
+// tmix_prologue_simt_kernel: the first version of this port, 8 rows of one
+// batch row a block, both products as fp32 FMAs. It keeps the fp32
+// instantiation within 1e-4 of the plain version; no served model runs it.
+#include "mma.cuh"
 
 namespace rwkv {
+
+// ------------------------------------------------------------------------
+// CUDA-core body
+// ------------------------------------------------------------------------
 
 constexpr int kRows = 8;          // rows of T per block
 constexpr int kPrologueThreads = 256;
@@ -44,7 +67,7 @@ __host__ __device__ inline int padded_cols(int C) {
   return (C + kUnroll - 1) / kUnroll * kUnroll;
 }
 
-static size_t prologue_smem_bytes(int C, int D) {
+static size_t simt_smem_bytes(int C, int D) {
   return sizeof(float) *
          ((size_t)padded_cols(C) * kRows + (size_t)kRows * 5 * D + 2 * (kRows + 1));
 }
@@ -63,11 +86,14 @@ __device__ __forceinline__ void fma_rows(float* acc, const float* a, float w) {
   acc[7] = fmaf(a1.w, w, acc[7]);
 }
 
-// min 3 blocks an SM: three 70.7 KB tiles fit its shared memory, and the
-// register cap this implies (<= 85) measured 12 % faster than 2 blocks at 99
-// registers on an H100 80GB HBM3 at 700 W
+// Per block: LayerNorm statistics of kRows + 1 rows (one warp per row), xxx
+// of the tile kept transposed in shared memory ((C, kRows) fp32, so one
+// float4 pair feeds all rows of a column), the C -> 5D product with one
+// thread per output column, h kept transposed the same way, then the 5D -> C
+// products and the five lerps with threads striding over C. w1 and w2 are
+// read from L2 by every block, kUnroll loads at a time.
 template <typename T>
-__global__ void __launch_bounds__(kPrologueThreads, 3) tmix_prologue_kernel(
+__global__ void __launch_bounds__(kPrologueThreads, 3) tmix_prologue_simt_kernel(
     const T* __restrict__ x, const T* __restrict__ shift,
     const T* __restrict__ ln_scale, const T* __restrict__ ln_bias,
     const T* __restrict__ maa, const T* __restrict__ w1,
@@ -197,18 +223,16 @@ __global__ void __launch_bounds__(kPrologueThreads, 3) tmix_prologue_kernel(
 }
 
 template <typename T>
-static cudaError_t launch_prologue(const void* x, const void* shift,
-                                   const void* ln_scale, const void* ln_bias,
-                                   const void* maa, const void* w1,
-                                   const void* w2, void* out, int B, int T_len,
-                                   int C, int D, float eps,
-                                   cudaStream_t stream) {
-  const size_t smem = prologue_smem_bytes(C, D);
+static cudaError_t launch_simt(const void* x, const void* shift, const void* ln_scale,
+                               const void* ln_bias, const void* maa, const void* w1,
+                               const void* w2, void* out, int B, int T_len, int C, int D,
+                               float eps, cudaStream_t stream) {
+  const size_t smem = simt_smem_bytes(C, D);
   cudaError_t e = cudaFuncSetAttribute(
-      tmix_prologue_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      tmix_prologue_simt_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((T_len + kRows - 1) / kRows, B);
-  tmix_prologue_kernel<T><<<grid, kPrologueThreads, smem, stream>>>(
+  tmix_prologue_simt_kernel<T><<<grid, kPrologueThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(shift),
       static_cast<const T*>(ln_scale), static_cast<const T*>(ln_bias),
       static_cast<const T*>(maa), static_cast<const T*>(w1),
@@ -216,29 +240,409 @@ static cudaError_t launch_prologue(const void* x, const void* shift,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------------
+// Tensor-core body
+// ------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kTileRows = 64;     // flattened rows b*T + t a block owns
+constexpr int kTcThreads = 256;   // 8 warps: 4 row tiles of 16 x 2 column halves
+constexpr int kSlab = 64;         // columns of C a step of either product takes
+// Row strides in shared memory are odd multiples of 16 bytes, so the eight
+// rows an ldmatrix reads lie in different banks.
+constexpr int kXStride = kSlab + 8;
+
+template <int D>
+struct TcLayout {
+  static constexpr int kD5 = 5 * D;
+  static constexpr int kHStride = kD5 + 8;
+  // one staged weight slab: w1 rows [c][5D] or w2 rows [(i, d)][64 columns]
+  static constexpr int kW1Elems = kSlab * kHStride;
+  static constexpr int kW2Elems = kD5 * kXStride;
+  static constexpr int kStageElems = kW1Elems > kW2Elems ? kW1Elems : kW2Elems;
+  static constexpr int kXElems = 2 * kTileRows * kXStride;   // xxx of a slab: hi limb, lo limb
+  static constexpr int kHElems = kTileRows * kHStride;
+  static constexpr size_t kBytes =
+      sizeof(bf16) * (2 * kStageElems + 2 * kXElems + kHElems) + sizeof(float) * 2 * (kTileRows + 2);
+};
+
+// What a thread keeps of one row it mixes: where the row and its predecessor
+// are, and their LayerNorm statistics (the shift row is taken as it is).
+struct RowRef {
+  const bf16* cur;
+  const bf16* prev;
+  float mu, rstd, pmu, prstd;
+  bool valid, prev_is_shift;
+};
+
+__device__ __forceinline__ RowRef make_row(const bf16* x, const bf16* shift, const float* stats,
+                                           int m0, int r, int M, int T_len, int C) {
+  RowRef ref;
+  const int m = m0 + r;
+  ref.valid = m < M;
+  const int mm = ref.valid ? m : 0;
+  const int b = mm / T_len;
+  ref.prev_is_shift = mm - b * T_len == 0;
+  ref.cur = x + (size_t)mm * C;
+  ref.prev = ref.prev_is_shift ? shift + (size_t)b * C : ref.cur - C;
+  ref.mu = stats[2 * (r + 1)];
+  ref.rstd = stats[2 * (r + 1) + 1];
+  ref.pmu = stats[2 * r];
+  ref.prstd = stats[2 * r + 1];
+  return ref;
+}
+
+__device__ __forceinline__ uint4 ldg16(const bf16* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// xn and xx = prev - xn of eight columns of a row, from the raw words
+__device__ __forceinline__ void ln_pair(const RowRef& row, const uint4& xq, const uint4& pq,
+                                        const float* sc, const float* bi, float* xn, float* xx) {
+  float xv[8], pv[8];
+  unpack8(xq, xv);
+  unpack8(pq, pv);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    xn[j] = fmaf((xv[j] - row.mu) * row.rstd, sc[j], bi[j]);
+    const float prev = row.prev_is_shift ? pv[j] : fmaf((pv[j] - row.pmu) * row.prstd, sc[j], bi[j]);
+    xx[j] = prev - xn[j];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D == 32 ? 2 : 1) tmix_prologue_tc_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ shift,
+    const bf16* __restrict__ ln_scale, const bf16* __restrict__ ln_bias,
+    const bf16* __restrict__ maa, const bf16* __restrict__ w1,
+    const bf16* __restrict__ w2, bf16* __restrict__ out, int M, int T_len, int C, float eps) {
+  using L = TcLayout<D>;
+  constexpr int D5 = L::kD5, HS = L::kHStride;
+  constexpr int NT1 = D5 / 16;      // 8-wide column tiles of h a warp owns
+  static_assert(NT1 % 2 == 0, "column tiles are loaded in pairs");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* stage = reinterpret_cast<bf16*>(smem_raw);        // 2 x kStageElems
+  bf16* sX = stage + 2 * L::kStageElems;                  // 2 x 2 limbs x (64, kXStride)
+  bf16* sH = sX + 2 * L::kXElems;                         // (64, HS)
+  float* stats = reinterpret_cast<float*>(sH + L::kHElems);   // (65, 2): mu, rstd
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int m0 = blockIdx.x * kTileRows;
+  const int n_slabs = (C + kSlab - 1) / kSlab;
+  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
+
+  // LayerNorm statistics of rows m0-1 .. m0+63 (slot s is row m0-1+s)
+  for (int s = warp; s <= kTileRows; s += kTcThreads / 32) {
+    const int m = m0 - 1 + s;
+    float mu = 0.f, rstd = 0.f;
+    if (m >= 0 && m < M) {
+      const bf16* xr = x + (size_t)m * C;
+      float a = 0.f, a2 = 0.f;
+      // eight loads in flight a lane: a row of C = 2048 is one round
+      for (int c0 = lane * 8; c0 < C; c0 += 8 * 256) {
+        uint4 q[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) q[u] = c0 + u * 256 < C ? ldg16(xr + c0 + u * 256) : zero4;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          float v[8];
+          unpack8(q[u], v);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            a += v[j];
+            a2 = fmaf(v[j], v[j], a2);
+          }
+        }
+      }
+      a = warp_sum(a);
+      a2 = warp_sum(a2);
+      mu = a / C;
+      rstd = rsqrtf(fmaxf(a2 / C - mu * mu, 0.f) + eps);
+    }
+    if (lane == 0) {
+      stats[2 * s] = mu;
+      stats[2 * s + 1] = rstd;
+    }
+  }
+  __syncthreads();
+
+  // ---- product 1: h = tanh(xxx @ w1) ------------------------------------
+  // xxx of a slab: thread (row tid / 4, 16 columns) from two words of the row
+  // and two of its predecessor, fetched one slab ahead
+  const RowRef mine = make_row(x, shift, stats, m0, tid >> 2, M, T_len, C);
+  const int cq = (tid & 3) * 16;
+  uint4 xq[2], pq[2], scq[2], biq[2], mxq[2];
+  auto fetch_x = [&](int slab) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int c = slab * kSlab + cq + hf * 8;
+      const bool on = mine.valid && c < C;
+      xq[hf] = on ? ldg16(mine.cur + c) : zero4;
+      pq[hf] = on ? ldg16(mine.prev + c) : zero4;
+      scq[hf] = on ? ldg16(ln_scale + c) : zero4;
+      biq[hf] = on ? ldg16(ln_bias + c) : zero4;
+      mxq[hf] = on ? ldg16(maa + c) : zero4;
+    }
+  };
+  auto store_xxx = [&](int slab, bf16* dst) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int c = slab * kSlab + cq + hf * 8;
+      float o[8], lo[8];
+      if (mine.valid && c < C) {
+        float sc[8], bi[8], mx[8], xn[8], xx[8];
+        unpack8(scq[hf], sc);
+        unpack8(biq[hf], bi);
+        unpack8(mxq[hf], mx);
+        ln_pair(mine, xq[hf], pq[hf], sc, bi, xn, xx);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) split_bf16(fmaf(xx[j], mx[j], xn[j]), o[j], lo[j]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) o[j] = lo[j] = 0.f;
+      }
+      bf16* d = dst + (tid >> 2) * kXStride + cq + hf * 8;
+      *reinterpret_cast<uint4*>(d) = pack8(o);
+      *reinterpret_cast<uint4*>(d + kTileRows * kXStride) = pack8(lo);
+    }
+  };
+  // rows c of w1 (5D values each); rows past C are zeros
+  auto stage_w1 = [&](int slab, bf16* dst) {
+    constexpr int kChunks = D5 / 8;
+    for (int idx = tid; idx < kSlab * kChunks; idx += kTcThreads) {
+      const int kr = idx / kChunks, ch = idx - kr * kChunks;
+      bf16* d = dst + kr * HS + ch * 8;
+      const int c = slab * kSlab + kr;
+      if (c < C) cp_async_16(d, w1 + (size_t)c * D5 + ch * 8);
+      else *reinterpret_cast<uint4*>(d) = zero4;
+    }
+  };
+
+  const int rt = warp & 3, half = warp >> 2;
+  float acc1[NT1][4];
+#pragma unroll
+  for (int nt = 0; nt < NT1; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc1[nt][e] = 0.f;
+
+  stage_w1(0, stage);
+  fetch_x(0);
+  store_xxx(0, sX);
+  for (int s = 0; s < n_slabs; ++s) {
+    // slab s has landed and everyone is done with slab s - 1, whose buffers
+    // slab s + 1 takes
+    cp_async_wait_all();
+    __syncthreads();
+    const bf16* wS = stage + (s & 1) * L::kStageElems;
+    const bf16* xS = sX + (s & 1) * L::kXElems;
+    if (s + 1 < n_slabs) {
+      stage_w1(s + 1, stage + ((s + 1) & 1) * L::kStageElems);
+      fetch_x(s + 1);
+    }
+#pragma unroll
+    for (int ks = 0; ks < kSlab / 16; ++ks) {
+      unsigned a[4], al[4];
+      const bf16* ap = xS + (rt * 16 + (lane & 15)) * kXStride + ks * 16 + (lane >> 4) * 8;
+      ldmatrix_x4(a, ap);
+      ldmatrix_x4(al, ap + kTileRows * kXStride);
+#pragma unroll
+      for (int np = 0; np < NT1 / 2; ++np) {
+        unsigned bq[4];
+        ldmatrix_x4_trans(bq, wS + (ks * 16 + (lane & 15)) * HS + half * NT1 * 8 + np * 16 +
+                                  (lane >> 4) * 8);
+        mma_m16n8k16(acc1[2 * np], a[0], a[1], a[2], a[3], bq[0], bq[1]);
+        mma_m16n8k16(acc1[2 * np + 1], a[0], a[1], a[2], a[3], bq[2], bq[3]);
+        mma_m16n8k16(acc1[2 * np], al[0], al[1], al[2], al[3], bq[0], bq[1]);
+        mma_m16n8k16(acc1[2 * np + 1], al[0], al[1], al[2], al[3], bq[2], bq[3]);
+      }
+    }
+    if (s + 1 < n_slabs) store_xxx(s + 1, sX + ((s + 1) & 1) * L::kXElems);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT1; ++nt) {
+    const int col = half * NT1 * 8 + nt * 8 + 2 * tig;
+    *reinterpret_cast<unsigned*>(sH + (rt * 16 + g) * HS + col) =
+        pack_bf16(tanhf(acc1[nt][0]), tanhf(acc1[nt][1]));
+    *reinterpret_cast<unsigned*>(sH + (rt * 16 + g + 8) * HS + col) =
+        pack_bf16(tanhf(acc1[nt][2]), tanhf(acc1[nt][3]));
+  }
+  __syncthreads();   // h is complete; the w1 buffers are free
+
+  // ---- product 2 and the lerps ------------------------------------------
+  // A slab holds 64 columns of every w2 row (i, d). Within each group of 32
+  // columns, column c sits at position (c % 8 / 2) * 8 + 2 * (c / 8) + c % 2:
+  // the accumulator (tile nt, pair e) of thread tig is then column
+  // 8 * tig + 2 * nt + e, eight neighbours a thread.
+  // A thread copies one pair of columns of every 8th row: its place in a row
+  // and its source column are fixed, only the row moves.
+  static_assert(kSlab / 2 == 32 && kTcThreads % 32 == 0 && D5 % (kTcThreads / 32) == 0,
+                "a warp copies one row of column pairs");
+  const int w2_c = 2 * lane;                      // column of the slab, 0 .. 62
+  const int w2_at = (w2_c & 32) + (((w2_c & 31) & 7) >> 1) * 8 + 2 * ((w2_c & 31) >> 3);
+  auto stage_w2 = [&](int slab, bf16* dst) {
+    constexpr int kRowsAPass = kTcThreads / 32;
+    const int col = slab * kSlab + w2_c;
+    bf16* d = dst + warp * kXStride + w2_at;
+    const bf16* src = w2 + (size_t)warp * C + col;
+#pragma unroll 4
+    for (int n = 0; n < D5 / kRowsAPass; ++n, d += kRowsAPass * kXStride, src += (size_t)kRowsAPass * C) {
+      if (col < C) cp_async_4(d, src);
+      else *reinterpret_cast<unsigned*>(d) = 0u;
+    }
+  };
+  const RowRef rows[2] = {make_row(x, shift, stats, m0, rt * 16 + g, M, T_len, C),
+                          make_row(x, shift, stats, m0, rt * 16 + g + 8, M, T_len, C)};
+  const size_t plane = (size_t)M * C;
+
+  int it = 0;
+  if ((int)blockIdx.y < n_slabs) stage_w2(blockIdx.y, stage);
+  for (int s = blockIdx.y; s < n_slabs; s += gridDim.y, ++it) {
+    cp_async_wait_all();
+    __syncthreads();
+    const bf16* wS = stage + (it & 1) * L::kStageElems;
+    if (s + (int)gridDim.y < n_slabs)
+      stage_w2(s + gridDim.y, stage + ((it + 1) & 1) * L::kStageElems);
+
+    const int c0 = s * kSlab + half * 32 + tig * 8;   // this thread's 8 columns
+    const bool col_on = c0 < C;
+    float xn[2][8], xx[2][8];
+    // every word this slab's epilogue needs is asked for at once
+    uint4 mq[5], xw[2], pw[2];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) mq[i] = col_on ? ldg16(maa + (size_t)(i + 1) * C + c0) : zero4;
+    if (col_on) {
+      const uint4 scw = ldg16(ln_scale + c0), biw = ldg16(ln_bias + c0);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        xw[rr] = rows[rr].valid ? ldg16(rows[rr].cur + c0) : zero4;
+        pw[rr] = rows[rr].valid ? ldg16(rows[rr].prev + c0) : zero4;
+      }
+      float sc[8], bi[8];
+      unpack8(scw, sc);
+      unpack8(biw, bi);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const bool on = rows[rr].valid;
+        ln_pair(rows[rr], xw[rr], pw[rr], sc, bi, xn[rr], xx[rr]);
+        if (on)
+          *reinterpret_cast<uint4*>(out + 5 * plane + (size_t)(m0 + rt * 16 + g + 8 * rr) * C + c0) =
+              pack8(xn[rr]);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      float acc[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        unsigned a[4];
+        ldmatrix_x4(a, sH + (rt * 16 + (lane & 15)) * HS + i * D + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          unsigned bq[4];
+          ldmatrix_x4_trans(bq, wS + (i * D + ks * 16 + (lane & 15)) * kXStride + half * 32 +
+                                    np * 16 + (lane >> 4) * 8);
+          mma_m16n8k16(acc[2 * np], a[0], a[1], a[2], a[3], bq[0], bq[1]);
+          mma_m16n8k16(acc[2 * np + 1], a[0], a[1], a[2], a[3], bq[2], bq[3]);
+        }
+      }
+      if (col_on) {
+        float mi[8];
+        unpack8(mq[i], mi);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          if (rows[rr].valid) {
+            float o[8];
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              o[j] = fmaf(xx[rr][j], mi[j] + acc[j >> 1][2 * rr + (j & 1)], xn[rr][j]);
+            *reinterpret_cast<uint4*>(out + i * plane +
+                                      (size_t)(m0 + rt * 16 + g + 8 * rr) * C + c0) = pack8(o);
+          }
+        }
+      }
+      __syncwarp();   // the lanes meet again before the next mma
+    }
+  }
+}
+
+// blocks along y: 1 when the row tiles alone fill the card twice over
+static int column_split(int tiles, int n_slabs) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms <= 0)
+      sms = 132;
+  }
+  int split = 2 * sms / tiles;
+  if (split < 1) split = 1;
+  return split < n_slabs ? split : n_slabs;
+}
+
+template <int D>
+static cudaError_t launch_tc(const void* x, const void* shift, const void* ln_scale,
+                             const void* ln_bias, const void* maa, const void* w1,
+                             const void* w2, void* out, int B, int T_len, int C, float eps,
+                             cudaStream_t stream) {
+  const size_t smem = TcLayout<D>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      tmix_prologue_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int M = B * T_len;
+  const int tiles = (M + kTileRows - 1) / kTileRows;
+  const int n_slabs = (C + kSlab - 1) / kSlab;
+  dim3 grid(tiles, column_split(tiles, n_slabs));
+  tmix_prologue_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(shift),
+      static_cast<const bf16*>(ln_scale), static_cast<const bf16*>(ln_bias),
+      static_cast<const bf16*>(maa), static_cast<const bf16*>(w1),
+      static_cast<const bf16*>(w2), static_cast<bf16*>(out), M, T_len, C, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace rwkv
 
-// Dynamic shared memory one block needs at (C, D); the wrapper checks it
-// against the card's opt-in limit before launching.
-extern "C" long long rwkv_tmix_prologue_smem_bytes(int C, int D) {
-  return (long long)rwkv::prologue_smem_bytes(C, D);
+// body codes shared with ops/ddlerp.py
+enum { kBodySimt = 0, kBodyTensorCore = 1 };
+
+// Dynamic shared memory one block of `body` needs at (C, D); the wrapper
+// checks it against the card's opt-in limit before launching.
+extern "C" long long rwkv_tmix_prologue_smem_bytes(int C, int D, int body) {
+  if (body == kBodyTensorCore)
+    return (long long)(D == 64 ? rwkv::TcLayout<64>::kBytes : rwkv::TcLayout<32>::kBytes);
+  return (long long)rwkv::simt_smem_bytes(C, D);
 }
 
 extern "C" int rwkv_tmix_prologue(const void* x, const void* shift,
                                   const void* ln_scale, const void* ln_bias,
                                   const void* maa, const void* w1,
                                   const void* w2, void* out, int B, int T_len,
-                                  int C, int D, float eps, int dtype,
+                                  int C, int D, float eps, int dtype, int body,
                                   void* stream) {
   using namespace rwkv;
   if (D <= 0 || D % kUnroll != 0) return cudaErrorInvalidValue;
   if (B <= 0 || T_len <= 0 || C <= 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
+  if (body == kBodyTensorCore) {
+    if (dtype != kBFloat16 || C % 8 != 0 || (long long)B * T_len > 0x7fffff00LL)
+      return cudaErrorInvalidValue;
+    if (D == 32) return launch_tc<32>(x, shift, ln_scale, ln_bias, maa, w1, w2, out, B, T_len, C, eps, s);
+    if (D == 64) return launch_tc<64>(x, shift, ln_scale, ln_bias, maa, w1, w2, out, B, T_len, C, eps, s);
+    return cudaErrorInvalidValue;
+  }
+  if (body != kBodySimt) return cudaErrorInvalidValue;
   switch (dtype) {
     case kFloat32:
-      return launch_prologue<float>(x, shift, ln_scale, ln_bias, maa, w1, w2, out, B, T_len, C, D, eps, s);
+      return launch_simt<float>(x, shift, ln_scale, ln_bias, maa, w1, w2, out, B, T_len, C, D, eps, s);
     case kBFloat16:
-      return launch_prologue<__nv_bfloat16>(x, shift, ln_scale, ln_bias, maa, w1, w2, out, B, T_len, C, D, eps, s);
+      return launch_simt<__nv_bfloat16>(x, shift, ln_scale, ln_bias, maa, w1, w2, out, B, T_len, C, D, eps, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -275,7 +275,15 @@ class TimeMix(nn.Module):
         ln1 + shift + ddlerp + the decay low-rank in one call; the four
         projections, the decode kernel and the output projection stay as in
         ``step``. Returns (out (B, C), new att_shift: the unrounded fp32 ln1
-        row)."""
+        row). B.10 returns the decay as (B, n_embd), so the route needs
+        dim_att == n_embd (as the JAX kernel does) and refuses any other
+        model by name."""
+        if self.cfg.dim_att != self.cfg.n_embd:
+            raise ValueError(
+                f"fused_prep needs dim_att == n_embd: the fused attention prologue makes the "
+                f"decay over n_embd channels; this model has dim_att={self.cfg.dim_att}, "
+                f"n_embd={self.cfg.n_embd} (the unfused step takes it)"
+            )
         xr, xk, xv, xg, w, xn = ops.att_prep(
             x, att_shift, ln1.weight, ln1.bias, self._maas(),
             self.time_maa_w1, self.time_maa_w2, self.time_decay_w1, self.time_decay_w2,

@@ -43,10 +43,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     # x, scale, bias, y, M, C, eps, dtype, stream
     "rwkv_layer_norm": [_P, _P, _P, _P, _L, _I, _F, _I, _P],
-    # x, shift, ln_scale, ln_bias, maa, w1, w2, out, B, T, C, D, eps, dtype, stream
-    "rwkv_tmix_prologue": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
-    # r, k, v, w, u, g, scale, bias, s0, out, sT, B, T, H, N, eps, dtype, stream
-    "rwkv_wkv6_fused": [_P] * 11 + [_I] * 4 + [_F, _I, _P],
+    # x, shift, ln_scale, ln_bias, maa, w1, w2, out, B, T, C, D, eps, dtype, body, stream
+    "rwkv_tmix_prologue": [_P] * 8 + [_I] * 4 + [_F, _I, _I, _P],
+    # r, k, v, w, u, g, scale, bias, s0, out, sT, B, T, H, N, eps, dtype, body, stream
+    "rwkv_wkv6_fused": [_P] * 11 + [_I] * 4 + [_F, _I, _I, _P],
     # x, q, s, M, C, dtype, stream
     "rwkv_quantize_rows": [_P] * 3 + [_L, _I, _I, _P],
     # r, k, v, w, u, g, scale, bias, state, out, out_state, B, H, N, eps, dtype, stream
@@ -80,7 +80,9 @@ _SIGNATURES = {
 }
 # entry points that return a size, not an error code
 _SIZE_FUNCTIONS = {
-    "rwkv_tmix_prologue_smem_bytes": [_I, _I],
+    "rwkv_tmix_prologue_smem_bytes": [_I, _I, _I],
+    "rwkv_wkv6_fused_chunk": [],
+    "rwkv_wkv6_fused_blocks_per_sm": [_I],
     "rwkv_tmix_prologue_bwd_smem_bytes": [_I, _I],
     "rwkv_att_prep_smem_bytes": [_I, _I, _I],
     "rwkv_ffn_block_slices": [_I],

@@ -10,6 +10,14 @@ Counterpart of rwkv_lm_ext_tpu/ops/ddlerp_pallas.py: ``tmix_prologue``
 On a CUDA tensor the forward is a ``torch.autograd.Function`` when grad
 mode is on and an input requires grad (training), and a direct K2 launch
 otherwise (serving).
+
+K2 has two bodies (csrc/ddlerp.cu), and ``k2_body`` picks one from dtype and
+shape alone: the tensor-core body (64-row tiles over the flattened rows, both
+low-rank products as ``mma.sync`` on bf16 operands with fp32 accumulation,
+the arithmetic of the TPU kernel's default-precision MXU products) for bf16
+with C divisible by 8 and D of 32 or 64, which is every served model; the
+CUDA-core body (fp32 FMAs) for fp32 and for the bf16 shapes the other does
+not take.
 """
 from __future__ import annotations
 
@@ -21,11 +29,29 @@ from rwkv_lm_ext_tpu_torch.ops import _lib
 
 BWD_ROWS = 8          # rows a block of csrc/ddlerp_bwd.cu takes
 MAX_LOW_RANK = 512    # 5 * D columns the B.5 chain kernel holds (2 a thread)
+# K2's bodies, by the codes of csrc/ddlerp.cu
+K2_BODIES = {"cuda_cores": 0, "tensor_cores": 1}
+
+
+def k2_body(dtype: torch.dtype, C: int, D: int) -> str:
+    """The body of K2 that a call of this dtype and shape launches."""
+    if dtype == torch.bfloat16 and C % 8 == 0 and D in (32, 64):
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def tmix_prologue_plain(
-    x, shift_ln, ln_scale, ln_bias, maa, w1, w2, *, eps: float = 1e-5
+    x, shift_ln, ln_scale, ln_bias, maa, w1, w2, *, eps: float = 1e-5,
+    product_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, ...]:
+    """``product_dtype`` rounds both operands of the two low-rank products to
+    that dtype first, with fp32 accumulation: bf16 is the arithmetic of the
+    TPU kernel's default-precision MXU products, and of K2's tensor-core body
+    for h (its xxx goes in as two bf16 limbs). For tests; no model path sets
+    it."""
+    def operand(t):
+        return t.float() if product_dtype is None else t.to(product_dtype).float()
+
     B, T, C = x.shape
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
@@ -37,8 +63,8 @@ def tmix_prologue_plain(
     maa = maa.float()
     xxx = xn + xx * maa[0]
     D = w1.shape[1] // 5
-    h = torch.tanh(xxx @ w1.float()).reshape(B, T, 5, D)
-    m = torch.einsum("btfd,fdc->fbtc", h, w2.float())
+    h = torch.tanh(operand(xxx) @ operand(w1)).reshape(B, T, 5, D)
+    m = torch.einsum("btfd,fdc->fbtc", operand(h), operand(w2))
     outs = tuple((xn + xx * (maa[i + 1] + m[i])).to(x.dtype) for i in range(5))
     return outs + (xn.to(x.dtype),)
 
@@ -83,17 +109,21 @@ def _check_smem(device, name: str, smem: int, C: int, D: int) -> None:
         raise ValueError(f"{name}: C={C}, D={D} needs {smem} B of shared memory; the card allows {limit}")
 
 
-def _launch_k2(x, shift_ln, ln_scale, ln_bias, maa, w1, w2, eps):
+def _launch_k2(x, shift_ln, ln_scale, ln_bias, maa, w1, w2, eps, body=None):
+    """``body`` (a key of K2_BODIES) overrides k2_body's choice: the card
+    checks time one body beside the other; no caller in the package sets it."""
     B, T, C = x.shape
     D = w1.shape[1] // 5
     device = _lib.check_cuda(
         x=x, shift_ln=shift_ln, ln_scale=ln_scale, ln_bias=ln_bias, maa=maa, w1=w1, w2=w2,
     )
-    _check_smem(device, "tmix_prologue", _lib.library().rwkv_tmix_prologue_smem_bytes(C, D), C, D)
+    code = K2_BODIES[body or k2_body(x.dtype, C, D)]
+    _check_smem(device, "tmix_prologue",
+                _lib.library().rwkv_tmix_prologue_smem_bytes(C, D, code), C, D)
     out = torch.empty(6, B, T, C, dtype=x.dtype, device=device)
     _lib.launch(
         "rwkv_tmix_prologue", device, x, shift_ln, ln_scale, ln_bias, maa,
-        w1, w2, out, B, T, C, D, eps, _lib.DTYPE_CODES[x.dtype],
+        w1, w2, out, B, T, C, D, eps, _lib.DTYPE_CODES[x.dtype], code,
     )
     tmix_prologue.launches += 1
     return tuple(out.unbind(0))

@@ -8,12 +8,17 @@ Counterpart of rwkv_lm_ext_tpu/ops/wkv_pallas.py: ``wkv6_fused_output``
 version, ``_fused_ref`` (:823): the sequential ``wkv_reference`` followed by
 the per-head GroupNorm, scale/bias and gate.
 
-K1 runs the sequential recurrence, which is exact at any decay. The JAX
-package's chunked kernel needed an exact-A or midpoint-rescale factoring of
-each chunk, chosen per checkpoint by ``cfg.wkv_exact``/``fused_chunk`` and
+K1 has two bodies (csrc/wkv_fused.cu), and ``k1_body`` picks one from the
+dtype alone: bf16 runs chunks of 16 steps with the products on the tensor
+cores, fp32 the sequential recurrence on fp32 FMAs. The chunked body scales
+r and k inside a chunk only by ``exp`` of sums of ``-exp(w)``, never of a
+positive number, so like the recurrence it is exact at any decay
+(``wkv6_fused_output_chunked_plain`` is its factoring in plain PyTorch). The
+JAX package's chunked kernel needed an exact-A or midpoint-rescale factoring
+of each chunk, chosen per checkpoint by ``cfg.wkv_exact``/``fused_chunk`` and
 ``suggest_/apply_/verify_wkv_dispatch`` (models/rwkv.py:74-164). The port
 has nothing for that dispatch to select, so it has none. The backward is
-sequential too (two passes, see csrc/wkv_fused_bwd.cu).
+sequential (two passes, see csrc/wkv_fused_bwd.cu).
 
 On a CUDA tensor the forward is a ``torch.autograd.Function`` when grad
 mode is on and an input requires grad (training), and a direct K1 launch
@@ -31,6 +36,13 @@ from rwkv_lm_ext_tpu_torch.ops import _lib
 from rwkv_lm_ext_tpu_torch.ops.wkv_reference import wkv_reference
 
 HEAD_SIZES = (32, 64)
+# K1's bodies, by the codes of csrc/wkv_fused.cu
+K1_BODIES = {"sequential": 0, "chunked": 1}
+
+
+def k1_body(dtype: torch.dtype) -> str:
+    """The body of K1 that a call on r, k, v, g of this dtype launches."""
+    return "chunked" if dtype == torch.bfloat16 else "sequential"
 
 
 def wkv6_fused_output_plain(
@@ -40,11 +52,63 @@ def wkv6_fused_output_plain(
     if initial_state is not None and initial_state.dim() == 3:
         initial_state = initial_state.expand(B, H, N, N)
     y, sT = wkv_reference(r, k, v, w, u, initial_state)
+    return _group_norm_gate(y, g, ln_scale, ln_bias, eps), sT
+
+
+def _group_norm_gate(y, g, ln_scale, ln_bias, eps):
+    """y: (B, T, H, N) fp32 -> the gated, normalised (B, T, H*N) in g's dtype."""
+    B, T, H, N = y.shape
     mu = y.mean(-1, keepdim=True)
     var = ((y - mu) ** 2).mean(-1, keepdim=True)
     yn = ((y - mu) * torch.rsqrt(var + eps)).reshape(B, T, H * N)
     out = (yn * ln_scale.float() + ln_bias.float()) * g.reshape(B, T, H * N).float()
-    return out.to(g.dtype), sT
+    return out.to(g.dtype)
+
+
+def wkv6_fused_output_chunked_plain(
+    r, k, v, w, u, g, ln_scale, ln_bias, initial_state=None, *, eps: float, chunk: int = 16
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """wkv6_fused_output_plain by the factoring of K1's chunked body, in fp32
+    (the kernel's two-limb bf16 operands are not mirrored). Per chunk of
+    ``chunk`` steps (any length; the last chunk may be shorter), with
+    d = -exp(w), c_t = d_0 + .. + d_{t-1} and c_L the chunk's total:
+
+      y_t = (r_t exp(c_t)) @ S + sum_{s<t} A[t, s] v_s + (r_t . u k_t) v_t
+      A[t, s] = sum_i r_ti k_si exp(c_t,i - c_{s+1},i)
+      S <- diag(exp(c_L)) S + sum_s (k_s exp(c_L - c_{s+1}))^T v_s
+
+    No exponent is positive, so nothing overflows at any decay. For the tests
+    and the card checks; no model path calls it."""
+    B, T, H, N = r.shape
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, not {chunk}")
+    rf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (r, k, v))      # (B, H, T, N)
+    d = -torch.exp(w.float()).permute(0, 2, 1, 3)
+    uf = u.float()
+    if initial_state is None:
+        S = torch.zeros(B, H, N, N, dtype=torch.float32, device=r.device)
+    else:
+        S = initial_state.float().expand(B, H, N, N)
+    ys = []
+    for t0 in range(0, T, chunk):
+        rc, kc, vc, dc = (t[:, :, t0:t0 + chunk] for t in (rf, kf, vf, d))
+        L = rc.shape[2]
+        zero = torch.zeros_like(dc[:, :, :1])
+        cc = torch.cat([zero, torch.cumsum(dc, dim=2)], dim=2)            # cc[t] = c_t, L + 1 rows
+        # c_L - c_{s+1} as a backward sum of d, which does not cancel
+        back = torch.cumsum(torch.flip(dc, [2]), dim=2)
+        suf = torch.flip(torch.cat([zero, back[:, :, :-1]], dim=2), [2])
+        y = torch.einsum("bhti,bhij->bhtj", rc * torch.exp(cc[:, :, :L]), S)
+        below = torch.ones(L, L, dtype=torch.bool, device=r.device).tril(-1)     # s < t
+        diff = cc[:, :, :L, None, :] - cc[:, :, None, 1:, :]              # c_t - c_{s+1}
+        diff = torch.where(below[:, :, None], diff, torch.zeros_like(diff))
+        A = (rc[:, :, :, None, :] * kc[:, :, None, :, :] * torch.exp(diff)).sum(-1) * below
+        A = A + torch.diag_embed(torch.einsum("bhti,hi,bhti->bht", rc, uf, kc))
+        ys.append(y + A @ vc)
+        S = torch.exp(cc[:, :, L])[..., None] * S + torch.einsum(
+            "bhsi,bhsj->bhij", kc * torch.exp(suf), vc)
+    y = torch.cat(ys, dim=2).permute(0, 2, 1, 3) if ys else rf.permute(0, 2, 1, 3)
+    return _group_norm_gate(y, g, ln_scale, ln_bias, eps), S.contiguous()
 
 
 def wkv6_fused_output_bwd_plain(
@@ -97,7 +161,9 @@ def _prepare(r, k, v, w, u, g, ln_scale, ln_bias, initial_state):
             ln_scale.float().contiguous(), ln_bias.float().contiguous(), s0)
 
 
-def _launch_k1(r, k, v, w, u, g, ln_scale, ln_bias, s0, eps):
+def _launch_k1(r, k, v, w, u, g, ln_scale, ln_bias, s0, eps, body=None):
+    """``body`` (a key of K1_BODIES) overrides k1_body's choice: the card
+    checks time one body beside the other; no caller in the package sets it."""
     B, T, H, N = r.shape
     device = _lib.check_cuda(
         r=r, k=k, v=v, w=w, u=u, g=g, ln_scale=ln_scale, ln_bias=ln_bias, s0=s0
@@ -107,6 +173,7 @@ def _launch_k1(r, k, v, w, u, g, ln_scale, ln_bias, s0, eps):
     _lib.launch(
         "rwkv_wkv6_fused", device, r, k, v, w, u, g, ln_scale, ln_bias, s0,
         out, sT, B, T, H, N, eps, _lib.DTYPE_CODES[r.dtype],
+        K1_BODIES[body or k1_body(r.dtype)],
     )
     wkv6_fused_output.launches += 1
     return out, sT

@@ -15,6 +15,11 @@ rounding in bf16, B.13 as B.9 with its state bit-equal to B.9's; each is
 called twice and held bit-equal, and its gradients (a recompute through the
 plain version) equal autograd through the plain version.
 
+K2 and K1 each have two bodies (tensor cores or chunked for bf16, CUDA
+cores or sequential for fp32); both are held to the same limits, at shapes
+whose 64-row tiles cross batch rows and whose 16-step chunks end ragged, and
+at strong, wide and no decay.
+
 Tolerances: out <= REL[dtype] * max|plain| (fp32: summation order only;
 bf16: one rounding of each output), the WKV state <= 1e-4 * max|plain|
 (fp32 in both). Backward kernels, each gradient against autograd through
@@ -45,6 +50,8 @@ from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
     ffn_prep_plain,
 )
 from rwkv_lm_ext_tpu_torch.ops.ddlerp import (
+    _launch_k2,
+    k2_body,
     tmix_prologue,
     tmix_prologue_bwd,
     tmix_prologue_bwd_plain,
@@ -67,9 +74,11 @@ from rwkv_lm_ext_tpu_torch.ops.wkv_decode import (
     wkv6_decode_step_transposed,
 )
 from rwkv_lm_ext_tpu_torch.ops.wkv_fused import (
+    k1_body,
     wkv6_fused_output,
     wkv6_fused_output_bwd,
     wkv6_fused_output_bwd_plain,
+    wkv6_fused_output_chunked_plain,
     wkv6_fused_output_plain,
 )
 from rwkv_lm_ext_tpu_torch.train.loop import mlm_loss_fn
@@ -163,6 +172,69 @@ def test_wkv6_fused_kernel(dev, dtype, N, T, with_state):
     assert sT.dtype == torch.float32 and sT.shape == (B, H, N, N)
     _close(out, want_out, REL[dtype])
     _close(sT, want_s, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C", [256, 2048, 2050, 4096])
+@pytest.mark.parametrize("B,T", [(64, 1), (3, 37), (2, 130), (5, 13)])
+def test_tmix_prologue_kernel_row_tiles(dev, dtype, B, T, C):
+    """K2's tensor-core body tiles the flattened rows b*T + t by 64: tiles
+    that cross batch rows (each row's predecessor is then its own batch row's
+    shift or the row before), end ragged, or hold a single step of 64
+    sequences; C that is no multiple of the 64-column slab, and C = 2050,
+    which the CUDA-core body takes. Both bodies, where the shape allows both,
+    against the plain version at the same limit."""
+    rng = np.random.default_rng(B * T + C)
+    D = 64 if C == 4096 else 32
+    args = (
+        _on(dev, dtype, rng, B, T, C), _on(dev, dtype, rng, B, C),
+        _on(dev, dtype, rng, C, scale=0.2, loc=1.0), _on(dev, dtype, rng, C, scale=0.2),
+        torch.from_numpy(rng.uniform(0, 1, size=(6, C)).astype(np.float32)).to(dev, dtype),
+        _on(dev, dtype, rng, C, 5 * D, scale=0.1), _on(dev, dtype, rng, 5, D, C, scale=0.1),
+    )
+    want = tmix_prologue_plain(*(a.float() for a in args))
+    tensor_cores = dtype == torch.bfloat16 and C % 8 == 0
+    assert k2_body(dtype, C, D) == ("tensor_cores" if tensor_cores else "cuda_cores")
+    got = _counted("tmix_prologue", lambda: tmix_prologue(*args))
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == (B, T, C)
+        _close(g, w, REL[dtype])
+    if tensor_cores:
+        other = _launch_k2(args[0], *args[1:], 1e-5, body="cuda_cores")
+        for g, w in zip(other, want):
+            _close(g, w, REL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N", [32, 64])
+@pytest.mark.parametrize("decay", [(-8.0, 2.5), (2.5, 3.2), (-8.0, -8.0)])
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 37, 512])
+def test_wkv6_fused_kernel_chunks_and_decays(dev, dtype, N, decay, T):
+    """K1 over whole, ragged and single-step chunks of 16, at a wide decay
+    range, at strong decay (w in [2.5, 3.2]: per-step decay down to 2e-11,
+    where a factoring by exp(+c) overflows) and without decay (w = -8: the
+    state only grows): gated output and final state against the plain
+    recurrence in fp32, two calls bit-equal. bf16 runs the chunked body, fp32
+    the sequential one."""
+    rng = np.random.default_rng(N + T)
+    B, H, eps = 2, 3, 6.4e-4
+    assert k1_body(dtype) == ("chunked" if dtype == torch.bfloat16 else "sequential")
+    r, k, v, g = (_on(dev, dtype, rng, B, T, H, N) for _ in range(4))
+    w = torch.from_numpy(rng.uniform(*decay, size=(B, T, H, N)).astype(np.float32)).to(dev)
+    u = _on(dev, dtype, rng, H, N, scale=0.5)
+    sc, bi = _on(dev, dtype, rng, H * N, scale=0.1, loc=1.0), _on(dev, dtype, rng, H * N, scale=0.1)
+    s0 = _on(dev, torch.float32, rng, B, H, N, N, scale=0.1)
+    args = (r, k, v, w, u, g, sc, bi, s0)
+    out, sT = _counted("wkv6_fused_output", lambda: wkv6_fused_output(*args, eps=eps))
+    again, sT_again = wkv6_fused_output(*args, eps=eps)
+    assert torch.equal(out, again) and torch.equal(sT, sT_again)
+    want_out, want_s = wkv6_fused_output_plain(*(a.float() for a in args), eps=eps)
+    _close(out, want_out, REL[dtype])
+    _close(sT, want_s, 1e-4)
+    # the kernel's factoring in plain PyTorch, chunk for chunk
+    mirror_out, mirror_s = wkv6_fused_output_chunked_plain(*(a.float() for a in args), eps=eps)
+    _close(out, mirror_out, REL[dtype])
+    _close(sT, mirror_s, 1e-4)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

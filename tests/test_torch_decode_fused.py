@@ -414,3 +414,24 @@ def test_fused_wrappers_refuse_non_cpu_tensors_without_a_kernel():
         wkv6_decode_step_transposed(*(meta(2, 128),) * 5, torch.ones(2, 64), torch.ones(128),
                                     torch.zeros(128), meta(2, 2, 64, 64), eps=LN_X_EPS)
     assert launch_counts() == before
+
+
+def test_fused_step_refuses_dim_att_other_than_n_embd_by_name():
+    """The fused attention prologue makes the decay over n_embd channels (as
+    the JAX kernel does), so a model with dim_att != n_embd is refused by
+    name on the fused route, before any shape check inside the op, and still
+    runs on the unfused route."""
+    from rwkv_lm_ext_tpu_torch.config import ModelConfig
+    from rwkv_lm_ext_tpu_torch.models.init import init_rwkv_params
+
+    cfg = ModelConfig(n_layer=1, n_embd=64, dim_att=32, vocab_size=97, head_size=16,
+                      dtype="float32", param_dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    model = load_state_dict_into(RWKV(cfg, device="cpu"), init_rwkv_params(cfg, generator=gen, device="cpu"))
+    tokens = torch.tensor([3, 5])
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="dim_att == n_embd.*dim_att=32, n_embd=64"):
+            rwkv_decode_step(model, tokens, fused_prep=True)
+        logits, _ = rwkv_decode_step(model, tokens, fused_prep=False)
+    assert logits.shape == (2, 97) and bool(torch.isfinite(logits).all())
+
