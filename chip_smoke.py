@@ -2,6 +2,8 @@
 """Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(`python3 chip_smoke.py --merge-calibration` builds the kernels and prints
+only the readings behind phase 9's merged-adapter budgets.)
 
 Phases, each printing its own lines:
   1. the device (name and nvidia-smi's power limit) and the kernel build
@@ -18,7 +20,12 @@ Phases, each printing its own lines:
      against K1 at T=1; the backward kernels B.5 (ddlerp prologue) and
      B.6 + B.7 (fused WKV) at the training shape B=8, T=512 and ragged
      shapes, fp32 and bf16, against autograd through their plain versions,
-     each called twice and held bit-equal; the unfused WKV B.8 and its
+     each called twice and held bit-equal; both bodies of the WKV backward
+     (chunked, which bf16 runs, and sequential) in turns on the same bf16
+     inputs, the fused and the gn=False form, at wide, strong and no decay,
+     T = 1 to 512, forwards, in reverse and over ragged prefixes, each
+     gradient's error at B=8, T=512 and strong decay, then timed in turns
+     twice at B=8, T=512; the unfused WKV B.8 and its
      two-pass backward the same way, with and without a bonus, an initial
      state, `reverse` and ragged `lengths`, and `wkv6_bi` against the flip
      composition; the fused decode kernels B.10 (attention prologue), B.11
@@ -49,13 +56,16 @@ Phases, each printing its own lines:
      route against plain route: LoRA A/B in fp32 and in bf16, remat on
      against off, and state tuning's time_state;
   8. LoRA train steps of the 24-layer model at B=8, T=512: the launch
-     counts of one step (remat on and off), step time and Kt/s readings,
-     and a profile of one step;
+     counts of one step (remat on and off), step time and Kt/s readings
+     over chained steps with a canary (the last loss must come back from
+     the parameters before the last step and the last batch, and move on
+     another batch), and a profile of one step, which must show the chunked
+     WKV backward kernels and not the sequential ones;
   9. training through `python -m rwkv_lm_ext_tpu_torch.train.cli sft` on the
      saved model (LoRA 8 steps, state tuning 4 steps, subprocesses): falling
      losses, the adapter files, the merged adapter against the unfused
-     forward; then the same CLI in this process, whose launch counts are
-     the training path's;
+     forward (its worst position and its mean over positions); then the same
+     CLI in this process, whose launch counts are the training path's;
  10. the bidirectional encoder on the same 24-layer weights at B=8, T=512
      with ragged rows: both modes against the plain fp32 route and the launch
      counts of a forward; `/fill_mask` through `python -m
@@ -69,14 +79,15 @@ Phases, each printing its own lines:
      --dup-mae` (2 steps) on the 24-layer model as subprocesses, the saved
      encoder, then `mlm` in this process for its launch counts;
  13. encoder readings (not benchmark cells): sequences a second at B=64,
-     T=512 in both modes, the `mlm` step time, Kt/s, peak memory and profile;
+     T=512 in both modes, the `mlm` step time, Kt/s, peak memory and profile,
+     each chain with its canary;
  14. the fused decode route, `rwkv_decode_step(fused_prep=True, out=state)`,
      on the 24-layer bf16 model (B.10, B.9, B.12) and the int8c model (B.10,
      B.9, B.11, B.4): 16 teacher-forced steps at B=64 against the fp32 plain
      route and the unfused route, the state after them, the launch counts of
      a step, greedy tokens against the unfused route; then readings: the
      decode-step ablation (step, step_fused, step_attprep, step_ffnblk at
-     B=64 and B=1: ms a step over a data chain, device operations and busy
+     B=64 and B=1: ms a step over a data chain with a canary, device operations and busy
      time of one step) and the op-level comparison of the decode step on the
      logical and on the transposed state.
 The second-to-last line is a JSON object of the kernels; the last line is
@@ -87,6 +98,7 @@ before doing anything.
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import queue
 import subprocess
@@ -97,6 +109,7 @@ import time
 import urllib.error
 import urllib.request
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -128,7 +141,7 @@ from rwkv_lm_ext_tpu_torch.models.heads import embed_sequences
 from rwkv_lm_ext_tpu_torch.models.init import init_rwkv_params
 from rwkv_lm_ext_tpu_torch.models.rwkv import KERNEL_OPS, PLAIN_OPS, RWKV
 from rwkv_lm_ext_tpu_torch.models.state import init_model_state
-from rwkv_lm_ext_tpu_torch.ops import _lib, launch_counts, reset_launch_counts
+from rwkv_lm_ext_tpu_torch.ops import _lib, launch_counts, reset_launch_counts, wkv_fused
 from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
     att_prep_fused,
     att_prep_plain,
@@ -162,6 +175,7 @@ from rwkv_lm_ext_tpu_torch.ops.wkv_decode import (
     wkv6_decode_step_transposed,
 )
 from rwkv_lm_ext_tpu_torch.ops.wkv_fused import (
+    WKV_BWD_BODIES,
     _launch_k1,
     _prepare as k1_prepare,
     k1_body,
@@ -170,11 +184,12 @@ from rwkv_lm_ext_tpu_torch.ops.wkv_fused import (
     wkv6_fused_output_bwd_plain,
     wkv6_fused_output_chunked_plain,
     wkv6_fused_output_plain,
+    wkv_bwd_body,
 )
 from rwkv_lm_ext_tpu_torch.serve import cli
 from rwkv_lm_ext_tpu_torch.serve.api import ServingService, serve_http
 from rwkv_lm_ext_tpu_torch.train import cli as train_cli
-from rwkv_lm_ext_tpu_torch.train.loop import make_train_step, mlm_loss_fn
+from rwkv_lm_ext_tpu_torch.train.loop import make_train_step, mlm_loss_fn, sft_loss_fn
 from rwkv_lm_ext_tpu_torch.train.optim import apply_trainable_mask, trainable_mask
 from rwkv_lm_ext_tpu_torch.train.losses import causal_lm_loss
 
@@ -637,7 +652,16 @@ def phase_kernels() -> dict:
 
 BWD_REL = {torch.float32: 5e-4, BF16: 2e-2}        # B.5, x max|plain|
 WKV_BWD_REL = {torch.float32: 1e-4, BF16: 2e-2}    # B.6 + B.7
+# B.6 + B.7's fp32 gradients (dw, du, ds0, dln_scale, dln_bias) on bf16
+# inputs: no rounding to bf16, only the kernel's own sums
+WKV_BWD_REL_FP32_OUT = 1e-3
 TB = 8                                             # the training batch
+
+
+def wkv_bwd_rel(dtype, grad: torch.Tensor) -> float:
+    """The limit, x max|plain|, of one gradient of the WKV backward on
+    `dtype` inputs."""
+    return WKV_BWD_REL_FP32_OUT if dtype == BF16 and grad.dtype == torch.float32 else WKV_BWD_REL[dtype]
 
 
 def bit_equal(a, b) -> bool:
@@ -694,15 +718,19 @@ def phase_backward_kernels() -> dict:
           f"ms dx and dshift only (LoRA), plain {out['tmix_prologue_bwd']['plain_ms']:.4f} ms; "
           f"forward K2 {device_ms(lambda: tmix_prologue(*args), 5):.4f} ms")
 
-    def wkv_case(b, t, h, n, dtype):
+    def wkv_case(b, t, h, n, dtype, lo=-8.0, hi=3.0):
         r, k, v, g = (rng.normal(b, t, h, n, dtype=dtype) for _ in range(4))
-        w = rng.uniform(b, t, h, n, lo=-8.0, hi=3.0, dtype=torch.float32)   # decays 1 .. e^-20
+        w = rng.uniform(b, t, h, n, lo=lo, hi=hi, dtype=torch.float32)   # decays 1 .. e^-20
         return (r, k, v, w, rng.normal(h, n, scale=0.5, dtype=dtype), g,
                 rng.normal(h * n, scale=0.1, dtype=dtype) + 1, rng.normal(h * n, scale=0.1, dtype=dtype),
                 rng.normal(b, h, n, n, scale=0.1, dtype=torch.float32),
                 rng.normal(b, t, h * n, dtype=dtype), rng.normal(b, h, n, n, scale=0.1, dtype=torch.float32))
 
     names = ("dr", "dk", "dv", "dw", "du", "ds0", "dg", "dln_scale", "dln_bias")
+    print(f"  WKV backward bodies: bf16 {wkv_bwd_body(BF16, N)} (N={N}), "
+          f"fp32 {wkv_bwd_body(torch.float32, N)}")
+    check(wkv_bwd_body(BF16, N) == "chunked" and wkv_bwd_body(torch.float32, N) == "sequential",
+          "the WKV backward does not run the body its dtype should")
     main_errs = {}
     for shape in ((TB, T, H, N), (3, 37, 4, 32), (1, 1, H, N)):
         for dtype in (torch.float32, BF16):
@@ -711,38 +739,118 @@ def phase_backward_kernels() -> dict:
             check(bit_equal(got, wkv6_fused_output_bwd(*args, eps=LN_X_EPS)),
                   f"B.6 + B.7 {shape} {dtype}: two calls differ")
             want = wkv6_fused_output_bwd_plain(*f32(*args), eps=LN_X_EPS)
-            errs = {n: err_line(f"B.6+B.7 (B,T,H,N)={shape} {str(dtype)[6:]} {n}", g, w, WKV_BWD_REL[dtype])
+            errs = {n: err_line(f"B.6+B.7 (B,T,H,N)={shape} {str(dtype)[6:]} {n}", g, w,
+                                wkv_bwd_rel(dtype, g))
                     for n, g, w in zip(names, got, want)}
             if shape == (TB, T, H, N) and dtype == BF16:
                 main_errs = errs
-    # the LoRA path's call: no initial state, the final state unused
+
+    # both bodies in turns on the same bf16 inputs, both forms, at wide,
+    # strong and no decay, over whole, ragged and single-step chunks; the
+    # unfused form forwards, in reverse and over ragged prefixes
+    worst = {b_: {} for b_ in WKV_BWD_BODIES}
+    n_cases = 0
+    for lo, hi in ((-8.0, 3.0), (2.5, 3.2), (-8.0, -8.0)):
+        for t in (1, 15, 16, 17, 37, T):
+            args = wkv_case(3, t, 4, N, BF16, lo, hi)
+            r, k, v, w, u, g, lsc, lbi, s0, dout, dsT = args
+            dy = rng.normal(3, t, 4, N, dtype=torch.float32)
+            lengths = torch.tensor([0, min(1, t), max(t - 2, 1)], dtype=torch.int32, device=DEV)
+            calls = [("fused", names, lambda body: wkv6_fused_output_bwd(*args, eps=LN_X_EPS, body=body),
+                      lambda: wkv6_fused_output_bwd_plain(*f32(*args), eps=LN_X_EPS))]
+            for uu, ss, reverse, ln in ((u, s0, False, None), (None, s0, True, lengths),
+                                        (u, None, False, lengths)):
+                a = (r, k, v, w, uu, ss, dy, dsT)
+                kw = dict(reverse=reverse, lengths=ln)
+                calls.append((f"gn=False reverse={reverse} ragged={ln is not None}", names[:6],
+                              lambda body, a=a, kw=kw: wkv_bwd(*a, body=body, **kw),
+                              lambda a=a, kw=kw: wkv_bwd_plain(
+                                  *(None if x is None else x.float() for x in a), **kw)))
+            for form, nm, kernel, plain in calls:
+                want = plain()
+                # at T=1 a gradient may be zero analytically: the limit is then
+                # that of the largest of dr, dk, dv of the same call
+                top = max(w_.abs().max().item() for w_ in want[:3])
+                for body in WKV_BWD_BODIES:
+                    got = kernel(body)
+                    check(bit_equal(got, kernel(body)), f"{body} WKV backward {form} T={t}: two calls differ")
+                    for n, g_, w_ in zip(nm, got, want):
+                        if w_ is not None:
+                            rel_err(f"{body} {form} T={t} w in [{lo}, {hi}] {n}", g_, w_,
+                                    wkv_bwd_rel(BF16, g_), top if t == 1 else None, worst[body])
+                    n_cases += 1
+    for body in WKV_BWD_BODIES:
+        print(f"  WKV backward, {body} body, bf16: {n_cases // 2} calls (fused and gn=False forms, "
+              f"w in [-8, 3], [2.5, 3.2] and -8, T in 1, 15, 16, 17, 37, {T}), every gradient within "
+              f"{WKV_BWD_REL[BF16]:g} x max|plain| (the fp32 ones {WKV_BWD_REL_FP32_OUT:g}) and two calls "
+              f"bit-equal: worst at "
+              f"{worst[body]['share']:.3f} of the limit ({worst[body]['name']})")
+    # each body's error per gradient at the training shape where the
+    # sequential identity for dw cancels (w in [2.5, 3.2])
+    args = wkv_case(TB, T, H, N, BF16, 2.5, 3.2)
+    want = wkv6_fused_output_bwd_plain(*f32(*args), eps=LN_X_EPS)
+    for body in WKV_BWD_BODIES:
+        got = wkv6_fused_output_bwd(*args, eps=LN_X_EPS, body=body)
+        shares = []
+        for n, g_, w_ in zip(names, got, want):
+            e = rel_err(f"{body} B={TB} T={T} w in [2.5, 3.2] {n}", g_, w_, wkv_bwd_rel(BF16, g_))
+            shares.append(f"{n} {e / w_.abs().max().item():.2e}")
+        print(f"  WKV backward, {body} body, B={TB}, T={T}, H={H}, N={N}, bf16, w in [2.5, 3.2]: "
+              f"max|kernel - plain| / max|plain|: {', '.join(shares)}")
+    del args, want, got
+
+    # the LoRA path's call (no initial state, the final state unused) and the
+    # encoder's (gn=False, u, zero state in): both bodies in turns, twice
     args = wkv_case(TB, T, H, N, BF16)
     args = args[:8] + (None, args[9], None)
-    split = device_ms_by_kernel(lambda: wkv6_fused_output_bwd(*args, eps=LN_X_EPS), 5,
-                                {"B.6": ("wkv6_bwd_forward",), "B.7": ("wkv6_bwd_reverse",)})
-    whole = device_ms(lambda: wkv6_fused_output_bwd(*args, eps=LN_X_EPS), 5)
+    r, k, v, w, u, g, lsc, lbi, _, dout, _ = args
+    dy = rng.normal(TB, T, H, N, dtype=torch.float32)
+    groups = {"B.6": ("wkv6_bwd_forward",), "B.7": ("wkv6_bwd_reverse",)}
+    groups_nogn = {"B.6 gn=False": ("wkv6_bwd_state",), "B.7": ("wkv6_bwd_reverse",)}
+    times = {}
+    for rnd in range(2):
+        for body in WKV_BWD_BODIES:
+            fused = device_ms_by_kernel(lambda: wkv6_fused_output_bwd(*args, eps=LN_X_EPS, body=body), 5,
+                                        groups)
+            nogn = device_ms_by_kernel(lambda: wkv_bwd(r, k, v, w, u, None, dy, None, body=body), 5,
+                                       groups_nogn)
+            times[rnd, body] = dict(fused, **{"B.6 gn=False": nogn["B.6 gn=False"],
+                                              "B.7 (gn=False)": nogn["B.7"]})
+            print(f"  WKV backward at B={TB}, T={T}, H={H}, N={N}, bf16, {body} body (round {rnd + 1}): "
+                  + ", ".join(f"{n} {ms:.4f} ms" for n, ms in times[rnd, body].items()))
     plain = device_ms(lambda: wkv6_fused_output_bwd_plain(*args, eps=LN_X_EPS), 2)
     k1 = device_ms(lambda: wkv6_fused_output(*args[:8], eps=LN_X_EPS), 5)
-    print(f"  B.6 + B.7 at B={TB}, T={T}, H={H}, N={N}, bf16: B.6 {split['B.6']:.4f} ms, B.7 "
-          f"{split['B.7']:.4f} ms, whole backward wrapper {whole:.4f} ms; plain (autograd through "
-          f"the sequential reference) {plain:.4f} ms; forward K1 {k1:.4f} ms")
-    r, k, v, w, u, g, lsc, lbi, _, dout, _ = args
-    steps = TB * T * H * N * N
-    f32_bthn, f64_bthn = 4 * r.numel(), 8 * r.numel()
+    chunked = times[1, "chunked"]
+    print(f"  plain (autograd through the sequential reference) {plain:.4f} ms; forward K1 {k1:.4f} ms")
+    # Bounds, the same for both bodies: the bytes of the function (each input
+    # read once, each gradient written once; what one pass hands the other
+    # not counted) against its chunked factoring's products at the bf16
+    # tensor-core rate and its CUDA-core work (the scores, the pairs below
+    # the diagonal, GroupNorm) in fp32
+    chunk = _lib.library().rwkv_wkv6_fused_chunk()
+    heads = TB * T * H
+    f32_bthn = 4 * r.numel()
     out["wkv6_bwd_forward_pass"] = dict(
         max_abs_err=max(main_errs[n] for n in ("dg", "dln_scale", "dln_bias")),
-        ms=split["B.6"], plain_ms=plain,
-        # reads r, k, v, g, dout, w; writes dy (fp32), dr' (fp64), dg and the
-        # (B, H*N) partials; y, the state update and the dr' tile in fp64
-        **roofline(nbytes(r, k, v, w, u, g, lsc, lbi, dout) + f32_bthn + f64_bthn + nbytes(g)
-                   + 2 * 4 * TB * C, {"fp64": 7 * steps}))
+        ms=chunked["B.6"], plain_ms=plain,
+        # reads r, k, v, g, dout, w; writes dy (fp32), dg and the partials;
+        # per step: y's three products (4 N^2 + 2 L N) and the scores (L N)
+        **roofline(nbytes(r, k, v, w, u, g, lsc, lbi, dout) + f32_bthn + nbytes(g) + 2 * 4 * TB * C,
+                   {"bf16 mma": heads * (4 * N * N + 2 * chunk * N), "fp32": heads * (chunk + 30) * N}))
     out["wkv6_bwd_reverse_pass"] = dict(
         max_abs_err=max(main_errs[n] for n in ("dr", "dk", "dv", "dw", "du", "ds0")),
-        ms=split["B.7"], plain_ms=plain,
-        # reads r, k, v, w, dy (fp32), dr' (fp64); writes dr, dk, dv, dw and
-        # ds0; dk', the dv' tile and the adjoint state's update in fp64
-        **roofline(nbytes(r, k, v, w, u) + f32_bthn + f64_bthn + nbytes(r, k, v, w)
-                   + 4 * TB * H * N * N, {"fp64": 6 * steps}))
+        ms=chunked["B.7"], plain_ms=plain,
+        # reads r, k, v, w, dy (fp32); writes dr, dk, dv, dw, du and ds0; per
+        # step six products with the state or its adjoint (12 N^2) and two
+        # with the scores (4 L N); the scores and the pairs (4 L N) in fp32
+        **roofline(nbytes(r, k, v, w, u) + f32_bthn + nbytes(r, k, v) + f32_bthn + 4 * TB * H * N
+                   + 4 * TB * H * N * N,
+                   {"bf16 mma": heads * (12 * N * N + 4 * chunk * N), "fp32": heads * (4 * chunk + 30) * N}))
+    for name, key in (("wkv6_bwd_forward_pass", "B.6"), ("wkv6_bwd_reverse_pass", "B.7")):
+        o = out[name]
+        print(f"  {key}: chunked {o['ms']:.4f} ms, sequential {times[1, 'sequential'][key]:.4f} ms; bound "
+              f"{o['bound_ms']:.4f} ms by {o['bound_by']}: chunked at {100 * o['bound_ms'] / o['ms']:.1f} %, "
+              f"sequential at {100 * o['bound_ms'] / times[1, 'sequential'][key]:.1f} %")
     return out
 
 
@@ -795,9 +903,14 @@ class Served:
         self.thread.join(timeout=30)
 
 
-def min_cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+def position_cosines(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cosine of a and b along the last axis, one per position."""
     a, b = a.double().flatten(0, -2), b.double().flatten(0, -2)
-    return float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
+    return torch.nn.functional.cosine_similarity(a, b, dim=-1)
+
+
+def min_cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(position_cosines(a, b).min())
 
 
 def phase_serve(model, cfg, reference) -> dict:
@@ -1335,30 +1448,42 @@ def phase_decode_ablation(model, label: str, smi: str, variants=ABLATION) -> Non
     logits) between CUDA events, after 4 warm-up steps, in turns and twice;
     then one step under the profiler for its device operations, busy time
     and split."""
-    def one(variant, tok, state):
+    def step_logits(variant, tok, state):
         if variant in ("step", "step_fused"):
-            lg, state = rwkv_decode_step(model, tok, state, out=state,
-                                         fused_prep=variant == "step_fused")
-        else:
-            lg, state = spliced_step(model, tok, state, variant)
+            return rwkv_decode_step(model, tok, state, out=state, fused_prep=variant == "step_fused")
+        return spliced_step(model, tok, state, variant)
+
+    def one(variant, tok, state):
+        lg, state = step_logits(variant, tok, state)
         return lg.argmax(-1), state
 
     iters = 32
 
     def timed(variant, b):
+        """ms a step over the chain, the state before its last step copied
+        outside the timed spans; then the chain's canary on the last step's
+        logits."""
         state = init_model_state(model.cfg, b, device=DEV)
         tok = torch.full((b,), 5, device=DEV)
         for _ in range(4):
             tok, state = one(variant, tok, state)
         torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        for _ in range(iters - 1):
             tok, state = one(variant, tok, state)
-        end.record()
+        ev[1].record()
+        last_tok, last_state = tok, {n: x.clone() for n, x in state.items()}
+        ev[2].record()
+        lg, state = step_logits(variant, tok, state)
+        tok = lg.argmax(-1)
+        ev[3].record()
         torch.cuda.synchronize()
         check(bool(torch.isfinite(state["wkv"]).all()), f"{variant}: non-finite state")
-        return start.elapsed_time(end) / iters, tok, state
+        chain_canary(lambda x: step_logits(variant, x, {n: y.clone() for n, y in last_state.items()})[0],
+                     last_tok, lg, (last_tok + 1) % model.cfg.vocab_size, f"decode {variant} B={b}")
+        del last_state
+        return (ev[0].elapsed_time(ev[1]) + ev[2].elapsed_time(ev[3])) / iters, tok, state
 
     for b in (B, 1):
         with torch.inference_mode():
@@ -1533,7 +1658,8 @@ STEP_GROUPS = {
     "K2 forward": ("tmix_prologue_tc_kernel", "tmix_prologue_simt_kernel"),
     "K3 forward": ("layer_norm_kernel",),
     "B.5": ("prologue_bwd_chain", "prologue_bwd_ln", "atb_kernel"),
-    "B.6": ("wkv6_bwd_forward",), "B.7": ("wkv6_bwd_reverse",),
+    "B.6": ("wkv6_bwd_forward_chunked_kernel", "wkv6_bwd_forward_kernel"),
+    "B.7": ("wkv6_bwd_reverse_chunked_kernel", "wkv6_bwd_reverse_kernel"),
     "partial sums": ("sum_partials",),
     "GEMMs": ("gemm", "nvjet", "xmma", "cutlass"),
     "optimizer (multi-tensor)": ("multi_tensor_apply",),
@@ -1554,17 +1680,68 @@ def split_by_group(ops, groups: dict) -> dict:
     return split
 
 
+# a bf16 train step runs the chunked bodies of the WKV backward, not the
+# sequential ones (kernel names, as the profiler records them)
+LORA_STEP_KERNELS = (("wkv6_bwd_forward_chunked_kernel", "wkv6_bwd_reverse_chunked_kernel"),
+                     ("wkv6_bwd_forward_kernel", "wkv6_bwd_reverse_kernel"))
+MLM_STEP_KERNELS = (("wkv6_bwd_state_chunked_kernel", "wkv6_bwd_reverse_chunked_kernel"),
+                    ("wkv6_bwd_state_kernel", "wkv6_bwd_reverse_kernel"))
+
+
 def step_profile(step, batch, step_ms: float, groups: dict = STEP_GROUPS,
-                 what: str = "one step (remat on)") -> None:
+                 what: str = "one step (remat on)", kernels=((), ())) -> None:
     """Device time of one train step (or forward) by kernel group
     (torch.profiler, device operations only); idle = the step's CUDA-event
-    time less busy."""
+    time less busy. `kernels`: the kernel names the step must run, and those
+    it must not."""
     ops = device_ops(lambda: step(batch), 1)
+    names = {e.name for e in ops}
+    present, absent = kernels
+    for k in present:
+        check(any(k in n for n in names), f"{what}: no {k} in the profile")
+    for k in absent:
+        check(not any(k in n for n in names), f"{what}: {k} in the profile")
+    if present or absent:
+        print(f"  {what} ran {', '.join(present)}" + (f" and no {', '.join(absent)}" if absent else ""))
     busy = sum(e.self_device_time_total for e in ops) / 1e3
     print(f"  profile of {what}: {len(ops)} device ops, busy {busy:.3f} ms of "
           f"{step_ms:.3f} ms, idle {100 * max(step_ms - busy, 0) / step_ms:.2f} %")
     for g, v in split_by_group(ops, groups).items():
         print(f"    {g}: {v:.3f} ms ({100 * v / busy:.1f} %)")
+
+
+def chained_steps(step, batch, iters: int, trainable: list):
+    """`iters` train steps that chain through the optimizer's updates,
+    between CUDA events; the trainable parameters are copied before the last
+    step, outside the timed spans. Returns (ms a step, the losses, the
+    copy)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    losses = [step(batch)["loss"] for _ in range(iters - 1)]
+    ev[1].record()
+    before_last = [p.detach().clone() for p in trainable]
+    ev[2].record()
+    losses.append(step(batch)["loss"])
+    ev[3].record()
+    torch.cuda.synchronize()
+    return (ev[0].elapsed_time(ev[1]) + ev[2].elapsed_time(ev[3])) / iters, torch.stack(losses), before_last
+
+
+def train_canary(model, loss_fn, trainable: list, before_last: list, batch, other, last_loss,
+                 what: str) -> None:
+    """chain_canary for a chain of train steps: the last loss must be what
+    the parameters before the last step give on the last batch, and must
+    move on another batch. The parameters are swapped for their copy and
+    back."""
+    def swap():
+        for p, c in zip(trainable, before_last):
+            p.data, c.data = c.data, p.data
+
+    swap()
+    try:
+        chain_canary(lambda b: loss_fn(model, b), batch, last_loss, other, what)
+    finally:
+        swap()
 
 
 def phase_train_readings(path: str, smi: str) -> None:
@@ -1589,20 +1766,19 @@ def phase_train_readings(path: str, smi: str) -> None:
         step(batch)      # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        losses = [step(batch)["loss"] for _ in range(iters)]
-        end.record()
-        torch.cuda.synchronize()
-        losses = torch.stack(losses)
+        trainable = [p for p in model.parameters() if p.requires_grad]
+        ms, losses, before_last = chained_steps(step, batch, iters, trainable)
         check(bool(torch.isfinite(losses).all()), f"non-finite train losses {losses}")
-        ms = start.elapsed_time(end) / iters
+        train_canary(model, functools.partial(sft_loss_fn, remat=remat), trainable, before_last,
+                     batch, train_batch(gen, cfg.vocab_size), losses[-1],
+                     f"LoRA train steps, remat {'on' if remat else 'off'}")
+        del before_last
         print(f"  reading: LoRA train step {ms:.2f} ms, {TB * T / ms:.2f} Kt/s (r=8, B={TB}, T={T}, "
               f"bf16, remat {'on' if remat else 'off'}, peak "
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, losses "
               f"{losses[0].item():.4f} .. {losses[-1].item():.4f}) on {smi}")
         if remat:
-            step_profile(step, batch, ms)
+            step_profile(step, batch, ms, kernels=LORA_STEP_KERNELS)
     del model, step
     torch.cuda.empty_cache()
 
@@ -1637,19 +1813,107 @@ def run_train_cli(args, command: str = "sft", falling: bool = True) -> list:
     return losses
 
 
+def sft_args(path: str, data: Path) -> list:
+    """The arguments of every `train.cli sft` run here, but the output
+    directory and the train type."""
+    return ["--model", path, "--train-data", str(data), "--micro-bsz", "64", "--ctx-len", str(T),
+            "--lr-init", "1e-3", "--warmup-steps", "0", "--log-every", "1", "--platform", DEV]
+
+
+LORA_ARGS = ("--train-type", "lora", "--lora-r", "8", "--lora-alpha", "32", "--max-steps", "8")
+# The merged bf16 adapter against the unfused bf16 route, each by its
+# per-position logits cosine to the unfused route in fp32: the worst position
+# and the mean over positions of the merged route may trail the unfused
+# route's by these. From `python3 chip_smoke.py --merge-calibration` on an
+# H100 (4 adapter seeds x 2 WKV backward bodies x 4 token batches): the worst
+# positions' margin spread from -4.90e-3 to +6.06e-3 (sd 2.37e-3, alike for
+# both bodies), the means' from -3.72e-5 to +7.28e-5 (sd 2.23e-5).
+MERGE_WORST_BUDGET = 7.5e-3
+MERGE_MEAN_BUDGET = 1e-4
+
+
+def merged_adapter_readings(path: str, sd: dict, cfg, token_seeds=(10,)) -> list:
+    """The LoRA adapter `sd` on the checkpoint at `path`, unfused and merged,
+    in fp32 and bf16, on 2 x 128 tokens drawn from each of `token_seeds`.
+    Per token batch: the merged fp32 route's worst per-position logits cosine
+    to the unfused fp32 route ("fp32"), and the bf16 routes' worst and mean."""
+    adapter = lora_state_dict_to_tree(sd)
+    batches = [torch.randint(4, cfg.vocab_size, (2, 128), device=DEV,
+                             generator=torch.Generator(device=DEV).manual_seed(s)) for s in token_seeds]
+    logits = {}
+    for dtype in ("float32", "bfloat16"):
+        model, _ = load_rwkv_checkpoint(path, device=DEV, dtype=dtype)
+        apply_lora(model, LORA, adapter)
+        with torch.inference_mode():
+            for i, tokens in enumerate(batches):
+                logits[dtype, "unfused", i] = model(tokens)[0].float()
+            merge_lora(model)
+            for i, tokens in enumerate(batches):
+                logits[dtype, "merged", i] = model(tokens)[0].float()
+        del model
+    readings = []
+    for i in range(len(batches)):
+        ref = logits["float32", "unfused", i]
+        rd = {"fp32": min_cosine(logits["float32", "merged", i], ref)}
+        for kind in ("merged", "unfused"):
+            per = position_cosines(logits["bfloat16", kind, i], ref)
+            rd[f"worst {kind}"], rd[f"mean {kind}"] = float(per.min()), float(per.mean())
+        readings.append(rd)
+    del logits
+    torch.cuda.empty_cache()
+    return readings
+
+
+def merge_calibration(adapters: int = 4, token_seeds=(10, 11, 12, 13)) -> None:
+    """The readings behind MERGE_WORST_BUDGET and MERGE_MEAN_BUDGET: the
+    synthetic 24-layer model, `adapters` LoRA adapters (the seeds of
+    `train.cli sft` in this process, phase 9's data and steps) trained once
+    through each body of the WKV backward, and each adapter's margins (merged
+    less unfused) on several token batches. The body is forced by replacing
+    ops.wkv_fused.wkv_bwd_body for the run."""
+    cfg = rwkv6_1b6()
+    model = load_state_dict_into(RWKV(cfg, device=DEV), synthetic_1b6(cfg, seed=0))
+    margins = {body: [] for body in WKV_BWD_BODIES}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        path = str(tmp / "rwkv6_1b6_synthetic.pth")
+        save_rwkv_checkpoint(model, path)
+        del model
+        torch.cuda.empty_cache()
+        data = tmp / "sft.jsonl"
+        sft_jsonl(data, WorldTokenizer())
+        for seed in range(adapters):
+            for body in WKV_BWD_BODIES:
+                out = tmp / f"{body}{seed}"
+                with mock.patch.object(wkv_fused, "wkv_bwd_body", lambda dtype, n, b=body: b):
+                    train_cli.main(["sft", *sft_args(path, data), "--output-dir", str(out), *LORA_ARGS,
+                                    "--seed", str(seed)])
+                sd = torch.load(out / "lora-step8.pth", map_location=DEV, weights_only=True)
+                for ts, rd in zip(token_seeds, merged_adapter_readings(path, sd, cfg, token_seeds)):
+                    worst = rd["worst merged"] - rd["worst unfused"]
+                    mean = rd["mean merged"] - rd["mean unfused"]
+                    margins[body].append((worst, mean))
+                    print(f"  adapter seed {seed}, {body} body, tokens seed {ts}: bf16 worst position "
+                          f"merged {rd['worst merged']:.6f} unfused {rd['worst unfused']:.6f} (margin "
+                          f"{worst:+.3e}); mean merged {rd['mean merged']:.6f} unfused "
+                          f"{rd['mean unfused']:.6f} (margin {mean:+.3e}); fp32 merged {rd['fp32']:.6f}",
+                          flush=True)
+    for body, m in margins.items():
+        w_, m_ = [x for x, _ in m], [y for _, y in m]
+        print(f"  {body} body, {len(m)} readings: worst-position margin {min(w_):+.3e} .. {max(w_):+.3e}, "
+              f"mean margin {min(m_):+.3e} .. {max(m_):+.3e}")
+
+
 def phase_train_cli(path: str, tmp: Path) -> dict:
     """The trainer's normal entry point on the saved 24-layer model: LoRA (8
     steps) and state tuning (4 steps) as subprocesses, their files, the
     merged adapter; then LoRA again in this process, where the launches of
     the training path are counted. Returns those counts."""
-    tok = WorldTokenizer()
     data = tmp / "sft.jsonl"
-    sft_jsonl(data, tok)
-    common = ["--model", path, "--train-data", str(data), "--micro-bsz", "64", "--ctx-len", str(T),
-              "--lr-init", "1e-3", "--warmup-steps", "0", "--log-every", "1", "--platform", DEV]
+    sft_jsonl(data, WorldTokenizer())
+    common = sft_args(path, data)
     out = tmp / "lora"
-    run_train_cli(common + ["--output-dir", str(out), "--train-type", "lora", "--lora-r", "8",
-                            "--lora-alpha", "32", "--max-steps", "8"])
+    run_train_cli(common + ["--output-dir", str(out), *LORA_ARGS])
     check((out / "train_log.txt").is_file(), "no train_log.txt")
     sd = torch.load(out / "lora-step8.pth", map_location=DEV, weights_only=True)
     model, cfg = load_rwkv_checkpoint(path, device=DEV)
@@ -1661,27 +1925,18 @@ def phase_train_cli(path: str, tmp: Path) -> dict:
         check(tuple(t.shape) == want and t.dtype == torch.float32, f"{key}: {tuple(t.shape)} {t.dtype}")
     check(all(bool(sd[k].abs().max() > 0) for k in sd if k.endswith("lora_B")), "a lora_B did not train")
     del model
-    adapter = lora_state_dict_to_tree(sd)
-    tokens = torch.randint(4, cfg.vocab_size, (2, 128), device=DEV,
-                           generator=torch.Generator(device=DEV).manual_seed(10))
-    logits = {}
-    for dtype in ("float32", "bfloat16"):
-        model, _ = load_rwkv_checkpoint(path, device=DEV, dtype=dtype)
-        apply_lora(model, LORA, adapter)
-        with torch.inference_mode():
-            logits[dtype, "unfused"] = model(tokens)[0].float()
-            logits[dtype, "merged"] = merge_lora(model)(tokens)[0].float()
-        del model
-    ref = logits["float32", "unfused"]
-    cos32 = min_cosine(logits["float32", "merged"], ref)
-    cos_m, cos_u = (min_cosine(logits["bfloat16", k], ref) for k in ("merged", "unfused"))
+    rd = merged_adapter_readings(path, sd, cfg)[0]
     print(f"  lora-step8.pth: {len(sd)} keys in the reference layout (lora_A (8, in), lora_B "
-          f"(out, 8), fp32); min per-position logits cosine to the unfused LoRA forward in fp32: "
-          f"merged in fp32 {cos32:.6f} (limit 0.999); in bf16 merged {cos_m:.6f}, unfused "
-          f"{cos_u:.6f} (merged may trail unfused by 1e-3)")
-    check(cos32 >= 0.999, f"merged adapter logits cosine {cos32} in fp32")
-    check(cos_m >= cos_u - 1e-3, f"bf16 merged adapter cosine {cos_m} trails unfused {cos_u}")
-    del logits, ref
+          f"(out, 8), fp32); per-position logits cosine to the unfused LoRA forward in fp32: "
+          f"merged in fp32, min {rd['fp32']:.6f} (limit 0.999); in bf16, worst position merged "
+          f"{rd['worst merged']:.6f}, unfused {rd['worst unfused']:.6f} (merged may trail by "
+          f"{MERGE_WORST_BUDGET:g}), mean merged {rd['mean merged']:.6f}, unfused "
+          f"{rd['mean unfused']:.6f} (by {MERGE_MEAN_BUDGET:g})")
+    check(rd["fp32"] >= 0.999, f"merged adapter logits cosine {rd['fp32']} in fp32")
+    check(rd["worst merged"] >= rd["worst unfused"] - MERGE_WORST_BUDGET,
+          f"bf16 merged adapter cosine {rd['worst merged']} trails unfused {rd['worst unfused']}")
+    check(rd["mean merged"] >= rd["mean unfused"] - MERGE_MEAN_BUDGET,
+          f"bf16 merged adapter mean cosine {rd['mean merged']} trails unfused {rd['mean unfused']}")
     torch.cuda.empty_cache()
 
     out = tmp / "states"
@@ -1779,7 +2034,7 @@ def phase_wkv_kernels() -> dict:
                 want = wkv_bwd_plain(*map(plain32, args), **kw)
                 # at T=1 a gradient may be zero analytically (dw from a zero state)
                 scale = max(w_.abs().max().item() for w_ in want[:3]) if shape[1] == 1 else None
-                errs = {n: rel_err(f"B.8 backward {tag} {n}", g_, w_, WKV_BWD_REL[dtype], scale,
+                errs = {n: rel_err(f"B.8 backward {tag} {n}", g_, w_, wkv_bwd_rel(dtype, g_), scale,
                                    bwd_worst)
                         for n, g_, w_ in zip(names, got, want) if w_ is not None}
                 check(all((g_ is None) == (w_ is None) for g_, w_ in zip(got, want)),
@@ -1791,7 +2046,8 @@ def phase_wkv_kernels() -> dict:
                   f"{fwd_worst['share']:.3f} of the limit ({fwd_worst['name']})")
             if shape[0] == B:
                 continue
-            print(f"    backward, every gradient within {WKV_BWD_REL[dtype]:g} x max|plain|, two calls "
+            print(f"    backward, every gradient within {WKV_BWD_REL[dtype]:g} x max|plain| (the fp32 "
+                  f"ones on bf16 inputs {WKV_BWD_REL_FP32_OUT:g}), two calls "
                   f"bit-equal: worst at {bwd_worst['share']:.3f} of the limit ({bwd_worst['name']})")
             # wkv6_bi: two launches against the flip composition, through autograd
             for lengths in (None, torch.full_like(c["lengths"], shape[1]), c["lengths"]):
@@ -1842,10 +2098,12 @@ def phase_wkv_kernels() -> dict:
             out["wkv_bwd_state_pass"] = dict(
                 max_abs_err=max(main_bwd[n] for n in ("dr", "dw")), ms=t_["state"],
                 plain_ms=t_["plain_bwd"],
-                # reads k, v, w, dy; writes dr' (fp64) and c_T; the state's
-                # update, the dr' tile and its row sums in fp64
-                **roofline(nbytes(c["k"], c["v"], c["w"], c["dy"]) + 2 * y_bytes + 8 * TB * H * N,
-                           {"fp64": 5 * steps}))
+                # the function of B.6 without GroupNorm: the state carried
+                # over the walk, reading k, v, w (what it hands pass 2 not
+                # counted, as for B.6 and B.7); per step the state's update
+                # (2 N^2) at the bf16 tensor-core rate and the decays in fp32
+                **roofline(nbytes(c["k"], c["v"], c["w"]),
+                           {"bf16 mma": 2 * steps, "fp32": 4 * TB * T * H * N}))
     return out
 
 
@@ -2271,7 +2529,8 @@ def phase_mlm_cli(path: str, tmp: Path) -> dict:
 
 MLM_STEP_GROUPS = {
     "B.8 forward": ("wkv6_kernel",), "K3 forward": ("layer_norm_kernel",),
-    "B.8 backward pass 1": ("wkv6_bwd_state",), "B.8 backward pass 2 (B.7)": ("wkv6_bwd_reverse",),
+    "B.8 backward pass 1 (B.6 gn=False)": ("wkv6_bwd_state_chunked_kernel", "wkv6_bwd_state_kernel"),
+    "B.8 backward pass 2 (B.7)": ("wkv6_bwd_reverse_chunked_kernel", "wkv6_bwd_reverse_kernel"),
     "partial sums": ("sum_partials",),
     "fp32 GEMMs (the tied head)": ("sgemm", "gemm_f32", "f32f32", "s1688", "s161616"),
     "GEMMs": ("gemm", "nvjet", "xmma", "cutlass"),
@@ -2307,11 +2566,14 @@ def phase_encoder_readings(path: str, smi: str) -> None:
             start.record()
             checksum = torch.zeros((), device=DEV)
             for _ in range(iters):
+                last_in = tokens
                 tokens, hidden = step(tokens)
                 checksum += hidden[:, -1].float().sum()
             end.record()
             torch.cuda.synchronize()
         check(bool(torch.isfinite(checksum)), "non-finite hidden states in the encoder chain")
+        chain_canary(lambda x: step(x)[1][:, -1], last_in, hidden[:, -1],
+                     lo + (last_in - lo + 1) % (hi - lo), f"encoder_forward mode={mode}")
         seconds = start.elapsed_time(end) / 1e3
         print(f"  reading: {B * iters / seconds:.2f} seq/s encoded (encoder_forward mode={mode}, "
               f"B={B}, T={T}, bf16, {seconds / iters * 1e3:.1f} ms/batch, peak "
@@ -2328,24 +2590,27 @@ def phase_encoder_readings(path: str, smi: str) -> None:
     step(batch)      # warm-up; builds the optimizer state
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    losses = [step(batch)["loss"] for _ in range(iters)]
-    end.record()
-    torch.cuda.synchronize()
-    losses = torch.stack(losses)
+    trainable = [p for p in model.parameters() if p.requires_grad]
+    ms, losses, before_last = chained_steps(step, batch, iters, trainable)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     check(bool(torch.isfinite(losses).all()), f"non-finite mlm losses {losses}")
-    ms = start.elapsed_time(end) / iters
+    train_canary(model, lambda m, b: mlm_loss_fn(m, b, remat=True), trainable, before_last, batch,
+                 mlm_batch(cfg.vocab_size, 17), losses[-1], "mlm train steps")
+    del before_last
     print(f"  reading: mlm train step {ms:.2f} ms, {TB * T / ms:.2f} Kt/s (every parameter, fp32 "
           f"master weights, bf16 compute, B={TB}, T={T}, mode=average, remat on, peak "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, losses {losses[0].item():.4f} .. "
-          f"{losses[-1].item():.4f}) on {smi}")
-    step_profile(step, batch, ms, MLM_STEP_GROUPS)
+          f"{peak:.1f} GiB, losses {losses[0].item():.4f} .. {losses[-1].item():.4f}) on {smi}")
+    step_profile(step, batch, ms, MLM_STEP_GROUPS, kernels=MLM_STEP_KERNELS)
     del model, step
     torch.cuda.empty_cache()
 
 
 def main() -> None:
+    """With no arguments the whole check; with --merge-calibration only the
+    readings behind the merged-adapter budgets (merge_calibration)."""
+    if sys.argv[1:] not in ([], ["--merge-calibration"]):
+        sys.exit("usage: python3 chip_smoke.py [--merge-calibration]")
+    calibrate = sys.argv[1:] == ["--merge-calibration"]
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's kernels run only on an NVIDIA GPU")
     name = torch.cuda.get_device_name(0)
@@ -2358,6 +2623,10 @@ def main() -> None:
     t0 = time.perf_counter()
     _lib.library()
     print(f"  built and loaded the kernels in {time.perf_counter() - t0:.1f} s")
+    if calibrate:
+        phase("the merged adapter's margins over adapters trained through each WKV backward body")
+        merge_calibration()
+        return
 
     phase("phase 2: kernels vs their plain versions")
     phase_card_rates()

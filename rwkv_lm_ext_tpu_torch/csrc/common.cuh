@@ -33,12 +33,20 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Sum of v over the whole block, returned to every thread. blockDim.x must
-// be a multiple of 32; `red` holds at least blockDim.x / 32 floats of shared
-// memory. No trailing barrier: the caller must not write `red` again until
-// every thread has passed a later barrier.
+// be a multiple of 32, or a power of two below 32 (one partial warp: a head
+// of 16 channels), and `red` holds at least (blockDim.x + 31) / 32 floats of
+// shared memory. Either way the sum passes a block barrier. No trailing
+// barrier: the caller must not write `red` again until every thread has
+// passed a later barrier.
 __device__ __forceinline__ float block_sum_nowait(float v, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
+  if (n_warps == 0) {
+    const unsigned mask = (1u << blockDim.x) - 1u;
+    for (int o = blockDim.x >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o);
+    __syncthreads();
+    return v;
+  }
   v = warp_sum(v);
   if (lane == 0) red[warp] = v;
   __syncthreads();

@@ -138,8 +138,10 @@ extern "C" int rwkv_wkv6(const void* r, const void* k, const void* v, const void
         static_cast<float*>(sT), T_len, H, reverse);                                     \
     return cudaGetLastError();                                                           \
   } while (0)
+  if (dtype == kFloat32 && N == 16) RWKV_WKV_CASE(float, 16);
   if (dtype == kFloat32 && N == 32) RWKV_WKV_CASE(float, 32);
   if (dtype == kFloat32 && N == 64) RWKV_WKV_CASE(float, 64);
+  if (dtype == kBFloat16 && N == 16) RWKV_WKV_CASE(__nv_bfloat16, 16);
   if (dtype == kBFloat16 && N == 32) RWKV_WKV_CASE(__nv_bfloat16, 32);
   if (dtype == kBFloat16 && N == 64) RWKV_WKV_CASE(__nv_bfloat16, 64);
 #undef RWKV_WKV_CASE

@@ -230,8 +230,10 @@ static int decode_dispatch(const void* r, const void* k, const void* v, const vo
 #define RWKV_DECODE_CASE(TYPE, NN)                                                       \
   return launch_decode<TYPE, NN>(r, k, v, w, u, g, scale, bias, state, out, out_state, B, \
                                  H, eps, transposed, s)
+  if (dtype == kFloat32 && N == 16) RWKV_DECODE_CASE(float, 16);
   if (dtype == kFloat32 && N == 32) RWKV_DECODE_CASE(float, 32);
   if (dtype == kFloat32 && N == 64) RWKV_DECODE_CASE(float, 64);
+  if (dtype == kBFloat16 && N == 16) RWKV_DECODE_CASE(__nv_bfloat16, 16);
   if (dtype == kBFloat16 && N == 32) RWKV_DECODE_CASE(__nv_bfloat16, 32);
   if (dtype == kBFloat16 && N == 64) RWKV_DECODE_CASE(__nv_bfloat16, 64);
 #undef RWKV_DECODE_CASE

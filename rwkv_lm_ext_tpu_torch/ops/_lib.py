@@ -64,6 +64,14 @@ _SIGNATURES = {
     # x, shift, ln_scale, ln_bias, maa, w1, w1T, w2, w2T, d0..d4, dxln, dx,
     # dshift, dw1, dw2, 8 scratch buffers, B, T, C, D, eps, dtype, stream
     "rwkv_tmix_prologue_bwd": [_P] * 27 + [_I] * 4 + [_F, _I, _P],
+    # r, k, v, w, u, g, scale, bias, s0, dout, states, dy, dg, dsc_p, dbi_p, B, T,
+    # H, N, eps, stream
+    "rwkv_wkv6_bwd_forward_chunked": [_P] * 15 + [_I] * 4 + [_F, _P],
+    # k, v, w, s0, lengths, states, B, T, H, N, reverse, stream
+    "rwkv_wkv6_bwd_state_chunked": [_P] * 6 + [_I] * 5 + [_P],
+    # r, k, v, w, u, dy, states, dsT, lengths, dr, dk, dv, dw, du_p, ds0, B, T, H,
+    # N, reverse, stream
+    "rwkv_wkv6_bwd_reverse_chunked": [_P] * 15 + [_I] * 5 + [_P],
     # in, out, P, M, stream
     "rwkv_sum_partials": [_P, _P, _I, _L, _P],
     # B.9's arguments, the state and out_state transposed

@@ -12,7 +12,9 @@ with ``gn=False``).
 encoders (models/bidirectional.py) are its callers. It has no ``backend``,
 ``chunk_size``, ``exact`` or ``remat`` arguments: the kernel runs the
 sequential recurrence, exact at any decay, so there is nothing to select
-(see ops/wkv_fused.py). It raises for a head size outside HEAD_SIZES; the
+(see ops/wkv_fused.py); its backward runs the body of ``wkv_bwd_body``
+(``wkv_bwd_chunked_plain`` mirrors the chunked one). It raises for a head
+size outside ops/wkv_fused.HEAD_SIZES; the
 JAX package zero-pads other head sizes up to one its kernels tile
 (``pad_target``), which is a rule of that tiling.
 
@@ -35,7 +37,14 @@ from typing import Optional, Tuple
 import torch
 
 from rwkv_lm_ext_tpu_torch.ops import _lib
-from rwkv_lm_ext_tpu_torch.ops.wkv_fused import HEAD_SIZES, wkv6_bwd_reverse_pass
+from rwkv_lm_ext_tpu_torch.ops.wkv_fused import (
+    BwdCarry,
+    _bwd_pass1_body,
+    _entry_states,
+    _wkv_bwd_chunked,
+    check_head_size,
+    wkv6_bwd_reverse_pass,
+)
 from rwkv_lm_ext_tpu_torch.ops.wkv_reference import wkv_reference
 
 
@@ -98,13 +107,56 @@ def wkv_bwd_plain(
     return tuple(out.get(n) for n in named)
 
 
+def wkv_bwd_chunked_plain(
+    r, k, v, w, u, initial_state, dy, dsT, *, reverse: bool = False,
+    lengths: Optional[torch.Tensor] = None, chunk: int = 16,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """``wkv_bwd_plain`` by the factoring of the chunked bodies of its two
+    passes (csrc/wkv_fused_bwd.cu with gn=False), in fp64, any chunk length:
+    the walk over each row's valid prefix as the kernels take it (step s is
+    time s, or lengths[b] - 1 - s in reverse; the steps beyond the prefix
+    carry d = 0 and zero operands), then ops/wkv_fused._wkv_bwd_chunked. The
+    same tuple, in fp32; zero gradients beyond the prefix. For the tests and
+    the card checks; no model path calls it."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, not {chunk}")
+    B, T, H, N = r.shape
+    f64 = torch.float64
+    full = torch.full((B,), T, dtype=torch.int64, device=r.device)
+    lengths = full if lengths is None else lengths.to(torch.int64).clamp(0, T)
+    valid = _valid(lengths, T)
+
+    def steps(x):            # (B, T, H, N) by time -> (B, H, T, N) by step, masked
+        x = x.to(f64) * valid
+        return (_flip_valid_prefix(x, lengths) if reverse else x).permute(0, 2, 1, 3)
+
+    def times(x):            # the inverse of steps
+        x = x.permute(0, 2, 1, 3)
+        return ((_flip_valid_prefix(x, lengths) if reverse else x) * valid).float()
+
+    zeros = torch.zeros(B, T, H, N, dtype=f64, device=r.device)
+    d = -torch.exp(w.to(f64))
+    uf = torch.zeros(H, N, dtype=f64, device=r.device) if u is None else u.to(f64)
+    s0 = (torch.zeros(B, H, N, N, dtype=f64, device=r.device) if initial_state is None
+          else initial_state.to(f64).expand(B, H, N, N))
+    dST = torch.zeros_like(s0) if dsT is None else dsT.to(f64)
+    dr, dk, dv, dd, du, ds0 = _wkv_bwd_chunked(
+        steps(r), steps(k), steps(v), steps(d), uf, steps(zeros if dy is None else dy), s0, dST,
+        chunk)
+    if initial_state is None:
+        ds0 = None
+    elif initial_state.dim() == 3:
+        ds0 = ds0.sum(0)
+    return (times(dr), times(dk), times(dv), times(dd) * d.float(),
+            None if u is None else du.float(), None if ds0 is None else ds0.float())
+
+
 def _prepare(r, k, v, w, u, initial_state, lengths):
     """Check the inputs of the CUDA route and cast them as the kernels take
     them: w, u and the (B, H, N, N) initial state in fp32, lengths in int32.
     Returns (w, u, s0, lengths); u, s0 and lengths stay None."""
     B, T, H, N = r.shape
-    if N not in HEAD_SIZES:
-        raise ValueError(f"head size {N} not supported by the WKV kernel (one of {HEAD_SIZES})")
+    check_head_size(N, "the WKV kernel")
     for name, t in (("k", k), ("v", v), ("w", w)):
         if t.shape != r.shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, r {tuple(r.shape)}")
@@ -149,32 +201,41 @@ def _launch_wkv(r, k, v, w, u, s0, lengths, reverse):
     return y, sT
 
 
-def wkv_bwd_state_pass(k, v, w, s0, dy, dsT, *, lengths=None, reverse=False):
+def wkv_bwd_state_pass(k, v, w, s0, dy, dsT, *, lengths=None, reverse=False, body=None):
     """Pass 1 of B.8's backward, the variant of B.6 without GroupNorm and
-    gate: the forward state again, given dy (B, T, H, N) fp32. Takes the
-    kernels' argument types (see _prepare; s0, dsT and lengths may be None).
-    Returns dr' (B, T, H, N) fp64, defined on the steps the scan walks, and
-    c_T (B, H, N) fp64."""
+    gate: the forward state again over each row's walk. Takes the kernels'
+    argument types (see _prepare; s0, dsT and lengths may be None; dy
+    (B, T, H, N) fp32). Returns the BwdCarry for pass 2: sequential, dr'
+    (fp64, defined on the steps the walk takes) and c_T, from dy and dsT;
+    chunked, the chunk-entry states, which need neither. ``body`` overrides
+    wkv_bwd_body's choice (for the card checks)."""
     B, T, H, N = k.shape
+    body = _bwd_pass1_body(k, body)
     device = _lib.check_cuda(k=k, v=v, w=w, dy=dy, **_optional(s0=s0, dsT=dsT))
-    drp = torch.empty(B, T, H, N, dtype=torch.float64, device=device)
-    cT = torch.empty(B, H, N, dtype=torch.float64, device=device)
-    _lib.launch(
-        "rwkv_wkv6_bwd_state", device, k, v, w, s0, dy, dsT, lengths, drp, cT,
-        B, T, H, N, int(reverse), _lib.DTYPE_CODES[k.dtype],
-    )
+    if body == "chunked":
+        carry = BwdCarry(body, states=_entry_states(B, T, H, N, device))
+        _lib.launch("rwkv_wkv6_bwd_state_chunked", device, k, v, w, s0, lengths, carry.states,
+                    B, T, H, N, int(reverse))
+    else:
+        carry = BwdCarry(body, drp=torch.empty(B, T, H, N, dtype=torch.float64, device=device),
+                         cT=torch.empty(B, H, N, dtype=torch.float64, device=device))
+        _lib.launch(
+            "rwkv_wkv6_bwd_state", device, k, v, w, s0, dy, dsT, lengths, carry.drp, carry.cT,
+            B, T, H, N, int(reverse), _lib.DTYPE_CODES[k.dtype],
+        )
     wkv_bwd_state_pass.launches += 1
-    return drp, cT
+    return carry
 
 
 def wkv_bwd(
     r, k, v, w, u, initial_state, dy, dsT, *, reverse: bool = False,
-    lengths: Optional[torch.Tensor] = None,
+    lengths: Optional[torch.Tensor] = None, body: Optional[str] = None,
 ) -> Tuple[Optional[torch.Tensor], ...]:
     """The backward of ``wkv``: the tuple of ``wkv_bwd_plain``, dr, dk, dv in
     the inputs' dtype and dw, du, ds0 in fp32. CPU tensors take the plain
-    version; CUDA tensors launch the two passes and reduce the per-(b, h)
-    partials in a fixed order, so two calls give the same bits."""
+    version; CUDA tensors launch the two passes (the body of wkv_bwd_body, or
+    ``body``) and reduce the per-(b, h) partials in a fixed order, so two
+    calls give the same bits."""
     if r.device.type == "cpu":
         return wkv_bwd_plain(r, k, v, w, u, initial_state, dy, dsT,
                              reverse=reverse, lengths=lengths)
@@ -189,9 +250,10 @@ def wkv_bwd(
         if dsT.shape != (B, H, N, N):
             raise ValueError(f"dsT must be {(B, H, N, N)}")
         dsT = dsT.float().contiguous()
-    drp, cT = wkv_bwd_state_pass(k, v, w32, s0, dy, dsT, lengths=lengths, reverse=reverse)
+    carry = wkv_bwd_state_pass(k, v, w32, s0, dy, dsT, lengths=lengths, reverse=reverse,
+                               body=body)
     dr, dk, dv, dw, du_p, ds0 = wkv6_bwd_reverse_pass(
-        r, k, v, w32, u32, dy, drp, cT, dsT, lengths=lengths, reverse=reverse)
+        r, k, v, w32, u32, dy, carry, dsT, lengths=lengths, reverse=reverse)
     if initial_state is None:
         ds0 = None
     elif initial_state.dim() == 3:

@@ -30,7 +30,7 @@ import torch
 
 from rwkv_lm_ext_tpu_torch.ops import _lib
 
-HEAD_SIZES = (32, 64)
+HEAD_SIZES = (16, 32, 64)
 
 
 def wkv6_decode_step_plain(

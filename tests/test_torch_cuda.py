@@ -64,6 +64,7 @@ from rwkv_lm_ext_tpu_torch.ops.wkv import (
     wkv6_bi,
     wkv6_bi_plain,
     wkv_bwd,
+    wkv_bwd_chunked_plain,
     wkv_bwd_plain,
     wkv_plain,
 )
@@ -77,9 +78,11 @@ from rwkv_lm_ext_tpu_torch.ops.wkv_fused import (
     k1_body,
     wkv6_fused_output,
     wkv6_fused_output_bwd,
+    wkv6_fused_output_bwd_chunked_plain,
     wkv6_fused_output_bwd_plain,
     wkv6_fused_output_chunked_plain,
     wkv6_fused_output_plain,
+    wkv_bwd_body,
 )
 from rwkv_lm_ext_tpu_torch.train.loop import mlm_loss_fn
 from rwkv_lm_ext_tpu_torch.train.losses import causal_lm_loss
@@ -378,6 +381,14 @@ def test_model_decode_kernel_route_matches_plain_route(dev, quant):
 
 BWD_REL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
 WKV_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the fp32 gradients (dw, du, ds0, dln_scale, dln_bias) on bf16 inputs: no
+# rounding to bf16, only the kernel's own sums
+WKV_BWD_REL_FP32_OUT = 1e-3
+
+
+def _bwd_rel(dtype, grad):
+    return WKV_BWD_REL_FP32_OUT if dtype == torch.bfloat16 and grad.dtype == torch.float32 \
+        else WKV_BWD_REL[dtype]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -446,6 +457,125 @@ def test_wkv6_fused_bwd_kernel(dev, dtype, N, T, with_state):
             continue
         assert gr.shape == wa.shape and torch.equal(gr, a), name
         _close(gr, wa, WKV_BWD_REL[dtype], name, dv_max if name in zero else None)
+
+
+BWD_FORMS = ["fused", "unfused"]
+
+
+@pytest.mark.parametrize("form", BWD_FORMS)
+@pytest.mark.parametrize("N", [32, 64])
+@pytest.mark.parametrize("decay", [(-8.0, 3.0), (2.5, 3.2), (-8.0, -8.0)])
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 37, 512])
+def test_wkv_bwd_bodies_chunks_and_decays(dev, form, N, decay, T):
+    """The two bodies of the WKV backward on the same bf16 inputs, each
+    against autograd through the plain version within 2e-2 of max|plain|
+    (1e-3 for the fp32 gradients dw, du, ds0, dln_scale and dln_bias):
+    the chunked one (chunks of 16 on the tensor cores, the default for bf16)
+    and the sequential fp64 one, over whole, ragged and single-step chunks,
+    at wide, strong (w in [2.5, 3.2], where the sequential identity for dw
+    cancels) and no decay. The fused form (B.6 + B.7) with s0 and dsT; the
+    unfused form (B.8's backward) forwards and in reverse over all T and over
+    ragged prefixes. Two calls of each body bit-equal; for T <= 37 the
+    chunked body also against its factoring in plain PyTorch (fp64)."""
+    rng = np.random.default_rng(N + T + int(decay[0]))
+    B, H, eps, dtype = 3, 2, 6.4e-4, torch.bfloat16
+    assert wkv_bwd_body(dtype, N) == "chunked" and wkv_bwd_body(torch.float32, N) == "sequential"
+    r, k, v, g = (_on(dev, dtype, rng, B, T, H, N) for _ in range(4))
+    w = torch.from_numpy(rng.uniform(*decay, size=(B, T, H, N)).astype(np.float32)).to(dev)
+    u = _on(dev, dtype, rng, H, N, scale=0.5)
+    s0 = _on(dev, torch.float32, rng, B, H, N, N, scale=0.1)
+    dsT = _on(dev, torch.float32, rng, B, H, N, N, scale=0.1)
+    if form == "fused":
+        sc, bi = _on(dev, dtype, rng, H * N, scale=0.1, loc=1.0), _on(dev, dtype, rng, H * N, scale=0.1)
+        args = (r, k, v, w, u, g, sc, bi, s0, _on(dev, dtype, rng, B, T, H * N), dsT)
+        names = ["dr", "dk", "dv", "dw", "du", "ds0", "dg", "dln_scale", "dln_bias"]
+        calls = [(lambda body: wkv6_fused_output_bwd(*args, eps=eps, body=body),
+                  lambda: wkv6_fused_output_bwd_plain(*_f32(*args), eps=eps),
+                  lambda: wkv6_fused_output_bwd_chunked_plain(*(x.cpu() for x in _f32(*args)),
+                                                              eps=eps))]
+    else:
+        dy = _on(dev, torch.float32, rng, B, T, H, N)
+        lengths = torch.tensor([0, min(1, T), max(T - 2, 1)], dtype=torch.int32, device=dev)
+        names = ["dr", "dk", "dv", "dw", "du", "ds0"]
+        calls = []
+        for uu, ss, reverse, ln in ((u, s0, False, None), (None, s0, True, lengths),
+                                    (u, None, False, lengths)):
+            a = (r, k, v, w, uu, ss, dy, dsT)
+            kw = dict(reverse=reverse, lengths=ln)
+            calls.append((
+                lambda body, a=a, kw=kw: wkv_bwd(*a, body=body, **kw),
+                lambda a=a, kw=kw: wkv_bwd_plain(*_f32(*a), **kw),
+                lambda a=a, kw=kw: wkv_bwd_chunked_plain(
+                    *(None if x is None else x.float().cpu() for x in a),
+                    **{n: (x.cpu() if torch.is_tensor(x) else x) for n, x in kw.items()})))
+    for kernel, plain, mirror in calls:
+        want = plain()
+        # at T=1 from a zero state a gradient may be zero analytically: those
+        # are held against the largest of dr, dk, dv of the same call
+        top = max(w_.abs().max().item() for w_ in want[:3])
+        for body in ("chunked", "sequential"):
+            got, again = kernel(body), kernel(body)
+            for name, gr, a_, wa in zip(names, got, again, want):
+                assert (gr is None) == (wa is None), name
+                if wa is None:
+                    continue
+                assert torch.equal(gr, a_), (body, name)
+                _close(gr, wa, _bwd_rel(dtype, gr), (body, name), max(wa.abs().max().item(), top))
+            if body == "chunked" and T <= 37:
+                for name, gr, m in zip(names, got, mirror()):
+                    if m is not None:
+                        _close(gr, m.to(dev), _bwd_rel(dtype, gr), ("mirror", name),
+                               max(m.abs().max().item(), top))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["K1", "B.6+B.7", "B.8", "B.9"])
+def test_head_size_16_sequential_kernels(dev, dtype, kernel):
+    """N = 16 (a block of 16 threads, one partial warp) through the
+    sequential bodies that take it: K1, B.6 + B.7, B.8 and its backward
+    (reverse over ragged prefixes), the decode step B.9, each against its
+    plain version at the limits of the wider heads."""
+    rng = np.random.default_rng(16)
+    N, H, B, T, eps = 16, 4, 3, 37, 6.4e-4
+    assert k1_body(dtype, N) == "sequential" == wkv_bwd_body(dtype, N)
+    r, k, v, g = (_on(dev, dtype, rng, B, T, H, N) for _ in range(4))
+    w = torch.from_numpy(rng.uniform(-8, 3, size=(B, T, H, N)).astype(np.float32)).to(dev)
+    u = _on(dev, dtype, rng, H, N, scale=0.5)
+    sc, bi = _on(dev, dtype, rng, H * N, scale=0.1, loc=1.0), _on(dev, dtype, rng, H * N, scale=0.1)
+    s0 = _on(dev, torch.float32, rng, B, H, N, N, scale=0.1)
+    dsT = _on(dev, torch.float32, rng, B, H, N, N, scale=0.1)
+    if kernel == "K1":
+        args = (r, k, v, w, u, g, sc, bi, s0)
+        out, sT = _counted("wkv6_fused_output", lambda: wkv6_fused_output(*args, eps=eps))
+        want_out, want_s = wkv6_fused_output_plain(*_f32(*args), eps=eps)
+        _close(out, want_out, REL[dtype])
+        _close(sT, want_s, 1e-4)
+    elif kernel == "B.6+B.7":
+        args = (r, k, v, w, u, g, sc, bi, s0, _on(dev, dtype, rng, B, T, H * N), dsT)
+        got = wkv6_fused_output_bwd(*args, eps=eps)
+        want = wkv6_fused_output_bwd_plain(*_f32(*args), eps=eps)
+        assert all(torch.equal(a, b) for a, b in zip(got, wkv6_fused_output_bwd(*args, eps=eps)))
+        for gr, wa in zip(got, want):
+            _close(gr, wa, WKV_BWD_REL[dtype])
+    elif kernel == "B.8":
+        lengths = torch.tensor([0, 1, 30], dtype=torch.int32, device=dev)
+        kw = dict(reverse=True, lengths=lengths)
+        y, sT = _counted("wkv", lambda: wkv(r, k, v, w, u, s0, **kw))
+        py, psT = wkv_plain(*_f32(r, k, v, w, u, s0), **kw)
+        _close(y, py, WKV_REL)
+        _close(sT, psT, WKV_REL)
+        a = (r, k, v, w, u, s0, _on(dev, torch.float32, rng, B, T, H, N), dsT)
+        for gr, wa in zip(wkv_bwd(*a, **kw), wkv_bwd_plain(*_f32(*a), **kw)):
+            _close(gr, wa, WKV_BWD_REL[dtype])
+    else:
+        C = H * N
+        args = tuple(x[:, 0].reshape(B, C) for x in (r, k, v)) + (w[:, 0].reshape(B, C).contiguous(),
+                                                                  g[:, 0].reshape(B, C), u, sc, bi)
+        args = tuple(x.contiguous() for x in args)
+        want_out, want_s = wkv6_decode_step_plain(*_f32(*args), s0, eps=eps)
+        out, st = _counted("wkv6_decode_step", lambda: wkv6_decode_step(*args, s0, eps=eps))
+        _close(out, want_out, REL[dtype])
+        _close(st, want_s, 1e-5)
 
 
 def _model(dev, seed, n_embd=256):
