@@ -20,7 +20,11 @@ Phases, each printing its own lines:
      against K1 at T=1; the backward kernels B.5 (ddlerp prologue) and
      B.6 + B.7 (fused WKV) at the training shape B=8, T=512 and ragged
      shapes, fp32 and bf16, against autograd through their plain versions,
-     each called twice and held bit-equal; both bodies of the WKV backward
+     each called twice and held bit-equal; both bodies of B.5 (tensor
+     cores, which bf16 runs, and CUDA cores) in turns, both forms, on row
+     tiles that straddle sequences, the tensor-core body against its tiled
+     mirror (dx within one bf16 rounding, the fp32 gradients within 1e-4);
+     both bodies of the WKV backward
      (chunked, which bf16 runs, and sequential) in turns on the same bf16
      inputs, the fused and the gn=False form, at wide, strong and no decay,
      T = 1 to 512, forwards, in reverse and over ragged prefixes, each
@@ -28,7 +32,9 @@ Phases, each printing its own lines:
      twice at B=8, T=512; the unfused WKV B.8 and its
      two-pass backward the same way, with and without a bonus, an initial
      state, `reverse` and ragged `lengths`, and `wkv6_bi` against the flip
-     composition; the fused decode kernels B.10 (attention prologue), B.11
+     composition; both bodies of B.8 (chunked, which bf16 runs, and
+     sequential) in turns on the same inputs at N = 64 and 32, three decay
+     ranges, T = 1 to 512, timed in turns twice at B=8 and B=64; the fused decode kernels B.10 (attention prologue), B.11
      (channel-mix prologue) and B.12 (whole channel mix) at B=64 and B=1,
      fp32 and bf16, beside the calls each replaces on the unfused step, and
      the transposed-state decode step B.13 against B.9 (state bit-equal).
@@ -60,15 +66,17 @@ Phases, each printing its own lines:
      over chained steps with a canary (the last loss must come back from
      the parameters before the last step and the last batch, and move on
      another batch), and a profile of one step, which must show the chunked
-     WKV backward kernels and not the sequential ones;
+     WKV backward kernels and B.5's tensor-core body and not the sequential
+     or CUDA-core ones;
   9. training through `python -m rwkv_lm_ext_tpu_torch.train.cli sft` on the
      saved model (LoRA 8 steps, state tuning 4 steps, subprocesses): falling
      losses, the adapter files, the merged adapter against the unfused
      forward (its worst position and its mean over positions); then the same
      CLI in this process, whose launch counts are the training path's;
  10. the bidirectional encoder on the same 24-layer weights at B=8, T=512
-     with ragged rows: both modes against the plain fp32 route and the launch
-     counts of a forward; `/fill_mask` through `python -m
+     with ragged rows: both modes against the plain fp32 route (also through
+     B.8's sequential body, for comparison) and the launch counts of a
+     forward; `/fill_mask` through `python -m
      rwkv_lm_ext_tpu_torch.serve.cli --encoder` (a subprocess, serving the
      encoder that phase 12 trained) against the plain route's candidates,
      then in this process for its launch counts;
@@ -79,8 +87,9 @@ Phases, each printing its own lines:
      --dup-mae` (2 steps) on the 24-layer model as subprocesses, the saved
      encoder, then `mlm` in this process for its launch counts;
  13. encoder readings (not benchmark cells): sequences a second at B=64,
-     T=512 in both modes, the `mlm` step time, Kt/s, peak memory and profile,
-     each chain with its canary;
+     T=512 in both modes with a profile of one forward (B.8's chunked body
+     and not its sequential one), the `mlm` step time, Kt/s, peak memory and
+     profile, each chain with its canary;
  14. the fused decode route, `rwkv_decode_step(fused_prep=True, out=state)`,
      on the 24-layer bf16 model (B.10, B.9, B.12) and the int8c model (B.10,
      B.9, B.11, B.4): 16 teacher-forced steps at B=64 against the fp32 plain
@@ -99,6 +108,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import importlib
 import json
 import queue
 import subprocess
@@ -151,21 +161,29 @@ from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
     ffn_prep_plain,
 )
 from rwkv_lm_ext_tpu_torch.ops.ddlerp import (
+    B5_BODIES,
+    B5_LIMBS,
     _launch_k2,
+    b5_body,
     k2_body,
     tmix_prologue,
     tmix_prologue_bwd,
     tmix_prologue_bwd_plain,
+    tmix_prologue_bwd_tiled_plain,
     tmix_prologue_plain,
 )
 from rwkv_lm_ext_tpu_torch.ops.ln import layer_norm, layer_norm_plain
 from rwkv_lm_ext_tpu_torch.ops.quant import quantize_rows, quantize_rows_plain
+wkv_ops = importlib.import_module("rwkv_lm_ext_tpu_torch.ops.wkv")   # the module, not the function
 from rwkv_lm_ext_tpu_torch.ops.wkv import (
+    WKV_BODIES,
     wkv,
     wkv6_bi,
     wkv6_bi_plain,
+    wkv_body,
     wkv_bwd,
     wkv_bwd_plain,
+    wkv_chunked_plain,
     wkv_plain,
 )
 from rwkv_lm_ext_tpu_torch.ops.wkv_decode import (
@@ -311,15 +329,16 @@ def device_ops(fn, reps: int) -> list:
     must be there for (nearly) every one of the `reps` calls. The profiler
     on an H100 was seen to return no record at all (50 launches of a 10 us
     kernel) and to lose records (19 of 20, and 8 of 10, three traces in a
-    row each). One record in ten may be missing (one, from 4 calls on); a
-    trace that lost more is taken again, twice at most, each time waiting
-    longer between the last launch's end and the profiler's stop. The third
-    trace is taken as it is if it holds the operation for half the calls or
-    more (per_call_us works from the records that remain); if it holds
-    fewer, the timed calls did not run and the script fails."""
+    row each, and once a third trace with no record after two that lost
+    two in ten). One record in ten may be missing (one, from 4 calls on); a
+    trace that lost more is taken again, four times at most, each time
+    waiting longer between the last launch's end and the profiler's stop.
+    The fifth trace is taken as it is if it holds the operation for half
+    the calls or more (per_call_us works from the records that remain); if
+    it holds fewer, the timed calls did not run and the script fails."""
     fn()
     allowed = 0 if reps < 4 else max(1, reps // 10)
-    pauses = (0.0, 0.05, 0.25)
+    pauses = (0.0, 0.05, 0.25, 0.5, 1.0)
     for attempt, pause in enumerate(pauses):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -336,7 +355,7 @@ def device_ops(fn, reps: int) -> list:
               f"times, for {reps} calls; {'taken as it is' if last else 'taken again'})")
         if last and most > 0 and 2 * most >= reps:
             return ops
-    raise AssertionError(f"three profiler traces in a row held their most frequent device operation "
+    raise AssertionError(f"five profiler traces in a row held their most frequent device operation "
                          f"for fewer than half of {reps} calls: the timed calls did not run, or "
                          "were not recorded")
 
@@ -651,6 +670,10 @@ def phase_kernels() -> dict:
 
 
 BWD_REL = {torch.float32: 5e-4, BF16: 2e-2}        # B.5, x max|plain|
+# B.5's tensor-core body against its tiled mirror (the same operand rounding
+# and tiles), x max|mirror|: dx within one bf16 rounding, the fp32 gradients
+# within the order of fp32 sums
+B5_MIRROR_REL = (1e-2, 1e-4)
 WKV_BWD_REL = {torch.float32: 1e-4, BF16: 2e-2}    # B.6 + B.7
 # B.6 + B.7's fp32 gradients (dw, du, ds0, dln_scale, dln_bias) on bf16
 # inputs: no rounding to bf16, only the kernel's own sums
@@ -688,34 +711,69 @@ def phase_backward_kernels() -> dict:
         return args, [rng.normal(b, t, C, dtype=dtype) for _ in range(5)] + [None]
 
     names = ("dx", "dshift", "dln_scale", "dln_bias", "dmaa", "dw1", "dw2")
+    print(f"  B.5 bodies: bf16 {b5_body(BF16, C, D)}, fp32 {b5_body(torch.float32, C, D)}; "
+          f"the tensor-core body takes {', '.join(B5_LIMBS)} in two bf16 limbs")
+    check(b5_body(BF16, C, D) == "tensor_cores" and b5_body(torch.float32, C, D) == "cuda_cores",
+          "B.5 does not run the body its dtype should")
     main_err = 0.0
-    for b, t in ((TB, T), (3, 37)):
+    # bf16 runs both bodies on the same inputs; tiles of the tensor-core body
+    # straddle sequences at T = 37 and T = 1
+    for b, t in ((TB, T), (3, 37), (B, 1)):
         for dtype in (torch.float32, BF16):
             args, cts = prologue_case(b, t, dtype)
-            got = tmix_prologue_bwd(*args, cts)
-            check(bit_equal(got, tmix_prologue_bwd(*args, cts)), f"B.5 ({b}, {t}) {dtype}: two calls differ")
-            dx_only = tmix_prologue_bwd(*args, cts, weights=False)
-            check(bit_equal(dx_only[:2], got[:2]) and dx_only[2:] == (None,) * 5,
-                  "B.5 without weight gradients differs in dx/dshift")
             want = tmix_prologue_bwd_plain(*f32(*args), [None if c is None else c.float() for c in cts])
-            errs = [err_line(f"B.5 (B,T,C,D)=({b},{t},{C},{D}) {str(dtype)[6:]} {n}", g, w, BWD_REL[dtype])
-                    for n, g, w in zip(names, got, want)]
-            if (b, t, dtype) == (TB, T, BF16):
-                main_err = max(errs)
+            for body in ((b5_body(dtype, C, D),) if dtype == torch.float32 else tuple(B5_BODIES)):
+                got = tmix_prologue_bwd(*args, cts, body=body)
+                tag = f"B.5 {body} (B,T,C,D)=({b},{t},{C},{D}) {str(dtype)[6:]}"
+                check(bit_equal(got, tmix_prologue_bwd(*args, cts, body=body)), f"{tag}: two calls differ")
+                dx_only = tmix_prologue_bwd(*args, cts, weights=False, body=body)
+                check(bit_equal(dx_only[:2], got[:2]) and dx_only[2:] == (None,) * 5,
+                      f"{tag}: the form without weight gradients differs in dx/dshift")
+                errs = [err_line(f"{tag} {n}", g, w, BWD_REL[dtype]) for n, g, w in zip(names, got, want)]
+                if (b, t, dtype, body) == (TB, T, BF16, "tensor_cores"):
+                    main_err = max(errs)
+                    # the tensor-core body against its walk in plain PyTorch
+                    # (the same operand rounding and tiles): what is left is
+                    # the order of fp32 sums and dx's rounding to bf16
+                    mirror = tmix_prologue_bwd_tiled_plain(*args, cts)
+                    for i, (n, g, w) in enumerate(zip(names, got, mirror)):
+                        err_line(f"{tag} {n} vs its tiled mirror", g, w, B5_MIRROR_REL[i > 0])
     args, cts = prologue_case(TB, T, BF16)
+    # both bodies in turns, twice, both forms
+    times = {}
+    for rnd in range(2):
+        for body in B5_BODIES:
+            times[rnd, body] = (device_ms(lambda: tmix_prologue_bwd(*args, cts, weights=False, body=body), 5),
+                                device_ms(lambda: tmix_prologue_bwd(*args, cts, body=body), 5))
+            print(f"  B.5 at B={TB}, T={T}, bf16, {body} (round {rnd + 1}): dx and dshift only (LoRA) "
+                  f"{times[rnd, body][0]:.4f} ms, with the weight gradients {times[rnd, body][1]:.4f} ms")
+    # the entry times the form with the weight gradients, against its bound,
+    # as before the tensor-core body; the LoRA step's dx-only form stands
+    # beside it in dx_only_ms and dx_only_bound_ms. That form reads the
+    # forward's inputs and five cotangents and writes dx and dshift; the
+    # forward's two products again and the two adjoint products, ~60 fp32 an
+    # element of elementwise adjoints
+    dx_only_bound = roofline(nbytes(*args, *cts) + nbytes(args[0]) + 4 * TB * C,
+                             {"bf16 mma": 4 * 2 * TB * T * C * 5 * D, "fp32": 60 * TB * T * C})
     out["tmix_prologue_bwd"] = dict(
         max_abs_err=main_err,
-        ms=device_ms(lambda: tmix_prologue_bwd(*args, cts), 5),
+        ms=times[1, "tensor_cores"][1],
         plain_ms=device_ms(lambda: tmix_prologue_bwd_plain(*args, cts), 3),
         # reads the forward's inputs and five cotangents, writes a gradient
         # for every input; the forward's two products again and two adjoint
         # products for each, and ~60 fp32 an element of elementwise adjoints
         **roofline(2 * nbytes(*args) + nbytes(*cts),
                    {"bf16 mma": 3 * 2 * 2 * TB * T * C * 5 * D, "fp32": 60 * TB * T * C}),
+        dx_only_ms=times[1, "tensor_cores"][0],
+        dx_only_bound_ms=dx_only_bound["bound_ms"],
     )
-    print(f"  B.5 at B={TB}, T={T}, bf16: kernel {out['tmix_prologue_bwd']['ms']:.4f} ms with the "
-          f"weight gradients, {device_ms(lambda: tmix_prologue_bwd(*args, cts, weights=False), 5):.4f} "
-          f"ms dx and dshift only (LoRA), plain {out['tmix_prologue_bwd']['plain_ms']:.4f} ms; "
+    o = out["tmix_prologue_bwd"]
+    print(f"  B.5 with the weight gradients: tensor cores {o['ms']:.4f} ms, CUDA cores "
+          f"{times[1, 'cuda_cores'][1]:.4f} ms; bound {o['bound_ms']:.4f} ms by {o['bound_by']}: "
+          f"{100 * o['bound_ms'] / o['ms']:.1f} %; plain (autograd) {o['plain_ms']:.4f} ms")
+    print(f"  B.5 dx-only (LoRA): tensor cores {o['dx_only_ms']:.4f} ms, CUDA cores "
+          f"{times[1, 'cuda_cores'][0]:.4f} ms; bound {o['dx_only_bound_ms']:.4f} ms by "
+          f"{dx_only_bound['bound_by']}: {100 * o['dx_only_bound_ms'] / o['dx_only_ms']:.1f} %; "
           f"forward K2 {device_ms(lambda: tmix_prologue(*args), 5):.4f} ms")
 
     def wkv_case(b, t, h, n, dtype, lo=-8.0, hi=3.0):
@@ -1657,7 +1715,7 @@ STEP_GROUPS = {
     "K1 forward": ("wkv6_chunked_kernel", "wkv6_sequential_kernel"),
     "K2 forward": ("tmix_prologue_tc_kernel", "tmix_prologue_simt_kernel"),
     "K3 forward": ("layer_norm_kernel",),
-    "B.5": ("prologue_bwd_chain", "prologue_bwd_ln", "atb_kernel"),
+    "B.5": ("prologue_bwd_tc", "prologue_bwd_chain", "prologue_bwd_ln", "atb_kernel"),
     "B.6": ("wkv6_bwd_forward_chunked_kernel", "wkv6_bwd_forward_kernel"),
     "B.7": ("wkv6_bwd_reverse_chunked_kernel", "wkv6_bwd_reverse_kernel"),
     "partial sums": ("sum_partials",),
@@ -1680,12 +1738,17 @@ def split_by_group(ops, groups: dict) -> dict:
     return split
 
 
-# a bf16 train step runs the chunked bodies of the WKV backward, not the
-# sequential ones (kernel names, as the profiler records them)
-LORA_STEP_KERNELS = (("wkv6_bwd_forward_chunked_kernel", "wkv6_bwd_reverse_chunked_kernel"),
-                     ("wkv6_bwd_forward_kernel", "wkv6_bwd_reverse_kernel"))
-MLM_STEP_KERNELS = (("wkv6_bwd_state_chunked_kernel", "wkv6_bwd_reverse_chunked_kernel"),
-                    ("wkv6_bwd_state_kernel", "wkv6_bwd_reverse_kernel"))
+# a bf16 train step runs the chunked bodies of the WKV kernels and the
+# tensor-core body of B.5, not the sequential and CUDA-core ones (kernel names,
+# as the profiler records them; "wkv6_kernel" is B.8's sequential body)
+LORA_STEP_KERNELS = (("wkv6_bwd_forward_chunked_kernel", "wkv6_bwd_reverse_chunked_kernel",
+                      "prologue_bwd_tc_kernel"),
+                     ("wkv6_bwd_forward_kernel", "wkv6_bwd_reverse_kernel", "prologue_bwd_chain_kernel",
+                      "prologue_bwd_ln_kernel"))
+MLM_STEP_KERNELS = (("wkv6_bwd_state_chunked_kernel", "wkv6_bwd_reverse_chunked_kernel",
+                     "wkv6_raw_chunked_kernel"),
+                    ("wkv6_bwd_state_kernel", "wkv6_bwd_reverse_kernel", "wkv6_kernel"))
+ENCODER_KERNELS = (("wkv6_raw_chunked_kernel",), ("wkv6_kernel",))
 
 
 def step_profile(step, batch, step_ms: float, groups: dict = STEP_GROUPS,
@@ -1748,7 +1811,7 @@ def phase_train_readings(path: str, smi: str) -> None:
     """LoRA r=8 train steps of the 24-layer bf16 model at B=8, T=512: the
     launches of one step (remat on and off), then step time and Kt/s over
     steps that chain through the optimizer's updates (CUDA events, after
-    warm-up), and a profile of one step."""
+    warm-up), and a profile of one step with remat on and one with it off."""
     model, cfg = load_rwkv_checkpoint(path, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(9)
     apply_lora(model, LORA, init_lora_params(model, LORA, gen))
@@ -1777,8 +1840,8 @@ def phase_train_readings(path: str, smi: str) -> None:
               f"bf16, remat {'on' if remat else 'off'}, peak "
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, losses "
               f"{losses[0].item():.4f} .. {losses[-1].item():.4f}) on {smi}")
-        if remat:
-            step_profile(step, batch, ms, kernels=LORA_STEP_KERNELS)
+        step_profile(step, batch, ms, what=f"one step (remat {'on' if remat else 'off'})",
+                     kernels=LORA_STEP_KERNELS)
     del model, step
     torch.cuda.empty_cache()
 
@@ -1961,6 +2024,14 @@ def phase_train_cli(path: str, tmp: Path) -> dict:
 
 
 WKV_REL = 2e-5      # B.8's y and final state, x max|plain|: both sides sum in fp32
+# B.8's chunked body (bf16): the state and r exp(c) enter the tensor cores as
+# two bf16 limbs (about 16 bits each), so its y and state sit further from the
+# fp32 recurrence than the sequential body's; read 1e-5 .. 3e-5 of max|plain|
+WKV_CHUNKED_REL = 1e-4
+
+
+def wkv_rel(body: str) -> float:
+    return WKV_CHUNKED_REL if body == "chunked" else WKV_REL
 
 
 def rel_err(name, got, want, rel, scale=None, worst=None) -> float:
@@ -2018,8 +2089,9 @@ def phase_wkv_kernels() -> dict:
                 y, sT = wkv(c["r"], c["k"], c["v"], c["w"], u, s0, **kw)
                 py, psT = wkv_plain(*map(plain32, (c["r"], c["k"], c["v"], c["w"], u, s0)), **kw)
                 n_cases += 1
-                e = rel_err(f"B.8 {tag} y", y, py, WKV_REL, worst=fwd_worst)
-                rel_err(f"B.8 {tag} sT", sT, psT, WKV_REL, worst=fwd_worst)
+                rel = wkv_rel(wkv_body(dtype, shape[3]))
+                e = rel_err(f"B.8 {tag} y", y, py, rel, worst=fwd_worst)
+                rel_err(f"B.8 {tag} sT", sT, psT, rel, worst=fwd_worst)
                 if ragged:
                     beyond = torch.arange(shape[1], device=DEV)[None, :] >= lengths[:, None]
                     check(float(y[beyond].abs().max() if beyond.any() else 0) == 0.0,
@@ -2041,8 +2113,9 @@ def phase_wkv_kernels() -> dict:
                       f"B.8 backward {tag}: a gradient is missing or surplus")
                 if shape == (TB, T, H, N) and dtype == BF16 and u is not None and not ragged:
                     main_bwd = {n: max(main_bwd.get(n, 0.0), e_) for n, e_ in errs.items()}
-            print(f"  B.8 (B,T,H,N)={shape} {str(dtype)[6:]}, {n_cases} cases (u, s0, reverse, ragged "
-                  f"lengths): y and sT within {WKV_REL:g} x max|plain|, worst at "
+            print(f"  B.8 (B,T,H,N)={shape} {str(dtype)[6:]}, {wkv_body(dtype, shape[3])} body, {n_cases} "
+                  f"cases (u, s0, reverse, ragged lengths): y and sT within "
+                  f"{wkv_rel(wkv_body(dtype, shape[3])):g} x max|plain|, worst at "
                   f"{fwd_worst['share']:.3f} of the limit ({fwd_worst['name']})")
             if shape[0] == B:
                 continue
@@ -2059,7 +2132,7 @@ def phase_wkv_kernels() -> dict:
                 what = "none" if lengths is None else ("full" if bool((lengths == shape[1]).all())
                                                        else "ragged")
                 tag = f"wkv6_bi (B,T,H,N)={shape} {str(dtype)[6:]} lengths={what}"
-                rel_err(f"{tag} y", yk, yp, WKV_REL, worst=bi_worst)
+                rel_err(f"{tag} y", yk, yp, wkv_rel(wkv_body(dtype, shape[3])), worst=bi_worst)
                 yk.backward(c["dy"])
                 yp.backward(c["dy"])
                 scale = max(t.grad.abs().max().item() for t in leaves[:3]) if shape[1] == 1 else None
@@ -2070,31 +2143,86 @@ def phase_wkv_kernels() -> dict:
             print(f"    wkv6_bi vs the flip composition (lengths none, full, ragged), y and gradients: "
                   f"worst at {bi_worst['share']:.3f} of the limit ({bi_worst['name']})")
 
+    # both bodies in turns on the same bf16 inputs: wide, strong and no
+    # decay, T from 1 to 512, with and without u and s0, forwards, in reverse
+    # and over ragged prefixes; two calls bit-equal
+    worst = {b_: {} for b_ in WKV_BODIES}
+    n_cases = 0
+    for n_ in (N, 32):
+        for lo, hi in ((-8.0, 3.0), (2.5, 3.2), (-8.0, -8.0)):
+            for t in (1, 15, 16, 17, 37, T):
+                r, k, v = (rng.normal(3, t, 4, n_) for _ in range(3))
+                w = rng.uniform(3, t, 4, n_, lo=lo, hi=hi, dtype=torch.float32)
+                u, s0 = rng.normal(4, n_, scale=0.5), rng.normal(3, 4, n_, n_, scale=0.1, dtype=torch.float32)
+                lengths = torch.tensor([0, min(1, t), max(t - 2, 1)], dtype=torch.int32, device=DEV)
+                for uu, ss, reverse, ln in ((u, s0, False, None), (None, None, False, None),
+                                            (None, s0, True, lengths), (u, None, False, lengths),
+                                            (u, s0, True, None)):
+                    kw = dict(reverse=reverse, lengths=ln)
+                    py, psT = wkv_plain(*map(plain32, (r, k, v, w, uu, ss)), **kw)
+                    tag = (f"N={n_} T={t} w in [{lo}, {hi}] u={uu is not None} s0={ss is not None} "
+                           f"reverse={reverse} ragged={ln is not None}")
+                    for body in WKV_BODIES:
+                        y, sT = wkv(r, k, v, w, uu, ss, body=body, **kw)
+                        y2, sT2 = wkv(r, k, v, w, uu, ss, body=body, **kw)
+                        check(torch.equal(y, y2) and torch.equal(sT, sT2), f"B.8 {body} {tag}: two calls differ")
+                        rel_err(f"B.8 {body} {tag} y", y, py, wkv_rel(body), worst=worst[body])
+                        rel_err(f"B.8 {body} {tag} sT", sT, psT, wkv_rel(body), worst=worst[body])
+                        if ln is not None:
+                            beyond = torch.arange(t, device=DEV)[None, :] >= ln[:, None]
+                            check(float(y[beyond].abs().max() if beyond.any() else 0) == 0.0,
+                                  f"B.8 {body} {tag}: y is not zero beyond the prefix")
+                    n_cases += 1
+    for body in WKV_BODIES:
+        print(f"  B.8, {body} body, bf16: {n_cases} calls (N = {N} and 32; w in [-8, 3], [2.5, 3.2] and -8; "
+              f"T in 1, 15, 16, 17, 37, {T}; u, s0, reverse, ragged lengths), y and sT within "
+              f"{wkv_rel(body):g} x max|plain|, two calls bit-equal: worst at {worst[body]['share']:.3f} of "
+              f"the limit, {worst[body]['share'] * wkv_rel(body):.2e} of max ({worst[body]['name']})")
+    # the chunked body against its factoring in plain PyTorch on the same inputs
+    chunk = _lib.library().rwkv_wkv6_fused_chunk()
+    c = case(TB, T, H, N, BF16)
+    for reverse, ln in ((False, None), (True, c["lengths"])):
+        args = (c["r"], c["k"], c["v"], c["w"], c["u"], c["s0"])
+        y, sT = wkv(*args, reverse=reverse, lengths=ln)
+        my, msT = wkv_chunked_plain(*map(plain32, args), reverse=reverse, lengths=ln, chunk=chunk)
+        rel_err(f"B.8 B={TB} T={T} reverse={reverse} y vs chunked mirror", y, my, WKV_CHUNKED_REL)
+        rel_err(f"B.8 B={TB} T={T} reverse={reverse} sT vs chunked mirror", sT, msT, WKV_CHUNKED_REL)
+
     times = {}
     for b in (TB, B):
         c = case(b, T, H, N, BF16)
         fwd = (c["r"], c["k"], c["v"], c["w"], c["u"])
         bwd = fwd + (None, c["dy"], None)        # the encoder's call: zero state in, final state unused
+        bodies = {}
+        for rnd in range(2):
+            for body in WKV_BODIES:
+                bodies[rnd, body] = (device_ms(lambda: wkv(*fwd, body=body), 10),
+                                     device_ms(lambda: wkv(*fwd[:4], None, reverse=True, lengths=c["lengths"],
+                                                           body=body), 10))
+                print(f"  B.8 at B={b}, T={T}, H={H}, N={N}, bf16, {body} body (round {rnd + 1}): forward "
+                      f"{bodies[rnd, body][0]:.4f} ms, reverse over ragged prefixes {bodies[rnd, body][1]:.4f} ms")
         split = device_ms_by_kernel(lambda: wkv_bwd(*bwd), 5, {
             "state": ("wkv6_bwd_state",), "reverse": ("wkv6_bwd_reverse",)})
-        times[b] = dict(fwd=device_ms(lambda: wkv(*fwd), 10), state=split["state"],
+        times[b] = dict(fwd=bodies[1, "chunked"][0], state=split["state"],
                         reverse=split["reverse"], whole=device_ms(lambda: wkv_bwd(*bwd), 5),
                         plain=device_ms(lambda: wkv_plain(*fwd), 2),
                         plain_bwd=device_ms(lambda: wkv_bwd_plain(*bwd), 1))
-        rev = device_ms(lambda: wkv(*fwd[:4], None, reverse=True, lengths=c["lengths"]), 10)
         t_ = times[b]
-        print(f"  B.8 at B={b}, T={T}, H={H}, N={N}, bf16: forward {t_['fwd']:.4f} ms (plain "
-              f"{t_['plain']:.4f} ms); reverse over ragged prefixes {rev:.4f} ms; backward pass 1 "
+        print(f"  B.8 at B={b}, T={T}: plain forward {t_['plain']:.4f} ms; backward pass 1 "
               f"{t_['state']:.4f} ms, pass 2 (B.7) {t_['reverse']:.4f} ms, whole wrapper "
               f"{t_['whole']:.4f} ms (plain, autograd through the sequential reference, "
               f"{t_['plain_bwd']:.4f} ms)")
+        steps = b * T * H * N * N
+        # reads r, k, v, w, u; writes y (fp32) and the final state; the
+        # chunked factoring's products (the state's two, 4 N^2 a step and
+        # head) at the bf16 tensor-core rate, its scores (chunk x N) in fp32
+        bound = roofline(nbytes(*fwd) + 4 * c["r"].numel() + 4 * b * H * N * N,
+                         {"bf16 mma": 4 * steps, "fp32": chunk * b * T * H * N})
+        print(f"  B.8 at B={b}: bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}; chunked at "
+              f"{100 * bound['bound_ms'] / t_['fwd']:.1f} %, sequential at "
+              f"{100 * bound['bound_ms'] / bodies[1, 'sequential'][0]:.1f} %")
         if b == TB:
-            steps = TB * T * H * N * N
-            y_bytes = 4 * c["r"].numel()
-            out["wkv"] = dict(
-                max_abs_err=main_fwd, ms=t_["fwd"], plain_ms=t_["plain"],
-                # reads r, k, v, w, u; writes y (fp32) and the final state
-                **roofline(nbytes(*fwd) + y_bytes + 4 * TB * H * N * N, {"fp32": 5 * steps}))
+            out["wkv"] = dict(max_abs_err=main_fwd, ms=t_["fwd"], plain_ms=t_["plain"], **bound)
             out["wkv_bwd_state_pass"] = dict(
                 max_abs_err=max(main_bwd[n] for n in ("dr", "dw")), ms=t_["state"],
                 plain_ms=t_["plain_bwd"],
@@ -2148,6 +2276,14 @@ def phase_fused_kernels() -> dict:
         xw = tmix_prologue(x[:, None], shift.to(x.dtype), sc, bi, maas, w1, w2)[0]
         return td.float() + torch.tanh(xw[:, 0].float() @ dw1.float()) @ dw2.float()
 
+    def unfused_ffn_prep(a):
+        """What B.11 replaces on the unfused step with quantized weights: K3
+        (ln2) and the two mixes."""
+        x, shift, sc, bi, maa_k, maa_r = a
+        xn = layer_norm(x[:, None], sc, bi)
+        xx = shift.to(x.dtype)[:, None] - xn
+        return xn + xx * maa_k, xn + xx * maa_r, xn
+
     def unfused_channel_mix(a):
         """What B.12 replaces: K3 (ln2), the two mixes, three F.linear and the
         gated residual, as Block.step runs them without fused_prep."""
@@ -2179,7 +2315,8 @@ def phase_fused_kernels() -> dict:
                                 device_ms(lambda: att_prep_plain(*a), 10),
                                 device_ms(lambda: k2_and_decay(a), 20)),
                 ffn_prep_fused=(device_ms(lambda: ffn_prep_fused(*f), 20),
-                                device_ms(lambda: ffn_prep_plain(*f), 10), None),
+                                device_ms(lambda: ffn_prep_plain(*f), 10),
+                                device_ms(lambda: unfused_ffn_prep(f), 20)),
                 ffn_block_fused=(device_ms(lambda: ffn_block_fused(*blk), 20),
                                  device_ms(lambda: ffn_block_plain(*blk), 5),
                                  device_ms(lambda: unfused_channel_mix(blk), 20)))
@@ -2191,7 +2328,8 @@ def phase_fused_kernels() -> dict:
                 "gated residual": ("ffn_out_kernel",)})
             print(f"  B={b}, bf16: B.10 {t['att_prep_fused'][0]:.4f} ms (plain {t['att_prep_fused'][1]:.4f} "
                   f"ms; K2 at T=1 + the plain decay low-rank it replaces {t['att_prep_fused'][2]:.4f} ms); "
-                  f"B.11 {t['ffn_prep_fused'][0]:.4f} ms (plain {t['ffn_prep_fused'][1]:.4f} ms); "
+                  f"B.11 {t['ffn_prep_fused'][0]:.4f} ms (plain {t['ffn_prep_fused'][1]:.4f} ms; K3 + the "
+                  f"two mixes it replaces {t['ffn_prep_fused'][2]:.4f} ms); "
                   f"B.12 {t['ffn_block_fused'][0]:.4f} ms (plain {t['ffn_block_fused'][1]:.4f} ms; the "
                   f"unfused channel mix it replaces, K3 + mixes + three F.linear, "
                   f"{t['ffn_block_fused'][2]:.4f} ms)")
@@ -2303,12 +2441,17 @@ def phase_encoder(model, reference) -> None:
             hidden = encoder_forward(model, tokens, mode=mode)
             counts = launch_counts()
             plain = encoder_forward(reference, tokens, mode=mode, reference=True)
-        check(launch_counts() == counts, "the plain route launched a kernel")
+            check(launch_counts() == counts, "the plain route launched a kernel")
+            # the same forward through B.8's sequential body, for comparison
+            with mock.patch.object(wkv_ops, "wkv_body", lambda dtype, n: "sequential"):
+                seq = encoder_forward(model, tokens, mode=mode)
         check(hidden.shape == (TB, T, C) and bool(torch.isfinite(hidden).all()),
               f"encoder_forward {mode}: shape or values")
         cos = min_cosine(hidden[valid], plain[valid])
         print(f"  encoder_forward mode={mode}: launches {counts}; bf16 kernel route vs plain fp32 "
-              f"route, min cosine over {int(valid.sum())} valid positions {cos:.6f} (limit 0.999)")
+              f"route, min cosine over {int(valid.sum())} valid positions {cos:.6f} (limit 0.999), "
+              f"B.8 {wkv_body(BF16, N)}; through B.8's sequential body "
+              f"{min_cosine(seq[valid], plain[valid]):.6f}")
         check(counts == ENCODER_FORWARD, f"encoder forward launch counts {counts} != {ENCODER_FORWARD}")
         check(cos >= 0.999, f"encoder_forward {mode} cosine {cos} below 0.999")
 
@@ -2528,7 +2671,7 @@ def phase_mlm_cli(path: str, tmp: Path) -> dict:
 
 
 MLM_STEP_GROUPS = {
-    "B.8 forward": ("wkv6_kernel",), "K3 forward": ("layer_norm_kernel",),
+    "B.8 forward": ("wkv6_raw_chunked_kernel", "wkv6_kernel"), "K3 forward": ("layer_norm_kernel",),
     "B.8 backward pass 1 (B.6 gn=False)": ("wkv6_bwd_state_chunked_kernel", "wkv6_bwd_state_kernel"),
     "B.8 backward pass 2 (B.7)": ("wkv6_bwd_reverse_chunked_kernel", "wkv6_bwd_reverse_kernel"),
     "partial sums": ("sum_partials",),
@@ -2536,6 +2679,10 @@ MLM_STEP_GROUPS = {
     "GEMMs": ("gemm", "nvjet", "xmma", "cutlass"),
     "optimizer (multi-tensor)": ("multi_tensor_apply",),
 }
+
+
+ENCODER_GROUPS = {"B.8": MLM_STEP_GROUPS["B.8 forward"], "K3": ("layer_norm_kernel",),
+                  "GEMMs": MLM_STEP_GROUPS["GEMMs"]}
 
 
 def phase_encoder_readings(path: str, smi: str) -> None:
@@ -2578,6 +2725,9 @@ def phase_encoder_readings(path: str, smi: str) -> None:
         print(f"  reading: {B * iters / seconds:.2f} seq/s encoded (encoder_forward mode={mode}, "
               f"B={B}, T={T}, bf16, {seconds / iters * 1e3:.1f} ms/batch, peak "
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB) on {smi}")
+        with torch.inference_mode():
+            step_profile(lambda x: step(x)[1], tokens, seconds / iters * 1e3, ENCODER_GROUPS,
+                         f"one encoder forward (mode={mode})", kernels=ENCODER_KERNELS)
         del hidden
     del model
     torch.cuda.empty_cache()

@@ -49,7 +49,7 @@
 // tmix_prologue_simt_kernel: the first version of this port, 8 rows of one
 // batch row a block, both products as fp32 FMAs. It keeps the fp32
 // instantiation within 1e-4 of the plain version; no served model runs it.
-#include "mma.cuh"
+#include "ddlerp_rows.cuh"
 
 namespace rwkv {
 
@@ -244,8 +244,6 @@ static cudaError_t launch_simt(const void* x, const void* shift, const void* ln_
 // Tensor-core body
 // ------------------------------------------------------------------------
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int kTileRows = 64;     // flattened rows b*T + t a block owns
 constexpr int kTcThreads = 256;   // 8 warps: 4 row tiles of 16 x 2 column halves
 constexpr int kSlab = 64;         // columns of C a step of either product takes
@@ -266,50 +264,6 @@ struct TcLayout {
   static constexpr size_t kBytes =
       sizeof(bf16) * (2 * kStageElems + 2 * kXElems + kHElems) + sizeof(float) * 2 * (kTileRows + 2);
 };
-
-// What a thread keeps of one row it mixes: where the row and its predecessor
-// are, and their LayerNorm statistics (the shift row is taken as it is).
-struct RowRef {
-  const bf16* cur;
-  const bf16* prev;
-  float mu, rstd, pmu, prstd;
-  bool valid, prev_is_shift;
-};
-
-__device__ __forceinline__ RowRef make_row(const bf16* x, const bf16* shift, const float* stats,
-                                           int m0, int r, int M, int T_len, int C) {
-  RowRef ref;
-  const int m = m0 + r;
-  ref.valid = m < M;
-  const int mm = ref.valid ? m : 0;
-  const int b = mm / T_len;
-  ref.prev_is_shift = mm - b * T_len == 0;
-  ref.cur = x + (size_t)mm * C;
-  ref.prev = ref.prev_is_shift ? shift + (size_t)b * C : ref.cur - C;
-  ref.mu = stats[2 * (r + 1)];
-  ref.rstd = stats[2 * (r + 1) + 1];
-  ref.pmu = stats[2 * r];
-  ref.prstd = stats[2 * r + 1];
-  return ref;
-}
-
-__device__ __forceinline__ uint4 ldg16(const bf16* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
-
-// xn and xx = prev - xn of eight columns of a row, from the raw words
-__device__ __forceinline__ void ln_pair(const RowRef& row, const uint4& xq, const uint4& pq,
-                                        const float* sc, const float* bi, float* xn, float* xx) {
-  float xv[8], pv[8];
-  unpack8(xq, xv);
-  unpack8(pq, pv);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    xn[j] = fmaf((xv[j] - row.mu) * row.rstd, sc[j], bi[j]);
-    const float prev = row.prev_is_shift ? pv[j] : fmaf((pv[j] - row.pmu) * row.prstd, sc[j], bi[j]);
-    xx[j] = prev - xn[j];
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kTcThreads, D == 32 ? 2 : 1) tmix_prologue_tc_kernel(
@@ -333,39 +287,7 @@ __global__ void __launch_bounds__(kTcThreads, D == 32 ? 2 : 1) tmix_prologue_tc_
   const int n_slabs = (C + kSlab - 1) / kSlab;
   const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
 
-  // LayerNorm statistics of rows m0-1 .. m0+63 (slot s is row m0-1+s)
-  for (int s = warp; s <= kTileRows; s += kTcThreads / 32) {
-    const int m = m0 - 1 + s;
-    float mu = 0.f, rstd = 0.f;
-    if (m >= 0 && m < M) {
-      const bf16* xr = x + (size_t)m * C;
-      float a = 0.f, a2 = 0.f;
-      // eight loads in flight a lane: a row of C = 2048 is one round
-      for (int c0 = lane * 8; c0 < C; c0 += 8 * 256) {
-        uint4 q[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u) q[u] = c0 + u * 256 < C ? ldg16(xr + c0 + u * 256) : zero4;
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          float v[8];
-          unpack8(q[u], v);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            a += v[j];
-            a2 = fmaf(v[j], v[j], a2);
-          }
-        }
-      }
-      a = warp_sum(a);
-      a2 = warp_sum(a2);
-      mu = a / C;
-      rstd = rsqrtf(fmaxf(a2 / C - mu * mu, 0.f) + eps);
-    }
-    if (lane == 0) {
-      stats[2 * s] = mu;
-      stats[2 * s + 1] = rstd;
-    }
-  }
+  tile_stats(x, stats, m0, kTileRows, M, C, eps);
   __syncthreads();
 
   // ---- product 1: h = tanh(xxx @ w1) ------------------------------------

@@ -18,34 +18,79 @@
 //   dln_scale = sum_rows dxn*xn_raw, dln_bias = sum_rows dxn,
 //   dw1 = xxx^T dpre,  dw2[i] = h_i^T dm_i.
 //
-// Design. The TPU kernel walks the T blocks in reverse order and carries
-// dprev across them in VMEM. Hopper runs blocks in no order, but the token
-// shift couples only neighbouring rows, so the chain is split in two
-// row-parallel kernels:
-//   chain (one block per 8 rows of one sequence, as K2): recompute LN/shift/
-//     ddlerp as K2 does, run the chain up to dxx and the part of dxn that is
-//     local to the row (both fp32 to device memory), and write the per-block
-//     partial column sums of dmaa;
+// The TPU kernel walks the T blocks in reverse order and carries dprev
+// across them in VMEM. Hopper runs blocks in no order, but the token shift
+// couples only neighbouring rows of one sequence.
+//
+// Bound on the card: bytes. At B=8, T=512, C=2048, D=32 a dx-only call reads
+// x and five cotangents and writes dx (bf16, 0.12 GB: 0.036 ms at 3.35 TB/s);
+// its four products (h and m recomputed, dh and dxxx) are 10.7 GFLOP, 0.011
+// ms on the bf16 tensor cores but 0.16 ms as fp32 FMAs, so they belong on the
+// tensor cores.
+//
+// Two bodies; the wrapper (ops/ddlerp.py b5_body) picks one from dtype and
+// shape, by K2's rule.
+//
+// Tensor-core body (bf16, C % 8 == 0, D = 32 or 64), prologue_bwd_tc_kernel:
+// K2's row tiles (csrc/ddlerp.cu), one kernel for the whole chain.
+//   * A block holds 32 flattened rows b*T + t (each with its predecessor)
+//     and owns the first 31: tile i starts at row 31 i, and its 32nd row is
+//     a halo, the next tile's first. The token-shift term dxn[t] += dxx[t+1]
+//     then finds dxx[t+1] in the tile for every owned row (a row that ends
+//     its sequence takes none; dshift is dxx of each sequence's row 0, from
+//     the tile that owns it). The halo costs 1/32 of the products; keeping
+//     the first version's chain / ln split instead would send dxx and the
+//     row-local dxn (two fp32 (B*T, C) tensors, 134 MB at B=8) through
+//     device memory and back. 32 rows a tile, not K2's 64: at B=8 the 133
+//     tiles fill the 132 SMs, and the tile's shared memory (99 KB at D=32)
+//     lets two blocks share an SM.
+//   * Four products on mma.sync m16n8k16 with fp32 accumulators, walking C
+//     in slabs of 32 with the weights' slabs staged by double-buffered
+//     cp.async: h = tanh(xxx @ w1) as K2 (pass 1); dh_i = dm_i @ w2[i]^T,
+//     dm_i = d_i * xx (pass 2), then dpre = dh (1 - h^2); dxxx = dpre @ w1^T
+//     and m_i = h_i @ w2[i] (pass 3), whose w1 rows and w2 columns are
+//     permuted on their way in so that a thread's accumulators are four
+//     neighbouring columns of two rows, and the elementwise adjoint reads and
+//     writes 8-byte words. The fp32 activation operands (xxx, dm_i, dpre, h)
+//     are stored as two bf16 limbs (hi + lo, about 16 bits), and every
+//     product takes both limbs (the weights are bf16 already).
+//   * The LayerNorm adjoint needs two sums over each row's C columns before
+//     its first dx: pass 3 leaves dxn (fp32) in a scratch of the tile's own
+//     rows (in L2: 133 tiles x 256 KB at B=8) and the sums in shared memory,
+//     then the block reads dxn back, row by row, and writes dx.
+//   * The weight gradients' form saves xxx, h, dpre and dm_i (fp32) for the
+//     weight products below and writes the tile's partial column sums of
+//     dmaa and dln (fixed order: the warp's 16 rows by shuffle, then the two
+//     row tiles); the weight products stay on the CUDA cores.
+//
+// CUDA-core body (fp32, and the bf16 shapes the other does not take): the
+// first version, two row-parallel kernels:
+//   chain (one block per 8 rows of one sequence): recompute LN/shift/ddlerp
+//     as K2 does, run the chain up to dxx and the part of dxn that is local to
+//     the row (both fp32 to device memory), and write the per-block partial
+//     column sums of dmaa;
 //   ln (one block per 8 rows): dxn[t] = local part + dxx[t+1], the LN
 //     adjoint, dshift from row 0, and per-block partials of dln_scale/bias.
-// The two weight gradients, (C x BT)(BT x 5D) and five (D x BT)(BT x C), are
-// products over all rows: the chain kernel saves xxx, h, dpre and dm_i
-// (fp32) and a tiled A^T B kernel reduces them, one block per output tile
-// walking all rows in order. Partial column sums are reduced by
-// rwkv_sum_partials (csrc/wkv_fused_bwd.cu) in a fixed order. No atomics:
-// two calls on the same inputs give bit-identical gradients. When the
-// weights need no gradient (LoRA: K2's parameters are frozen), nothing is
-// saved and only the chain and ln kernels run.
+// Its products run as fp32 FMAs; it keeps fp32 within 5e-4 of autograd.
 //
-// Bound on the card: operations. Per row the chain costs 4 products of
-// C x 5D (h, dh, dxxx, m recomputed) ~ 2.6 MFLOP, the weight products 1.3
-// MFLOP more, all on the CUDA cores in fp32: ~16 GFLOP a layer at B=8,
-// T=512, against ~0.3 GB moved (the saved dm_i are 168 MB fp32 there).
-// Shared memory of the chain kernel: max(C8*8, 5*256*8) + 2*5D*8 + 18
-// floats, 75.8 KB at C=2048, D=32, opted in above the 48 KB default.
-#include "common.cuh"
+// Both bodies: the two weight gradients, (C x BT)(BT x 5D) and five (D x BT)
+// (BT x C), are products over all rows of the saved xxx, h, dpre and dm_i,
+// reduced by a tiled A^T B kernel, one block per output tile walking all
+// rows in order. Partial column sums are reduced by rwkv_sum_partials
+// (csrc/wkv_fused_bwd.cu) in a fixed order. No atomics: two calls on the
+// same inputs give bit-identical gradients. When the weights need no
+// gradient (LoRA: K2's parameters are frozen), nothing is saved and the
+// weight products do not run.
+//
+// Shared memory of the CUDA-core chain kernel: max(C8*8, 5*256*8) + 2*5D*8
+// + 18 floats, 75.8 KB at C=2048, D=32; of the tensor-core kernel 98.8 KB at
+// D=32 and 184 KB at D=64; both opted in above the 48 KB default.
+#include "ddlerp_rows.cuh"
 
 namespace rwkv {
+
+// body codes shared with ops/ddlerp.py
+enum : int { kB5CudaCore = 0, kB5TensorCore = 1 };
 
 constexpr int kBwdRows = 8;        // rows of T per block (fma8 handles 8)
 constexpr int kBwdThreads = 256;   // also the column chunk of the dh product
@@ -434,10 +479,594 @@ static cudaError_t launch_atb(const float* X, int ldx, long long sx, const float
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------------
+// Tensor-core body (bf16, C % 8 == 0, D = 32 or 64): prologue_bwd_tc_kernel
+// ------------------------------------------------------------------------
+
+constexpr int kTR = 32;              // rows a tile holds: 31 it owns and the halo row after them
+constexpr int kTOwn = kTR - 1;       // rows a tile owns (writes); tile i starts at row 31 i
+constexpr int kTThreads = 128;       // 4 warps: 2 row tiles of 16 x 2 column halves
+constexpr int kTSlab = 32;           // columns of C a step of a product takes
+constexpr int kXS = kTSlab + 8;      // bf16 row stride of a (rows, slab) tile: 80 bytes
+constexpr int kDxxS = kTSlab + 4;    // fp32 row stride of the dxx tile
+
+template <int D>
+struct BwdTcLayout {
+  static constexpr int kD5 = 5 * D;
+  static constexpr int kHS = kD5 + 8;             // bf16 row stride of (rows, 5D) tiles
+  static constexpr int kW1Elems = kTSlab * kHS;   // w1 rows c of a slab, 5D values each
+  static constexpr int kW2Elems = kD5 * kXS;      // w2 rows (i, d), a slab of columns each
+  static constexpr int kStageElems = kW1Elems + kW2Elems;   // the last pass takes both
+  static constexpr int kHElems = 2 * kTR * kHS;             // h: hi, lo
+  static constexpr int kXElems = 2 * 2 * kTR * kXS;         // xxx: two slabs x two limbs
+  static constexpr int kDmElems = 2 * 5 * kTR * kXS;        // dm_i of a slab: two limbs x 5
+  static constexpr int kDpElems = 2 * kTR * kHS;            // dpre: two limbs
+  static constexpr int kRegionElems =
+      kDmElems > kDpElems ? (kDmElems > kXElems ? kDmElems : kXElems)
+                          : (kDpElems > kXElems ? kDpElems : kXElems);
+  static constexpr int kFloats = kTR * kDxxS + 2 * (kTR + 1) + 2 * kTR * 2 + 2 * 6 * kTSlab;
+  static constexpr size_t kBytes =
+      sizeof(bf16) * (2 * kStageElems + kHElems + kRegionElems) + sizeof(float) * kFloats;
+  static_assert(kW1Elems % 8 == 0 && kStageElems % 8 == 0 && kHElems % 8 == 0 &&
+                kRegionElems % 8 == 0, "16-byte alignment");
+};
+
+// position of column c (0..31) of a slab in the permuted stage: the
+// accumulators (tile nt, pair e) of thread tig of a column half are then the
+// four neighbouring columns 4 tig + 2 nt + e
+__device__ __forceinline__ int slab_pos(int c) {
+  return (c & 16) + ((c & 3) >> 1) * 8 + 2 * ((c & 15) >> 2) + (c & 1);
+}
+
+__device__ __forceinline__ void unpack4(const uint2& q, float* f) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+}
+
+__device__ __forceinline__ uint2 ldg8(const bf16* p) {
+  return __ldg(reinterpret_cast<const uint2*>(p));
+}
+
+// hi and lo limbs of eight fp32 values into two bf16 rows
+__device__ __forceinline__ void store_limbs8(const float* v, bf16* hi, bf16* lo) {
+  float h[8], l[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) split_bf16(v[j], h[j], l[j]);
+  *reinterpret_cast<uint4*>(hi) = pack8(h);
+  *reinterpret_cast<uint4*>(lo) = pack8(l);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTThreads, D == 32 ? 2 : 1) prologue_bwd_tc_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ shift,
+    const bf16* __restrict__ ln_scale, const bf16* __restrict__ ln_bias,
+    const bf16* __restrict__ maa, const bf16* __restrict__ w1, const bf16* __restrict__ w2,
+    Cotangents cts, bf16* __restrict__ dx, float* __restrict__ dshift, float* __restrict__ dxn_s,
+    float* __restrict__ xxx_s, float* __restrict__ h_s, float* __restrict__ dpre_s,
+    float* __restrict__ dm_s, float* __restrict__ dmaa_p, float* __restrict__ dln_p, int M,
+    int T_len, int C, float eps) {
+  using L = BwdTcLayout<D>;
+  constexpr int D5 = L::kD5, HS = L::kHS;
+  constexpr int NT1 = D5 / 16;      // 8-wide column tiles of 5D a warp owns
+  static_assert(NT1 % 2 == 0, "column tiles are loaded in pairs");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* stage = reinterpret_cast<bf16*>(smem_raw);     // 2 x kStageElems
+  bf16* sH = stage + 2 * L::kStageElems;               // h: hi, lo (kTR, HS)
+  bf16* region = sH + L::kHElems;
+  bf16* sX = region;                                   // pass 1: xxx [slab buffer][limb]
+  bf16* sDm = region;                                  // pass 2: dm [limb][i]
+  bf16* sDp = region;                                  // pass 3: dpre [limb]
+  // the fp32 arrays read as float4 first, each a multiple of 16 bytes
+  float* sDxx = reinterpret_cast<float*>(region + L::kRegionElems);   // (kTR, kDxxS)
+  float* sCol = sDxx + kTR * kDxxS;                    // [rt][6][kTSlab]: dmaa column sums
+  float* sRows = sCol + 2 * 6 * kTSlab;                // [half][row][2]: the LN adjoint's sums
+  float* stats = sRows + 2 * kTR * 2;                  // (kTR + 1, 2)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int rt = warp & 1, half = warp >> 1;
+  const int tile = blockIdx.x;
+  const int m0 = tile * kTOwn;
+  const int n_slabs = (C + kTSlab - 1) / kTSlab;
+  const bool full = xxx_s != nullptr;   // the weight gradients' form
+  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
+  const int ld_row = (lane & 7) + ((lane >> 4) << 3), ld_col = ((lane >> 3) & 1) * 8;
+  const bf16* d[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) d[i] = static_cast<const bf16*>(cts.d[i]);
+  const bf16* dxln = static_cast<const bf16*>(cts.dxln);
+  // a row the tile writes: not the halo row, not past the last row
+  auto owned = [&](int r) { return r < kTOwn && m0 + r < M; };
+
+  tile_stats(x, stats, m0, kTR, M, C, eps);
+  __syncthreads();
+
+  // staging threads: one 16-byte word (8 columns) of row sr of a slab
+  const int sr = tid >> 2, cq = (tid & 3) * 8;
+  const RowRef mine = make_row(x, shift, stats, m0, sr, M, T_len, C);
+  const size_t mrow = (size_t)(m0 + sr);
+  uint4 xq, pq, scq, biq, mq;       // the next slab's words of this thread
+  auto fetch = [&](int slab, const bf16* vec) {
+    const int c = slab * kTSlab + cq;
+    const bool on = mine.valid && c < C;
+    xq = on ? ldg16(mine.cur + c) : zero4;
+    pq = on ? ldg16(mine.prev + c) : zero4;
+    scq = on ? ldg16(ln_scale + c) : zero4;
+    biq = on ? ldg16(ln_bias + c) : zero4;
+    mq = on && vec ? ldg16(vec + c) : zero4;
+  };
+  // rows c of w1 (5D values each) into dst, row c at position pos(c)
+  auto stage_w1 = [&](int slab, bf16* dst, bool permute) {
+    constexpr int kChunks = D5 / 8;
+    for (int idx = tid; idx < kTSlab * kChunks; idx += kTThreads) {
+      const int kr = idx / kChunks, ch = idx - kr * kChunks;
+      bf16* dd = dst + (permute ? slab_pos(kr) : kr) * HS + ch * 8;
+      const int c = slab * kTSlab + kr;
+      if (c < C) cp_async_16(dd, w1 + (size_t)c * D5 + ch * 8);
+      else *reinterpret_cast<uint4*>(dd) = zero4;
+    }
+  };
+
+  // ---- pass 1: h = tanh(xxx @ w1), as K2 ---------------------------------
+  float acc[NT1][4];
+#pragma unroll
+  for (int nt = 0; nt < NT1; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  auto store_xxx = [&](int slab, bf16* dst) {
+    const int c = slab * kTSlab + cq;
+    float v[8];
+    if (mine.valid && c < C) {
+      float sc[8], bi[8], mx[8], xn[8], xx[8];
+      unpack8(scq, sc);
+      unpack8(biq, bi);
+      unpack8(mq, mx);
+      ln_pair(mine, xq, pq, sc, bi, xn, xx);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = fmaf(xx[j], mx[j], xn[j]);
+      if (full && owned(sr)) {
+        float4* o = reinterpret_cast<float4*>(xxx_s + mrow * C + c);
+        o[0] = make_float4(v[0], v[1], v[2], v[3]);
+        o[1] = make_float4(v[4], v[5], v[6], v[7]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = 0.f;
+    }
+    store_limbs8(v, dst + sr * kXS + cq, dst + kTR * kXS + sr * kXS + cq);
+  };
+  stage_w1(0, stage, false);
+  fetch(0, maa);
+  store_xxx(0, sX);
+  for (int s = 0; s < n_slabs; ++s) {
+    cp_async_wait_all();
+    __syncthreads();
+    const bf16* wS = stage + (s & 1) * L::kStageElems;
+    const bf16* xS = sX + (s & 1) * 2 * kTR * kXS;
+    if (s + 1 < n_slabs) {
+      stage_w1(s + 1, stage + ((s + 1) & 1) * L::kStageElems, false);
+      fetch(s + 1, maa);
+    }
+#pragma unroll
+    for (int ks = 0; ks < kTSlab / 16; ++ks) {
+      unsigned a[4], al[4];
+      const bf16* ap = xS + (rt * 16 + (lane & 15)) * kXS + ks * 16 + (lane >> 4) * 8;
+      ldmatrix_x4(a, ap);
+      ldmatrix_x4(al, ap + kTR * kXS);
+#pragma unroll
+      for (int np = 0; np < NT1 / 2; ++np) {
+        unsigned bq[4];
+        ldmatrix_x4_trans(bq, wS + (ks * 16 + (lane & 15)) * HS + half * NT1 * 8 + np * 16 +
+                                  (lane >> 4) * 8);
+        mma_m16n8k16(acc[2 * np], a[0], a[1], a[2], a[3], bq[0], bq[1]);
+        mma_m16n8k16(acc[2 * np + 1], a[0], a[1], a[2], a[3], bq[2], bq[3]);
+        mma_m16n8k16(acc[2 * np], al[0], al[1], al[2], al[3], bq[0], bq[1]);
+        mma_m16n8k16(acc[2 * np + 1], al[0], al[1], al[2], al[3], bq[2], bq[3]);
+      }
+    }
+    if (s + 1 < n_slabs) store_xxx(s + 1, sX + ((s + 1) & 1) * 2 * kTR * kXS);
+  }
+  // h in two limbs; the accumulators start over as dh
+#pragma unroll
+  for (int nt = 0; nt < NT1; ++nt) {
+    const int col = half * NT1 * 8 + nt * 8 + 2 * tig;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = rt * 16 + g + 8 * rr;
+      float hi0, lo0, hi1, lo1;
+      const float h0 = tanhf(acc[nt][2 * rr]), h1 = tanhf(acc[nt][2 * rr + 1]);
+      split_bf16(h0, hi0, lo0);
+      split_bf16(h1, hi1, lo1);
+      *reinterpret_cast<unsigned*>(sH + row * HS + col) = pack_bf16(hi0, hi1);
+      *reinterpret_cast<unsigned*>(sH + kTR * HS + row * HS + col) = pack_bf16(lo0, lo1);
+      if (full && owned(row))
+        *reinterpret_cast<float2*>(h_s + (size_t)(m0 + row) * D5 + col) = make_float2(h0, h1);
+      acc[nt][2 * rr] = acc[nt][2 * rr + 1] = 0.f;
+    }
+  }
+
+  // ---- pass 2: dh_i = dm_i @ w2[i]^T, dm_i = d_i * xx ---------------------
+  // A slab stages the rows (i, d) of w2 over its columns; dm_i of the slab
+  // goes to shared memory in two limbs, one buffer (two barriers a slab).
+  auto stage_w2 = [&](int slab, bf16* dst) {
+    constexpr int kChunks = kTSlab / 8;
+    for (int idx = tid; idx < D5 * kChunks; idx += kTThreads) {
+      const int n = idx / kChunks, ch = idx - n * kChunks;
+      const int c = slab * kTSlab + ch * 8;
+      bf16* dd = dst + n * kXS + ch * 8;
+      if (c < C) cp_async_16(dd, w2 + (size_t)n * C + c);
+      else *reinterpret_cast<uint4*>(dd) = zero4;
+    }
+  };
+  uint4 dq[5];
+  auto fetch_d = [&](int slab) {
+    fetch(slab, nullptr);
+    const int c = slab * kTSlab + cq;
+    const bool on = mine.valid && c < C;
+#pragma unroll
+    for (int i = 0; i < 5; ++i) dq[i] = on && d[i] ? ldg16(d[i] + mrow * C + c) : zero4;
+  };
+  auto store_dm = [&](int slab) {
+    const int c = slab * kTSlab + cq;
+    float xn[8], xx[8];
+    if (mine.valid && c < C) {
+      float sc[8], bi[8];
+      unpack8(scq, sc);
+      unpack8(biq, bi);
+      ln_pair(mine, xq, pq, sc, bi, xn, xx);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) xx[j] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      float v[8];
+      unpack8(dq[i], v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] *= xx[j];
+      if (full && owned(sr) && c < C) {
+        float4* o = reinterpret_cast<float4*>(dm_s + ((size_t)i * M + mrow) * C + c);
+        o[0] = make_float4(v[0], v[1], v[2], v[3]);
+        o[1] = make_float4(v[4], v[5], v[6], v[7]);
+      }
+      bf16* hi = sDm + (i * kTR + sr) * kXS + cq;
+      store_limbs8(v, hi, hi + 5 * kTR * kXS);
+    }
+  };
+  __syncthreads();   // h is complete; pass 1's buffers are free
+  stage_w2(0, stage);
+  fetch_d(0);
+  for (int s = 0; s < n_slabs; ++s) {
+    cp_async_wait_all();
+    __syncthreads();   // w2 of slab s has landed; dm of slab s - 1 is read
+    store_dm(s);
+    if (s + 1 < n_slabs) {
+      stage_w2(s + 1, stage + ((s + 1) & 1) * L::kStageElems);
+      fetch_d(s + 1);
+    }
+    __syncthreads();
+    const bf16* wS = stage + (s & 1) * L::kStageElems;
+#pragma unroll
+    for (int ks = 0; ks < kTSlab / 16; ++ks) {
+#pragma unroll
+      for (int np = 0; np < NT1 / 2; ++np) {
+        const int n0 = half * NT1 * 8 + np * 16;
+        const int i = n0 / D;
+        unsigned a[4], al[4], bq[4];
+        const bf16* ap = sDm + (i * kTR + rt * 16 + (lane & 15)) * kXS + ks * 16 + (lane >> 4) * 8;
+        ldmatrix_x4(a, ap);
+        ldmatrix_x4(bq, wS + (n0 + ld_row) * kXS + ks * 16 + ld_col);
+        mma_m16n8k16(acc[2 * np], a[0], a[1], a[2], a[3], bq[0], bq[1]);
+        mma_m16n8k16(acc[2 * np + 1], a[0], a[1], a[2], a[3], bq[2], bq[3]);
+        ldmatrix_x4(al, ap + 5 * kTR * kXS);
+        mma_m16n8k16(acc[2 * np], al[0], al[1], al[2], al[3], bq[0], bq[1]);
+        mma_m16n8k16(acc[2 * np + 1], al[0], al[1], al[2], al[3], bq[2], bq[3]);
+      }
+    }
+  }
+  __syncthreads();   // every warp is done with dm: its memory takes dpre
+  // dpre = dh * (1 - h^2), h from its two limbs
+#pragma unroll
+  for (int nt = 0; nt < NT1; ++nt) {
+    const int col = half * NT1 * 8 + nt * 8 + 2 * tig;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = rt * 16 + g + 8 * rr;
+      const float2 hh = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sH + row * HS + col));
+      const float2 hl =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sH + kTR * HS + row * HS + col));
+      const float h0 = hh.x + hl.x, h1 = hh.y + hl.y;
+      const float p0 = acc[nt][2 * rr] * (1.f - h0 * h0), p1 = acc[nt][2 * rr + 1] * (1.f - h1 * h1);
+      float hi0, lo0, hi1, lo1;
+      split_bf16(p0, hi0, lo0);
+      split_bf16(p1, hi1, lo1);
+      *reinterpret_cast<unsigned*>(sDp + row * HS + col) = pack_bf16(hi0, hi1);
+      *reinterpret_cast<unsigned*>(sDp + kTR * HS + row * HS + col) = pack_bf16(lo0, lo1);
+      if (full && owned(row))
+        *reinterpret_cast<float2*>(dpre_s + (size_t)(m0 + row) * D5 + col) = make_float2(p0, p1);
+    }
+  }
+
+  // ---- pass 3: dxxx = dpre @ w1^T, m_i = h_i @ w2[i], then per element
+  //   dxx = dxxx maa_x + sum_i d_i (maa_i + m_i)
+  //   dxn = dxln + sum_i d_i + dxxx - dxx + dxx[t+1]
+  // A slab stages w1's rows and w2's columns of its 32 columns, both permuted
+  // by slab_pos, so that a thread's accumulators are 4 neighbouring columns of
+  // 2 rows. dxx[t+1] of the tile's last owned row is its halo row's; a row
+  // that ends its sequence takes none. dxn goes to dxn_s (fp32) and comes back
+  // once every column has added to the rows' LayerNorm-adjoint sums.
+  auto stage_both = [&](int slab, bf16* dst) {
+    stage_w1(slab, dst, true);
+    bf16* d2 = dst + L::kW1Elems;
+    for (int idx = tid; idx < D5 * (kTSlab / 2); idx += kTThreads) {
+      const int n = idx / (kTSlab / 2), c = 2 * (idx - n * (kTSlab / 2));
+      const int col = slab * kTSlab + c;
+      unsigned* dd = reinterpret_cast<unsigned*>(d2 + n * kXS + slab_pos(c));
+      if (col < C) cp_async_4(dd, w2 + (size_t)n * C + col);
+      else *dd = 0u;
+    }
+  };
+  const RowRef rows[2] = {make_row(x, shift, stats, m0, rt * 16 + g, M, T_len, C),
+                          make_row(x, shift, stats, m0, rt * 16 + g + 8, M, T_len, C)};
+  float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+  stage_both(0, stage);
+  for (int s = 0; s < n_slabs; ++s) {
+    cp_async_wait_all();
+    __syncthreads();   // slab s has landed; sDxx and sCol of slab s - 1 are read
+    if (s + 1 < n_slabs) stage_both(s + 1, stage + ((s + 1) & 1) * L::kStageElems);
+    const bf16* w1S = stage + (s & 1) * L::kStageElems;
+    const bf16* w2S = w1S + L::kW1Elems;
+    const int cl = half * 16 + tig * 4;      // this thread's 4 columns in the slab
+    const int c0 = s * kTSlab + cl;
+    const bool col_on = c0 < C;
+    // every word this slab's epilogue needs is asked for before the products
+    uint2 xw[2], pw[2], dw[5][2], lw[2], mw[6], scw, biw;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const bool on = col_on && rows[rr].valid;
+      const size_t at = (size_t)(m0 + rt * 16 + g + 8 * rr) * C + c0;
+      xw[rr] = on ? ldg8(rows[rr].cur + c0) : make_uint2(0u, 0u);
+      pw[rr] = on ? ldg8(rows[rr].prev + c0) : make_uint2(0u, 0u);
+      lw[rr] = on && dxln ? ldg8(dxln + at) : make_uint2(0u, 0u);
+#pragma unroll
+      for (int i = 0; i < 5; ++i) dw[i][rr] = on && d[i] ? ldg8(d[i] + at) : make_uint2(0u, 0u);
+    }
+#pragma unroll
+    for (int i = 0; i < 6; ++i) mw[i] = col_on ? ldg8(maa + (size_t)i * C + c0) : make_uint2(0u, 0u);
+    scw = col_on ? ldg8(ln_scale + c0) : make_uint2(0u, 0u);
+    biw = col_on ? ldg8(ln_bias + c0) : make_uint2(0u, 0u);
+
+    float ax[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ax[nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < D5 / 16; ++ks) {
+      unsigned a[4], bq[4];
+      const bf16* ap = sDp + (rt * 16 + (lane & 15)) * HS + ks * 16 + (lane >> 4) * 8;
+      ldmatrix_x4(a, ap);
+      ldmatrix_x4(bq, w1S + (half * 16 + ld_row) * HS + ks * 16 + ld_col);
+      mma_m16n8k16(ax[0], a[0], a[1], a[2], a[3], bq[0], bq[1]);
+      mma_m16n8k16(ax[1], a[0], a[1], a[2], a[3], bq[2], bq[3]);
+      ldmatrix_x4(a, ap + kTR * HS);
+      mma_m16n8k16(ax[0], a[0], a[1], a[2], a[3], bq[0], bq[1]);
+      mma_m16n8k16(ax[1], a[0], a[1], a[2], a[3], bq[2], bq[3]);
+    }
+    float sc[4], bi[4], mv[6][4], xn[2][4], xx[2][4], xr[2][4];
+    unpack4(scw, sc);
+    unpack4(biw, bi);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) unpack4(mw[i], mv[i]);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float xv[4], pv[4];
+      unpack4(xw[rr], xv);
+      unpack4(pw[rr], pv);
+      const RowRef& row = rows[rr];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        xr[rr][j] = (xv[j] - row.mu) * row.rstd;
+        xn[rr][j] = fmaf(xr[rr][j], sc[j], bi[j]);
+        const float prev =
+            row.prev_is_shift ? pv[j] : fmaf((pv[j] - row.pmu) * row.prstd, sc[j], bi[j]);
+        xx[rr][j] = prev - xn[rr][j];
+      }
+    }
+    // dxx, the row-local part of dxn, and the dmaa column sums of owned rows
+    float dxx[2][4], dxn[2][4], col[6][4] = {};
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float lv[4];
+      unpack4(lw[rr], lv);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float X = ax[j >> 1][2 * rr + (j & 1)];
+        dxx[rr][j] = X * mv[0][j];
+        dxn[rr][j] = lv[j] + X;
+        if (owned(rt * 16 + g + 8 * rr)) col[0][j] = fmaf(X, xx[rr][j], col[0][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      float am[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) am[nt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        unsigned a[4], bq[4];
+        const bf16* ap = sH + (rt * 16 + (lane & 15)) * HS + i * D + ks * 16 + (lane >> 4) * 8;
+        ldmatrix_x4(a, ap);
+        ldmatrix_x4_trans(bq, w2S + (i * D + ks * 16 + (lane & 15)) * kXS + half * 16 +
+                                  (lane >> 4) * 8);
+        mma_m16n8k16(am[0], a[0], a[1], a[2], a[3], bq[0], bq[1]);
+        mma_m16n8k16(am[1], a[0], a[1], a[2], a[3], bq[2], bq[3]);
+        ldmatrix_x4(a, ap + kTR * HS);
+        mma_m16n8k16(am[0], a[0], a[1], a[2], a[3], bq[0], bq[1]);
+        mma_m16n8k16(am[1], a[0], a[1], a[2], a[3], bq[2], bq[3]);
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float dv[4];
+        unpack4(dw[i][rr], dv);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          dxx[rr][j] = fmaf(dv[j], mv[i + 1][j] + am[j >> 1][2 * rr + (j & 1)], dxx[rr][j]);
+          dxn[rr][j] += dv[j];
+          if (owned(rt * 16 + g + 8 * rr)) col[i + 1][j] = fmaf(dv[j], xx[rr][j], col[i + 1][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = rt * 16 + g + 8 * rr;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dxn[rr][j] -= dxx[rr][j];
+      *reinterpret_cast<float4*>(sDxx + row * kDxxS + cl) =
+          make_float4(dxx[rr][0], dxx[rr][1], dxx[rr][2], dxx[rr][3]);
+      if (col_on && owned(row) && (m0 + row) % T_len == 0)
+        *reinterpret_cast<float4*>(dshift + (size_t)((m0 + row) / T_len) * C + c0) =
+            make_float4(dxx[rr][0], dxx[rr][1], dxx[rr][2], dxx[rr][3]);
+    }
+    if (full) {
+      // column sums over the warp's 16 rows, then the two row tiles in order
+#pragma unroll
+      for (int i = 0; i < 6; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) col[i][j] += __shfl_xor_sync(0xffffffffu, col[i][j], o);
+      if (g == 0)
+#pragma unroll
+        for (int i = 0; i < 6; ++i)
+          *reinterpret_cast<float4*>(sCol + (rt * 6 + i) * kTSlab + cl) =
+              make_float4(col[i][0], col[i][1], col[i][2], col[i][3]);
+    }
+    __syncthreads();   // the slab's dxx (and column sums) are complete
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = rt * 16 + g + 8 * rr;
+      if (!col_on || !owned(row)) continue;
+      const bool next = (m0 + row + 1) % T_len != 0;   // row + 1 is in this tile
+      const float4 nx = *reinterpret_cast<const float4*>(sDxx + (row + 1) * kDxxS + cl);
+      const float nv[4] = {nx.x, nx.y, nx.z, nx.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (next) dxn[rr][j] += nv[j];
+        const float dr = dxn[rr][j] * sc[j];
+        s1[rr] += dr;
+        s2[rr] = fmaf(dr, xr[rr][j], s2[rr]);
+      }
+      *reinterpret_cast<float4*>(dxn_s + (size_t)(m0 + row) * C + c0) =
+          make_float4(dxn[rr][0], dxn[rr][1], dxn[rr][2], dxn[rr][3]);
+    }
+    if (full)
+      for (int idx = tid; idx < 6 * kTSlab; idx += kTThreads) {
+        const int i = idx / kTSlab, c = idx - i * kTSlab;
+        if (s * kTSlab + c < C)
+          dmaa_p[((size_t)tile * 6 + i) * C + s * kTSlab + c] =
+              sCol[i * kTSlab + c] + sCol[(6 + i) * kTSlab + c];
+      }
+  }
+
+  // ---- the LayerNorm adjoint: the rows' sums, then dx over the owned rows
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      s1[rr] += __shfl_xor_sync(0xffffffffu, s1[rr], o);
+      s2[rr] += __shfl_xor_sync(0xffffffffu, s2[rr], o);
+    }
+    if (tig == 0) {
+      const int row = rt * 16 + g + 8 * rr;
+      sRows[(half * kTR + row) * 2] = s1[rr];
+      sRows[(half * kTR + row) * 2 + 1] = s2[rr];
+    }
+  }
+  __syncthreads();   // dxn_s of the tile's owned rows and the sums are complete
+  for (int c = tid * 8; c < C; c += kTThreads * 8) {
+    float sc[8], dla[8], dlb[8];
+    unpack8(ldg16(ln_scale + c), sc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dla[j] = dlb[j] = 0.f;
+    for (int r = 0; r < kTOwn && m0 + r < M; ++r) {
+      const size_t at = (size_t)(m0 + r) * C + c;
+      const float mu = stats[2 * (r + 1)], rstd = stats[2 * (r + 1) + 1];
+      const float m1 = (sRows[r * 2] + sRows[(kTR + r) * 2]) / C;
+      const float m2 = (sRows[r * 2 + 1] + sRows[(kTR + r) * 2 + 1]) / C;
+      float xv[8], o[8];
+      unpack8(ldg16(x + at), xv);
+      const float4 q0 = *reinterpret_cast<const float4*>(dxn_s + at);
+      const float4 q1 = *reinterpret_cast<const float4*>(dxn_s + at + 4);
+      const float dn[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float xr = (xv[j] - mu) * rstd;
+        o[j] = rstd * (dn[j] * sc[j] - m1 - xr * m2);
+        dla[j] = fmaf(dn[j], xr, dla[j]);
+        dlb[j] += dn[j];
+      }
+      *reinterpret_cast<uint4*>(dx + at) = pack8(o);
+    }
+    if (dln_p) {
+      float4* o = reinterpret_cast<float4*>(dln_p + (size_t)tile * 2 * C + c);
+      o[0] = make_float4(dla[0], dla[1], dla[2], dla[3]);
+      o[1] = make_float4(dla[4], dla[5], dla[6], dla[7]);
+      o = reinterpret_cast<float4*>(dln_p + ((size_t)tile * 2 + 1) * C + c);
+      o[0] = make_float4(dlb[0], dlb[1], dlb[2], dlb[3]);
+      o[1] = make_float4(dlb[4], dlb[5], dlb[6], dlb[7]);
+    }
+  }
+}
+
+// the weight gradients from the saved rows, when they are wanted (dw1 set)
+static cudaError_t launch_weight_products(const float* xxx_s, const float* h_s,
+                                          const float* dpre_s, const float* dm_s, float* dw1,
+                                          float* dw2, int K, int C, int D, cudaStream_t s) {
+  if (dw1 == nullptr) return cudaSuccess;
+  const int D5 = 5 * D;
+  cudaError_t e;
+  // dw1 (C, 5D) = xxx^T dpre
+  if ((e = launch_atb(xxx_s, C, 0, dpre_s, D5, 0, dw1, D5, 0, C, D5, K, 1, s)) != cudaSuccess)
+    return e;
+  // dw2[i] (D, C) = h_i^T dm_i
+  return launch_atb(h_s, D5, D, dm_s, C, (long long)K * C, dw2, C, (long long)D * C, D, C, K,
+                    5, s);
+}
+
+template <int D>
+static cudaError_t launch_tc_bwd_d(const void* const* in, Cotangents cts, void* dx, void* dshift,
+                                   void* const* scratch, int M, int T_len, int C, float eps,
+                                   cudaStream_t s) {
+  const size_t smem = BwdTcLayout<D>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(prologue_bwd_tc_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int tiles = (M + kTOwn - 1) / kTOwn;
+  auto bf = [](const void* p) { return static_cast<const bf16*>(p); };
+  auto f = [](void* p) { return static_cast<float*>(p); };
+  prologue_bwd_tc_kernel<D><<<tiles, kTThreads, smem, s>>>(
+      bf(in[0]), bf(in[1]), bf(in[2]), bf(in[3]), bf(in[4]), bf(in[5]), bf(in[7]), cts,
+      static_cast<bf16*>(dx), f(dshift), f(scratch[0]), f(scratch[2]), f(scratch[3]),
+      f(scratch[4]), f(scratch[5]), f(scratch[6]), f(scratch[7]), M, T_len, C, eps);
+  return cudaGetLastError();
+}
+
+// scratch[0] holds dxn (B*T, C) fp32; scratch[1] is unused
+static cudaError_t launch_tc_bwd(const void* const* in, Cotangents cts, void* dx, void* dshift,
+                                 void* const* scratch, int M, int T_len, int C, int D, float eps,
+                                 cudaStream_t s) {
+  if (D == 32) return launch_tc_bwd_d<32>(in, cts, dx, dshift, scratch, M, T_len, C, eps, s);
+  return launch_tc_bwd_d<64>(in, cts, dx, dshift, scratch, M, T_len, C, eps, s);
+}
+
 template <typename T>
 static cudaError_t launch_prologue_bwd(const void* const* in, Cotangents cts,
                                        void* const* out, void* const* scratch, int B,
-                                       int T_len, int C, int D, float eps,
+                                       int T_len, int C, int D, float eps, int body,
                                        cudaStream_t s) {
   const T* x = static_cast<const T*>(in[0]);
   const T* shift = static_cast<const T*>(in[1]);
@@ -460,10 +1089,16 @@ static cudaError_t launch_prologue_bwd(const void* const* in, Cotangents cts,
   float* dm_s = static_cast<float*>(scratch[5]);
   float* dmaa_p = static_cast<float*>(scratch[6]);
   float* dln_p = static_cast<float*>(scratch[7]);
-  const int D5 = 5 * D;
+  cudaError_t e;
+  if (body == kB5TensorCore) {
+    if ((e = launch_tc_bwd(in, cts, dx, dshift, scratch, B * T_len, T_len, C, D, eps, s)) !=
+        cudaSuccess)
+      return e;
+    return launch_weight_products(xxx_s, h_s, dpre_s, dm_s, dw1, dw2, B * T_len, C, D, s);
+  }
   const size_t smem = chain_smem_bytes(C, D);
-  cudaError_t e = cudaFuncSetAttribute(prologue_bwd_chain_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  e = cudaFuncSetAttribute(prologue_bwd_chain_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((T_len + kBwdRows - 1) / kBwdRows, B);
   prologue_bwd_chain_kernel<T><<<grid, kBwdThreads, smem, s>>>(
@@ -473,32 +1108,30 @@ static cudaError_t launch_prologue_bwd(const void* const* in, Cotangents cts,
   prologue_bwd_ln_kernel<T><<<grid, kBwdThreads, 0, s>>>(x, ln_scale, dxx, dxnp, dx, dshift,
                                                          dln_p, T_len, C, eps);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  if (dw1 == nullptr) return cudaSuccess;
-  const int K = B * T_len;
-  // dw1 (C, 5D) = xxx^T dpre
-  if ((e = launch_atb(xxx_s, C, 0, dpre_s, D5, 0, dw1, D5, 0, C, D5, K, 1, s)) != cudaSuccess)
-    return e;
-  // dw2[i] (D, C) = h_i^T dm_i
-  return launch_atb(h_s, D5, D, dm_s, C, (long long)K * C, dw2, C, (long long)D * C, D, C, K,
-                    5, s);
+  return launch_weight_products(xxx_s, h_s, dpre_s, dm_s, dw1, dw2, B * T_len, C, D, s);
 }
 
 }  // namespace rwkv
 
-// Dynamic shared memory of the chain kernel at (C, D); the wrapper checks it
+// Dynamic shared memory of a block of `body` at (C, D); the wrapper checks it
 // against the card's opt-in limit before launching.
-extern "C" long long rwkv_tmix_prologue_bwd_smem_bytes(int C, int D) {
-  return (long long)rwkv::chain_smem_bytes(C, D);
+extern "C" long long rwkv_tmix_prologue_bwd_smem_bytes(int C, int D, int body) {
+  using namespace rwkv;
+  if (body == kB5TensorCore)
+    return (long long)(D == 64 ? BwdTcLayout<64>::kBytes : BwdTcLayout<32>::kBytes);
+  return (long long)chain_smem_bytes(C, D);
 }
 
 // in: x, shift, ln_scale, ln_bias, maa, w1, w1T (5D, C), w2, w2T (C, 5D), all
 //   of `dtype`; d0..d4, dxln: cotangents of `dtype`, each may be null;
 // out: dx (dtype), dshift (B, C) fp32, dw1 (C, 5D) fp32, dw2 (5, D, C) fp32;
-// scratch (fp32): dxx, dxnp (B*T, C); xxx (B*T, C), h, dpre (B*T, 5D),
-//   dm (5, B*T, C), dmaa partials (n_blocks, 6, C), dln partials
-//   (n_blocks, 2, C), n_blocks = B * ceil(T / 8). dw1, dw2 and the xxx, h,
+// scratch (fp32): dxx, dxnp (B*T, C) (the tensor-core body: dxn and null);
+//   xxx (B*T, C), h, dpre (B*T, 5D), dm (5, B*T, C), dmaa partials
+//   (n_blocks, 6, C), dln partials (n_blocks, 2, C), n_blocks = B * ceil(T /
+//   8) (the tensor-core body: ceil(B*T / 31) tiles). dw1, dw2 and the xxx, h,
 //   dpre, dm and dmaa scratch are null together when no weight gradient is
-//   wanted; the dln partials may be null on their own.
+//   wanted; the dln partials may be null on their own. body: kB5CudaCore or
+//   kB5TensorCore.
 extern "C" int rwkv_tmix_prologue_bwd(const void* x, const void* shift, const void* ln_scale,
                                       const void* ln_bias, const void* maa, const void* w1,
                                       const void* w1T, const void* w2, const void* w2T,
@@ -507,9 +1140,13 @@ extern "C" int rwkv_tmix_prologue_bwd(const void* x, const void* shift, const vo
                                       void* dx, void* dshift, void* dw1, void* dw2, void* dxx,
                                       void* dxnp, void* xxx_s, void* h_s, void* dpre_s,
                                       void* dm_s, void* dmaa_p, void* dln_p, int B, int T_len,
-                                      int C, int D, float eps, int dtype, void* stream) {
+                                      int C, int D, float eps, int dtype, int body, void* stream) {
   using namespace rwkv;
   if (D <= 0 || D % kBwdUnroll != 0) return cudaErrorInvalidValue;
+  if (body == kB5TensorCore &&
+      (dtype != kBFloat16 || C % 8 != 0 || (D != 32 && D != 64) || dxnp != nullptr))
+    return cudaErrorInvalidValue;
+  if (body != kB5TensorCore && body != kB5CudaCore) return cudaErrorInvalidValue;
   if (B <= 0 || T_len <= 0 || C <= 0) return cudaSuccess;
   const bool w_on = dw1 != nullptr;
   if (w_on != (dw2 != nullptr) || w_on != (xxx_s != nullptr) || w_on != (h_s != nullptr) ||
@@ -522,9 +1159,10 @@ extern "C" int rwkv_tmix_prologue_bwd(const void* x, const void* shift, const vo
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      return launch_prologue_bwd<float>(in, cts, out, scratch, B, T_len, C, D, eps, s);
+      return launch_prologue_bwd<float>(in, cts, out, scratch, B, T_len, C, D, eps, body, s);
     case kBFloat16:
-      return launch_prologue_bwd<__nv_bfloat16>(in, cts, out, scratch, B, T_len, C, D, eps, s);
+      return launch_prologue_bwd<__nv_bfloat16>(in, cts, out, scratch, B, T_len, C, D, eps, body,
+                                                s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -13,15 +13,9 @@
 // Its callers are the bidirectional encoders (models/bidirectional.py), which
 // run it twice a layer: a causal pass and a reverse pass.
 //
-// Design. The TPU kernel splits T into chunks, factors each chunk into
-// (L, L) matrix products by an exact dyadic decomposition of the decay and
-// carries the state in VMEM between sequential grid steps. Here it is K1's
-// recurrence (csrc/wkv_fused.cu) without the GroupNorm: one block per (b, h),
-// thread j keeps column S[:, j] in registers for the whole sequence, exact at
-// any decay. Without the two GroupNorm reductions a step needs one barrier
-// only: the stage (r, k, exp(-exp(w)), u*k in shared memory) is double
-// buffered, so step s+1 may fill its buffer while slower threads still read
-// step s's.
+// The TPU kernel splits T into chunks, factors each chunk into (L, L)
+// matrix products by an exact dyadic decomposition of the decay and carries
+// the state in VMEM between sequential grid steps.
 //
 // The bidirectional op needs the same scan over each row's valid prefix,
 // walked backwards. The JAX package flips r, k, v, w with a gather, runs the
@@ -31,12 +25,30 @@
 // there are none), reads nothing at or beyond L and writes zeros to y there.
 // The final state is the state after the prefix.
 //
-// Bound on the card: bytes and operations lie close. At B=8, T=512, H=32,
-// N=64 a call reads 3 x 16.8 MB of bf16 r/k/v and 33.6 MB of fp32 w and writes
-// 33.6 MB of y, about 0.035 ms at 3.35 TB/s, against 2.7 GFLOP of fp32 (0.04
-// ms at 67 TFLOP/s). This version reaches neither: it is latency-bound by the
-// serial T loop with B*H blocks of N threads, like K1.
-#include "common.cuh"
+// Bound on the card: bytes. At B=8, T=512, H=32, N=64 a call reads 3 x 16.8
+// MB of bf16 r/k/v and 33.6 MB of fp32 w and writes 33.6 MB of fp32 y and the
+// final state, about 0.036 ms at 3.35 TB/s (0.29 ms at B=64); the chunked
+// factoring's products are 4 N^2 a step and head on the tensor cores, a
+// tenth of that time.
+//
+// Two bodies; the wrapper (ops/wkv.py) picks one from dtype and head size.
+//
+// Chunked body (bf16, N = 32 or 64), wkv6_raw_chunked_kernel: K1's chunked
+// walk (chunk_walk, wkv_chunk.cuh) in its fourth mode, kChunkRaw: chunks of
+// 16 steps on mma.sync, the state transposed in fp32 accumulators, exact at
+// any decay (every scale exp of a sum of -exp(w)), the operands that are not
+// bf16 in two bf16 limbs; phases A-C of the GroupNorm modes, then y stored in
+// fp32 straight from the product's tile, with no GroupNorm and no gate. The
+// walk takes `reverse` and `lengths` as pass 1 of B.8's backward does. One
+// block of 2N threads per (b, h).
+//
+// Sequential body (fp32, and N = 16), wkv6_kernel: the first version, K1's
+// first recurrence without the GroupNorm: one block of N threads per (b, h),
+// thread j keeps column S[:, j] in registers for the whole sequence, one
+// barrier a step (the stage of r, k, exp(-exp(w)), u*k is double buffered).
+// It is latency-bound by the serial T loop; it keeps fp32 within 2e-5 of the
+// plain version.
+#include "wkv_chunk.cuh"
 
 namespace rwkv {
 
@@ -119,15 +131,56 @@ __global__ void __launch_bounds__(N) wkv6_kernel(
   for (int i = 0; i < N; ++i) sTp[i * N + j] = S[i];
 }
 
+template <int N>
+__global__ void __launch_bounds__(2 * N, 4) wkv6_raw_chunked_kernel(
+    const bf16* __restrict__ r, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ w, const float* __restrict__ u, const float* __restrict__ s0,
+    const int* __restrict__ lengths, float* __restrict__ y, float* __restrict__ sT, int T_len,
+    int H, int reverse) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  chunk_walk<N, kChunkRaw>(r, k, v, w, u, nullptr, nullptr, nullptr, s0, nullptr, lengths,
+                           nullptr, sT, nullptr, y, nullptr, nullptr, nullptr, T_len, H, 0.f,
+                           reverse, smem);
+}
+
+template <int N>
+static cudaError_t launch_raw_chunked(const void* r, const void* k, const void* v,
+                                      const void* w, const void* u, const void* s0,
+                                      const void* lengths, void* y, void* sT, int B, int T_len,
+                                      int H, int reverse, cudaStream_t stream) {
+  constexpr int smem = ChunkLayout<N, kChunkRaw>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      wkv6_raw_chunked_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  wkv6_raw_chunked_kernel<N><<<B * H, 2 * N, smem, stream>>>(
+      static_cast<const bf16*>(r), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(w), static_cast<const float*>(u), static_cast<const float*>(s0),
+      static_cast<const int*>(lengths), static_cast<float*>(y), static_cast<float*>(sT), T_len,
+      H, reverse);
+  return cudaGetLastError();
+}
+
 }  // namespace rwkv
+
+// body codes shared with ops/wkv.py
+enum { kWkvSequential = 0, kWkvChunked = 1 };
 
 extern "C" int rwkv_wkv6(const void* r, const void* k, const void* v, const void* w,
                          const void* u, const void* s0, const void* lengths, void* y,
                          void* sT, int B, int T_len, int H, int N, int reverse, int dtype,
-                         void* stream) {
+                         int body, void* stream) {
   using namespace rwkv;
   if (B <= 0 || H <= 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
+  if (body == kWkvChunked) {
+    if (dtype != kBFloat16) return cudaErrorInvalidValue;
+    if (N == 32)
+      return launch_raw_chunked<32>(r, k, v, w, u, s0, lengths, y, sT, B, T_len, H, reverse, s);
+    if (N == 64)
+      return launch_raw_chunked<64>(r, k, v, w, u, s0, lengths, y, sT, B, T_len, H, reverse, s);
+    return cudaErrorInvalidValue;
+  }
+  if (body != kWkvSequential) return cudaErrorInvalidValue;
 #define RWKV_WKV_CASE(TYPE, NN)                                                          \
   do {                                                                                   \
     wkv6_kernel<TYPE, NN><<<B * H, NN, 0, s>>>(                                           \

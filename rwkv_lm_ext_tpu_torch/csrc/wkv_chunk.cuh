@@ -1,6 +1,7 @@
-// The chunk factoring shared by the chunked bodies of K1 (wkv_fused.cu) and
-// of its backward B.6 / B.7 (wkv_fused_bwd.cu), and the forward walk over
-// the chunks that K1 and B.6 both run (chunk_walk): chunks of kL steps, every
+// The chunk factoring shared by the chunked bodies of K1 (wkv_fused.cu), of
+// its backward B.6 / B.7 (wkv_fused_bwd.cu) and of the unfused B.8 (wkv.cu),
+// and the forward walk over the chunks that K1, B.6 and B.8 all run
+// (chunk_walk): chunks of kL steps, every
 // decay factor exp of a sum of d = -exp(w) <= 0, fp32 operands sent to the
 // bf16 tensor cores as two limbs.
 //
@@ -134,15 +135,21 @@ enum ChunkMode {
   kChunkOutput = 0,    // K1: the gated output and the final state
   kChunkAdjoint = 1,   // B.6: the entry states and the GroupNorm/gate adjoint
   kChunkState = 2,     // B.6 without GroupNorm (B.8's backward): the entry states
+  kChunkRaw = 3,       // B.8: the raw fp32 y and the final state, no GroupNorm, no gate
 };
 
 // Shared memory of a chunk_walk block, in bytes from the start. A chunk
-// stages k, v, w, and for the GroupNorm modes r and g (and dout).
+// stages k, v, w, for the modes that form y r, and for the GroupNorm modes
+// g (and dout).
 template <int N, int kMode>
 struct ChunkLayout : ChunkDims<N> {
   using D = ChunkDims<N>;
-  static constexpr bool kGN = kMode != kChunkState;
-  static constexpr int kTiles = kMode == kChunkState ? 2 : kMode == kChunkOutput ? 4 : 5;
+  static constexpr bool kY = kMode != kChunkState;   // forms y (scores, products)
+  static constexpr bool kGN = kMode == kChunkOutput || kMode == kChunkAdjoint;
+  static constexpr bool kSaveStates = kMode == kChunkAdjoint || kMode == kChunkState;
+  static constexpr int kTiles = kMode == kChunkState ? 2
+                                : kMode == kChunkRaw ? 3
+                                : kMode == kChunkOutput ? 4 : 5;
   static constexpr int kStage = kTiles * D::kTile + kL * N * 4;   // the tiles and w
   static constexpr int kOffRd = 2 * kStage;                      // r exp(c): hi, lo
   static constexpr int kOffKd = kOffRd + 2 * D::kTile;           // k exp(c_L - c): hi, lo
@@ -168,18 +175,22 @@ struct ChunkLayout : ChunkDims<N> {
 //   A  the scaled operands: half the threads walk a channel forward
 //      (r exp(c_t), exp(c_L)), the other half backward (k exp(c_L - c_{t+1}),
 //      exp(d_t)): running sums of d, no difference of two sums;
-//   B  the scores below the diagonal (chunk_scores; GroupNorm modes);
-//   C  y^T = S^T (r exp(c))^T + V^T A^T (GroupNorm modes), and
+//   B  the scores below the diagonal (chunk_scores; the modes that form y);
+//   C  y^T = S^T (r exp(c))^T + V^T A^T (the modes that form y), and
 //      S^T <- S^T diag(exp(c_L)) + V^T (k exp(c_L - c));
+//   D' kChunkRaw: y (fp32) to `y32` straight from the tile of phase C, 16
+//      rows at once, each at its step's time; zeros at the times the walk
+//      does not reach;
 //   D  GroupNorm over the head for 16 rows at once, 8 channels of a row a
 //      thread, then the gate (kChunkOutput: `out`) or the GroupNorm/gate
 //      adjoint (kChunkAdjoint: dg, dy, and the (b, h) partials of dscale and
 //      dbias, which each thread sums over its own rows and the block then over
 //      its 16 rows in a fixed order).
-// kChunkOutput writes the final state to sT; the other modes write the state
-// at every chunk's entry to `states` (B*H, ceil(T / kL), N, N) fp32 in (K, V)
-// layout. s0 and dout may be null (zero). The next chunk's rows arrive by
-// cp.async while this one is computed (two stages).
+// kChunkOutput and kChunkRaw write the final state to sT; the other modes
+// write the state at every chunk's entry to `states` (B*H, ceil(T / kL), N,
+// N) fp32 in (K, V) layout. s0, dout and (kChunkRaw) u may be null (zero).
+// `y32` is kChunkAdjoint's dy or kChunkRaw's y. The next chunk's rows arrive
+// by cp.async while this one is computed (two stages).
 template <int N, int kMode>
 __device__ __forceinline__ void chunk_walk(
     const bf16* __restrict__ r, const bf16* __restrict__ k, const bf16* __restrict__ v,
@@ -187,11 +198,11 @@ __device__ __forceinline__ void chunk_walk(
     const float* __restrict__ scale, const float* __restrict__ bias,
     const float* __restrict__ s0, const bf16* __restrict__ dout,
     const int* __restrict__ lengths, bf16* __restrict__ out, float* __restrict__ sT,
-    float* __restrict__ states, float* __restrict__ dy_out, bf16* __restrict__ dg_out,
+    float* __restrict__ states, float* __restrict__ y32, bf16* __restrict__ dg_out,
     float* __restrict__ dsc_p, float* __restrict__ dbi_p, int T_len, int H, float eps,
     int reverse, unsigned char* smem) {
   using L = ChunkLayout<N, kMode>;
-  constexpr bool kGN = L::kGN;
+  constexpr bool kY = L::kY, kGN = L::kGN;
   constexpr int BS = L::kBS, FS = L::kFS;
   constexpr int NT = N / 8;        // 8-wide tiles of i in a row of S^T
   constexpr int TPR = N / 8;       // threads per row in the copies and the epilogue
@@ -233,7 +244,9 @@ __device__ __forceinline__ void chunk_walk(
       bi[q] = bias[h * N + col8 + q];
       dsc[q] = dbi[q] = 0.f;
     }
-    if (tid < N) uf[tid] = u[h * N + tid];
+  }
+  if (kY) {
+    if (tid < N) uf[tid] = u ? u[h * N + tid] : 0.f;
     // entries above the diagonal stay 0 for the whole walk
     for (int p = tid; p < kL * kAStride; p += L::kThreads) {
       a_hi[p] = __float2bfloat16_rn(0.f);
@@ -243,8 +256,7 @@ __device__ __forceinline__ void chunk_walk(
 
   const int n_steps = lengths ? min(max(lengths[b], 0), T_len) : T_len;
   const int n_chunks = (n_steps + kL - 1) / kL;
-  float* st_out = kMode == kChunkOutput ? nullptr
-                                        : states + (size_t)bh * ((T_len + kL - 1) / kL) * N * N;
+  float* st_out = L::kSaveStates ? states + (size_t)bh * ((T_len + kL - 1) / kL) * N * N : nullptr;
   const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
   // rows of chunk c into stage `sg`: k, v (r, g, dout), w; rows past the walk are zeros
   auto start_loads = [&](int c, int sg) {
@@ -284,7 +296,7 @@ __device__ __forceinline__ void chunk_walk(
     const bf16* dos = gs + kL * BS;
     const float* ws = reinterpret_cast<const float*>(base + L::kTiles * L::kTile);
 
-    if (kMode != kChunkOutput) {
+    if (L::kSaveStates) {
       // the state at this chunk's entry
       float* sp = st_out + (size_t)c * N * N;
 #pragma unroll
@@ -302,7 +314,7 @@ __device__ __forceinline__ void chunk_walk(
       for (int t = 0; t < kL; ++t) d[t] = t < len ? -fast_exp2(ws[t * N + i] * kLog2e) : 0.f;
       float run = 0.f;
       if (tid < N) {
-        if (kGN) {
+        if (kY) {
 #pragma unroll
           for (int t = 0; t < kL; ++t) {
             store_limbs(__bfloat162float(rs[t * BS + i]) * fast_exp2(run * kLog2e),
@@ -319,13 +331,13 @@ __device__ __forceinline__ void chunk_walk(
           ed[t * FS + i] = fast_exp2(d[t] * kLog2e);
           run += d[t];
         }
-        if (!kGN) ev[i] = expf(run);
+        if (!kY) ev[i] = expf(run);
       }
     }
     __syncthreads();
 
     // ---- B: the scores below the diagonal, without an exponential
-    if (kGN) {
+    if (kY) {
       chunk_scores<N>(rs, ks, ed, uf, len, part, a_hi, a_lo, tid);
       __syncthreads();
     }
@@ -333,7 +345,7 @@ __device__ __forceinline__ void chunk_walk(
     // ---- C: the products. va = V^T[j][s], rows j of this warp.
     unsigned va[4];
     ldmatrix_x4_trans(va, vs + ld_row * BS + 16 * warp + ld_col);
-    if (kGN) {
+    if (kY) {
       float y[2][4];
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
@@ -393,8 +405,21 @@ __device__ __forceinline__ void chunk_walk(
         mma_m16n8k16(st[nt], va[0], va[1], va[2], va[3], bl_[2 * q], bl_[2 * q + 1]);
       }
     }
-    if (!kGN) continue;
+    if (!kY) continue;
     __syncthreads();
+
+    // ---- D': the raw y of the rows the walk holds, at their times
+    if (kMode == kChunkRaw) {
+      const int s = c * kL + row;
+      if (s < n_steps) {
+        const float4* src = reinterpret_cast<const float4*>(ys + row * FS + col8);
+        float4* dst = reinterpret_cast<float4*>(
+            y32 + (((size_t)b * T_len + step_time(s, n_steps, reverse)) * H + h) * N + col8);
+        dst[0] = src[0];
+        dst[1] = src[1];
+      }
+      continue;
+    }
 
     // ---- D: GroupNorm, then the gate or its adjoint; a row past the walk
     // has g = dout = 0 and adds nothing
@@ -452,14 +477,23 @@ __device__ __forceinline__ void chunk_walk(
           *reinterpret_cast<uint4*>(dg_out + at) = pack8(o);
 #pragma unroll
           for (int q = 0; q < 8; ++q) dz[q] = rstd * (dz[q] - m1 - yv[q] * m2);
-          *reinterpret_cast<float4*>(dy_out + at) = make_float4(dz[0], dz[1], dz[2], dz[3]);
-          *reinterpret_cast<float4*>(dy_out + at + 4) = make_float4(dz[4], dz[5], dz[6], dz[7]);
+          *reinterpret_cast<float4*>(y32 + at) = make_float4(dz[0], dz[1], dz[2], dz[3]);
+          *reinterpret_cast<float4*>(y32 + at + 4) = make_float4(dz[4], dz[5], dz[6], dz[7]);
         }
       }
     }
   }
 
-  if (kMode == kChunkOutput) {
+  if (kMode == kChunkRaw) {
+    // y is zero at the times beyond the walk (the rows past lengths[b])
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int t = n_steps + row; t < T_len; t += kL) {
+      float4* dst = reinterpret_cast<float4*>(y32 + (((size_t)b * T_len + t) * H + h) * N + col8);
+      dst[0] = z;
+      dst[1] = z;
+    }
+  }
+  if (kMode == kChunkOutput || kMode == kChunkRaw) {
     float* sTp = sT + (size_t)bh * N * N;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)

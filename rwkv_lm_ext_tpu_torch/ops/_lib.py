@@ -57,13 +57,13 @@ _SIGNATURES = {
     # r, k, v, w, u, dy, drp, cT, dsT, lengths, dr, dk, dv, dw, du_p, ds0, B, T,
     # H, N, reverse, dtype, stream
     "rwkv_wkv6_bwd_reverse": [_P] * 16 + [_I] * 6 + [_P],
-    # r, k, v, w, u, s0, lengths, y, sT, B, T, H, N, reverse, dtype, stream
-    "rwkv_wkv6": [_P] * 9 + [_I] * 6 + [_P],
+    # r, k, v, w, u, s0, lengths, y, sT, B, T, H, N, reverse, dtype, body, stream
+    "rwkv_wkv6": [_P] * 9 + [_I] * 7 + [_P],
     # k, v, w, s0, dy, dsT, lengths, drp, cT, B, T, H, N, reverse, dtype, stream
     "rwkv_wkv6_bwd_state": [_P] * 9 + [_I] * 6 + [_P],
     # x, shift, ln_scale, ln_bias, maa, w1, w1T, w2, w2T, d0..d4, dxln, dx,
-    # dshift, dw1, dw2, 8 scratch buffers, B, T, C, D, eps, dtype, stream
-    "rwkv_tmix_prologue_bwd": [_P] * 27 + [_I] * 4 + [_F, _I, _P],
+    # dshift, dw1, dw2, 8 scratch buffers, B, T, C, D, eps, dtype, body, stream
+    "rwkv_tmix_prologue_bwd": [_P] * 27 + [_I] * 4 + [_F, _I, _I, _P],
     # r, k, v, w, u, g, scale, bias, s0, dout, states, dy, dg, dsc_p, dbi_p, B, T,
     # H, N, eps, stream
     "rwkv_wkv6_bwd_forward_chunked": [_P] * 15 + [_I] * 4 + [_F, _P],
@@ -91,7 +91,7 @@ _SIZE_FUNCTIONS = {
     "rwkv_tmix_prologue_smem_bytes": [_I, _I, _I],
     "rwkv_wkv6_fused_chunk": [],
     "rwkv_wkv6_fused_blocks_per_sm": [_I],
-    "rwkv_tmix_prologue_bwd_smem_bytes": [_I, _I],
+    "rwkv_tmix_prologue_bwd_smem_bytes": [_I, _I, _I],
     "rwkv_att_prep_smem_bytes": [_I, _I, _I],
     "rwkv_ffn_block_slices": [_I],
 }

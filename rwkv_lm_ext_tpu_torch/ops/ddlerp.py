@@ -18,6 +18,14 @@ the arithmetic of the TPU kernel's default-precision MXU products) for bf16
 with C divisible by 8 and D of 32 or 64, which is every served model; the
 CUDA-core body (fp32 FMAs) for fp32 and for the bf16 shapes the other does
 not take.
+
+B.5 has two bodies too (csrc/ddlerp_bwd.cu), and ``b5_body`` picks one by
+the same rule: the tensor-core body (tiles of 32 flattened rows that own 31
+and take the next as a halo for the token shift's adjoint, its four products
+on ``mma.sync`` with the fp32 operands in two bf16 limbs, one kernel for the
+whole chain) or the CUDA-core body (the chain and LayerNorm kernels on fp32
+FMAs). ``tmix_prologue_bwd_tiled_plain`` is the tensor-core body's walk in
+plain PyTorch.
 """
 from __future__ import annotations
 
@@ -27,10 +35,15 @@ import torch
 
 from rwkv_lm_ext_tpu_torch.ops import _lib
 
-BWD_ROWS = 8          # rows a block of csrc/ddlerp_bwd.cu takes
+BWD_ROWS = 8          # rows a block of B.5's CUDA-core body takes
 MAX_LOW_RANK = 512    # 5 * D columns the B.5 chain kernel holds (2 a thread)
-# K2's bodies, by the codes of csrc/ddlerp.cu
+B5_TILE_OWN = 31      # rows a tile of B.5's tensor-core body owns (it holds one more)
+# K2's and B.5's bodies, by the codes of csrc/ddlerp.cu and csrc/ddlerp_bwd.cu
 K2_BODIES = {"cuda_cores": 0, "tensor_cores": 1}
+B5_BODIES = K2_BODIES
+# the fp32 operands of B.5's tensor-core products, each of which the kernel
+# takes as two bf16 limbs
+B5_LIMBS = ("xxx", "dm", "dpre", "h")
 
 
 def k2_body(dtype: torch.dtype, C: int, D: int) -> str:
@@ -38,6 +51,11 @@ def k2_body(dtype: torch.dtype, C: int, D: int) -> str:
     if dtype == torch.bfloat16 and C % 8 == 0 and D in (32, 64):
         return "tensor_cores"
     return "cuda_cores"
+
+
+def b5_body(dtype: torch.dtype, C: int, D: int) -> str:
+    """The body of B.5 that a call of this dtype and shape launches: K2's rule."""
+    return k2_body(dtype, C, D)
 
 
 def tmix_prologue_plain(
@@ -86,6 +104,83 @@ def tmix_prologue_bwd_plain(
     return tuple(torch.zeros_like(t) if gr is None else gr for t, gr in zip(leaves, grads))
 
 
+def _limbs(t: torch.Tensor, two: bool) -> torch.Tensor:
+    """fp32 t as the tensor cores take it: its bf16 hi limb, plus the bf16
+    lo limb of what that left when ``two``."""
+    hi = t.to(torch.bfloat16).float()
+    return hi + (t - hi).to(torch.bfloat16).float() if two else hi
+
+
+def tmix_prologue_bwd_tiled_plain(
+    x, shift_ln, ln_scale, ln_bias, maa, w1, w2, cts: Sequence[Optional[torch.Tensor]],
+    *, eps: float = 1e-5, weights: bool = True, limbs: Sequence[str] = B5_LIMBS,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """The tuple of tmix_prologue_bwd (all in fp32) by the walk of B.5's
+    tensor-core body: the weights as bf16, the activation operands of the
+    four products (xxx, dm_i, dpre, h; ``limbs`` names those that take two
+    bf16 limbs, the rest take one) rounded as the kernel stores them, and
+    the rows in tiles of 32 over the flattened B*T rows that own 31 each:
+    the token shift's dxx[t+1] comes from the tile's next row (its halo for
+    the last owned row; none where a sequence ends), dshift from the tile
+    that owns each sequence's row 0, and the column sums (dmaa, dln) tile by
+    tile in order. For the tests and the card checks; no model path calls
+    it."""
+    B, T, C = x.shape
+    D = w1.shape[1] // 5
+    M = B * T
+    f = lambda t: t.float()
+    bf = lambda t: t.to(torch.bfloat16).float()
+    two = {n: n in limbs for n in B5_LIMBS}
+    xf = f(x).reshape(M, C)
+    mu = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(xf.var(-1, unbiased=False, keepdim=True) + eps)
+    xr = (xf - mu) * rstd
+    sc, bi, mf = f(ln_scale), f(ln_bias), f(maa)
+    xn = xr * sc + bi
+    dev = dict(device=x.device)
+    first = torch.arange(M, **dev) % T == 0        # rows whose predecessor is the shift
+    prev = torch.cat([xn[:1], xn[:-1]])
+    prev[first] = f(shift_ln)
+    xx = prev - xn
+    xxx = xn + xx * mf[0]
+    w1b, w2b = bf(w1), bf(w2)
+    h = torch.tanh(_limbs(xxx, two["xxx"]) @ w1b)            # (M, 5D)
+    hq = _limbs(h, True)                                     # h as stored: two limbs
+    hm = _limbs(h, two["h"]).reshape(M, 5, D)
+    d = [torch.zeros(M, C, **dev) if ct is None else f(ct).reshape(M, C) for ct in cts]
+    dm = [d[i] * xx for i in range(5)]
+    dh = torch.cat([_limbs(dm[i], two["dm"]) @ w2b[i].t() for i in range(5)], dim=1)
+    dpre = dh * (1 - hq * hq)
+    dxxx = _limbs(dpre, two["dpre"]) @ w1b.t()
+    dxx = dxxx * mf[0]
+    dxnl = d[5] + dxxx
+    for i in range(5):
+        dxx = dxx + d[i] * (mf[i + 1] + hm[:, i] @ w2b[i])
+        dxnl = dxnl + d[i]
+    dxnl = dxnl - dxx
+    dx = torch.empty(M, C, **dev)
+    dshift = torch.empty(B, C, **dev)
+    col = torch.zeros(8, C, **dev)                 # dmaa (6) and dln (2) sums
+    for m0 in range(0, M, B5_TILE_OWN):
+        own = torch.arange(m0, min(m0 + B5_TILE_OWN, M), **dev)
+        # row t + 1 lies in the tile (the halo, m0 + 31, for its last owned
+        # row); a row that ends its sequence takes nothing
+        nxt = own + 1
+        dxn = dxnl[own] + torch.where((nxt % T != 0)[:, None], dxx[nxt.clamp(max=M - 1)], 0.0)
+        dr = dxn * sc
+        dx[own] = rstd[own] * (dr - dr.mean(-1, keepdim=True)
+                               - xr[own] * (dr * xr[own]).mean(-1, keepdim=True))
+        starts = own[own % T == 0]
+        dshift[starts // T] = dxx[starts]
+        col = col + torch.stack([(dxxx[own] * xx[own]).sum(0)] + [dm[i][own].sum(0) for i in range(5)]
+                                + [(dxn * xr[own]).sum(0), dxn.sum(0)])
+    dx = dx.reshape(B, T, C)
+    if not weights:
+        return (dx, dshift) + (None,) * 5
+    dw2 = torch.stack([h[:, i * D:(i + 1) * D].t() @ dm[i] for i in range(5)])
+    return dx, dshift, col[6], col[7], col[:6], xxx.t() @ dpre, dw2
+
+
 def _prepare(x, shift_ln, ln_scale, ln_bias, maa, w1, w2):
     """Check the CUDA route's inputs; cast the parameters to x's dtype."""
     B, T, C = x.shape
@@ -131,14 +226,16 @@ def _launch_k2(x, shift_ln, ln_scale, ln_bias, maa, w1, w2, eps, body=None):
 
 def tmix_prologue_bwd(
     x, shift_ln, ln_scale, ln_bias, maa, w1, w2, cts: Sequence[Optional[torch.Tensor]],
-    *, eps: float = 1e-5, weights: bool = True,
+    *, eps: float = 1e-5, weights: bool = True, body: Optional[str] = None,
 ) -> Tuple[Optional[torch.Tensor], ...]:
     """The backward of tmix_prologue: the tuple of tmix_prologue_bwd_plain,
     dx in x's dtype and the rest in fp32. With ``weights=False`` only dx and
     dshift are computed (dln_scale, dln_bias, dmaa, dw1 and dw2 are None).
-    CPU tensors take the plain version; CUDA tensors launch B.5 (the chain
-    and LayerNorm kernels, the weight products, the fixed-order partial
-    sums), for any T and any D divisible by 8 with 5D <= 512."""
+    CPU tensors take the plain version; CUDA tensors launch B.5 (the body of
+    b5_body, the weight products, the fixed-order partial sums), for any T
+    and any D divisible by 8 with 5D <= 512. ``body`` (a key of B5_BODIES)
+    overrides b5_body's choice: the card checks time one body beside the
+    other; no caller in the package sets it."""
     if x.device.type == "cpu":
         grads = tmix_prologue_bwd_plain(x, shift_ln, ln_scale, ln_bias, maa, w1, w2, cts, eps=eps)
         return grads if weights else grads[:2] + (None,) * 5
@@ -153,19 +250,26 @@ def tmix_prologue_bwd(
     for ct in cts:
         if ct is not None and ct.shape != x.shape:
             raise ValueError(f"cotangent of shape {tuple(ct.shape)}, outputs are {tuple(x.shape)}")
-    w1T = w1.t().contiguous()
-    w2T = w2.permute(2, 0, 1).reshape(C, 5 * D).contiguous()
     device = _lib.check_cuda(
         x=x, shift_ln=shift_ln, ln_scale=ln_scale, ln_bias=ln_bias, maa=maa, w1=w1, w2=w2,
         **{f"ct{i}": ct for i, ct in enumerate(cts) if ct is not None},
     )
+    body = body or b5_body(x.dtype, C, D)
+    if body == "tensor_cores" and b5_body(x.dtype, C, D) != body:
+        raise ValueError(f"B.5's tensor-core body takes bf16, C % 8 == 0 and D of 32 or 64, "
+                         f"not {x.dtype}, C={C}, D={D}")
+    tc = body == "tensor_cores"
+    # the CUDA-core body reads the weights transposed as well
+    w1T = None if tc else w1.t().contiguous()
+    w2T = None if tc else w2.permute(2, 0, 1).reshape(C, 5 * D).contiguous()
     _check_smem(device, "tmix_prologue_bwd",
-                _lib.library().rwkv_tmix_prologue_bwd_smem_bytes(C, D), C, D)
+                _lib.library().rwkv_tmix_prologue_bwd_smem_bytes(C, D, B5_BODIES[body]), C, D)
     f32 = dict(dtype=torch.float32, device=device)
-    n_blocks = B * -(-T // BWD_ROWS)
+    n_blocks = -(-B * T // B5_TILE_OWN) if tc else B * -(-T // BWD_ROWS)
     dx = torch.empty_like(x)
     dshift = torch.empty(B, C, **f32)
-    dxx, dxnp = torch.empty(B, T, C, **f32), torch.empty(B, T, C, **f32)
+    # the tensor-core body: dxn alone; the CUDA-core body: dxx and the row-local dxn
+    dxx, dxnp = torch.empty(B, T, C, **f32), None if tc else torch.empty(B, T, C, **f32)
     dln_p = torch.empty(n_blocks, 2, C, **f32) if weights else None
     if weights:
         dw1, dw2 = torch.empty(C, 5 * D, **f32), torch.empty(5, D, C, **f32)
@@ -178,7 +282,7 @@ def tmix_prologue_bwd(
     _lib.launch(
         "rwkv_tmix_prologue_bwd", device, x, shift_ln, ln_scale, ln_bias, maa, w1, w1T, w2,
         w2T, *cts, dx, dshift, dw1, dw2, dxx, dxnp, *wscratch, dln_p, B, T, C, D, eps,
-        _lib.DTYPE_CODES[x.dtype],
+        _lib.DTYPE_CODES[x.dtype], B5_BODIES[body],
     )
     tmix_prologue_bwd.launches += 1
     if not weights:

@@ -9,10 +9,14 @@ ops/wkv_pallas.py: ``wkv_pallas`` (:667, the Pallas kernel ``_wkv_kernel`` at
 with ``gn=False``).
 
 ``wkv`` returns the raw fp32 y and the final state; the bidirectional
-encoders (models/bidirectional.py) are its callers. It has no ``backend``,
-``chunk_size``, ``exact`` or ``remat`` arguments: the kernel runs the
-sequential recurrence, exact at any decay, so there is nothing to select
-(see ops/wkv_fused.py); its backward runs the body of ``wkv_bwd_body``
+encoders (models/bidirectional.py) are its callers. B.8 has two bodies
+(csrc/wkv.cu), and ``wkv_body`` picks one by K1's rule, from dtype and head
+size alone: bf16 at N of 32 or 64 runs K1's chunk factoring on the tensor
+cores (``chunk_walk`` in its raw mode; ``wkv_chunked_plain`` is that
+factoring in plain PyTorch), fp32 and N = 16 the sequential recurrence. Both
+are exact at any decay, so ``wkv`` has no ``backend``, ``chunk_size``,
+``exact`` or ``remat`` arguments (see ops/wkv_fused.py); ``body=`` forces one
+for the card checks. Its backward runs the body of ``wkv_bwd_body``
 (``wkv_bwd_chunked_plain`` mirrors the chunked one). It raises for a head
 size outside ops/wkv_fused.HEAD_SIZES; the
 JAX package zero-pads other head sizes up to one its kernels tile
@@ -32,20 +36,33 @@ state may be (B, H, N, N) or (H, N, N) shared by every sequence.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from rwkv_lm_ext_tpu_torch.ops import _lib
 from rwkv_lm_ext_tpu_torch.ops.wkv_fused import (
+    CHUNKED_HEAD_SIZES,
     BwdCarry,
     _bwd_pass1_body,
     _entry_states,
     _wkv_bwd_chunked,
+    _wkv_chunked,
     check_head_size,
+    k1_body,
     wkv6_bwd_reverse_pass,
 )
 from rwkv_lm_ext_tpu_torch.ops.wkv_reference import wkv_reference
+
+# B.8's bodies, by the codes of csrc/wkv.cu
+WKV_BODIES = {"sequential": 0, "chunked": 1}
+
+
+def wkv_body(dtype: torch.dtype, N: int) -> str:
+    """The body of B.8 that a call on r, k, v of this dtype and head size
+    launches: K1's rule, bf16 at N of 32 or 64 the chunked one."""
+    return k1_body(dtype, N)
 
 
 def _flip_valid_prefix(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -107,6 +124,47 @@ def wkv_bwd_plain(
     return tuple(out.get(n) for n in named)
 
 
+def _walk_steps(x, lengths, reverse, dtype):
+    """(B, T, H, N) by time -> (B, H, T, N) by step of each row's walk (step
+    s is time s, or lengths[b] - 1 - s in reverse), zero beyond the prefix."""
+    x = x.to(dtype) * _valid(lengths, x.shape[1])
+    return (_flip_valid_prefix(x, lengths) if reverse else x).permute(0, 2, 1, 3)
+
+
+def _walk_times(x, lengths, reverse):
+    """The inverse of _walk_steps, in fp32, zero beyond the prefix."""
+    x = x.permute(0, 2, 1, 3)
+    return ((_flip_valid_prefix(x, lengths) if reverse else x) * _valid(lengths, x.shape[1])).float()
+
+
+def _walk_lengths(lengths, B, T, device):
+    full = torch.full((B,), T, dtype=torch.int64, device=device)
+    return full if lengths is None else lengths.to(torch.int64).clamp(0, T)
+
+
+def wkv_chunked_plain(
+    r, k, v, w, u, initial_state=None, *, reverse: bool = False,
+    lengths: Optional[torch.Tensor] = None, chunk: int = 16,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``wkv_plain`` by the factoring of B.8's chunked body: the walk over
+    each row's valid prefix as the kernel takes it, then ops/wkv_fused.
+    _wkv_chunked (K1's factoring without the GroupNorm), in fp32, any chunk
+    length. The same (y, final state); y is zero beyond the prefix. For the
+    tests and the card checks; no model path calls it."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, not {chunk}")
+    B, T, H, N = r.shape
+    f32 = torch.float32
+    lengths = _walk_lengths(lengths, B, T, r.device)
+    uf = torch.zeros(H, N, dtype=f32, device=r.device) if u is None else u.to(f32)
+    S = (torch.zeros(B, H, N, N, dtype=f32, device=r.device) if initial_state is None
+         else initial_state.to(f32).expand(B, H, N, N))
+    steps = [_walk_steps(x, lengths, reverse, f32) for x in (r, k, v)]
+    d = _walk_steps(-torch.exp(w.to(f32)), lengths, reverse, f32)
+    y, S, _ = _wkv_chunked(*steps, d, uf, S, chunk)
+    return _walk_times(y, lengths, reverse), S.contiguous()
+
+
 def wkv_bwd_chunked_plain(
     r, k, v, w, u, initial_state, dy, dsT, *, reverse: bool = False,
     lengths: Optional[torch.Tensor] = None, chunk: int = 16,
@@ -122,18 +180,9 @@ def wkv_bwd_chunked_plain(
         raise ValueError(f"chunk must be >= 1, not {chunk}")
     B, T, H, N = r.shape
     f64 = torch.float64
-    full = torch.full((B,), T, dtype=torch.int64, device=r.device)
-    lengths = full if lengths is None else lengths.to(torch.int64).clamp(0, T)
-    valid = _valid(lengths, T)
-
-    def steps(x):            # (B, T, H, N) by time -> (B, H, T, N) by step, masked
-        x = x.to(f64) * valid
-        return (_flip_valid_prefix(x, lengths) if reverse else x).permute(0, 2, 1, 3)
-
-    def times(x):            # the inverse of steps
-        x = x.permute(0, 2, 1, 3)
-        return ((_flip_valid_prefix(x, lengths) if reverse else x) * valid).float()
-
+    lengths = _walk_lengths(lengths, B, T, r.device)
+    steps = functools.partial(_walk_steps, lengths=lengths, reverse=reverse, dtype=f64)
+    times = functools.partial(_walk_times, lengths=lengths, reverse=reverse)
     zeros = torch.zeros(B, T, H, N, dtype=f64, device=r.device)
     d = -torch.exp(w.to(f64))
     uf = torch.zeros(H, N, dtype=f64, device=r.device) if u is None else u.to(f64)
@@ -188,14 +237,18 @@ def _optional(**tensors):
     return {n: t for n, t in tensors.items() if t is not None}
 
 
-def _launch_wkv(r, k, v, w, u, s0, lengths, reverse):
+def _launch_wkv(r, k, v, w, u, s0, lengths, reverse, body=None):
     B, T, H, N = r.shape
+    body = body or wkv_body(r.dtype, N)
+    if body == "chunked" and wkv_body(r.dtype, N) != body:
+        raise ValueError(f"B.8's chunked body takes bf16 and N in {CHUNKED_HEAD_SIZES}, "
+                         f"not {r.dtype}, N={N}")
     device = _lib.check_cuda(r=r, k=k, v=v, w=w, **_optional(u=u, s0=s0))
     y = torch.empty(B, T, H, N, dtype=torch.float32, device=device)
     sT = torch.empty(B, H, N, N, dtype=torch.float32, device=device)
     _lib.launch(
         "rwkv_wkv6", device, r, k, v, w, u, s0, lengths, y, sT, B, T, H, N,
-        int(reverse), _lib.DTYPE_CODES[r.dtype],
+        int(reverse), _lib.DTYPE_CODES[r.dtype], WKV_BODIES[body],
     )
     wkv.launches += 1
     return y, sT
@@ -266,22 +319,23 @@ class _Wkv(torch.autograd.Function):
     ``_fwd`` does (wkv_pallas.py:579-584)."""
 
     @staticmethod
-    def forward(ctx, r, k, v, w, u, initial_state, lengths, reverse):
+    def forward(ctx, r, k, v, w, u, initial_state, lengths, reverse, body):
         ctx.set_materialize_grads(False)
         ctx.reverse = reverse
         ctx.save_for_backward(r, k, v, w, u, initial_state, lengths)
-        return _launch_wkv(r, k, v, *_prepare(r, k, v, w, u, initial_state, lengths), reverse)
+        return _launch_wkv(r, k, v, *_prepare(r, k, v, w, u, initial_state, lengths), reverse,
+                           body)
 
     @staticmethod
     def backward(ctx, dy, dsT):
         *primals, lengths = ctx.saved_tensors
         if dy is None and dsT is None:
-            return (None,) * 8
+            return (None,) * 9
         grads = wkv_bwd(*primals, dy, dsT, reverse=ctx.reverse, lengths=lengths)
         return tuple(
             gr.to(t.dtype) if need and gr is not None else None
             for gr, t, need in zip(grads, primals, ctx.needs_input_grad)
-        ) + (None, None)
+        ) + (None, None, None)
 
 
 def wkv(
@@ -294,18 +348,21 @@ def wkv(
     *,
     reverse: bool = False,
     lengths: Optional[torch.Tensor] = None,
+    body: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """r, k, v: (B, T, H, N), one dtype; w: (B, T, H, N) log-decay (run in
     fp32); u: (H, N) or None; initial_state: (B, H, N, N) or (H, N, N) fp32,
     or None. Returns y (B, T, H, N) fp32 and the final state (B, H, N, N)
-    fp32. CPU tensors take the plain version; CUDA tensors launch B.8, for
-    any T and N in HEAD_SIZES, differentiable through its two-pass backward
-    when an input requires grad."""
+    fp32. CPU tensors take the plain version; CUDA tensors launch B.8 (the
+    body of wkv_body, or ``body``, a key of WKV_BODIES: the card checks time
+    one beside the other; no caller in the package sets it), for any T and N
+    in HEAD_SIZES, differentiable through its two-pass backward when an
+    input requires grad."""
     if r.device.type == "cpu":
         return wkv_plain(r, k, v, w, u, initial_state, reverse=reverse, lengths=lengths)
     if _lib.needs_grad(r, k, v, w, u, initial_state):
-        return _Wkv.apply(r, k, v, w, u, initial_state, lengths, reverse)
-    return _launch_wkv(r, k, v, *_prepare(r, k, v, w, u, initial_state, lengths), reverse)
+        return _Wkv.apply(r, k, v, w, u, initial_state, lengths, reverse, body)
+    return _launch_wkv(r, k, v, *_prepare(r, k, v, w, u, initial_state, lengths), reverse, body)
 
 
 def wkv6_bi(

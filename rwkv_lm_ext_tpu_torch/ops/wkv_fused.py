@@ -102,47 +102,47 @@ def _group_norm_gate(y, g, ln_scale, ln_bias, eps):
 def wkv6_fused_output_chunked_plain(
     r, k, v, w, u, g, ln_scale, ln_bias, initial_state=None, *, eps: float, chunk: int = 16
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """wkv6_fused_output_plain by the factoring of K1's chunked body, in fp32
-    (the kernel's two-limb bf16 operands are not mirrored). Per chunk of
-    ``chunk`` steps (any length; the last chunk may be shorter), with
-    d = -exp(w), c_t = d_0 + .. + d_{t-1} and c_L the chunk's total:
-
-      y_t = (r_t exp(c_t)) @ S + sum_{s<t} A[t, s] v_s + (r_t . u k_t) v_t
-      A[t, s] = sum_i r_ti k_si exp(c_t,i - c_{s+1},i)
-      S <- diag(exp(c_L)) S + sum_s (k_s exp(c_L - c_{s+1}))^T v_s
-
-    No exponent is positive, so nothing overflows at any decay. For the tests
-    and the card checks; no model path calls it."""
+    """wkv6_fused_output_plain by the factoring of K1's chunked body
+    (``_wkv_chunked``), in fp32 (the kernel's two-limb bf16 operands are not
+    mirrored), then the GroupNorm and gate. For the tests and the card
+    checks; no model path calls it."""
     B, T, H, N = r.shape
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, not {chunk}")
     rf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (r, k, v))      # (B, H, T, N)
     d = -torch.exp(w.float()).permute(0, 2, 1, 3)
-    uf = u.float()
     if initial_state is None:
         S = torch.zeros(B, H, N, N, dtype=torch.float32, device=r.device)
     else:
         S = initial_state.float().expand(B, H, N, N)
-    ys = []
-    for t0 in range(0, T, chunk):
-        rc, kc, vc, dc = (t[:, :, t0:t0 + chunk] for t in (rf, kf, vf, d))
-        L = rc.shape[2]
-        zero = torch.zeros_like(dc[:, :, :1])
-        cc = torch.cat([zero, torch.cumsum(dc, dim=2)], dim=2)            # cc[t] = c_t, L + 1 rows
-        # c_L - c_{s+1} as a backward sum of d, which does not cancel
-        back = torch.cumsum(torch.flip(dc, [2]), dim=2)
-        suf = torch.flip(torch.cat([zero, back[:, :, :-1]], dim=2), [2])
-        y = torch.einsum("bhti,bhij->bhtj", rc * torch.exp(cc[:, :, :L]), S)
-        below = torch.ones(L, L, dtype=torch.bool, device=r.device).tril(-1)     # s < t
-        diff = cc[:, :, :L, None, :] - cc[:, :, None, 1:, :]              # c_t - c_{s+1}
-        diff = torch.where(below[:, :, None], diff, torch.zeros_like(diff))
-        A = (rc[:, :, :, None, :] * kc[:, :, None, :, :] * torch.exp(diff)).sum(-1) * below
-        A = A + torch.diag_embed(torch.einsum("bhti,hi,bhti->bht", rc, uf, kc))
-        ys.append(y + A @ vc)
-        S = torch.exp(cc[:, :, L])[..., None] * S + torch.einsum(
-            "bhsi,bhsj->bhij", kc * torch.exp(suf), vc)
-    y = torch.cat(ys, dim=2).permute(0, 2, 1, 3) if ys else rf.permute(0, 2, 1, 3)
-    return _group_norm_gate(y, g, ln_scale, ln_bias, eps), S.contiguous()
+    y, S, _ = _wkv_chunked(rf, kf, vf, d, u.float(), S, chunk)
+    return _group_norm_gate(y.permute(0, 2, 1, 3), g, ln_scale, ln_bias, eps), S.contiguous()
+
+
+def _wkv_chunked(r, k, v, d, u, S, chunk):
+    """The chunked forward of the WKV recurrence on (B, H, T, N) operands
+    (d = -exp(w); steps to leave out have d = 0 and r = k = v = 0), in their
+    dtype, any chunk length (the last chunk may be shorter). Per chunk, with
+    c_t = d_0 + .. + d_{t-1} and c_L the chunk's total (_chunk_decays):
+
+      y_t = (r_t exp(c_t)) @ S + sum_{s<t} A[t, s] v_s + (r_t . u k_t) v_t
+      A[t, s] = sum_i r_ti k_si exp(c_t,i - c_{s+1},i)
+      S <- diag(exp(c_L)) S + sum_s (k_s exp(c_L - c_{s+1}))^T v_s
+
+    No exponent is positive, so nothing overflows at any decay. The
+    factoring of the chunked bodies of K1, B.6's pass 1 and B.8. Returns y
+    (B, H, T, N), the final state and the list of chunk-entry states."""
+    ys, states = [], []
+    for t0 in range(0, r.shape[2], chunk):
+        rc, kc, vc, dc = (x[:, :, t0:t0 + chunk] for x in (r, k, v, d))
+        e_in, e_out, e_L, M = _chunk_decays(dc)
+        A = torch.einsum("bhti,bhsi,bhtsi->bhts", rc, kc, M)
+        A = A + torch.diag_embed(torch.einsum("bhti,hi,bhti->bht", rc, u, kc))
+        ys.append(torch.einsum("bhti,bhij->bhtj", rc * e_in, S) + A @ vc)
+        states.append(S)
+        S = e_L[..., None] * S + torch.einsum("bhsi,bhsj->bhij", kc * e_out, vc)
+    y = torch.cat(ys, 2) if ys else torch.zeros_like(r)
+    return y, S, states
 
 
 def wkv6_fused_output_bwd_plain(
@@ -276,7 +276,7 @@ def wkv6_fused_output_bwd_chunked_plain(
 ) -> Tuple[Optional[torch.Tensor], ...]:
     """wkv6_fused_output_bwd_plain by the factoring of the chunked bodies of
     B.6 and B.7 (csrc/wkv_fused_bwd.cu), in fp64, any chunk length: pass 1
-    runs K1's chunked forward (``wkv6_fused_output_chunked_plain``) keeping
+    runs K1's chunked forward (``_wkv_chunked``) keeping
     the state at every chunk's entry and applies the GroupNorm/gate adjoint
     row by row; pass 2 is _wkv_bwd_chunked. The same tuple, in fp32 (dr, dk,
     dv, dg too). For the tests and the card checks; no model path calls it."""
@@ -290,16 +290,8 @@ def wkv6_fused_output_bwd_chunked_plain(
     s0 = (torch.zeros(B, H, N, N, dtype=f64) if initial_state is None
           else initial_state.to(f64).expand(B, H, N, N))
     # pass 1: y by K1's factoring, and the state at each chunk's entry
-    S, ys, states = s0, [], []
-    for t0 in range(0, T, chunk):
-        rc, kc, vc, dc = (x[:, :, t0:t0 + chunk] for x in (rf, kf, vf, d))
-        e_in, e_out, e_L, M = _chunk_decays(dc)
-        A = torch.einsum("bhti,bhsi,bhtsi->bhts", rc, kc, M)
-        A = A + torch.diag_embed(torch.einsum("bhti,hi,bhti->bht", rc, uf, kc))
-        ys.append(torch.einsum("bhti,bhij->bhtj", rc * e_in, S) + A @ vc)
-        states.append(S)
-        S = e_L[..., None] * S + torch.einsum("bhsi,bhsj->bhij", kc * e_out, vc)
-    y = torch.cat(ys, 2).permute(0, 2, 1, 3) if ys else torch.zeros(B, T, H, N, dtype=f64)
+    y, _, states = _wkv_chunked(rf, kf, vf, d, uf, s0, chunk)
+    y = y.permute(0, 2, 1, 3)
     if dout is None:
         dy, dg = torch.zeros_like(y), torch.zeros_like(y)
         dsc = dbi = torch.zeros(H * N, dtype=f64)

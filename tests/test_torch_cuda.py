@@ -26,8 +26,16 @@ bf16: one rounding of each output), the WKV state <= 1e-4 * max|plain|
 the plain version: B.5 <= 5e-4 (fp32) / 2e-2 (bf16) * max|plain|, B.6 + B.7
 <= 1e-4 / 2e-2; model gradients (kernel route vs plain route, fp32) <=
 1e-3 * max|plain|. Two calls of a backward kernel are bit-equal. The
-unfused WKV B.8: y and the final state <= 2e-5 * max|plain| (fp32 sums on
-both sides of the same values), its two-pass backward as B.6 + B.7.
+unfused WKV B.8: y and the final state <= 2e-5 * max|plain| for its
+sequential body (fp32 sums on both sides of the same values) and <= 1e-4 for
+its chunked body (the state and r exp(c) enter the tensor cores as two bf16
+limbs), its two-pass backward as B.6 + B.7.
+
+B.5 and B.8 have two bodies each since their redesign (tensor cores or
+chunked for bf16, CUDA cores or sequential for fp32 and the shapes the new
+ones do not take): both are held to their plain versions and to each other
+on row tiles that straddle sequences (B.5) and on chunks, decays and walks
+(B.8), and the new ones to their plain-PyTorch mirrors.
 """
 import numpy as np
 import pytest
@@ -50,22 +58,28 @@ from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
     ffn_prep_plain,
 )
 from rwkv_lm_ext_tpu_torch.ops.ddlerp import (
+    B5_BODIES,
     _launch_k2,
+    b5_body,
     k2_body,
     tmix_prologue,
     tmix_prologue_bwd,
     tmix_prologue_bwd_plain,
+    tmix_prologue_bwd_tiled_plain,
     tmix_prologue_plain,
 )
 from rwkv_lm_ext_tpu_torch.ops.ln import layer_norm, layer_norm_plain
 from rwkv_lm_ext_tpu_torch.ops.quant import quantize_rows, quantize_rows_plain
 from rwkv_lm_ext_tpu_torch.ops.wkv import (
+    WKV_BODIES,
     wkv,
     wkv6_bi,
     wkv6_bi_plain,
+    wkv_body,
     wkv_bwd,
     wkv_bwd_chunked_plain,
     wkv_bwd_plain,
+    wkv_chunked_plain,
     wkv_plain,
 )
 from rwkv_lm_ext_tpu_torch.ops.wkv_decode import (
@@ -685,6 +699,13 @@ def test_wrappers_without_a_backward_raise_under_grad(dev):
 
 
 WKV_REL = 2e-5
+WKV_CHUNKED_REL = 1e-4
+
+
+def wkv_rel(dtype, N):
+    """B.8's limit for y and the final state, x max|plain|, by the body that
+    a call of this dtype and head size runs."""
+    return WKV_CHUNKED_REL if wkv_body(dtype, N) == "chunked" else WKV_REL
 
 
 def _wkv_case(dev, dtype, rng, B, T, H, N, w_hi=3.0):
@@ -724,8 +745,8 @@ def test_wkv_kernel_and_its_backward(dev, dtype, N, T, variant):
     y, sT = _counted("wkv", lambda: wkv(c["r"], c["k"], c["v"], c["w"], u, s0, **kw))
     py, psT = wkv_plain(*_f32(c["r"], c["k"], c["v"], c["w"], u, s0), **kw)
     assert y.dtype == sT.dtype == torch.float32
-    _close(y, py, WKV_REL, "y")
-    _close(sT, psT, WKV_REL, "sT")
+    _close(y, py, wkv_rel(dtype, N), "y")
+    _close(sT, psT, wkv_rel(dtype, N), "sT")
     if lengths is not None:
         beyond = torch.arange(T, device=dev)[None, :] >= lengths[:, None]
         assert not beyond.any() or float(y[beyond].abs().max()) == 0.0
@@ -769,7 +790,7 @@ def test_wkv6_bi_matches_the_flip_composition(dev, dtype, lengths):
     y = wkv6_bi(*kl, L)
     assert launch_counts()["wkv"] == before + 2
     yp = wkv6_bi_plain(*pl, L)
-    _close(y, yp, WKV_REL, "y")
+    _close(y, yp, wkv_rel(dtype, 64), "y")
     y.backward(c["dy"])
     yp.backward(c["dy"])
     for n, a, b in zip(names, kl, pl):
@@ -782,7 +803,7 @@ def test_wkv6_bi_matches_the_flip_composition(dev, dtype, lengths):
     ref = c["s0"][0].clone().requires_grad_()
     yr, _ = wkv_plain(*_f32(c["r"], c["k"], c["v"], c["w"], c["u"]), ref)
     yr.backward(c["dy"])
-    _close(ys, yr, WKV_REL, "shared state y")
+    _close(ys, yr, wkv_rel(dtype, 64), "shared state y")
     _close(shared.grad, ref.grad, WKV_BWD_REL[torch.float32], "shared ds0")
 
 
@@ -1119,3 +1140,110 @@ def test_model_fused_decode_route_bf16_stays_close_to_unfused(dev):
             assert float(cos.min()) >= 0.999
     for key in state:
         _close(state[key], other[key], 5e-2)
+
+
+def _prologue_args(dev, rng, B, T, C, D):
+    dtype = torch.bfloat16
+    args = (
+        _on(dev, dtype, rng, B, T, C), _on(dev, dtype, rng, B, C),
+        _on(dev, dtype, rng, C, scale=0.2, loc=1.0), _on(dev, dtype, rng, C, scale=0.2),
+        torch.from_numpy(rng.uniform(0, 1, size=(6, C)).astype(np.float32)).to(dev, dtype),
+        _on(dev, dtype, rng, C, 5 * D, scale=0.1), _on(dev, dtype, rng, 5, D, C, scale=0.1),
+    )
+    return args, [_on(dev, dtype, rng, B, T, C) for _ in range(6)]
+
+
+@pytest.mark.parametrize("C,D", [(64, 32), (128, 64), (2048, 32)])
+@pytest.mark.parametrize("T", [1, 17, 63, 64, 65, 130])
+@pytest.mark.parametrize("B", [1, 3])
+def test_b5_bodies_on_row_tiles_that_straddle_sequences(dev, B, T, C, D):
+    """Both bodies of B.5 on the same bf16 inputs, both forms, one cotangent
+    None (dxln, as in the model) and three (dxk, dxr, dxln): each against
+    autograd through the plain version (2e-2, BWD_REL), to each other (2e-2)
+    and bit-equal twice; the tensor-core body against its tiled mirror on the
+    same operand rounding, dx within one bf16 rounding (1e-2) and the fp32
+    gradients within 1e-4 (the order of fp32 sums). Tiles of 31 owned rows
+    straddle sequences at every T here but T = 1 with B = 1."""
+    assert b5_body(torch.bfloat16, C, D) == "tensor_cores"
+    assert b5_body(torch.float32, C, D) == "cuda_cores" == b5_body(torch.bfloat16, C + 4, D)
+    rng = np.random.default_rng(B * 1000 + T * 10 + D)
+    args, cts = _prologue_args(dev, rng, B, T, C, D)
+    for missing in ((5,), (1, 3, 5)):
+        c = [None if i in missing else ct for i, ct in enumerate(cts)]
+        want = tmix_prologue_bwd_plain(*_f32(*args), _f32(*c))
+        got = {}
+        for body in B5_BODIES:
+            got[body] = _counted("tmix_prologue_bwd", lambda: tmix_prologue_bwd(*args, c, body=body))
+            again = tmix_prologue_bwd(*args, c, body=body)
+            dx_only = tmix_prologue_bwd(*args, c, weights=False, body=body)
+            assert torch.equal(dx_only[0], got[body][0]) and torch.equal(dx_only[1], got[body][1])
+            for g, a, w in zip(got[body], again, want):
+                assert g.shape == w.shape and torch.equal(g, a), body
+                _close(g, w, BWD_REL[torch.bfloat16], body)
+        for g, o in zip(got["tensor_cores"], got["cuda_cores"]):
+            _close(g, o, BWD_REL[torch.bfloat16], "tensor cores vs CUDA cores")
+        mirror = tmix_prologue_bwd_tiled_plain(*args, c)
+        for i, (g, m) in enumerate(zip(got["tensor_cores"], mirror)):
+            _close(g, m, REL[torch.bfloat16] if i == 0 else 1e-4, f"vs mirror {i}")
+
+
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 37, 512])
+@pytest.mark.parametrize("decay", ["wide", "strong", "none"])
+@pytest.mark.parametrize("N", [32, 64])
+def test_wkv_bodies_chunks_decays_and_walks(dev, N, decay, T):
+    """Both bodies of B.8 on the same bf16 inputs: w in [-8, 3], [2.5, 3.2]
+    (a decay of 5e-6 .. 2e-11 a step) and -8 (none); with and without u and
+    s0, forwards, in reverse, over ragged prefixes (0, 1, T - 2). Each against
+    wkv_plain (chunked 1e-4, sequential 2e-5), the two against each other
+    (1e-4), bit-equal twice, zeros beyond the prefix; the chunked body
+    against its mirror in plain PyTorch (1e-4)."""
+    assert wkv_body(torch.bfloat16, N) == "chunked" and wkv_body(torch.float32, N) == "sequential"
+    lo, hi = {"wide": (-8.0, 3.0), "strong": (2.5, 3.2), "none": (-8.0, -8.0)}[decay]
+    rng = np.random.default_rng(T * 7 + N)
+    c = _wkv_case(dev, torch.bfloat16, rng, 3, T, 4, N)
+    w = torch.from_numpy(rng.uniform(lo, hi, size=(3, T, 4, N)).astype(np.float32)).to(dev)
+    lengths = torch.tensor([0, min(1, T), max(T - 2, 1)], dtype=torch.int32, device=dev)
+    for u, s0, reverse, ln in ((c["u"], c["s0"], False, None), (None, None, False, None),
+                               (None, c["s0"], True, lengths), (c["u"], None, False, lengths),
+                               (c["u"], c["s0"], True, None)):
+        kw = dict(reverse=reverse, lengths=ln)
+        args = (c["r"], c["k"], c["v"], w, u, s0)
+        py, psT = wkv_plain(*_f32(*args), **kw)
+        got = {}
+        for body in WKV_BODIES:
+            got[body] = _counted("wkv", lambda: wkv(*args, body=body, **kw))
+            again = wkv(*args, body=body, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(got[body], again)), body
+            rel = WKV_CHUNKED_REL if body == "chunked" else WKV_REL
+            _close(got[body][0], py, rel, f"{body} y")
+            _close(got[body][1], psT, rel, f"{body} sT")
+            if ln is not None:
+                beyond = torch.arange(T, device=dev)[None, :] >= ln[:, None]
+                assert not beyond.any() or float(got[body][0][beyond].abs().max()) == 0.0
+        for a, b in zip(got["chunked"], got["sequential"]):
+            _close(a, b, WKV_CHUNKED_REL, "chunked vs sequential")
+        my, msT = wkv_chunked_plain(*_f32(*args), **kw)
+        _close(got["chunked"][0], my, WKV_CHUNKED_REL, "y vs mirror")
+        _close(got["chunked"][1], msT, WKV_CHUNKED_REL, "sT vs mirror")
+
+
+def test_new_bodies_at_the_1b6_widths(dev):
+    """B=8, T=512: B.5 at C=2048, D=32 (both forms) and B.8 at H=32, N=64
+    (forwards, and in reverse over ragged prefixes), each new body against
+    its plain version and against the old body."""
+    rng = np.random.default_rng(16)
+    args, cts = _prologue_args(dev, rng, 8, 512, 2048, 32)
+    cts[5] = None
+    want = tmix_prologue_bwd_plain(*_f32(*args), _f32(*cts))
+    tc, cc = (tmix_prologue_bwd(*args, cts, body=b) for b in ("tensor_cores", "cuda_cores"))
+    for g, o, w in zip(tc, cc, want):
+        _close(g, w, BWD_REL[torch.bfloat16])
+        _close(g, o, BWD_REL[torch.bfloat16])
+    c = _wkv_case(dev, torch.bfloat16, rng, 8, 512, 32, 64)
+    for kw in (dict(), dict(reverse=True, lengths=c["lengths"])):
+        args = (c["r"], c["k"], c["v"], c["w"], c["u"], c["s0"])
+        py, psT = wkv_plain(*_f32(*args), **kw)
+        ch, sq = (wkv(*args, body=b, **kw) for b in ("chunked", "sequential"))
+        for a, b, p in zip(ch, sq, (py, psT)):
+            _close(a, p, WKV_CHUNKED_REL)
+            _close(a, b, WKV_CHUNKED_REL)
