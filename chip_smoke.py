@@ -36,7 +36,11 @@ Phases, each printing its own lines:
      sequential) in turns on the same inputs at N = 64 and 32, three decay
      ranges, T = 1 to 512, timed in turns twice at B=8 and B=64; the fused decode kernels B.10 (attention prologue), B.11
      (channel-mix prologue) and B.12 (whole channel mix) at B=64 and B=1,
-     fp32 and bf16, beside the calls each replaces on the unfused step, and
+     fp32 and bf16, beside the calls each replaces on the unfused step (in
+     turns, twice), B.10's cluster body against its row-pair body and its
+     sliced mirror and B.12 against its split mirror, both timed hot and
+     cold (their weights rotated through copies, as a decode step finds
+     them), B.12 by its busy time (its launches overlap), and
      the transposed-state decode step B.13 against B.9 (state bit-equal).
      Beside every time stands the kernel's bound on this card
      (bytes over 3.35 TB/s against operations over the peak of their type)
@@ -97,7 +101,8 @@ Phases, each printing its own lines:
      a step, greedy tokens against the unfused route; then readings: the
      decode-step ablation (step, step_fused, step_attprep, step_ffnblk at
      B=64 and B=1: ms a step over a data chain with a canary, device operations and busy
-     time of one step) and the op-level comparison of the decode step on the
+     time of one step, whose profile must name B.10's cluster body and B.12's
+     stream kernels) and the op-level comparison of the decode step on the
      logical and on the transposed state.
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
@@ -153,12 +158,17 @@ from rwkv_lm_ext_tpu_torch.models.rwkv import KERNEL_OPS, PLAIN_OPS, RWKV
 from rwkv_lm_ext_tpu_torch.models.state import init_model_state
 from rwkv_lm_ext_tpu_torch.ops import _lib, launch_counts, reset_launch_counts, wkv_fused
 from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
+    _launch_att_prep,
     att_prep_fused,
     att_prep_plain,
+    att_prep_sliced_plain,
+    b10_body,
     ffn_block_fused,
     ffn_block_plain,
+    ffn_block_split_plain,
     ffn_prep_fused,
     ffn_prep_plain,
+    ffn_value_splits,
 )
 from rwkv_lm_ext_tpu_torch.ops.ddlerp import (
     B5_BODIES,
@@ -398,6 +408,29 @@ def device_ms(fn, reps: int) -> float:
     gaps between launches do not count, so a kernel of a few microseconds is
     not read as the time its Python wrapper takes to launch it."""
     return per_call_us(device_ops(fn, reps), reps) / 1e3
+
+
+def busy_us(ops: list) -> float:
+    """Microseconds during which at least one of `ops` ran: the length of
+    the union of their intervals. Kernels that overlap (B.12's dependent
+    launches start while the one before them runs, and wait for it) count
+    once; for kernels that run one after another it is the sum of their
+    durations."""
+    total, start, end = 0.0, None, None
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in ops):
+        if end is None or a > end:
+            total += 0.0 if end is None else end - start
+            start, end = a, b
+        else:
+            end = max(end, b)
+    return total + (0.0 if end is None else end - start)
+
+
+def device_span_ms(fn, reps: int) -> float:
+    """Device time of one fn() call as the device's busy time over `reps`
+    calls (busy_us) divided by the calls: device_ms for calls whose kernels
+    overlap."""
+    return busy_us(device_ops(fn, reps)) / reps / 1e3
 
 
 def device_ms_by_kernel(fn, reps: int, groups: dict) -> dict:
@@ -1490,9 +1523,12 @@ def spliced_step(model, tokens, state, variant: str):
 
 
 ABLATION = ("step", "step_fused", "step_attprep", "step_ffnblk")
+# B.10's cluster body (which bf16 runs) and its row-pair body; B.12's
+# products and gated residual are dependent launches, so their durations
+# hold the time they wait for the launch before them
 FUSED_GROUPS = {
-    "B.10": ("att_prep_kernel",), "B.11": ("ffn_prep_kernel",),
-    "B.12 products": ("ffn_gemm_",), "B.12 gated residual": ("ffn_out_kernel",),
+    "B.10": ("att_prep_cluster_kernel", "att_prep_kernel"), "B.11": ("ffn_prep_kernel",),
+    "B.12 products": ("ffn_stream_kernel",), "B.12 gated residual": ("ffn_out_kernel",),
     "B.9": ("wkv6_decode_kernel",), "K2": ("tmix_prologue_tc_kernel", "tmix_prologue_simt_kernel"),
     "K3": ("layer_norm_kernel",), "B.4": ("quant_rows_",),
     "GEMMs": ("gemm", "nvjet", "xmma", "cutlass", "gemv"),
@@ -1551,9 +1587,16 @@ def phase_decode_ablation(model, label: str, smi: str, variants=ABLATION) -> Non
             for variant in variants:
                 ms, tok, state = rounds[1][variant]
                 ops = device_ops(lambda: one(variant, tok, state), 1)
-                busy = sum(e.self_device_time_total for e in ops) / 1e3
+                busy = busy_us(ops) / 1e3
                 shown = ", ".join(f"{g} {v:.3f}" for g, v in split_by_group(ops, FUSED_GROUPS).items()
                                   if v > 0)
+                names = " ".join(e.name for e in ops)
+                if variant in ("step_fused", "step_attprep"):
+                    check("att_prep_cluster_kernel" in names and "att_prep_kernel<" not in names,
+                          f"{variant} B={b} {label}: the profile does not name B.10's cluster body")
+                if variant in ("step_fused", "step_ffnblk") and label != "int8c":
+                    check("ffn_stream_kernel" in names,
+                          f"{variant} B={b} {label}: the profile does not name B.12's stream kernel")
                 first = rounds[0][variant][0]
                 print(f"  reading: {variant} B={b} {label}: {ms:.3f} ms a step ({first:.3f} in the first "
                       f"round), {b / ms * 1e3:.1f} tok/s aggregate; one step: {len(ops)} device ops, "
@@ -2242,12 +2285,19 @@ BLOCK_REL = {torch.float32: 3e-5, BF16: 1e-2}    # B.12: three products deep
 def phase_fused_kernels() -> dict:
     """The fused decode kernels B.10, B.11, B.12 at the 1B6 widths, B=64 and
     B=1, fp32 and bf16, each against its plain version on the same inputs
-    (which repeats the kernel's roundings) and called twice bit-equal; B.13
-    against the plain step and against B.9, whose new state it must equal bit
-    for bit after a transpose. Timed in bf16 at both batch sizes, beside the
-    calls each replaces on the unfused decode step: for B.10, K2 at T=1 and
-    the plain decay low-rank; for B.12, K3 + the mixes + three F.linear; for
-    B.13, B.9. Returns {kernel: {max_abs_err, ms, plain_ms, bound...}} at
+    (which repeats the kernel's roundings) and called twice bit-equal, the
+    bf16 B.10 and B.12 also against the plain mirrors of their factorings
+    (att_prep_sliced_plain, ffn_block_split_plain) and B.10's two bodies
+    against each other; B.13 against the plain step and against B.9, whose
+    new state it must equal bit for bit after a transpose. Timed in bf16 at
+    both batch sizes, beside the calls each replaces on the unfused decode
+    step: for B.10, K2 at T=1 and the plain decay low-rank; for B.12, K3 +
+    the mixes + three F.linear; for B.13, B.9. B.10 (both bodies) and B.12
+    are also timed cold, their weights rotated through copies as a decode
+    step finds them (B.10: 24 copies, 43 MB; B.12: 3 copies, 201 MB). B.12's
+    launches overlap (dependent launches), so its time is the device's busy
+    time over the calls (device_span_ms), and so is that of the calls it
+    replaces. Returns {kernel: {max_abs_err, ms, plain_ms, bound...}} at
     B=64, bf16."""
     rng = Inputs(17)
     out = {}
@@ -2293,7 +2343,24 @@ def phase_fused_kernels() -> dict:
         kv = lin(torch.relu(lin(xn + xx * maa_k, wk)) ** 2, wv)
         return x[:, None] + torch.sigmoid(lin(xn + xx * maa_r, wr)) * kv
 
-    errs, times = {}, {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def cold_ms(launch, args, weights: slice, copies: int, reps: int, timer=device_ms):
+        """ms of one launch whose weights (args[weights]) rotate through
+        `copies` copies, so that each call finds its own cold in L2."""
+        sets = [tuple(w.clone() for w in args[weights]) for _ in range(copies)]
+        turn = [0]
+
+        def rotate():
+            ws = sets[turn[0] % copies]
+            turn[0] += 1
+            launch(*args[:weights.start], *ws, *args[weights.stop:])
+        ms = timer(rotate, reps)
+        del sets
+        torch.cuda.empty_cache()
+        return ms
+
+    errs, times, extra = {}, {}, {}
     for b in (B, 1):
         for dtype in (torch.float32, BF16):
             tag = f"(B,C)=({b},{C}) {str(dtype)[6:]}"
@@ -2309,31 +2376,66 @@ def phase_fused_kernels() -> dict:
                                      ("out", "xn"), BLOCK_REL[dtype]))
             if dtype != BF16:
                 continue
+            check(b10_body(dtype, C, D, DD) == "cluster", "bf16 B.10 at the 1B6 widths is not the "
+                  "cluster body")
+            rows = _launch_att_prep(*a, body="row_pairs")
+            e.update(
+                att_prep_fused=max(e["att_prep_fused"], held(
+                    f"B.10 {tag} against its sliced mirror", att_prep_fused,
+                    lambda *x: att_prep_sliced_plain(*x), a, ("xr", "xk", "xv", "xg", "w", "xn"),
+                    PREP_REL[dtype])),
+                ffn_block_fused=max(e["ffn_block_fused"], held(
+                    f"B.12 {tag} against its split mirror", ffn_block_fused,
+                    lambda *x: ffn_block_split_plain(*x, splits=ffn_value_splits(C, F, sms)), blk,
+                    ("out", "xn"), BLOCK_REL[dtype])))
+            for n, g, w in zip(("xr", "xk", "xv", "xg", "w", "xn"), att_prep_fused(*a), rows):
+                err_line(f"B.10 {tag} cluster body against the row-pair body, {n}", g, w, PREP_REL[dtype])
             errs[b] = e
+            # two rounds in turns (kernel, library, library, kernel): the two
+            # readings of each show the spread
+            rounds = []
+            for order in (1, -1):
+                r = {}
+                for key, fn, timer in (
+                        ("att_prep_fused", lambda: att_prep_fused(*a), device_ms),
+                        ("att_prep_replaced", lambda: k2_and_decay(a), device_ms),
+                        ("ffn_block_replaced", lambda: unfused_channel_mix(blk), device_span_ms),
+                        ("ffn_block_fused", lambda: ffn_block_fused(*blk), device_span_ms))[::order]:
+                    r[key] = timer(fn, 20)
+                rounds.append(r)
             times[b] = t = dict(
-                att_prep_fused=(device_ms(lambda: att_prep_fused(*a), 20),
-                                device_ms(lambda: att_prep_plain(*a), 10),
-                                device_ms(lambda: k2_and_decay(a), 20)),
+                att_prep_fused=(rounds[1]["att_prep_fused"], device_ms(lambda: att_prep_plain(*a), 10),
+                                rounds[1]["att_prep_replaced"]),
                 ffn_prep_fused=(device_ms(lambda: ffn_prep_fused(*f), 20),
                                 device_ms(lambda: ffn_prep_plain(*f), 10),
                                 device_ms(lambda: unfused_ffn_prep(f), 20)),
-                ffn_block_fused=(device_ms(lambda: ffn_block_fused(*blk), 20),
-                                 device_ms(lambda: ffn_block_plain(*blk), 5),
-                                 device_ms(lambda: unfused_channel_mix(blk), 20)))
+                ffn_block_fused=(rounds[1]["ffn_block_fused"], device_ms(lambda: ffn_block_plain(*blk), 5),
+                                 rounds[1]["ffn_block_replaced"]))
+            extra[b] = dict(
+                rows_ms=device_ms(lambda: _launch_att_prep(*a, body="row_pairs"), 20),
+                att_cold=cold_ms(att_prep_fused, a, slice(5, 9), 24, 48),
+                rows_cold=cold_ms(lambda *x: _launch_att_prep(*x, body="row_pairs"), a, slice(5, 9), 24, 48),
+                ffn_cold=cold_ms(ffn_block_fused, blk, slice(6, 9), 3, 30, timer=device_span_ms),
+                first=rounds[0])
             split = device_ms_by_kernel(lambda: ffn_block_fused(*blk), 20, {
-                "prologue": ("ffn_prep_kernel",), "key product": ("ffn_gemm_bf16_kernel<true>",
-                                                                   "ffn_gemm_bf16_kernel<(bool)1>"),
-                "value + receptance products": ("ffn_gemm_bf16_kernel<false>",
-                                                "ffn_gemm_bf16_kernel<(bool)0>"),
+                "prologue": ("ffn_prep_kernel",),
+                "key product": ("ffn_stream_kernel<true", "ffn_stream_kernel<(bool)1"),
+                "value + receptance products": ("ffn_stream_kernel<false", "ffn_stream_kernel<(bool)0"),
                 "gated residual": ("ffn_out_kernel",)})
-            print(f"  B={b}, bf16: B.10 {t['att_prep_fused'][0]:.4f} ms (plain {t['att_prep_fused'][1]:.4f} "
-                  f"ms; K2 at T=1 + the plain decay low-rank it replaces {t['att_prep_fused'][2]:.4f} ms); "
+            x_ = extra[b]
+            print(f"  B={b}, bf16: B.10 {t['att_prep_fused'][0]:.4f} ms hot, {x_['att_cold']:.4f} cold "
+                  f"(row-pair body {x_['rows_ms']:.4f} hot, {x_['rows_cold']:.4f} cold; plain "
+                  f"{t['att_prep_fused'][1]:.4f} ms; K2 at T=1 + the plain decay low-rank it replaces "
+                  f"{t['att_prep_fused'][2]:.4f} ms; first round {x_['first']['att_prep_fused']:.4f} / "
+                  f"{x_['first']['att_prep_replaced']:.4f}); "
                   f"B.11 {t['ffn_prep_fused'][0]:.4f} ms (plain {t['ffn_prep_fused'][1]:.4f} ms; K3 + the "
                   f"two mixes it replaces {t['ffn_prep_fused'][2]:.4f} ms); "
-                  f"B.12 {t['ffn_block_fused'][0]:.4f} ms (plain {t['ffn_block_fused'][1]:.4f} ms; the "
-                  f"unfused channel mix it replaces, K3 + mixes + three F.linear, "
-                  f"{t['ffn_block_fused'][2]:.4f} ms)")
-            print("    B.12 by launch: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
+                  f"B.12 {t['ffn_block_fused'][0]:.4f} ms hot, {x_['ffn_cold']:.4f} cold (plain "
+                  f"{t['ffn_block_fused'][1]:.4f} ms; the unfused channel mix it replaces, K3 + mixes + "
+                  f"three F.linear, {t['ffn_block_fused'][2]:.4f} ms; first round "
+                  f"{x_['first']['ffn_block_fused']:.4f} / {x_['first']['ffn_block_replaced']:.4f})")
+            print("    B.12 by launch (durations; a dependent launch's holds its wait for the one "
+                  "before it): " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
             if b == B:
                 main = dict(att_prep_fused=a, ffn_prep_fused=f, ffn_block_fused=blk)
     a, f, blk = main["att_prep_fused"], main["ffn_prep_fused"], main["ffn_block_fused"]
@@ -2354,7 +2456,13 @@ def phase_fused_kernels() -> dict:
         # no single PyTorch call computes one of these functions: library_ms
         # stays null and the calls each replaces stand beside it
         out[name] = dict(max_abs_err=max(errs[B][name], errs[1][name]), ms=ms, plain_ms=plain_ms,
-                         **bound, replaced_ms=replaced, ms_at_b1=times[1][name][0])
+                         **bound, replaced_ms=replaced, ms_at_b1=times[1][name][0],
+                         replaced_ms_at_b1=times[1][name][2])
+    for b, tag in ((B, ""), (1, "_at_b1")):
+        out["att_prep_fused"].update({f"cold_ms{tag}": extra[b]["att_cold"],
+                                      f"row_pairs_ms{tag}": extra[b]["rows_ms"],
+                                      f"row_pairs_cold_ms{tag}": extra[b]["rows_cold"]})
+        out["ffn_block_fused"][f"cold_ms{tag}"] = extra[b]["ffn_cold"]
 
     def decode_args(b):
         r, k, v, g = (rng.normal(b, C) for _ in range(4))

@@ -1,7 +1,9 @@
 // Tensor-core and asynchronous-copy primitives of the redesigned kernels
-// (ddlerp.cu, wkv_fused.cu): warp-level mma.sync m16n8k16 on bf16 operands
-// with fp32 accumulators, ldmatrix to fetch its fragments from shared memory,
-// and cp.async to stage tiles from global memory without registers.
+// (ddlerp.cu, wkv_fused.cu, decode_fused.cu): warp-level mma.sync m16n8k16 on
+// bf16 operands with fp32 accumulators, ldmatrix to fetch its fragments from
+// shared memory, cp.async and tensor-map boxes (with their mbarriers) to
+// stage tiles from global memory without registers, and the
+// programmatic-dependent-launch controls.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, tig = lane % 4):
 //   A (16 x 16, row):  a0 = A[g][2tig..+1]      a1 = A[g+8][2tig..+1]
@@ -12,6 +14,8 @@
 // Two neighbouring C tiles, rounded to bf16, are one A tile: the state of
 // wkv_fused.cu feeds the next product straight from its accumulators.
 #pragma once
+
+#include <cuda.h>
 
 #include "common.cuh"
 
@@ -59,6 +63,71 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n" ::);
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// mbarriers in shared memory, on which the Tensor Memory Accelerator's copies
+// complete. A ring of tensor-map boxes costs one thread a few instructions a
+// slab, where 16-byte cp.async from every thread, or one bulk copy a
+// 128-byte row, kept an H100's SMs busy issuing copies.
+__device__ __forceinline__ void mbar_init(void* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// after the inits of a block, before any thread uses the barriers
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive once and expect `bytes` more to land before the phase completes
+__device__ __forceinline__ void mbar_expect_tx(void* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(void* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+// A 2-D box of a tensor map (`map`: the address of a __grid_constant__
+// kernel parameter) at column x, row y into shared memory, counted on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int x, int y,
+                                            void* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<unsigned long long>(map)), "r"(x), "r"(y),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Boxes of kBoxCols bf16 columns with the 128-byte swizzle: the byte offset
+// of 16-byte chunk `c` of row `r` in a box (1024-byte aligned) of 128-byte rows
+__device__ __forceinline__ int swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+constexpr int kBoxCols = 64;
+
+// Programmatic dependent launch: a kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start before the
+// kernel ahead of it in the stream ends. It must call grid_dependency_wait()
+// before it reads what that kernel writes (the wait returns at once in a
+// kernel launched the ordinary way). grid_dependents_launch() lets the next
+// such kernel start once every block of this one has called it.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void grid_dependents_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {

@@ -79,6 +79,8 @@ _SIGNATURES = {
     # x, shift, ln_scale, ln_bias, maas, w1, w2, dw1, dw2, time_decay, xr, xk, xv,
     # xg, w, xn, B, C, D, Dd, eps, dtype, param dtype, stream
     "rwkv_att_prep": [_P] * 16 + [_I] * 4 + [_F, _I, _I, _P],
+    # rwkv_att_prep's arguments and the body code before the stream
+    "rwkv_att_prep_body": [_P] * 16 + [_I] * 4 + [_F, _I, _I, _I, _P],
     # x, shift, ln_scale, ln_bias, maa_k, maa_r, xk, xr, xn, B, C, eps, dtype,
     # param dtype, stream
     "rwkv_ffn_prep": [_P] * 9 + [_I] * 2 + [_F, _I, _I, _P],
@@ -94,6 +96,7 @@ _SIZE_FUNCTIONS = {
     "rwkv_tmix_prologue_bwd_smem_bytes": [_I, _I, _I],
     "rwkv_att_prep_smem_bytes": [_I, _I, _I],
     "rwkv_ffn_block_slices": [_I],
+    "rwkv_ffn_value_splits": [_I, _I, _I],
 }
 
 _load_lock = threading.Lock()

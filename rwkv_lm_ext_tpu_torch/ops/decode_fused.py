@@ -19,6 +19,21 @@ returned ``xn`` is the unrounded fp32 LayerNorm row. In ``ffn_block_fused`` the
 key activation is rounded to x's dtype before and after relu^2, ``kv`` and
 ``r`` stay fp32, and the residual is added in fp32.
 
+B.10 has two bodies (csrc/decode_fused.cu), and ``b10_body`` picks one from
+dtypes and shape alone: the cluster body (bf16 activations and parameters at
+C % 128 == 0, C <= 4096, D % 8 == 0, 5D <= 384, Dd a multiple of 16 up to
+128: every served width), where a thread-block cluster of ``PREP_SLICES``
+blocks takes a group of rows and each block owns C / ``PREP_SLICES`` columns
+of every phase, the reductions over C exchanged between the blocks and summed
+in rank order; and the row-pair body (fp32, and the bf16 shapes the other
+does not take).
+``att_prep_sliced_plain`` is the cluster body's factoring in plain PyTorch.
+B.12's bf16 products stream their weights in stages of 64 rows by 256 values
+(tensor-map boxes) through a ring in shared memory, as programmatic
+dependent launches, and split the value product over F into
+``ffn_value_splits(C, F, sms)`` slices, added in slice order;
+``ffn_block_split_plain`` is that order in plain PyTorch.
+
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. When an input requires grad the call is
 differentiable: the backward recomputes through the plain version, as
@@ -29,11 +44,48 @@ and the widths each kernel needs are checked and raise.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from rwkv_lm_ext_tpu_torch.ops import _lib
+
+# B.10's bodies, by the codes of csrc/decode_fused.cu
+B10_BODIES = {"row_pairs": 0, "cluster": 1}
+PREP_SLICES = 8        # blocks of a B.10 cluster, each owning C / PREP_SLICES columns
+CLUSTER_ROWS = 8       # most rows a B.10 cluster takes
+STREAM_K = 256         # k values a stage of B.12's products holds
+STREAM_ROWS = 64       # weight rows a block of B.12's products owns
+MAX_VALUE_SPLITS = 4   # most slices of B.12's value product
+
+
+def b10_body(dtype: torch.dtype, C: int, D: int, Dd: int,
+             param_dtype: torch.dtype = torch.bfloat16) -> str:
+    """The body of B.10 that a call of these dtypes (activations, and the
+    (C,)-shaped parameters with dw1, dw2) and shape launches."""
+    if (dtype == param_dtype == torch.bfloat16 and C % (16 * PREP_SLICES) == 0
+            and C // PREP_SLICES <= 512 and D > 0 and D % 8 == 0 and 5 * D <= 384
+            and 0 < Dd <= 128 and Dd % 16 == 0):
+        return "cluster"
+    return "row_pairs"
+
+
+def att_prep_cluster_rows(B: int, clusters: int = 8) -> int:
+    """Rows a cluster of B.10's cluster body takes when the card runs
+    ``clusters`` clusters at once (the kernel asks the card; an H100 runs
+    eight of its 8-block clusters at once): one wave of clusters, at most
+    CLUSTER_ROWS rows each. Rows are independent, so the grouping changes
+    no value; the mirror follows it to pad the last group as the kernel
+    does."""
+    return min(CLUSTER_ROWS, max(1, -(-B // clusters)))
+
+
+def ffn_value_splits(C: int, F: int, sms: int) -> int:
+    """Slices of B.12's bf16 value product on a card of ``sms`` SMs: value and
+    receptance blocks of 64 weight rows together about fill the SMs once."""
+    tiles = -(-C // STREAM_ROWS)
+    s = (2 * (sms - tiles) + tiles) // (2 * tiles)
+    return max(1, min(MAX_VALUE_SPLITS, s, -(-F // STREAM_K)))
 
 
 def _ln_shift(x, shift, ln_scale, ln_bias, eps):
@@ -66,6 +118,56 @@ def att_prep_plain(
     return xr.to(od), xk.to(od), xv.to(od), xg.to(od), w, xn
 
 
+def att_prep_sliced_plain(
+    x, shift, ln_scale, ln_bias, maas, w1, w2, dw1, dw2, time_decay, eps: float = 1e-5, *,
+    slices: int = PREP_SLICES, rows: Optional[int] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """att_prep_plain in the order of B.10's cluster body: rows in groups of
+    ``rows`` (default ``att_prep_cluster_rows(B)``), the last group padded by
+    repeating the last row (its outputs dropped); C in ``slices`` column
+    slices; the row sums of x and x^2, the partial xxx @ w1 and the partial
+    xw @ dw1 taken slice by slice and added in slice order; each slice's
+    expansions over its own columns."""
+    od = x.dtype
+    B, C = x.shape
+    if C % slices:
+        raise ValueError(f"C={C} is not a multiple of slices={slices}")
+    R = att_prep_cluster_rows(B) if rows is None else rows
+    Cs, D = C // slices, w2.shape[1]
+    cols = [slice(q * Cs, (q + 1) * Cs) for q in range(slices)]
+    idx = torch.arange(-(-B // R) * R, device=x.device).clamp(max=B - 1)
+    xf, sh = x.float()[idx], shift.float()[idx]
+    maas = maas.float()
+    w1f, w2f = w1.to(od).float(), w2.to(od).float()
+    dw1f, dw2f = dw1.float(), dw2.float()
+
+    def in_order(parts):
+        total = torch.zeros_like(parts[0])
+        for p in parts:
+            total = total + p
+        return total
+
+    s1 = in_order([xf[:, c].sum(-1, keepdim=True) for c in cols])
+    s2 = in_order([(xf[:, c] * xf[:, c]).sum(-1, keepdim=True) for c in cols])
+    mu = s1 / C
+    rstd = torch.rsqrt(torch.clamp(s2 / C - mu * mu, min=0.0) + eps)
+    xn = (xf - mu) * rstd * ln_scale.float().reshape(-1) + ln_bias.float().reshape(-1)
+    xx = sh - xn
+    xa = (xn + xx * maas[0]).to(od).float()
+    h = torch.tanh(in_order([xa[:, c] @ w1f[c] for c in cols])).to(od).float()
+    mixed = torch.empty(5, *xn.shape, device=xn.device)
+    for c in cols:
+        for i in range(5):
+            m = h[:, i * D:(i + 1) * D] @ w2f[i][:, c]
+            mixed[i][:, c] = xn[:, c] + xx[:, c] * (maas[1 + i][c] + m)
+    xw, xk, xv, xr, xg = mixed
+    hw = torch.tanh(in_order([xw[:, c] @ dw1f[c] for c in cols]))
+    w = torch.empty_like(xn)
+    for c in cols:
+        w[:, c] = time_decay.float().reshape(-1)[c] + hw @ dw2f[:, c]
+    return tuple(t[:B] for t in (xr.to(od), xk.to(od), xv.to(od), xg.to(od), w, xn))
+
+
 def ffn_prep_plain(
     x, shift, ln_scale, ln_bias, maa_k, maa_r, eps: float = 1e-5
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -82,6 +184,30 @@ def ffn_block_plain(
     xk, xr, xn = ffn_prep_plain(x, shift, ln_scale, ln_bias, maa_k, maa_r, eps)
     k = torch.relu(_dot(xk, wk.t(), od).to(od)) ** 2
     kv = _dot(k, wv.t(), od)
+    r = _dot(xr, wr.t(), od)
+    return (x.float() + torch.sigmoid(r) * kv).to(od), xn
+
+
+def ffn_block_split_plain(
+    x, shift, ln_scale, ln_bias, maa_k, maa_r, wk, wv, wr, eps: float = 1e-5, *, splits: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ffn_block_plain in the order of B.12's products: k rounded to x's dtype
+    before and after relu^2, the value product in ``splits`` slices of F (in
+    stages of STREAM_K, the last one short where F is not a multiple of it,
+    ``ceil(stages / splits)`` a slice), each an fp32
+    partial, added in slice order; r in fp32; the residual in fp32, cast
+    once."""
+    od = x.dtype
+    xk, xr, xn = ffn_prep_plain(x, shift, ln_scale, ln_bias, maa_k, maa_r, eps)
+    k = torch.relu(_dot(xk, wk.t(), od).to(od)) ** 2
+    F = wk.shape[0]
+    stages = -(-F // STREAM_K)
+    per = -(-stages // splits)
+    kv = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for s in range(splits):
+        b, e = (min(i * per, stages) * STREAM_K for i in (s, s + 1))
+        e = min(e, F)
+        kv = kv + _dot(k[:, b:e], wv[:, b:e].t(), od)
     r = _dot(xr, wr.t(), od)
     return (x.float() + torch.sigmoid(r) * kv).to(od), xn
 
@@ -107,7 +233,10 @@ def _check_rows(x, shift, **vectors):
     return B, C
 
 
-def _launch_att_prep(x, shift, ln_scale, ln_bias, maas, w1, w2, dw1, dw2, time_decay, eps=1e-5):
+def _launch_att_prep(x, shift, ln_scale, ln_bias, maas, w1, w2, dw1, dw2, time_decay, eps=1e-5,
+                     body: Optional[str] = None):
+    """``body`` (a key of B10_BODIES) forces one body, for comparisons; None
+    takes ``b10_body``'s."""
     B, C = _check_rows(x, shift, ln_scale=ln_scale, ln_bias=ln_bias, time_decay=time_decay)
     D, Dd = w2.shape[1], dw1.shape[1]
     if maas.shape != (6, C) or w1.shape != (C, 5 * D) or w2.shape != (5, D, C):
@@ -126,15 +255,30 @@ def _launch_att_prep(x, shift, ln_scale, ln_bias, maas, w1, w2, dw1, dw2, time_d
         ln_scale, ln_bias, maas, dw1, dw2, time_decay)
     device = _lib.check_cuda(x=x, shift=shift, ln_scale=ln_scale, ln_bias=ln_bias, maas=maas,
                              w1=w1, w2=w2, dw1=dw1, dw2=dw2, time_decay=time_decay)
+    for name, t in (("x", x), ("w1", w1), ("w2", w2), ("dw1", dw1), ("dw2", dw2),
+                    ("ln_scale", ln_scale), ("ln_bias", ln_bias), ("maas", maas),
+                    ("time_decay", time_decay)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"att_prep_fused: {name} must be 16-byte aligned")
     smem, limit = _lib.library().rwkv_att_prep_smem_bytes(C, D, Dd), _lib.smem_limit(device)
     if smem > limit:
         raise ValueError(f"att_prep_fused: C={C}, D={D}, Dd={Dd} needs {smem} B of shared "
                          f"memory; the card allows {limit}")
+    if body is not None and body not in B10_BODIES:
+        raise ValueError(f"att_prep_fused: body must be one of {sorted(B10_BODIES)}, not {body!r}")
+    elif body == "cluster" and b10_body(x.dtype, C, D, Dd, ln_scale.dtype) != "cluster":
+        raise ValueError(f"att_prep_fused: the cluster body takes bf16 activations and "
+                         f"parameters at C % 128 == 0, C <= 4096, D % 8 == 0, 5D <= 384 and Dd "
+                         f"a multiple of 16 up to 128; got {x.dtype} / {ln_scale.dtype}, C={C}, "
+                         f"D={D}, Dd={Dd}")
     xr, xk, xv, xg = torch.empty(4, B, C, dtype=x.dtype, device=device).unbind(0)
     w, xn = torch.empty(2, B, C, dtype=torch.float32, device=device).unbind(0)
-    _lib.launch("rwkv_att_prep", device, x, shift, ln_scale, ln_bias, maas, w1, w2, dw1, dw2,
-                time_decay, xr, xk, xv, xg, w, xn, B, C, D, Dd, eps,
-                _lib.DTYPE_CODES[x.dtype], pcode)
+    args = (x, shift, ln_scale, ln_bias, maas, w1, w2, dw1, dw2, time_decay, xr, xk, xv, xg, w, xn,
+            B, C, D, Dd, eps, _lib.DTYPE_CODES[x.dtype], pcode)
+    if body is None:      # the library's own choice, which b10_body repeats
+        _lib.launch("rwkv_att_prep", device, *args)
+    else:
+        _lib.launch("rwkv_att_prep_body", device, *args, B10_BODIES[body])
     att_prep_fused.launches += 1
     return xr, xk, xv, xg, w, xn
 
@@ -213,8 +357,8 @@ def att_prep_fused(
 
     Returns xr, xk, xv, xg (B, C) in x's dtype, w (B, C) fp32, the raw
     log-decay, and xn (B, C) fp32, the ln1 output: the next shift row. CPU
-    tensors take the plain version; CUDA tensors launch B.10, for any B and
-    C, D, Dd in multiples of 8."""
+    tensors take the plain version; CUDA tensors launch B.10 (the body
+    ``b10_body`` names), for any B and C, D, Dd in multiples of 8."""
     args = (x, shift, ln_scale, ln_bias, maas, w1, w2, dw1, dw2, time_decay)
     return _route(_launch_att_prep, att_prep_plain, args, eps)
 
@@ -253,8 +397,8 @@ def ffn_block_fused(
     sigmoid-gated residual. Weights in torch's (out, in) layout, used in x's
     dtype. Returns (x + ffn_out (B, C) in x's dtype, xn (B, C) fp32, the next
     ffn shift). CPU tensors take the plain version; CUDA tensors launch
-    B.12 (one wrapper call, four kernels in stream order), for any B and C, F
-    in multiples of 32."""
+    B.12 (one wrapper call, four kernels in stream order, the last three as
+    dependent launches), for any B and C, F in multiples of 32."""
     args = (x, shift, ln_scale, ln_bias, maa_k, maa_r, wk, wv, wr)
     return _route(_launch_ffn_block, ffn_block_plain, args, eps)
 

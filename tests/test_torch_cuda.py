@@ -13,7 +13,10 @@ The fused decode kernels B.10-B.12 are held to their plain versions at 2e-5
 (prologues) and 3e-5 (the whole block) of max|plain| in fp32 and one bf16
 rounding in bf16, B.13 as B.9 with its state bit-equal to B.9's; each is
 called twice and held bit-equal, and its gradients (a recompute through the
-plain version) equal autograd through the plain version.
+plain version) equal autograd through the plain version. The redesigned
+bf16 bodies of B.10 (clusters over C slices) and B.12 (tensor-map weight
+streams) are also held to the plain mirrors of their factorings at the same
+limits, and B.10's two bodies to each other within two bf16 roundings.
 
 K2 and K1 each have two bodies (tensor cores or chunked for bf16, CUDA
 cores or sequential for fp32); both are held to the same limits, at shapes
@@ -48,14 +51,19 @@ from rwkv_lm_ext_tpu_torch.checkpoint.convert import load_state_dict_into
 from rwkv_lm_ext_tpu_torch.models.decode import rwkv_decode_step
 from rwkv_lm_ext_tpu_torch.models.init import init_rwkv_params
 from rwkv_lm_ext_tpu_torch.models.rwkv import RWKV
-from rwkv_lm_ext_tpu_torch.ops import launch_counts
+from rwkv_lm_ext_tpu_torch.ops import _lib, launch_counts
 from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
+    _launch_att_prep,
     att_prep_fused,
     att_prep_plain,
+    att_prep_sliced_plain,
+    b10_body,
     ffn_block_fused,
     ffn_block_plain,
+    ffn_block_split_plain,
     ffn_prep_fused,
     ffn_prep_plain,
+    ffn_value_splits,
 )
 from rwkv_lm_ext_tpu_torch.ops.ddlerp import (
     B5_BODIES,
@@ -925,12 +933,16 @@ def _same_bits(a, b):
 @pytest.mark.parametrize("dtype,pdtype", [(torch.float32, torch.float32),
                                           (torch.bfloat16, torch.bfloat16),
                                           (torch.bfloat16, torch.float32)])
-@pytest.mark.parametrize("B", [1, 2, 7, 67])
-@pytest.mark.parametrize("C,D,Dd", [(2048, 32, 64), (256, 8, 16), (4096, 64, 128)])
+@pytest.mark.parametrize("B", [1, 2, 7, 8, 9, 64, 67, 130])
+@pytest.mark.parametrize("C,D,Dd", [(2048, 32, 64), (256, 8, 16), (4096, 64, 128), (768, 32, 64),
+                                    (2560, 32, 64)])
 def test_att_prep_kernel(dev, dtype, pdtype, B, C, D, Dd):
-    """B.10 at B=1, odd and even row counts (a block takes two rows) and the
-    widths of the 1B6, a small and the 7B configuration; parameters in the
-    compute dtype or kept in fp32 (master weights)."""
+    """B.10 at B=1, odd and even row counts (a row-pair block takes two rows,
+    a cluster up to eight: 8, 9, 64, 67 and 130 fill, cross and exceed its
+    row groups) and the widths of the 1B6, a small, the 7B, the 0.1B and the
+    3B configuration; parameters in the compute dtype or kept in fp32
+    (master weights). bf16 with bf16 parameters runs the cluster body, held
+    also against its plain mirror (att_prep_sliced_plain)."""
     rng = np.random.default_rng(B + C)
     args = _att_prep_args(dev, dtype, pdtype, rng, B, C, D, Dd)
     got = _counted("att_prep_fused", lambda: att_prep_fused(*args))
@@ -940,6 +952,23 @@ def test_att_prep_kernel(dev, dtype, pdtype, B, C, D, Dd):
         assert g.shape == (B, C)
         _close(g, w, PREP_REL[dtype], name)
     assert _same_bits(got, att_prep_fused(*args))
+    if b10_body(dtype, C, D, Dd, pdtype) == "cluster":
+        for name, g, w in zip(("xr", "xk", "xv", "xg", "w", "xn"), got,
+                              att_prep_sliced_plain(*args)):
+            _close(g, w, PREP_REL[dtype], f"{name} against the sliced mirror")
+        assert _same_bits(got, _launch_att_prep(*args, body="cluster"))
+
+
+@pytest.mark.parametrize("B", [1, 9, 64])
+def test_att_prep_bodies_agree(dev, B):
+    """The cluster body against the row-pair body on the same bf16 inputs at
+    the 1B6 widths: both within one bf16 rounding of the plain version."""
+    rng = np.random.default_rng(B + 5)
+    args = _att_prep_args(dev, torch.bfloat16, torch.bfloat16, rng, B, 2048, 32, 64)
+    cluster = _launch_att_prep(*args, body="cluster")
+    rows = _launch_att_prep(*args, body="row_pairs")
+    for name, g, w in zip(("xr", "xk", "xv", "xg", "w", "xn"), cluster, rows):
+        _close(g, w, 2 * PREP_REL[torch.bfloat16], name)
 
 
 @pytest.mark.parametrize("dtype,pdtype", [(torch.float32, torch.float32),
@@ -958,11 +987,14 @@ def test_ffn_prep_kernel(dev, dtype, pdtype, B, C):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B", [1, 7, 64, 67, 130])
-@pytest.mark.parametrize("C,F", [(2048, 7168), (256, 896), (96, 160)])
+@pytest.mark.parametrize("B", [1, 7, 8, 9, 16, 17, 64, 67, 130])
+@pytest.mark.parametrize("C,F", [(2048, 7168), (256, 896), (96, 160), (768, 2688), (2560, 8960),
+                                 (4096, 14336)])
 def test_ffn_block_kernel(dev, dtype, B, C, F):
-    """B.12: B=1, row counts that fill no batch tile, more rows than one
-    block owns (64), and widths that are multiples of 32 only."""
+    """B.12: B=1, row counts around its batch tiles (16 rows up to B=16, then
+    64), more rows than one block owns, widths that are multiples of 32 only
+    (a last k stage of 32), and the 0.1B, 1B6, 3B and 7B widths. bf16 is also
+    held against the plain mirror of its split (ffn_block_split_plain)."""
     rng = np.random.default_rng(B + F)
     args = _ffn_args(dev, dtype, dtype, rng, B, C, F)
     out, xn = _counted("ffn_block_fused", lambda: ffn_block_fused(*args))
@@ -971,6 +1003,11 @@ def test_ffn_block_kernel(dev, dtype, B, C, F):
     _close(out, want_out, BLOCK_REL[dtype], "out")
     _close(xn, want_xn, PREP_REL[torch.float32], "xn")
     assert _same_bits((out, xn), ffn_block_fused(*args))
+    if dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert _lib.library().rwkv_ffn_value_splits(C, F, sms) == ffn_value_splits(C, F, sms)
+        mirror, _ = ffn_block_split_plain(*args, splits=ffn_value_splits(C, F, sms))
+        _close(out, mirror, BLOCK_REL[dtype], "out against the split mirror")
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1062,6 +1099,13 @@ def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     f32 = torch.float32
     with pytest.raises(ValueError, match="multiples of 8"):
         att_prep_fused(*_att_prep_args(dev, f32, f32, rng, 2, 64, 4, 8))
+    bf = torch.bfloat16
+    with pytest.raises(ValueError, match="cluster body takes"):
+        _launch_att_prep(*_att_prep_args(dev, bf, bf, rng, 2, 64, 8, 8), body="cluster")
+    with pytest.raises(ValueError, match="cluster body takes"):
+        _launch_att_prep(*_att_prep_args(dev, bf, f32, rng, 2, 2048, 32, 64), body="cluster")
+    with pytest.raises(ValueError, match="body must be one of"):
+        _launch_att_prep(*_att_prep_args(dev, bf, bf, rng, 2, 2048, 32, 64), body="tiles")
     with pytest.raises(ValueError, match="multiples of 32"):
         ffn_block_fused(*_ffn_args(dev, f32, f32, rng, 2, 48, 96))
     args = _ffn_args(dev, f32, f32, rng, 2, 64, 128)
