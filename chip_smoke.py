@@ -38,10 +38,12 @@ Phases, each printing its own lines:
      (channel-mix prologue) and B.12 (whole channel mix) at B=64 and B=1,
      fp32 and bf16, beside the calls each replaces on the unfused step (in
      turns, twice), B.10's cluster body against its row-pair body and its
-     sliced mirror and B.12 against its split mirror, both timed hot and
-     cold (their weights rotated through copies, as a decode step finds
-     them), B.12 by its busy time (its launches overlap), and
-     the transposed-state decode step B.13 against B.9 (state bit-equal).
+     sliced mirror, B.11 against its warp-order mirror and B.12 against its
+     split mirror, all three timed hot and cold (their weights, B.11's
+     inputs, rotated through copies, as a decode step finds them), B.12 by
+     its busy time (its launches overlap), and the transposed-state decode
+     step B.13 against B.9 (state bit-equal), the two timed in turns, hot in
+     place and cold.
      Beside every time stands the kernel's bound on this card
      (bytes over 3.35 TB/s against operations over the peak of their type)
      and, for LayerNorm, the time of `F.layer_norm`;
@@ -168,6 +170,7 @@ from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
     ffn_block_split_plain,
     ffn_prep_fused,
     ffn_prep_plain,
+    ffn_prep_warp_order_plain,
     ffn_value_splits,
 )
 from rwkv_lm_ext_tpu_torch.ops.ddlerp import (
@@ -2286,19 +2289,21 @@ def phase_fused_kernels() -> dict:
     """The fused decode kernels B.10, B.11, B.12 at the 1B6 widths, B=64 and
     B=1, fp32 and bf16, each against its plain version on the same inputs
     (which repeats the kernel's roundings) and called twice bit-equal, the
-    bf16 B.10 and B.12 also against the plain mirrors of their factorings
-    (att_prep_sliced_plain, ffn_block_split_plain) and B.10's two bodies
-    against each other; B.13 against the plain step and against B.9, whose
-    new state it must equal bit for bit after a transpose. Timed in bf16 at
-    both batch sizes, beside the calls each replaces on the unfused decode
-    step: for B.10, K2 at T=1 and the plain decay low-rank; for B.12, K3 +
-    the mixes + three F.linear; for B.13, B.9. B.10 (both bodies) and B.12
-    are also timed cold, their weights rotated through copies as a decode
-    step finds them (B.10: 24 copies, 43 MB; B.12: 3 copies, 201 MB). B.12's
-    launches overlap (dependent launches), so its time is the device's busy
-    time over the calls (device_span_ms), and so is that of the calls it
-    replaces. Returns {kernel: {max_abs_err, ms, plain_ms, bound...}} at
-    B=64, bf16."""
+    bf16 B.10, B.11 and B.12 also against the plain mirrors of their
+    factorings (att_prep_sliced_plain, ffn_prep_warp_order_plain,
+    ffn_block_split_plain) and B.10's two bodies against each other; B.13
+    against the plain step and against B.9, whose new state it must equal
+    bit for bit after a transpose. Timed in bf16 at both batch sizes, beside
+    the calls each replaces on the unfused decode step: for B.10, K2 at T=1
+    and the plain decay low-rank; for B.12, K3 + the mixes + three F.linear;
+    for B.13, B.9 (the two in turns, twice, each hot in place and cold; its
+    `ms` is the cold reading). B.10 (both bodies), B.11 and B.12 are also
+    timed cold, their weights (B.11: all its inputs) rotated through copies
+    as a decode step finds them (B.10: 24 copies, 43 MB; B.11: 100 MB; B.12:
+    3 copies, 201 MB). B.12's launches overlap (dependent launches), so its
+    time is the device's busy time over the calls (device_span_ms), and so
+    is that of the calls it replaces. Returns {kernel: {max_abs_err, ms,
+    plain_ms, bound...}} at B=64, bf16."""
     rng = Inputs(17)
     out = {}
     lin = torch.nn.functional.linear
@@ -2384,6 +2389,9 @@ def phase_fused_kernels() -> dict:
                     f"B.10 {tag} against its sliced mirror", att_prep_fused,
                     lambda *x: att_prep_sliced_plain(*x), a, ("xr", "xk", "xv", "xg", "w", "xn"),
                     PREP_REL[dtype])),
+                ffn_prep_fused=max(e["ffn_prep_fused"], held(
+                    f"B.11 {tag} against its warp-order mirror", ffn_prep_fused,
+                    ffn_prep_warp_order_plain, f, ("xk", "xr", "xn"), PREP_REL[dtype])),
                 ffn_block_fused=max(e["ffn_block_fused"], held(
                     f"B.12 {tag} against its split mirror", ffn_block_fused,
                     lambda *x: ffn_block_split_plain(*x, splits=ffn_value_splits(C, F, sms)), blk,
@@ -2416,6 +2424,8 @@ def phase_fused_kernels() -> dict:
                 att_cold=cold_ms(att_prep_fused, a, slice(5, 9), 24, 48),
                 rows_cold=cold_ms(lambda *x: _launch_att_prep(*x, body="row_pairs"), a, slice(5, 9), 24, 48),
                 ffn_cold=cold_ms(ffn_block_fused, blk, slice(6, 9), 3, 30, timer=device_span_ms),
+                # every input of B.11 in copies that together exceed the L2
+                prep_cold=cold_ms(ffn_prep_fused, f, slice(0, 6), -(-100_000_000 // nbytes(*f)), 48),
                 first=rounds[0])
             split = device_ms_by_kernel(lambda: ffn_block_fused(*blk), 20, {
                 "prologue": ("ffn_prep_kernel",),
@@ -2428,7 +2438,8 @@ def phase_fused_kernels() -> dict:
                   f"{t['att_prep_fused'][1]:.4f} ms; K2 at T=1 + the plain decay low-rank it replaces "
                   f"{t['att_prep_fused'][2]:.4f} ms; first round {x_['first']['att_prep_fused']:.4f} / "
                   f"{x_['first']['att_prep_replaced']:.4f}); "
-                  f"B.11 {t['ffn_prep_fused'][0]:.4f} ms (plain {t['ffn_prep_fused'][1]:.4f} ms; K3 + the "
+                  f"B.11 {t['ffn_prep_fused'][0]:.4f} ms hot, {x_['prep_cold']:.4f} cold (plain "
+                  f"{t['ffn_prep_fused'][1]:.4f} ms; K3 + the "
                   f"two mixes it replaces {t['ffn_prep_fused'][2]:.4f} ms); "
                   f"B.12 {t['ffn_block_fused'][0]:.4f} ms hot, {x_['ffn_cold']:.4f} cold (plain "
                   f"{t['ffn_block_fused'][1]:.4f} ms; the unfused channel mix it replaces, K3 + mixes + "
@@ -2463,12 +2474,18 @@ def phase_fused_kernels() -> dict:
                                       f"row_pairs_ms{tag}": extra[b]["rows_ms"],
                                       f"row_pairs_cold_ms{tag}": extra[b]["rows_cold"]})
         out["ffn_block_fused"][f"cold_ms{tag}"] = extra[b]["ffn_cold"]
+        out["ffn_prep_fused"][f"cold_ms{tag}"] = extra[b]["prep_cold"]
 
     def decode_args(b):
         r, k, v, g = (rng.normal(b, C) for _ in range(4))
         w = rng.uniform(b, C, lo=-8.0, hi=2.5, dtype=torch.float32)
         return (r, k, v, w, g, rng.normal(H, N, scale=0.5), rng.normal(C, scale=0.1) + 1,
                 rng.normal(C, scale=0.1), rng.normal(b, H, N, N, scale=0.3, dtype=torch.float32))
+
+    def decode_step(name, args, buf):
+        """One in-place step on `buf` by B.9 or B.13."""
+        step = wkv6_decode_step if name == "B.9" else wkv6_decode_step_transposed
+        return lambda: step(*args[:-1], buf, eps=LN_X_EPS, out_state=buf)
 
     t13, e13 = {}, []
     for b in (B, 1):
@@ -2488,36 +2505,48 @@ def phase_fused_kernels() -> dict:
         check(same, "B.13's state is not B.9's")
         fresh = wkv6_decode_step_transposed(*args[:-1], transpose_state(state), eps=LN_X_EPS)
         check(bit_equal(fresh, (o, s_t)), "B.13: two calls differ")
-        b9, b13 = state.clone(), transpose_state(state)
-        t13[b] = (device_ms(lambda: wkv6_decode_step_transposed(
-                      *args[:-1], b13, eps=LN_X_EPS, out_state=b13), 50),
-                  device_ms(lambda: wkv6_decode_step(*args[:-1], b9, eps=LN_X_EPS, out_state=b9), 50),
-                  device_ms(lambda: wkv6_decode_step_plain(*args, eps=LN_X_EPS), 20))
-        print(f"  B.13 B={b}: transposed state {t13[b][0]:.4f} ms, B.9 (logical state) {t13[b][1]:.4f} "
-              f"ms, plain {t13[b][2]:.4f} ms")
-        if b == B:
-            # One buffer updated in place again and again partly stays in the
-            # 50 MB L2 (33.5 MB of state); a decode step walks 24 layers'
-            # states and finds each cold. Six buffers in turn (201 MB) put
-            # both layouts in that condition.
-            cold = {}
-            for name, step, make in (("B.13", wkv6_decode_step_transposed, transpose_state),
-                                     ("B.9", wkv6_decode_step, torch.clone)):
-                bufs, turn = [make(state) for _ in range(6)], [0]
+        # The device time of one call (every launch it makes). Hot: one
+        # buffer updated in place again and again, which partly stays in the
+        # 50 MB L2 (33.5 MB of state at B=64). Cold: a decode step walks 24
+        # layers' states and finds each cold; buffers in turn (six at B=64,
+        # 201 MB; at B=1 enough for 100 MB) put every launch in that
+        # condition. Two rounds in turns, the second in reverse order.
+        copies = max(6, -(-100_000_000 // nbytes(state)))
+        names = ("B.13", "B.9")
+        hot = {n: (state.clone() if n == "B.9" else transpose_state(state)) for n in names}
 
-                def rotate(step=step, bufs=bufs, turn=turn):
-                    buf = bufs[turn[0] % len(bufs)]
-                    turn[0] += 1
-                    step(*args[:-1], buf, eps=LN_X_EPS, out_state=buf)
-                cold[name] = device_ms(rotate, 48)
-                del bufs
-            print(f"  B.13 B={b}, each launch on a state that is cold in L2 (six buffers in turn): "
-                  f"transposed state {cold['B.13']:.4f} ms, B.9 {cold['B.9']:.4f} ms")
+        def cold_ms(name):
+            make = torch.clone if name == "B.9" else transpose_state
+            bufs, turn = [make(state) for _ in range(copies)], [0]
+
+            def rotate():
+                buf = bufs[turn[0] % copies]
+                turn[0] += 1
+                decode_step(name, args, buf)()
+            ms = device_ms(rotate, 48)
+            del bufs
+            return ms
+        rounds = []
+        for order in (1, -1):
+            rounds.append({n: (device_ms(decode_step(n, args, hot[n]), 50), cold_ms(n))
+                           for n in names[::order]})
+        t13[b] = dict(rounds[1], plain=device_ms(lambda: wkv6_decode_step_plain(*args, eps=LN_X_EPS), 20))
+        for n in names:
+            print(f"  B.13 B={b}: {n:4s} hot {rounds[0][n][0]:.4f} / {rounds[1][n][0]:.4f} ms, "
+                  f"cold ({copies} buffers in turn) {rounds[0][n][1]:.4f} / {rounds[1][n][1]:.4f} ms "
+                  "(two rounds)")
+        print(f"  B.13 B={b}: plain {t13[b]['plain']:.4f} ms")
+        torch.cuda.empty_cache()
         if b == B:
             bound = roofline(nbytes(*args) + nbytes(args[0], state), {"fp32": 5 * B * H * N * N})
+    # ms: the cold reading, the one a decode step meets and the bound counts
+    # (the hot one is partly served from the L2)
+    b13, b9 = t13[B]["B.13"], t13[B]["B.9"]
     out["wkv6_decode_step_transposed"] = dict(
-        max_abs_err=max(e13), ms=t13[B][0], plain_ms=t13[B][2], **bound, replaced_ms=t13[B][1],
-        ms_at_b1=t13[1][0])
+        max_abs_err=max(e13), ms=b13[1], plain_ms=t13[B]["plain"], **bound, hot_ms=b13[0],
+        replaced_ms=b9[1], replaced_hot_ms=b9[0],
+        ms_at_b1=t13[1]["B.13"][1], hot_ms_at_b1=t13[1]["B.13"][0],
+        replaced_ms_at_b1=t13[1]["B.9"][1], replaced_hot_ms_at_b1=t13[1]["B.9"][0])
     return out
 
 

@@ -768,37 +768,117 @@ __global__ void __launch_bounds__(kClusterThreads) att_prep_cluster_kernel(
   cluster_barrier();
 }
 
-// B.11, and the first phase of B.12. One block a row. kSignal (B.12's first
-// launch): let the key product start streaming its weights at once.
-constexpr int kFfnPrepThreads = 256;
+// B.11, and the first phase of B.12 (kSignal: let the key product start
+// streaming its weights at once). One block a row; a row is read once and
+// its work is one global round trip and one block barrier deep:
+//   * at entry every thread issues all its loads, none of which depends on
+//     the statistics: a chunk of eight values of x, of shift (fp32) and of
+//     the four (C,) vectors, 16 or 32 bytes each (kVec), into registers;
+//   * the row sums (s, s2) of its chunk, then one float2 shuffle tree a warp,
+//     the warp partials through shared memory and one barrier, after which
+//     every thread adds the partials in increasing warp order (so all hold
+//     the same bits, and no second barrier is needed);
+//   * LayerNorm, the shift difference and both mixes from registers, stored
+//     as 16-byte words.
+// The block has ffn_prep_threads(C) threads, one chunk each up to C = 8 x
+// kFfnPrepMaxThreads. Without kVec (C % 8 != 0, a longer row, or a pointer
+// not 16-byte aligned) thread t takes chunks t, t + threads, ... with scalar
+// loads and reads x twice; the sums keep the same order (a thread's chunks in
+// turn, eight values each, then the same trees), which
+// ops/decode_fused.py:ffn_prep_warp_order_plain repeats.
+constexpr int kFfnPrepMaxThreads = 512;
 
-template <typename T, typename P, bool kSignal = false>
-__global__ void __launch_bounds__(kFfnPrepThreads) ffn_prep_kernel(
+__host__ __device__ inline int ffn_prep_threads(int C) {
+  const int warps = ((C + 7) / 8 + 31) / 32;
+  return warps * 32 > kFfnPrepMaxThreads ? kFfnPrepMaxThreads : warps * 32;
+}
+
+// eight values of T, P or fp32 as floats: one or two 16-byte words
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float* f) {
+#pragma unroll
+  for (int i = 0; i < 8; i += Vec16<T>::kN) Vec16<T>::load(p + i, f + i);
+}
+
+template <typename T>
+__device__ __forceinline__ void store8(T* p, const float* f) {
+#pragma unroll
+  for (int i = 0; i < 8; i += Vec16<T>::kN) Vec16<T>::store(p + i, f + i);
+}
+
+template <typename T, typename P, bool kSignal, bool kVec>
+__global__ void __launch_bounds__(kFfnPrepMaxThreads) ffn_prep_kernel(
     const T* __restrict__ x, const float* __restrict__ shift,
     const P* __restrict__ ln_scale, const P* __restrict__ ln_bias,
     const P* __restrict__ maa_k, const P* __restrict__ maa_r, T* __restrict__ xk,
     T* __restrict__ xr, float* __restrict__ xn_out, int C, float eps) {
-  __shared__ float red[kFfnPrepThreads / 32];
+  __shared__ float2 part[kFfnPrepMaxThreads / 32];
   if (kSignal) grid_dependents_launch();
-  const size_t row = blockIdx.x;
-  const T* xp = x + row * C;
-  float s = 0.f, s2 = 0.f;
-  for (int c = threadIdx.x; c < C; c += kFfnPrepThreads) {
-    const float v = to_f(xp[c]);
-    s += v;
-    s2 = fmaf(v, v, s2);
+  const size_t base = (size_t)blockIdx.x * C;
+  const int t = threadIdx.x, threads = blockDim.x;
+  const int lane = t & 31, warp = t >> 5;
+  float2 s = make_float2(0.f, 0.f);
+  // kVec: this thread's chunk, every load issued here
+  const int c0 = 8 * t;
+  const bool mine = kVec && c0 < C;
+  float xv[8], sh[8], sc[8], bi[8], mk[8], mr[8];
+  if (mine) {
+    load8(x + base + c0, xv);
+    load8(shift + base + c0, sh);
+    load8(ln_scale + c0, sc);
+    load8(ln_bias + c0, bi);
+    load8(maa_k + c0, mk);
+    load8(maa_r + c0, mr);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      s.x += xv[e];
+      s.y = fmaf(xv[e], xv[e], s.y);
+    }
   }
-  s = block_sum(s, red);
-  s2 = block_sum(s2, red);
-  const float mu = s / C;
-  const float var = fmaxf(s2 / C - mu * mu, 0.f);
+  if (!kVec) {
+    for (int c = 8 * t; c < C; c += 8 * threads)
+      for (int e = c; e < c + 8 && e < C; ++e) {
+        const float v = to_f(x[base + e]);
+        s.x += v;
+        s.y = fmaf(v, v, s.y);
+      }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s.x += __shfl_xor_sync(0xffffffffu, s.x, o);
+    s.y += __shfl_xor_sync(0xffffffffu, s.y, o);
+  }
+  if (lane == 0) part[warp] = s;
+  __syncthreads();
+  float2 total = make_float2(0.f, 0.f);
+  for (int i = 0; i < threads / 32; ++i) {
+    total.x += part[i].x;
+    total.y += part[i].y;
+  }
+  const float mu = total.x / C;
+  const float var = fmaxf(total.y / C - mu * mu, 0.f);
   const float rstd = rsqrtf(var + eps);
-  for (int c = threadIdx.x; c < C; c += kFfnPrepThreads) {
-    const float n = fmaf((to_f(xp[c]) - mu) * rstd, to_f(ln_scale[c]), to_f(ln_bias[c]));
-    const float d = shift[row * C + c] - n;
-    xk[row * C + c] = from_f<T>(fmaf(d, to_f(maa_k[c]), n));
-    xr[row * C + c] = from_f<T>(fmaf(d, to_f(maa_r[c]), n));
-    xn_out[row * C + c] = n;
+  if (mine) {
+    float n[8], ok[8], orr[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      n[e] = fmaf((xv[e] - mu) * rstd, sc[e], bi[e]);
+      const float d = sh[e] - n[e];
+      ok[e] = fmaf(d, mk[e], n[e]);
+      orr[e] = fmaf(d, mr[e], n[e]);
+    }
+    store8(xk + base + c0, ok);
+    store8(xr + base + c0, orr);
+    store8(xn_out + base + c0, n);
+  }
+  if (!kVec) {
+    for (int c = t; c < C; c += threads) {
+      const float n = fmaf((to_f(x[base + c]) - mu) * rstd, to_f(ln_scale[c]), to_f(ln_bias[c]));
+      const float d = shift[base + c] - n;
+      xk[base + c] = from_f<T>(fmaf(d, to_f(maa_k[c]), n));
+      xr[base + c] = from_f<T>(fmaf(d, to_f(maa_r[c]), n));
+      xn_out[base + c] = n;
+    }
   }
 }
 
@@ -1317,7 +1397,14 @@ static cudaError_t launch_ffn_prep(const void* x, const void* shift, const void*
                                    const void* ln_bias, const void* maa_k, const void* maa_r,
                                    void* xk, void* xr, void* xn_out, int B, int C, float eps,
                                    cudaStream_t stream) {
-  ffn_prep_kernel<T, P, kSignal><<<B, kFfnPrepThreads, 0, stream>>>(
+  const int threads = ffn_prep_threads(C);
+  bool vec = C % 8 == 0 && C <= 8 * threads;
+  for (const void* p : {x, shift, ln_scale, ln_bias, maa_k, maa_r,
+                        static_cast<const void*>(xk), static_cast<const void*>(xr),
+                        static_cast<const void*>(xn_out)})
+    vec = vec && reinterpret_cast<size_t>(p) % 16 == 0;
+  auto kernel = vec ? ffn_prep_kernel<T, P, kSignal, true> : ffn_prep_kernel<T, P, kSignal, false>;
+  kernel<<<B, threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(shift),
       static_cast<const P*>(ln_scale), static_cast<const P*>(ln_bias),
       static_cast<const P*>(maa_k), static_cast<const P*>(maa_r), static_cast<T*>(xk),

@@ -1,9 +1,9 @@
 // Tensor-core and asynchronous-copy primitives of the redesigned kernels
-// (ddlerp.cu, wkv_fused.cu, decode_fused.cu): warp-level mma.sync m16n8k16 on
-// bf16 operands with fp32 accumulators, ldmatrix to fetch its fragments from
-// shared memory, cp.async and tensor-map boxes (with their mbarriers) to
-// stage tiles from global memory without registers, and the
-// programmatic-dependent-launch controls.
+// (ddlerp.cu, wkv_fused.cu, decode_fused.cu, wkv_decode.cu): warp-level
+// mma.sync m16n8k16 on bf16 operands with fp32 accumulators, ldmatrix to
+// fetch its fragments from shared memory, cp.async, tensor-map boxes and bulk
+// copies (with their mbarriers) to move tiles between global and shared
+// memory without registers, and the programmatic-dependent-launch controls.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, tig = lane % 4):
 //   A (16 x 16, row):  a0 = A[g][2tig..+1]      a1 = A[g+8][2tig..+1]
@@ -108,6 +108,41 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       ::"r"(smem_addr(dst)), "l"(reinterpret_cast<unsigned long long>(map)), "r"(x), "r"(y),
       "r"(smem_addr(bar))
       : "memory");
+}
+
+// Bulk copies of one contiguous run (no tensor map): `bytes` a multiple of 16,
+// both addresses 16-byte aligned. A load completes on `bar` as a tensor-map
+// box does; stores from shared memory are tracked in bulk groups of the
+// issuing thread.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes, void* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+
+// closes the bulk group of the stores issued since the last commit
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until at most `kPending` of this thread's newest bulk groups still read
+// shared memory (the older ones' sources may be overwritten)
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending) : "memory");
+}
+
+// orders this thread's earlier shared-memory writes before later reads of
+// them by the asynchronous proxy (a bulk store, after a block barrier)
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Boxes of kBoxCols bf16 columns with the 128-byte swizzle: the byte offset

@@ -49,8 +49,9 @@ _SIGNATURES = {
     "rwkv_wkv6_fused": [_P] * 11 + [_I] * 4 + [_F, _I, _I, _P],
     # x, q, s, M, C, dtype, stream
     "rwkv_quantize_rows": [_P] * 3 + [_L, _I, _I, _P],
-    # r, k, v, w, u, g, scale, bias, state, out, out_state, B, H, N, eps, dtype, stream
-    "rwkv_wkv6_decode": [_P] * 11 + [_I] * 3 + [_F, _I, _P],
+    # r, k, v, w, u, g, scale, bias, state, out, out_state, B, H, N, eps, dtype,
+    # param dtype, stream
+    "rwkv_wkv6_decode": [_P] * 11 + [_I] * 3 + [_F, _I, _I, _P],
     # r, k, v, w, u, g, scale, bias, s0, dout, dsT, dy, drp, dg, dsc_p, dbi_p,
     # cT, B, T, H, N, eps, dtype, stream
     "rwkv_wkv6_bwd_forward": [_P] * 17 + [_I] * 4 + [_F, _I, _P],
@@ -74,8 +75,9 @@ _SIGNATURES = {
     "rwkv_wkv6_bwd_reverse_chunked": [_P] * 15 + [_I] * 5 + [_P],
     # in, out, P, M, stream
     "rwkv_sum_partials": [_P, _P, _I, _L, _P],
-    # B.9's arguments, the state and out_state transposed
-    "rwkv_wkv6_decode_transposed": [_P] * 11 + [_I] * 3 + [_F, _I, _P],
+    # B.9's arguments, the state and out_state transposed, and the grid before
+    # the stream
+    "rwkv_wkv6_decode_transposed": [_P] * 11 + [_I] * 3 + [_F, _I, _I, _I, _P],
     # x, shift, ln_scale, ln_bias, maas, w1, w2, dw1, dw2, time_decay, xr, xk, xv,
     # xg, w, xn, B, C, D, Dd, eps, dtype, param dtype, stream
     "rwkv_att_prep": [_P] * 16 + [_I] * 4 + [_F, _I, _I, _P],
@@ -97,6 +99,7 @@ _SIZE_FUNCTIONS = {
     "rwkv_att_prep_smem_bytes": [_I, _I, _I],
     "rwkv_ffn_block_slices": [_I],
     "rwkv_ffn_value_splits": [_I, _I, _I],
+    "rwkv_wkv6_decode_stream_blocks_per_sm": [_I, _I, _I],
 }
 
 _load_lock = threading.Lock()
@@ -199,6 +202,14 @@ def check_cuda(**tensors: torch.Tensor) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
     return devices.pop()
+
+
+def param_vectors(*params):
+    """Parameters of one call in one dtype the kernels take: as they are when
+    they already share one, else fp32. Returns (tensors, dtype code)."""
+    dtypes = {p.dtype for p in params}
+    dtype = dtypes.pop() if len(dtypes) == 1 and dtypes <= set(DTYPE_CODES) else torch.float32
+    return [p.to(dtype).contiguous() for p in params], DTYPE_CODES[dtype]
 
 
 def launch(name: str, device: torch.device, *args) -> None:

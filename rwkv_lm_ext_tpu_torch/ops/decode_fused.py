@@ -32,7 +32,10 @@ B.12's bf16 products stream their weights in stages of 64 rows by 256 values
 (tensor-map boxes) through a ring in shared memory, as programmatic
 dependent launches, and split the value product over F into
 ``ffn_value_splits(C, F, sms)`` slices, added in slice order;
-``ffn_block_split_plain`` is that order in plain PyTorch.
+``ffn_block_split_plain`` is that order in plain PyTorch. B.11 (and B.12's
+first launch) takes a row a block of ``ffn_prep_threads(C)`` threads, eight
+values a thread, and adds the row's sums in a fixed order:
+``ffn_prep_warp_order_plain`` repeats it.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. When an input requires grad the call is
@@ -57,6 +60,7 @@ CLUSTER_ROWS = 8       # most rows a B.10 cluster takes
 STREAM_K = 256         # k values a stage of B.12's products holds
 STREAM_ROWS = 64       # weight rows a block of B.12's products owns
 MAX_VALUE_SPLITS = 4   # most slices of B.12's value product
+FFN_PREP_MAX_THREADS = 512   # threads of a B.11 block, eight values each
 
 
 def b10_body(dtype: torch.dtype, C: int, D: int, Dd: int,
@@ -177,6 +181,56 @@ def ffn_prep_plain(
     return xk.to(x.dtype), xr.to(x.dtype), xn
 
 
+def ffn_prep_threads(C: int) -> int:
+    """Threads of B.11's block for a row of C values: one a chunk of eight,
+    in whole warps, at most FFN_PREP_MAX_THREADS."""
+    return min(FFN_PREP_MAX_THREADS, -(-C // 256) * 32)
+
+
+def ffn_prep_warp_order_plain(
+    x, shift, ln_scale, ln_bias, maa_k, maa_r, eps: float = 1e-5
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """ffn_prep_plain with the row sums in B.11's order: thread t of
+    ``ffn_prep_threads(C)`` owns chunks t, t + threads, ... of eight values
+    and sums x and x^2 (an fma, here in fp64 and rounded once) over them in
+    turn; the 32 lanes of a warp fold their sums pairwise (lane l with
+    l + 16, then + 8, ... as the shuffle tree does); the warps' sums are
+    added in increasing warp order. Then var = max(E[x^2] - mu^2, 0), as the
+    kernel and the Pallas kernel take it."""
+    B, C = x.shape
+    threads = ffn_prep_threads(C)
+    per = -(-C // (8 * threads))                 # chunks a thread owns
+    xf = torch.zeros(B, per * threads * 8, dtype=torch.float32, device=x.device)
+    xf[:, :C] = x.float()
+    xf = xf.view(B, per, threads, 8)
+    s = torch.zeros(B, threads, dtype=torch.float32, device=x.device)
+    s2 = torch.zeros_like(s)
+    for c in range(per):
+        for e in range(8):
+            v = xf[:, c, :, e]
+            s = s + v
+            s2 = (v.double() * v.double() + s2.double()).float()
+
+    def tree(a):
+        a = a.view(B, threads // 32, 32)
+        while a.shape[-1] > 1:
+            h = a.shape[-1] // 2
+            a = a[..., :h] + a[..., h:]
+        total = torch.zeros(B, dtype=torch.float32, device=x.device)
+        for w in range(threads // 32):
+            total = total + a[:, w, 0]
+        return total[:, None]
+
+    mu = tree(s) / C
+    var = torch.clamp(tree(s2) / C - mu * mu, min=0.0)
+    xn = (x.float() - mu) * torch.rsqrt(var + eps) * ln_scale.float().reshape(-1)
+    xn = xn + ln_bias.float().reshape(-1)
+    xx = shift.float() - xn
+    xk = xn + xx * maa_k.float().reshape(-1)
+    xr = xn + xx * maa_r.float().reshape(-1)
+    return xk.to(x.dtype), xr.to(x.dtype), xn
+
+
 def ffn_block_plain(
     x, shift, ln_scale, ln_bias, maa_k, maa_r, wk, wv, wr, eps: float = 1e-5
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -212,15 +266,6 @@ def ffn_block_split_plain(
     return (x.float() + torch.sigmoid(r) * kv).to(od), xn
 
 
-def _vectors(*params):
-    """The (C,)-shaped parameters and fp32 low-rank weights of one call, in one
-    dtype the kernels take: as they are when they already share one, else
-    fp32. Returns (tensors, dtype code)."""
-    dtypes = {p.dtype for p in params}
-    dtype = dtypes.pop() if len(dtypes) == 1 and dtypes <= set(_lib.DTYPE_CODES) else torch.float32
-    return [p.to(dtype).contiguous() for p in params], _lib.DTYPE_CODES[dtype]
-
-
 def _check_rows(x, shift, **vectors):
     if x.dim() != 2:
         raise ValueError(f"x must be (B, C), got {tuple(x.shape)}")
@@ -251,7 +296,7 @@ def _launch_att_prep(x, shift, ln_scale, ln_bias, maas, w1, w2, dw1, dw2, time_d
             f"(and 5D, Dd at most 2048); got C={C}, D={D}, Dd={Dd}")
     shift = shift.float().contiguous()
     w1, w2 = w1.to(x.dtype).contiguous(), w2.to(x.dtype).contiguous()
-    (ln_scale, ln_bias, maas, dw1, dw2, time_decay), pcode = _vectors(
+    (ln_scale, ln_bias, maas, dw1, dw2, time_decay), pcode = _lib.param_vectors(
         ln_scale, ln_bias, maas, dw1, dw2, time_decay)
     device = _lib.check_cuda(x=x, shift=shift, ln_scale=ln_scale, ln_bias=ln_bias, maas=maas,
                              w1=w1, w2=w2, dw1=dw1, dw2=dw2, time_decay=time_decay)
@@ -286,7 +331,7 @@ def _launch_att_prep(x, shift, ln_scale, ln_bias, maas, w1, w2, dw1, dw2, time_d
 def _launch_ffn_prep(x, shift, ln_scale, ln_bias, maa_k, maa_r, eps=1e-5):
     B, C = _check_rows(x, shift, ln_scale=ln_scale, ln_bias=ln_bias, maa_k=maa_k, maa_r=maa_r)
     shift = shift.float().contiguous()
-    (ln_scale, ln_bias, maa_k, maa_r), pcode = _vectors(ln_scale, ln_bias, maa_k, maa_r)
+    (ln_scale, ln_bias, maa_k, maa_r), pcode = _lib.param_vectors(ln_scale, ln_bias, maa_k, maa_r)
     device = _lib.check_cuda(x=x, shift=shift, ln_scale=ln_scale, ln_bias=ln_bias,
                              maa_k=maa_k, maa_r=maa_r)
     xk, xr = torch.empty(2, B, C, dtype=x.dtype, device=device).unbind(0)
@@ -309,7 +354,7 @@ def _launch_ffn_block(x, shift, ln_scale, ln_bias, maa_k, maa_r, wk, wv, wr, eps
                          f"its products); got C={C}, F={F}")
     shift = shift.float().contiguous()
     wk, wv, wr = (w.to(x.dtype).contiguous() for w in (wk, wv, wr))
-    (ln_scale, ln_bias, maa_k, maa_r), pcode = _vectors(ln_scale, ln_bias, maa_k, maa_r)
+    (ln_scale, ln_bias, maa_k, maa_r), pcode = _lib.param_vectors(ln_scale, ln_bias, maa_k, maa_r)
     device = _lib.check_cuda(x=x, shift=shift, ln_scale=ln_scale, ln_bias=ln_bias, maa_k=maa_k,
                              maa_r=maa_r, wk=wk, wv=wv, wr=wr)
     for name, t in (("x", x), ("wk", wk), ("wv", wv), ("wr", wr)):

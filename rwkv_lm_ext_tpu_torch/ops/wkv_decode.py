@@ -18,6 +18,17 @@ at :65), with ``transpose_state`` in the place of ``pack_T`` / ``unpack_T``
 (:51-62). As there, it is a layout option of the op that only an op-level
 bench reaches; the model keeps the logical layout.
 
+B.13 runs on a persistent grid of ``b13_grid(...)`` blocks in which block q
+takes the heads of ``b13_walk`` (q, q + grid, ...) and streams each head's
+whole state tile and its five vectors through a ring of ``STREAM_STAGES``
+stages in shared memory by bulk copies, updating the tile in its stage and
+storing it back. ``wkv6_decode_transposed_streamed_plain`` is that order in
+plain PyTorch.
+
+Both kernels read u, ln_scale and ln_bias in their own dtype when the three
+share fp32 or bf16 (a bf16 model's parameters), so a call launches the
+kernel alone.
+
 The JAX kernel is a ``custom_vjp`` whose backward recomputes through the XLA
 composition (:338-354); on CUDA tensors that require grad both steps here
 differentiate through their plain version the same way.
@@ -31,6 +42,22 @@ import torch
 from rwkv_lm_ext_tpu_torch.ops import _lib
 
 HEAD_SIZES = (16, 32, 64)
+STREAM_STAGES = 3      # stages of B.13's ring (kStreamStages)
+
+
+def b13_grid(heads: int, blocks_per_sm: int, sms: int) -> int:
+    """Blocks of B.13: as many as the card holds at once, at most one a
+    head."""
+    return max(1, min(heads, blocks_per_sm * sms))
+
+
+def b13_walk(heads: int, grid: int) -> torch.Tensor:
+    """(grid, steps): row q lists the heads block q of B.13 takes
+    in turn, q, q + grid, q + 2 grid, ..., then -1 past its last. Head m of
+    a block's walk uses stage m % STREAM_STAGES of its ring."""
+    steps = -(-heads // grid)
+    walk = torch.arange(steps * grid).view(steps, grid).t()     # walk[q, m] = q + m grid
+    return walk.masked_fill(walk >= heads, -1)
 
 
 def wkv6_decode_step_plain(
@@ -67,8 +94,56 @@ def wkv6_decode_step_transposed_plain(
     return out, snew_t.contiguous() if out_state is None else out_state.copy_(snew_t)
 
 
+def wkv6_decode_transposed_streamed_plain(
+    r, k, v, w, g, u, ln_scale, ln_bias, state_t, *, eps: float, grid: int, out_state=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """wkv6_decode_step_transposed_plain in B.13's order on ``grid`` blocks: block by block, the heads of ``b13_walk(B * H, grid)``,
+    each head's tile copied into stage m % STREAM_STAGES of its block's ring,
+    y_j = sum_i St[j][i] r_i taken there, the tile updated in its stage and
+    written back into ``out_state`` (new when None; it may be ``state_t``
+    itself: every tile is read whole before it is written)."""
+    B, C = r.shape
+    H, N = u.shape
+    rf, kf, vf, wf, gf = (t.float().reshape(B * H, N) for t in (r, k, v, w, g))
+    decay = torch.exp(-torch.exp(wf))
+    uf = u.float()
+    sc, bi = ln_scale.float().reshape(H, N), ln_bias.float().reshape(H, N)
+    if out_state is None:
+        out_state = torch.empty(B, H, N, N, dtype=torch.float32, device=state_t.device)
+    src, dst = state_t.reshape(B * H, N, N), out_state.view(B * H, N, N)
+    out = torch.empty(B * H, N, dtype=torch.float32, device=r.device)
+    ring = torch.empty(STREAM_STAGES, N, N, dtype=torch.float32, device=state_t.device)
+    for walk in b13_walk(B * H, grid).tolist():
+        for m, bh in enumerate(walk):
+            if bh < 0:
+                break
+            h, tile = bh % H, ring[m % STREAM_STAGES]
+            tile.copy_(src[bh])
+            y = tile @ rf[bh] + torch.sum(rf[bh] * uf[h] * kf[bh]) * vf[bh]
+            tile.copy_(decay[bh][None, :] * tile + kf[bh][None, :] * vf[bh][:, None])
+            dst[bh].copy_(tile)
+            mu = y.mean()
+            var = ((y - mu) ** 2).mean()
+            out[bh] = ((y - mu) * torch.rsqrt(var + eps) * sc[h] + bi[h]) * gf[bh]
+    return out.reshape(B, C).to(g.dtype), out_state
+
+
+def _stream_grid(heads: int, dtype: torch.dtype, pcode: int, N: int, device: torch.device) -> int:
+    """B.13's grid on ``device``: b13_grid of the blocks an SM holds, which
+    the library asks once per (dtype, parameter dtype, N, device), setting the
+    kernel's shared-memory limit with the first query, and keeps (so neither
+    runs again under CUDA-graph capture, say)."""
+    with torch.cuda.device(device):
+        n = _lib.library().rwkv_wkv6_decode_stream_blocks_per_sm(_lib.DTYPE_CODES[dtype], pcode, N)
+    if n <= 0:
+        raise RuntimeError(f"wkv6_decode_step_transposed: the occupancy query failed with CUDA "
+                           f"error {-n}")
+    return b13_grid(heads, n, torch.cuda.get_device_properties(device).multi_processor_count)
+
+
 def _launch(entry, counter, r, k, v, w, g, u, ln_scale, ln_bias, state, *, eps, out_state=None):
-    """Check the CUDA route's inputs and launch C entry point ``entry``."""
+    """Check the CUDA route's inputs and launch C entry point ``entry``; B.13's
+    entry also needs r, k, v, w, g 16-byte aligned and takes its grid."""
     B, C = r.shape
     H, N = u.shape
     if N not in HEAD_SIZES:
@@ -89,19 +164,24 @@ def _launch(entry, counter, r, k, v, w, g, u, ln_scale, ln_bias, state, *, eps, 
         if t.shape != (B, H, N, N) or t.dtype != torch.float32:
             raise ValueError(f"{name} must be ({B}, {H}, {N}, {N}) fp32")
     w = w.float()
-    u = u.float().contiguous()
-    ln_scale = ln_scale.float().contiguous()
-    ln_bias = ln_bias.float().contiguous()
+    (u, ln_scale, ln_bias), pcode = _lib.param_vectors(u, ln_scale, ln_bias)
     device = _lib.check_cuda(
         r=r, k=k, v=v, w=w, g=g, u=u, ln_scale=ln_scale, ln_bias=ln_bias,
         state=state, out_state=out_state,
     )
     if state.data_ptr() % 16 or out_state.data_ptr() % 16:
         raise ValueError("state and out_state must be 16-byte aligned")
+    grid = ()
+    if entry == "rwkv_wkv6_decode_transposed":
+        for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("g", g)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"wkv6_decode_step_transposed: B.13 reads {name} by bulk copies "
+                                 "and needs it 16-byte aligned")
+        grid = (_stream_grid(B * H, r.dtype, pcode, N, device),)
     out = torch.empty(B, C, dtype=g.dtype, device=device)
     _lib.launch(
         entry, device, r, k, v, w, u, g, ln_scale, ln_bias, state,
-        out, out_state, B, H, N, eps, _lib.DTYPE_CODES[r.dtype],
+        out, out_state, B, H, N, eps, _lib.DTYPE_CODES[r.dtype], pcode, *grid,
     )
     counter.launches += 1
     return out, out_state
@@ -169,7 +249,9 @@ def wkv6_decode_step_transposed(
     """``wkv6_decode_step`` on a transposed state: ``state_t`` and the state
     returned are (B, H, N_j, N_i) fp32, ``transpose_state`` of the logical
     ones; everything else as there, ``out_state=state_t`` included. CPU
-    tensors take the plain version; CUDA tensors launch B.13."""
+    tensors take the plain version; CUDA tensors launch B.13, which needs r,
+    k, v, w, g and the states 16-byte aligned (it raises by name if one is
+    not)."""
     return _step("rwkv_wkv6_decode_transposed", wkv6_decode_step_transposed,
                  wkv6_decode_step_transposed_plain,
                  r, k, v, w, g, u, ln_scale, ln_bias, state_t, eps, out_state)

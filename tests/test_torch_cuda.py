@@ -63,6 +63,7 @@ from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
     ffn_block_split_plain,
     ffn_prep_fused,
     ffn_prep_plain,
+    ffn_prep_warp_order_plain,
     ffn_value_splits,
 )
 from rwkv_lm_ext_tpu_torch.ops.ddlerp import (
@@ -91,6 +92,7 @@ from rwkv_lm_ext_tpu_torch.ops.wkv import (
     wkv_plain,
 )
 from rwkv_lm_ext_tpu_torch.ops.wkv_decode import (
+    b13_grid,
     transpose_state,
     wkv6_decode_step,
     wkv6_decode_step_plain,
@@ -1038,6 +1040,102 @@ def test_wkv6_decode_transposed_kernel(dev, dtype, N, B):
     _close(out, b9_out, REL[dtype])
     fresh_out, fresh_s = wkv6_decode_step_transposed(*args, transpose_state(state), eps=eps)
     assert torch.equal(fresh_out, out) and torch.equal(fresh_s, s_t)
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N", [16, 32, 64])
+@pytest.mark.parametrize("B", [1, 2, 63, 64, 130])
+def test_wkv6_decode_transposed_stream_body(dev, dtype, N, B, in_place):
+    """B.13's persistent grid at C=2048 (from one head a block up to walks
+    of many heads a block, ragged at B=63 and 130): against the plain
+    version within the limits of test_wkv6_decode_transposed_kernel, its
+    state B.9's bit for bit after a transpose, two calls bit-equal, in place
+    and not; with u, ln_scale and ln_bias in fp32 (the kernels' other
+    parameter dtype) B.13 and B.9 give the same bits as with them in
+    ``dtype``."""
+    rng = np.random.default_rng(B * N + 2)
+    H, eps = 2048 // N, 6.4e-4
+    C = H * N
+    r, k, v, g = (_on(dev, dtype, rng, B, C) for _ in range(4))
+    w = torch.from_numpy(rng.uniform(-8, 2.5, size=(B, C)).astype(np.float32)).to(dev)
+    u = _on(dev, dtype, rng, H, N, scale=0.5)
+    sc, bi = _on(dev, dtype, rng, C, scale=0.1, loc=1.0), _on(dev, dtype, rng, C, scale=0.1)
+    state = _on(dev, torch.float32, rng, B, H, N, N, scale=0.3)
+    args = (r, k, v, w, g, u, sc, bi)
+    want_out, want_s = wkv6_decode_step_plain(*(a.float() for a in args), state, eps=eps)
+    b9 = wkv6_decode_step(*args, state, eps=eps)
+    buf = transpose_state(state)
+    out_state = buf if in_place else None
+    got = _counted("wkv6_decode_step_transposed", lambda: wkv6_decode_step_transposed(
+        *args, buf, eps=eps, out_state=out_state))
+    out, s_t = got
+    assert (s_t.data_ptr() == buf.data_ptr()) == in_place
+    assert out.dtype == dtype and out.shape == (B, C) and s_t.shape == (B, H, N, N)
+    _close(out, want_out, REL[dtype], "out")
+    _close(transpose_state(s_t), want_s, 1e-5, "state")
+    assert torch.equal(transpose_state(s_t), b9[1])
+    assert _same_bits(got, wkv6_decode_step_transposed(*args, transpose_state(state), eps=eps))
+    f32_params = (*args[:5], u.float(), sc.float(), bi.float())
+    assert _same_bits(got, wkv6_decode_step_transposed(*f32_params, transpose_state(state), eps=eps))
+    assert _same_bits(b9, wkv6_decode_step(*f32_params, state, eps=eps))
+
+
+def test_stream_body_grid_fits_the_card(dev):
+    """The card holds at least one block of B.13 an SM for every dtype,
+    parameter dtype and N (the ring fits), four at N=64; the grid the
+    wrapper passes is b13_grid of that."""
+    lib = _lib.library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in DTYPES:
+        for pdtype in DTYPES:
+            for N in (16, 32, 64):
+                per_sm = lib.rwkv_wkv6_decode_stream_blocks_per_sm(
+                    _lib.DTYPE_CODES[dtype], _lib.DTYPE_CODES[pdtype], N)
+                assert per_sm >= (4 if N == 64 else 1), (dtype, pdtype, N, per_sm)
+                assert b13_grid(64 * 2048 // N, per_sm, sms) == min(64 * 2048 // N, per_sm * sms)
+
+
+def test_stream_body_refuses_unaligned_vectors_by_name(dev):
+    rng = np.random.default_rng(11)
+    B, H, N = 2, 4, 64
+    C = H * N
+    r = _on(dev, torch.bfloat16, rng, B * C + 1)[1:].view(B, C)     # 2 bytes past 16
+    k, v, g = (_on(dev, torch.bfloat16, rng, B, C) for _ in range(3))
+    w = _on(dev, torch.float32, rng, B, C)
+    u, sc, bi = _on(dev, torch.float32, rng, H, N), _on(dev, torch.float32, rng, C), _on(
+        dev, torch.float32, rng, C)
+    state = transpose_state(_on(dev, torch.float32, rng, B, H, N, N))
+    before = launch_counts()["wkv6_decode_step_transposed"]
+    with pytest.raises(ValueError, match="B.13 reads r by bulk copies"):
+        wkv6_decode_step_transposed(r, k, v, w, g, u, sc, bi, state, eps=1e-5)
+    assert launch_counts()["wkv6_decode_step_transposed"] == before
+
+
+@pytest.mark.parametrize("dtype,pdtype", [(torch.float32, torch.float32),
+                                          (torch.bfloat16, torch.bfloat16),
+                                          (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("B", [1, 64, 130])
+@pytest.mark.parametrize("C", [100, 264, 2048])
+def test_ffn_prep_one_round_trip_body(dev, dtype, pdtype, B, C):
+    """B.11's body at C that is not a multiple of 8 (its generic path), a
+    multiple of 8 that leaves most of a warp idle, and the 1B6 width: within
+    PREP_REL of the plain version and of the mirror of its sums' order,
+    bit-equal twice; a row that starts 2 bytes past a 16-byte boundary takes
+    the generic path and gives the same values."""
+    rng = np.random.default_rng(B + C)
+    args = _ffn_args(dev, dtype, pdtype, rng, B, C)
+    got = _counted("ffn_prep_fused", lambda: ffn_prep_fused(*args))
+    for want, what in ((ffn_prep_plain(*args), "plain"), (ffn_prep_warp_order_plain(*args), "mirror")):
+        for name, g, w in zip(("xk", "xr", "xn"), got, want):
+            assert g.shape == (B, C)
+            _close(g, w, PREP_REL[dtype], f"{name} against the {what}")
+    assert _same_bits(got, ffn_prep_fused(*args))
+    x = torch.empty(B * C + 1, dtype=dtype, device=dev)[1:].view(B, C)
+    x.copy_(args[0])
+    shifted = ffn_prep_fused(x, *args[1:])
+    for name, g, w in zip(("xk", "xr", "xn"), shifted, ffn_prep_plain(*args)):
+        _close(g, w, PREP_REL[dtype], f"{name}, misaligned x")
 
 
 @pytest.mark.parametrize("name", ["att_prep", "ffn_prep", "ffn_block", "decode", "decode_transposed"])
