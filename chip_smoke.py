@@ -58,12 +58,19 @@ Phases, each printing its own lines:
      saved as a .pth and served by `python -m rwkv_lm_ext_tpu_torch.serve.cli
      --quant int8c` in a subprocess (/generate blocking and SSE, /stats),
      then built in this process by the same CLI code, served, and held
-     against the int8c plain route; int8c embeddings against the int8c plain
+     against the int8c plain route, one blocking /generate under the
+     profiler for B.9's and B.4's launches on the device (its decode blocks
+     are graph replays, which the wrappers' counters do not see), held
+     against steps x layers; int8c embeddings against the int8c plain
      route;
   6. serving readings (not benchmark cells): embedded seq/s at B=64, T=512
      (a data chain with a canary: its last result must come back from its
      last input and move when that input changes), decode tok/s of
-     generate_batch at B=64, single-stream tok/s of generate, bf16 and int8c;
+     generate_batch at B=64 and single-stream tok/s of generate, each with
+     CUDA-graph blocks and with eager blocks in turns (the same tokens), a
+     generate with other knobs and length (no new capture), and the wall
+     time of one 16-step graph block alone beside its device operations and
+     busy time, bf16 and int8c;
   7. training gradients of a 2-layer full-width model at B=8, T=512, kernel
      route against plain route: LoRA A/B in fp32 and in bf16, remat on
      against off, and state tuning's time_state;
@@ -105,7 +112,19 @@ Phases, each printing its own lines:
      B=64 and B=1: ms a step over a data chain with a canary, device operations and busy
      time of one step, whose profile must name B.10's cluster body and B.12's
      stream kernels) and the op-level comparison of the decode step on the
-     logical and on the transposed state.
+     logical and on the transposed state;
+ 15. the serving stack, bf16 then int8c: CUDA-graph decode blocks against the
+     same blocks run eagerly, on both routes (generate at K = 1 and 16, greedy
+     and sampled; the continuous batcher at K = 16 with 16 slots), tokens and
+     final states bit-equal, and each route's launches by kernel in one
+     replay (profiler); then `python -m rwkv_lm_ext_tpu_torch.serve.cli`
+     with the batcher, the prefix cache, two slot-LoRA adapters and a named
+     state (a subprocess): 32 concurrent /generate requests, 200 through the
+     batcher, /process_text, GET /, /stats; the greedy answers again through
+     a batcher in this process, each token the argmax of its route's
+     teacher-forced logits under its adapter, held to the fp32 plain route
+     (bf16: cosine >= 0.999; int8c: as phase 5 holds int8c); the batcher's
+     aggregate tok/s.
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no result. Without a CUDA device it exits non-zero
@@ -114,6 +133,8 @@ before doing anything.
 from __future__ import annotations
 
 import collections
+import contextlib
+import copy
 import functools
 import importlib
 import json
@@ -140,6 +161,7 @@ from rwkv_lm_ext_tpu_torch.adapters.lora import (
     merge_lora,
 )
 from rwkv_lm_ext_tpu_torch.adapters.quant import QuantLinear, quantize_model
+from rwkv_lm_ext_tpu_torch.adapters.slot_lora import build_slot_lora, set_slot_idx
 from rwkv_lm_ext_tpu_torch.checkpoint.convert import (
     load_rwkv_checkpoint,
     load_state_dict_into,
@@ -149,15 +171,18 @@ from rwkv_lm_ext_tpu_torch.config import EMB_ID, MASK_ID, TrainConfig, rwkv6_1b6
 from rwkv_lm_ext_tpu_torch.data.collators import mlm_collate
 from rwkv_lm_ext_tpu_torch.data.sft import encode_sft_example
 from rwkv_lm_ext_tpu_torch.data.tokenizer import WorldTokenizer
+from rwkv_lm_ext_tpu_torch.infer import engine as engine_module
+from rwkv_lm_ext_tpu_torch.infer.continuous import ContinuousBatcher
 from rwkv_lm_ext_tpu_torch.infer.encoders import BiEncoder
 from rwkv_lm_ext_tpu_torch.infer.engine import GenerationEngine
 from rwkv_lm_ext_tpu_torch.infer.sampling import SamplingParams
+from rwkv_lm_ext_tpu_torch.infer.state_cache import PrefixStateCache
 from rwkv_lm_ext_tpu_torch.models.bidirectional import encoder_forward, sequence_lengths
 from rwkv_lm_ext_tpu_torch.models.decode import rwkv_decode_step
 from rwkv_lm_ext_tpu_torch.models.heads import embed_sequences
 from rwkv_lm_ext_tpu_torch.models.init import init_rwkv_params
 from rwkv_lm_ext_tpu_torch.models.rwkv import KERNEL_OPS, PLAIN_OPS, RWKV
-from rwkv_lm_ext_tpu_torch.models.state import init_model_state
+from rwkv_lm_ext_tpu_torch.models.state import clone_state, init_model_state
 from rwkv_lm_ext_tpu_torch.ops import _lib, launch_counts, reset_launch_counts, wkv_fused
 from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
     _launch_att_prep,
@@ -1210,11 +1235,28 @@ def generate_requests(base: str) -> None:
     print(f"  /stats: {stats['requests']}, latency {stats['generate_latency_ms']}")
 
 
+def device_launches(fn) -> tuple:
+    """(fn()'s result, its device kernel launches by name) from one profiler
+    trace: replays of CUDA graphs count each kernel they run, which the
+    wrappers' counters (bumped where a kernel is recorded into a graph, at
+    capture) do not see."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(0.25)
+    return out, collections.Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
 def phase_int8c_cli(path: str) -> tuple:
     """Serve the saved model with --quant int8c through the CLI: as a
     subprocess, then built by the same CLI code in this process (where the
-    launch counts can be reset). Returns (int8c model, launch counts of the
-    in-process /generate requests)."""
+    launch counts can be reset). The wrappers' counts run from before the
+    server's warm-up (which captures the engine's decode graphs) to after
+    the /generate requests; then one more blocking /generate under the
+    profiler, whose decode blocks are graph replays, gives B.9's and B.4's
+    launches on the device, held against steps x layers. Returns (int8c
+    model, those device launches by counter name)."""
     args = ["--model", path, "--quant", "int8c", "--platform", DEV, "--port", "0"]
     t0 = time.perf_counter()
     with CliServer(args) as base:
@@ -1226,19 +1268,32 @@ def phase_int8c_cli(path: str) -> tuple:
     model_q = service.engine.model
     check(all(isinstance(blk.ffn.value, QuantLinear) and blk.ffn.value.mode == "int8c"
               for blk in model_q.blocks), "the CLI's model is not int8c")
+    greedy = {"prompt": SHORT, "max_tokens": 32, "temperature": 0.0, "token_stop": []}
+    reset_launch_counts()
     with Served(service) as base:
-        reset_launch_counts()
-        code, out = post(base + "/generate", {"prompt": SHORT, "max_tokens": 32,
-                                              "temperature": 0.0, "token_stop": []})
-        events = post_sse(base + "/generate", {"prompt": SHORT, "max_tokens": 32, "stream": True,
-                                               "temperature": 0.0, "token_stop": []})
+        code, out = post(base + "/generate", greedy)
+        events = post_sse(base + "/generate", {**greedy, "stream": True})
         counts = launch_counts()
-    check(code == 200 and events[-1]["output"] == out["output"], "in-process int8c /generate")
-    print(f"  in-process CLI build, /generate blocking + SSE: launches {counts}")
+        (code2, again), device = device_launches(lambda: post(base + "/generate", greedy))
+    check(code == code2 == 200 and events[-1]["output"] == out["output"] == again["output"],
+          "in-process int8c /generate")
+    print(f"  in-process CLI build, warm-up + /generate blocking + SSE: wrapper launches {counts}")
     check(all(n > 0 for k, n in counts.items()
               if k not in NO_BACKWARD and k not in NO_FUSED and k != "wkv"),
-          f"a kernel did not run in /generate: {counts}")
-    return model_q, counts
+          f"a kernel's wrapper did not run in /generate: {counts}")
+    pieces = len(engine_module._chunk_plan(len(WorldTokenizer().encode(SHORT)),
+                                           service.engine.chunk_len))
+    want = {"wkv6_decode_step": ("wkv6_decode_kernel", 24 * 32),
+            "quantize_rows": ("quant_rows", INT8C_PER_LAYER * 24 * (32 + pieces))}
+    launches = {}
+    for key, (kernel, n) in want.items():
+        launches[key] = sum(c for name, c in device.items() if kernel in name)
+        # the profiler may lose one record in ten
+        check(n * 0.9 <= launches[key] <= n, f"/generate ran {launches[key]} {kernel} on the "
+              f"device, not {n} (32 decode steps and {pieces} prefill pieces of 24 layers)")
+    print(f"  one more blocking /generate (32 tokens: two 16-step graph replays after a prefill of "
+          f"{pieces} pieces) under the profiler: device launches {launches}")
+    return model_q, launches
 
 
 def layer_fidelity(model, prompt: torch.Tensor, token: torch.Tensor) -> float:
@@ -1364,32 +1419,355 @@ def phase_throughput(model, cfg, label: str, smi: str) -> None:
                      f"one embedding forward with its chain, {label}")
 
 
+def eager_blocks():
+    """Within it, the engine's and the batcher's decode blocks run their
+    private eager bodies on the card in place of the graph replays: the
+    other side of the graph-against-eager checks and readings."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(engine_module._Decoder, "_replay",
+                                          engine_module._Decoder._block))
+    stack.enter_context(mock.patch.object(ContinuousBatcher, "_replay",
+                                          lambda self, key, body: body()))
+    return stack
+
+
+def timed_s(fn) -> tuple:
+    """(fn()'s result, its wall seconds), synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def phase_decode_readings(model, label: str, smi: str) -> None:
     """Decode tok/s: generate_batch at B=64 (16-token prompts, 128 new
     tokens, default sampling without stops) and single-stream generate
-    (B=1, 128 tokens, block_size=16). Host clock around synchronised work."""
+    (B=1, 128 tokens, block_size=16), as CUDA-graph blocks twice and as
+    eager blocks once, in turns (host clock around synchronised work; both
+    sides give the same tokens); a generate with other knobs and a length
+    that is no multiple of 16 (no new capture); then one 16-step block of
+    each alone: its wall time (replay and fetch, synchronised, a mean of
+    BLOCK_REPS), and under the profiler its device operations and busy
+    time."""
     engine = GenerationEngine(model)
     sp = SamplingParams(token_stop=())
     gen = torch.Generator(device=DEV).manual_seed(7)
     prompts = torch.randint(4, model.cfg.vocab_size, (B, 16), device=DEV, generator=gen).tolist()
-    engine.generate_batch(prompts, max_tokens=2, sampling=sp)       # warm-up
-    torch.cuda.synchronize()
+    runs = {
+        "generate_batch": lambda: engine.generate_batch(prompts, max_tokens=128, sampling=sp, seed=1),
+        "generate": lambda: engine.generate(prompts[0], max_tokens=128, sampling=sp,
+                                            block_size=16, seed=1),
+    }
+    rows = {"generate_batch": B, "generate": 1}
+    decoders = {"generate_batch": engine._decoder(sp, B, 0),
+                "generate": engine._decoder(sp, 1, engine_module.STOP_CAPACITY)}
+    outs, secs = {}, collections.defaultdict(list)
+    for fn in runs.values():                     # warm-up: the captures
+        fn()
+    for mode in ("graph", "eager", "graph"):
+        with eager_blocks() if mode == "eager" else contextlib.nullcontext():
+            for name, fn in runs.items():
+                outs[name, mode], t = timed_s(fn)
+                secs[name, mode].append(t)
+    for name in runs:
+        check(outs[name, "graph"] == outs[name, "eager"],
+              f"{name} {label}: graph blocks and eager blocks gave different tokens")
+    check(all(len(r) == 128 for r in outs["generate_batch", "graph"])
+          and len(outs["generate", "graph"]) == 128, "decode readings: not 128 tokens a row")
+    other = SamplingParams(temperature=0.7, top_p=0.5, alpha_presence=0.1, repetition_penalty=1.2,
+                           token_stop=())
+    graphs = {n: set(d.graphs) for n, d in decoders.items()}
+    varied, t_varied = timed_s(lambda: engine.generate(prompts[1], max_tokens=100, sampling=other,
+                                                       block_size=16, seed=2))
+    check(len(varied) == 100 and {n: set(d.graphs) for n, d in decoders.items()} == graphs
+          and len(engine._decoders) == 2, f"{label}: other knobs or length captured a new graph")
+    print(f"  reading: generate with other knobs (temperature 0.7, top_p 0.5, penalties) and 100 "
+          f"new tokens on the warm engine ({label}): {t_varied * 1e3:.1f} ms, "
+          f"{100 / t_varied:.1f} tok/s, no new capture, on {smi}")
+    for name, b in rows.items():
+        rates = {m: [b * 128 / t for t in secs[name, m]] for m in ("graph", "eager")}
+        dec = decoders[name]
+        with torch.inference_mode():
+            _, wall = timed_s(lambda: [dec.run(16, engine._gen).tolist() for _ in range(BLOCK_REPS)])
+            ops = device_ops(lambda: dec.run(16, engine._gen), 1)
+        busy, wall = busy_us(ops) / 1e3, wall / BLOCK_REPS * 1e3
+        graph = " / ".join(f"{r:.1f}" for r in rates["graph"])
+        print(f"  reading: {name} (B={b}, 128 new tokens, {label}): graph blocks {graph} tok/s, "
+              f"eager blocks {rates['eager'][0]:.1f} tok/s (in turns: graph, eager, graph); one "
+              f"16-step graph block alone: {wall:.3f} ms wall (replay and fetch, mean of "
+              f"{BLOCK_REPS}), {len(ops)} device ops, busy {busy:.3f} ms "
+              f"({100 * busy / wall:.1f} % of its wall) on {smi}")
+
+
+# 16-step blocks timed alone a decode reading
+BLOCK_REPS = 5
+# the graph-against-eager checks: block sizes and the tokens generated at each
+GRAPH_TOKENS = {1: 4, 16: 32}
+SAMPLED = SamplingParams(temperature=1.0, top_p=0.9, token_stop=())
+SERVE_SLOTS = SERVE_BLOCK = 16
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 32, 16, 64
+SERVE_LORA = LoraConfig(r=8, alpha=16.0)
+
+
+def replay_counts(quantized: bool, fused: bool, k: int) -> dict:
+    """Device launches of one k-step block replay by kernel name (as the
+    profiler names them): the per-step counts of the route times k."""
+    per = ({"layer_norm_kernel": 2, "att_prep_cluster_kernel": 24, "wkv6_decode_kernel": 24,
+            "ffn_prep_kernel": 24} if fused else
+           {"layer_norm_kernel": 26, "tmix_prologue": 24, "wkv6_decode_kernel": 24})
+    if quantized:
+        per["quant_rows"] = INT8C_PER_LAYER * 24
+    elif fused:
+        per["ffn_out_kernel"] = 24
+    return {name: n * k for name, n in per.items()}
+
+
+def check_replay(fn, quantized: bool, fused: bool, k: int, what: str) -> tuple:
+    """Profile one call of fn (one block replay): every kernel of the route
+    launched k times a step (the profiler may lose one record in ten) and no
+    K1. Returns (device ops, busy ms) of the replay."""
+    with torch.inference_mode():
+        ops = device_ops(fn, 1)
+    names = [e.name for e in ops]
+    for name, want in replay_counts(quantized, fused, k).items():
+        got = sum(name in n for n in names)
+        check(want * 0.9 <= got <= want, f"{what}: {got} launches of {name} a replay, not {want}")
+    check(not any("wkv6_chunked" in n or "wkv6_sequential" in n for n in names),
+          f"{what}: K1 ran in a decode block")
+    return len(ops), busy_us(ops) / 1e3
+
+
+def states_equal(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def phase_graph_blocks(model, label: str) -> None:
+    """CUDA-graph decode blocks against the same blocks run eagerly, on both
+    routes: generate at K = 1 and 16 (greedy and sampled, 16-token prompt),
+    and the batcher at K = 16 with 16 slots (16 requests, greedy and sampled
+    rows); tokens and final states bit-equal (torch.equal). One replay of
+    each under the profiler for its launches by kernel."""
+    quantized = isinstance(model.blocks[0].ffn.key, QuantLinear)
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    vocab = model.cfg.vocab_size
+    prompts = torch.randint(4, vocab, (SERVE_SLOTS, 16), device=DEV, generator=gen).tolist()
+    for fused in (False, True):
+        route = "fused" if fused else "unfused"
+        eng = GenerationEngine(model, fused_prep=fused)
+        for k, n in GRAPH_TOKENS.items():
+            for name, sp in (("greedy", GREEDY), ("sampled", SAMPLED)):
+                sides = []
+                for mode in ("graph", "eager"):
+                    with eager_blocks() if mode == "eager" else contextlib.nullcontext():
+                        sides.append(eng.generate(prompts[0], max_tokens=n, sampling=sp, seed=5,
+                                                  block_size=k, return_state=True))
+                (out_g, st_g), (out_e, st_e) = sides
+                check(len(out_g) == n and out_g == out_e and states_equal(st_g, st_e),
+                      f"generate {label} {route} K={k} {name}: graph and eager blocks differ")
+        # greedy and sampled, both lengths: one decoder, one graph a length
+        dec = eng._decoder(GREEDY, 1, engine_module.STOP_CAPACITY)
+        check(len(eng._decoders) == 1 and set(dec.graphs) == set(GRAPH_TOKENS),
+              f"generate {label} {route}: graphs {[sorted(d.graphs) for d in eng._decoders.values()]}")
+        ops, busy = check_replay(lambda: dec.run(16, eng._gen), quantized, fused, 16,
+                                 f"generate {label} {route}")
+
+        def batched():
+            batcher = ContinuousBatcher(eng, n_slots=SERVE_SLOTS, sampling=GREEDY,
+                                        block_size=SERVE_BLOCK, seed=9)
+            rids = [batcher.submit(p, max_tokens=32, sampling=SAMPLED if i % 2 else GREEDY)
+                    for i, p in enumerate(prompts)]
+            out = batcher.run()
+            return [out[r] for r in rids], clone_state(batcher._state), batcher
+
+        toks_g, st_g, batcher = batched()
+        with eager_blocks():
+            toks_e, st_e, _ = batched()
+        check(all(len(t) == 32 for t in toks_g) and toks_g == toks_e and states_equal(st_g, st_e),
+              f"batcher {label} {route}: graph and eager blocks differ")
+        b_ops, b_busy = check_replay(lambda: batcher._run(SERVE_BLOCK), quantized, fused, 16,
+                                     f"batcher {label} {route}")
+        print(f"  {label} {route}: generate at K=1 and 16 (greedy, sampled) and the batcher at "
+              f"K={SERVE_BLOCK} with {SERVE_SLOTS} slots: graph blocks bit-equal to eager blocks "
+              f"(tokens and final state); a 16-step replay: generate (B=1) {ops} device ops, busy "
+              f"{busy:.3f} ms; batcher (B={SERVE_SLOTS}) {b_ops} ops, busy {b_busy:.3f} ms; "
+              f"launches by kernel {replay_counts(quantized, fused, 16)} a replay")
+
+
+def write_serving_files(tmp: Path, model) -> dict:
+    """Two r=8 LoRA adapters (the reference key layout) and one state-tuning
+    checkpoint with its states config, seeded: {"a", "b", "states"} paths."""
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    files = {}
+    for name in ("a", "b"):
+        sd = {}
+        for key, ab in init_lora_params(model, SERVE_LORA, gen).items():
+            B_ = torch.randn(ab["B"].shape, generator=gen, device=DEV) * 0.01
+            sd[f"{key}.lora_A"] = ab["A"].t().contiguous().cpu()
+            sd[f"{key}.lora_B"] = B_.t().contiguous().cpu()
+        files[name] = tmp / f"lora_{name}.pth"
+        torch.save(sd, files[name])
+    cfg = model.cfg
+    states = {f"blocks.{i}.att.time_state":
+              0.3 * torch.randn(cfg.n_head, cfg.head_size, cfg.head_size, generator=gen,
+                                device=DEV).cpu()
+              for i in range(cfg.n_layer)}
+    torch.save(states, tmp / "states_sum.pth")
+    files["states"] = tmp / "states.json"
+    files["states"].write_text(json.dumps(
+        {"sum": {"path": str(tmp / "states_sum.pth"), "template": "Summarize: {input}"}}))
+    return files
+
+
+def serving_prompts(tok) -> list:
+    """SERVE_REQUESTS texts of exactly SERVE_PROMPT tokens, seeded: words
+    that are one token each, drawn until the text encodes to that count."""
+    candidates = [" " + w for w in (SHORT + " " + MIXED).split()] + [
+        " the", " of", " and", " model", " state", " token", " serving", " graph", " batch",
+        " stream", " request", " answer", " north", " river", " light", " small", " green"]
+    words = [w for w in candidates if len(tok.encode(w)) == 1]
+    rng = np.random.default_rng(33)
+    prompts = []
+    while len(prompts) < SERVE_REQUESTS:
+        text = "".join(rng.choice(words, SERVE_PROMPT))
+        if len(tok.encode(text)) == SERVE_PROMPT:
+            prompts.append(text)
+    return prompts
+
+
+def teacher_forced_rows(model, prompts: list, outs: list, idx, *, reference: bool) -> torch.Tensor:
+    """The batcher's own computation of each row's logits with its output
+    fed back: the prompt's prefix prefilled at B = len(prompts) in the
+    engine's chunk plan (logits skipped), then one decode step a token from
+    the last prompt token on, every row under its adapter (``idx``, for a
+    slot-LoRA model). (B, n, V) fp32: the logits each output token was
+    picked from."""
+    n = len(outs[0])
+    with torch.inference_mode():
+        if idx is not None:
+            set_slot_idx(model, idx)
+        prompt = torch.tensor(prompts, device=DEV)
+        state, off = None, 0
+        for size in engine_module._chunk_plan(prompt.shape[1] - 1, 256):
+            _, state = model(prompt[:, off: off + size], state, return_hidden=True,
+                             return_logits=False, reference=reference)
+            off += size
+        feed = torch.cat([prompt[:, -1:], torch.tensor(outs, device=DEV)[:, :-1]], 1)
+        rows = []
+        for t in range(n):
+            lg, state = rwkv_decode_step(model, feed[:, t], state, out=state, reference=reference)
+            rows.append(lg.float())
+    return torch.stack(rows, 1)
+
+
+def phase_serving_stack(path: str, files: dict, model, label: str, plain, unquantized=None) -> dict:
+    """`python -m rwkv_lm_ext_tpu_torch.serve.cli` with the batcher (16 slots,
+    16-step graph blocks), the prefix cache, two slot adapters and a named
+    state: SERVE_REQUESTS concurrent /generate requests (prompts of
+    SERVE_PROMPT tokens, SERVE_NEW new tokens, adapters base / a / b in turns,
+    greedy and sampled in turns), /process_text, GET /, /stats. Every answer
+    200 through the batcher. Then the greedy requests again through a batcher
+    over the same model built in this process: the same texts; each output
+    token is the argmax of the route's teacher-forced logits under its own
+    adapter; those logits hold cosine >= 0.999 to the fp32 plain route (bf16),
+    or (int8c) lie no farther from the int8c plain route than int8c plain
+    lies from the unquantized plain route, as phase 5 holds int8c. Returns
+    the readings."""
+    quantized = isinstance(model.blocks[0].ffn.key, QuantLinear)
+    tok = WorldTokenizer()
+    prompts = serving_prompts(tok)
+    adapters = [("base", "a", "b")[i % 3] for i in range(SERVE_REQUESTS)]
+    greedy = {"temperature": 0.0, "top_p": 1.0, "alpha_presence": 0.0, "alpha_frequency": 0.0,
+              "token_stop": []}
+    sampled = {"temperature": 0.8, "top_p": 0.9, "alpha_presence": 0.3, "token_stop": []}
+    args = ["--model", path, "--platform", DEV, "--port", "0",
+            "--batcher-slots", str(SERVE_SLOTS), "--batcher-block", str(SERVE_BLOCK),
+            "--prefix-cache", "8", "--slot-adapter", f"a={files['a']}",
+            "--slot-adapter", f"b={files['b']}", "--lora-r", "8", "--lora-alpha", "16",
+            "--states-config", str(files["states"])] + (["--quant", "int8c"] if quantized else [])
+    answers = [None] * SERVE_REQUESTS
     t0 = time.perf_counter()
-    rows = engine.generate_batch(prompts, max_tokens=128, sampling=sp, seed=1)
-    torch.cuda.synchronize()
-    batch_s = time.perf_counter() - t0
-    check(all(len(r) == 128 for r in rows), "generate_batch did not give 128 tokens a row")
-    engine.generate(prompts[0], max_tokens=4, sampling=sp, block_size=16)   # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    one = engine.generate(prompts[0], max_tokens=128, sampling=sp, block_size=16, seed=1)
-    torch.cuda.synchronize()
-    single_s = time.perf_counter() - t0
-    check(len(one) == 128, "generate did not give 128 tokens")
-    print(f"  reading: decode {B * 128 / batch_s:.1f} tok/s with generate_batch (B={B}, 16-token "
-          f"prompts, 128 new tokens, {label}, {batch_s:.2f} s) on {smi}")
-    print(f"  reading: single stream {128 / single_s:.1f} tok/s with generate (B=1, 128 tokens, "
-          f"block_size=16, {label}, {single_s:.2f} s) on {smi}")
+    with CliServer(args) as base:
+        up = time.perf_counter() - t0
+
+        def ask(i):
+            payload = {"prompt": prompts[i], "max_tokens": SERVE_NEW,
+                       **(greedy if i % 2 == 0 else sampled)}
+            if adapters[i] != "base":
+                payload["adapter"] = adapters[i]
+            answers[i] = post(base + "/generate", payload)
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(SERVE_REQUESTS)]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t1
+        code, text = post(base + "/process_text", {"text": SHORT, "action": "sum"})
+        check(code == 200 and text["action"] == "sum" and isinstance(text["output"], str),
+              f"/process_text answered {code}: {text}")
+        with urllib.request.urlopen(base + "/", timeout=60) as resp:
+            page = resp.read()
+            check(resp.status == 200 and b"/process_text" in page, "GET / is not the web UI")
+        code, stats = post(base + "/stats", {})
+    check(all(a is not None and a[0] == 200 and a[1]["backend"] == "batcher" for a in answers),
+          f"{label}: a /generate answer was not 200 through the batcher: "
+          f"{[a[0] if a else None for a in answers]}")
+    check(code == 200 and stats["batcher"]["n_slots"] == SERVE_SLOTS
+          and stats["generate_latency_ms"]["batcher"]["count"] == SERVE_REQUESTS
+          and stats["adapters"] == ["a", "b", "base"], f"/stats: {stats}")
+    tok_s = SERVE_REQUESTS * SERVE_NEW / wall
+    print(f"  python -m rwkv_lm_ext_tpu_torch.serve.cli {' '.join(args[2:])}: serving after "
+          f"{up:.1f} s; {SERVE_REQUESTS} concurrent /generate answered 200 through the batcher in "
+          f"{wall:.2f} s; /process_text 200, GET / the web UI, /stats {stats['batcher']}, latency "
+          f"{stats['generate_latency_ms']['batcher']}, prefix cache {stats['prefix_cache']}")
+
+    # the greedy requests again, in this process, for their token ids
+    ads = {n: lora_state_dict_to_tree(torch.load(files[n], map_location="cpu", weights_only=True))
+           for n in ("a", "b")}
+    slot, ids = build_slot_lora(copy.deepcopy(model), ads, SERVE_LORA)
+    eng = GenerationEngine(slot, tok, state_cache=PrefixStateCache(8), adapter_ids=ids)
+    batcher = ContinuousBatcher(eng, n_slots=SERVE_SLOTS, block_size=SERVE_BLOCK)
+    sp = SamplingParams(**{**greedy, "token_stop": ()})
+    rows = list(range(0, SERVE_REQUESTS, 2))
+    rids = [batcher.submit(prompts[i], max_tokens=SERVE_NEW, sampling=sp,
+                           adapter=None if adapters[i] == "base" else adapters[i]) for i in rows]
+    got = batcher.run()
+    outs = [got[r] for r in rids]
+    check(all(tok.decode(o) == answers[i][1]["output"] for o, i in zip(outs, rows)),
+          f"{label}: the CLI's greedy answers differ from the same batcher's in this process")
+    prompt_ids = [tok.encode(prompts[i]) for i in rows]
+    idx = torch.tensor([ids[adapters[i]] for i in rows], device=DEV)
+    kern = teacher_forced_rows(slot, prompt_ids, outs, idx, reference=False)
+    check(bool((kern.argmax(-1) == torch.tensor(outs, device=DEV)).all()),
+          f"{label}: a greedy output is not the argmax of its route's teacher-forced logits")
+
+    def plain_logits(m):
+        ref, _ = build_slot_lora(copy.deepcopy(m), ads, SERVE_LORA)
+        out = teacher_forced_rows(ref, prompt_ids, outs, idx, reference=True)
+        del ref
+        return out
+
+    plain_fp32 = plain_logits(plain)
+    cos = min_cosine(kern, plain_fp32)
+    if quantized:
+        cos_bf16 = min_cosine(kern, teacher_forced_rows(slot, prompt_ids, outs, idx, reference=True))
+        floor = min_cosine(plain_fp32, plain_logits(unquantized))
+        print(f"  {label}: {len(rows)} greedy outputs ({SERVE_NEW} tokens, adapters base / a / b) are "
+              f"the argmax of their route's teacher-forced logits; min per-step logits cosine: "
+              f"kernel route vs int8c plain route in bf16 {cos_bf16:.6f}, in fp32 {cos:.6f}; int8c "
+              f"plain vs unquantized plain (fp32) {floor:.6f}")
+        check(1 - cos_bf16 <= 1 - floor, f"{label}: served int8c departs from its plain route "
+              f"({cos_bf16}) by more than int8c departs from unquantized ({floor})")
+    else:
+        print(f"  {label}: {len(rows)} greedy outputs ({SERVE_NEW} tokens, adapters base / a / b) are "
+              f"the argmax of their route's teacher-forced logits; min per-step logits cosine to "
+              f"the fp32 plain route {cos:.6f} (limit 0.999)")
+        check(cos >= 0.999, f"{label}: served greedy logits vs fp32 plain route cosine {cos}")
+    del slot, eng, batcher
+    torch.cuda.empty_cache()
+    return {"tok_s": tok_s, "wall": wall}
 
 
 def greedy_tokens(model, prompt: torch.Tensor, n: int, fused_prep: bool):
@@ -2941,7 +3319,6 @@ def main() -> None:
     phase(f"phase 10a: the bidirectional encoder, 24 layers, B={TB}, T={T}")
     phase_encoder(model, reference)
 
-    phase("phase 5: int8c through the serving CLI")
     arr = next(BiEncoder(model, WorldTokenizer()).token_batches([SHORT, CJK, MIXED]))
     with torch.inference_mode():
         unquantized = embed_sequences(reference, torch.from_numpy(arr).to(DEV), normalize=True,
@@ -2953,13 +3330,31 @@ def main() -> None:
         save_rwkv_checkpoint(model, path)
         print(f"  saved the bf16 model ({Path(path).stat().st_size / 2**30:.2f} GiB) "
               f"in {time.perf_counter() - t0:.1f} s")
+        files = write_serving_files(tmp, model)
+        phase("phase 15a: CUDA-graph decode blocks against eager blocks, bf16")
+        phase_graph_blocks(model, "bf16")
+        phase("phase 15b: the serving stack through the CLI (batcher, slot adapters, prefix "
+              "cache, named states), bf16")
+        serving = {"bf16": phase_serving_stack(path, files, model, "bf16", reference)}
+
+        phase("phase 5: int8c through the serving CLI")
         model_q, generate_counts = phase_int8c_cli(path)
         prompt_q = phase_int8c_checks(model_q, reference, weights=model.state_dict())
         phase_int8c_embeddings(model_q, reference, unquantized)
 
         phase(f"phase 14b: fused decode, 24 layers, int8c, B={B}")
         fused_counts_q = phase_fused_decode(model_q, reference, prompt_q, "int8c", seed=19)
-        del reference
+        phase("phase 15c: CUDA-graph decode blocks against eager blocks, int8c")
+        phase_graph_blocks(model_q, "int8c")
+        phase("phase 15d: the serving stack through the CLI, int8c")
+        full = load_state_dict_into(RWKV(rwkv6_1b6(dtype="float32"), device=DEV), model.state_dict())
+        serving["int8c"] = phase_serving_stack(path, files, model_q, "int8c", reference, full)
+        del reference, full
+        for label, r in serving.items():
+            print(f"  reading: the batcher through the CLI ({label}, {SERVE_SLOTS} slots, "
+                  f"{SERVE_BLOCK}-step graph blocks, {SERVE_REQUESTS} concurrent requests of "
+                  f"{SERVE_NEW} new tokens): {r['tok_s']:.1f} tok/s aggregate ({r['wall']:.2f} s) "
+                  f"on {smi}")
 
         phase("phase 6: serving readings (not benchmark cells)")
         phase_throughput(model, cfg, "bf16", smi)
@@ -3001,8 +3396,9 @@ def main() -> None:
         phase_encoder_readings(path, smi)
 
     # each kernel's launches on a main path that runs it: embedding serving,
-    # int8c generation, LoRA training, /fill_mask, the mlm trainer, and the
-    # fused decode route on the bf16 model (B.10, B.12) and the int8c one (B.11)
+    # int8c generation (on the device: its decode blocks are graph replays),
+    # LoRA training, /fill_mask, the mlm trainer, and the fused decode route
+    # on the bf16 model (B.10, B.12) and the int8c one (B.11)
     launches = {k: embed_counts[k] for k in ("layer_norm", "tmix_prologue", "wkv6_fused_output")}
     launches.update({k: generate_counts[k] for k in ("wkv6_decode_step", "quantize_rows")})
     launches.update({k: train_counts[k] for k in NO_BACKWARD})

@@ -36,6 +36,9 @@ class LoraConfig:
     r: int = 8
     alpha: float = 32.0
     parts: Tuple[str, ...] = ("att", "ffn")
+    # PiSSA adapters: marked so that slot-LoRA can refuse them by name; their
+    # training and merge wait
+    pissa: bool = False
 
     @property
     def scaling(self) -> float:

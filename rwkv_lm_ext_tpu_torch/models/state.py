@@ -1,7 +1,10 @@
 """Recurrent model state in the logical layout.
 
-Counterpart of rwkv_lm_ext_tpu/models/state.py:70-96 (init_model_state).
-The state is a dict of stacked fp32 tensors with a leading layer axis:
+Counterpart of rwkv_lm_ext_tpu/models/state.py:70-96 (init_model_state,
+with ``wkv_init``), :127 (clone_state) and :133 (gather_beams); the row
+scatter ``scatter_rows`` is the batcher's admission (the ``.at[:, slots].set``
+of rwkv_lm_ext_tpu/infer/continuous.py:251-253), in place. The state is a
+dict of stacked fp32 tensors with a leading layer axis:
 
     att_shift: (L, B, C)        last ln1 output row fed to each time mix
     wkv:       (L, B, H, N, N)  WKV state in (K, V) layout
@@ -14,7 +17,7 @@ same reshape as ``unpack_wkv``/``pack_wkv`` (state.py:53-67).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -22,15 +25,43 @@ import torch
 ModelState = Dict[str, torch.Tensor]
 
 
-def init_model_state(cfg, batch_size: int, *, device) -> ModelState:
+def init_model_state(cfg, batch_size: int, *, device,
+                     wkv_init: Optional[torch.Tensor] = None) -> ModelState:
+    """Zero state; ``wkv_init`` ((L, H, N, N) shared by every row, or (L, B,
+    H, N, N)) sets the WKV part: the initial state of named-states serving."""
     L, B, C = cfg.n_layer, batch_size, cfg.n_embd
     H, N = cfg.n_head, cfg.head_size
     f32 = dict(dtype=torch.float32, device=device)
+    if wkv_init is None:
+        wkv = torch.zeros(L, B, H, N, N, **f32)
+    else:
+        wkv_init = wkv_init.to(**f32)
+        if wkv_init.dim() == 4:
+            wkv_init = wkv_init[:, None]
+        wkv = wkv_init.expand(L, B, H, N, N).contiguous()
     return {
         "att_shift": torch.zeros(L, B, C, **f32),
-        "wkv": torch.zeros(L, B, H, N, N, **f32),
+        "wkv": wkv,
         "ffn_shift": torch.zeros(L, B, C, **f32),
     }
+
+
+def clone_state(state: ModelState) -> ModelState:
+    """A private copy: the port updates states in place."""
+    return {key: value.clone() for key, value in state.items()}
+
+
+def gather_beams(state: ModelState, beam_idx: torch.Tensor) -> ModelState:
+    """Rows ``beam_idx`` (b,) of the batch axis, in that order: beam search's
+    fork and reorder. A new state."""
+    return {key: value.index_select(1, beam_idx) for key, value in state.items()}
+
+
+def scatter_rows(state: ModelState, rows: torch.Tensor, src: ModelState) -> None:
+    """Write ``src`` (b rows) into rows ``rows`` (b,) of ``state`` in place;
+    the rows must be distinct."""
+    for key, value in state.items():
+        value.index_copy_(1, rows, src[key])
 
 
 def state_from_jax(state: Dict[str, np.ndarray], head_size: int) -> Dict[str, np.ndarray]:

@@ -1,7 +1,8 @@
 """Embedding, generation and fill-mask service over JSON HTTP.
 
-Counterpart of rwkv_lm_ext_tpu/serve/api.py:42-451 and 454-590 with a
-bi-encoder, a generation engine and a bidirectional encoder:
+Counterpart of rwkv_lm_ext_tpu/serve/api.py:40-495 and 554-590 with a
+bi-encoder, a generation engine (alone or behind a continuous batcher), a
+states registry and a bidirectional encoder:
 
 - POST /embed {"texts": [...]}, POST /similarity {"texts_a", "texts_b"};
 - POST /fill_mask {"text", "top_k", "cumulative_prob"}: the text is split at
@@ -9,20 +10,33 @@ bi-encoder, a generation engine and a bidirectional encoder:
   32 ... 2048 and run through the bidirectional encoder and its tied MLM
   head; every mask slot answers its candidates in descending probability
   until their sum reaches the cutoff, at most top_k;
-- POST /generate {"prompt", "max_tokens", sampling knobs}: blocking, or with
-  "stream": true as text/event-stream, one ``data: {"token": piece}`` event
-  per UTF-8-safe piece and a final ``data: {"done": true, "output": ...,
-  "backend": "engine"}``; a client that disconnects cancels the generation;
-- POST /stats: request counts per route and ``generate_latency_ms``.
+- POST /generate {"prompt", "max_tokens", "adapter", sampling knobs}:
+  blocking, or with "stream": true as text/event-stream, one ``data:
+  {"token": piece}`` event per UTF-8-safe piece and a final ``data: {"done":
+  true, "output": ..., "backend": ...}``; a client that disconnects cancels
+  the generation. With a batcher the request joins its pool through a
+  BatcherDriver (``"backend": "batcher"``), else the engine runs it under
+  the service's lock (``"backend": "engine"``); the per-request knobs mean
+  the same on both. ``adapter`` names a slot-LoRA adapter (400 for an
+  unknown one);
+- POST /process_text {"text", "action"}: generation from the named
+  state-tuned state ``action`` of the states registry, on its template;
+- POST /stats (and GET /stats): request counts per route, per-backend
+  ``generate_latency_ms`` percentiles, the batcher's occupancy, the prefix
+  cache's counts and the adapters served;
+- GET /: the browser chat page (serve/webui.py).
 
 A route whose backend is not configured answers 404, like an unknown one,
 and neither is counted. A malformed payload answers 400. Transport: the
 standard library's ThreadingHTTPServer; one lock serialises the model's
-work. The blocking /generate fetches tokens every 16 decode steps; the
-stream fetches every step, so each token streams as it is produced.
+work; the batcher's thread takes the engine's own lock. The blocking
+engine /generate fetches tokens every 16 decode steps; its stream fetches
+every step, so each token streams as it is produced. /rerank waits for the
+cross-encoder.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import queue
 import threading
@@ -35,10 +49,12 @@ import numpy as np
 import torch
 
 from rwkv_lm_ext_tpu_torch.config import EMB_ID, MASK_ID
+from rwkv_lm_ext_tpu_torch.infer.continuous import BatcherDriver
 from rwkv_lm_ext_tpu_torch.infer.encoders import bucketize, pad_batch
 from rwkv_lm_ext_tpu_torch.infer.sampling import SamplingParams
 from rwkv_lm_ext_tpu_torch.models.bidirectional import encoder_forward
 from rwkv_lm_ext_tpu_torch.models.heads import mlm_logits
+from rwkv_lm_ext_tpu_torch.serve.webui import INDEX_HTML
 
 MASK_TOKEN = "[MASK]"
 
@@ -85,16 +101,23 @@ def _sse(obj: Dict) -> bytes:
 
 class ServingService:
     def __init__(self, *, engine=None, bi_encoder=None, encoder=None, tokenizer=None,
-                 mask_id: int = MASK_ID):
+                 mask_id: int = MASK_ID, batcher=None, states_registry=None):
         """``encoder`` is an RWKV module served as the bidirectional encoder
-        behind /fill_mask; it needs ``tokenizer``."""
+        behind /fill_mask; it needs ``tokenizer``. ``batcher`` (a
+        ContinuousBatcher over ``engine``) serves /generate once ``warmup``
+        has started its driver; ``states_registry`` serves /process_text."""
         if encoder is not None and tokenizer is None:
             raise ValueError("an encoder needs a tokenizer")
+        if (batcher is not None or states_registry is not None) and engine is None:
+            raise ValueError("a batcher or a states registry needs the engine")
         self.engine = engine
         self.bi = bi_encoder
         self.encoder = encoder
         self.tokenizer = tokenizer
         self.mask_id = mask_id
+        self.batcher = batcher
+        self.states = states_registry
+        self._driver = None
         self._lock = threading.Lock()          # one model call at a time
         self._stats_lock = threading.Lock()
         self._counts: Dict[str, int] = {}
@@ -105,18 +128,32 @@ class ServingService:
             self.routes |= {"/embed", "/similarity"}
         if engine is not None:
             self.routes.add("/generate")
+        if states_registry is not None:
+            self.routes.add("/process_text")
         if encoder is not None:
             self.routes.add("/fill_mask")
 
     def warmup(self) -> None:
         """Run one short request per backend from the calling thread, so
-        the kernel library is built before the first client arrives."""
+        the kernel library is built (and the engine's and the batcher's
+        graphs captured) before the first client arrives; then start the
+        batcher's driver."""
         if self.bi is not None:
             self.bi.encode_texts(["warmup"])
         if self.engine is not None:
-            self.engine.generate("warmup", max_tokens=2)
+            for block in (BLOCKING_BLOCK_SIZE, 1):     # blocking, streaming
+                self.engine.generate("warmup", max_tokens=2, block_size=block)
         if self.encoder is not None:
             self.fill_mask(f"warm {MASK_TOKEN} up")
+        if self.batcher is not None and self._driver is None:
+            self.batcher.warmup()
+            self._driver = BatcherDriver(self.batcher)
+
+    def close(self) -> None:
+        """Stop the batcher's driver thread, if one runs."""
+        if self._driver is not None:
+            self._driver.close()
+            self._driver = None
 
     def embed(self, texts: List[str]) -> Dict:
         with self._lock:
@@ -173,15 +210,18 @@ class ServingService:
             raise BadRequest(f"bad fill_mask option: {e}") from e
 
     def _generate_args(self, payload: Dict):
-        """Validate a /generate payload: (prompt, max_tokens,
-        SamplingParams). Unknown options answer 400."""
+        """Validate a /generate payload: (prompt, max_tokens, the sampling
+        knobs it sets, adapter). Unknown options and adapters answer 400."""
         prompt = payload.get("prompt")
         if not isinstance(prompt, str) or not prompt:
             raise BadRequest("'prompt' must be a non-empty string")
         opts = {k: v for k, v in payload.items() if k not in ("prompt", "stream")}
-        unknown = set(opts) - {"max_tokens", *PER_REQUEST_KNOBS}
+        unknown = set(opts) - {"max_tokens", "adapter", *PER_REQUEST_KNOBS}
         if unknown:
             raise BadRequest(f"unsupported generate options: {sorted(unknown)}")
+        adapter = opts.pop("adapter", None)
+        if adapter is not None and not isinstance(adapter, str):
+            raise BadRequest("'adapter' must be a string")
         try:
             max_tokens = int(opts.pop("max_tokens", 128))
             if "token_stop" in opts:
@@ -189,17 +229,66 @@ class ServingService:
             knobs = {k: (v if k == "token_stop" else float(v)) for k, v in opts.items()}
         except (TypeError, ValueError) as e:
             raise BadRequest(f"bad generate option: {e}") from e
+        try:
+            self.engine.adapter_id(adapter)
+        except ValueError as e:
+            raise BadRequest(f"{e}; serving {sorted(self.engine.adapter_ids or {}) or ['base']}"
+                             ) from e
         if max_tokens < 0:
             raise BadRequest("'max_tokens' must be >= 0")
-        return prompt, max_tokens, SamplingParams(**knobs)
+        return prompt, max_tokens, knobs, adapter
 
     def generate(self, payload: Dict, *, stream_cb=None, cancel_event=None) -> Dict:
         """Run one /generate request. ``stream_cb(piece)`` receives text
-        pieces as they are produced (one decode step between fetches);
-        ``cancel_event``, once set, stops the generation at its next piece
-        and the answer carries "cancelled": true."""
-        prompt, max_tokens, sampling = self._generate_args(payload)
+        pieces as they are produced (one decode step between fetches on the
+        engine, one block on the batcher); ``cancel_event``, once set, stops
+        the generation and the answer carries "cancelled": true."""
+        prompt, max_tokens, knobs, adapter = self._generate_args(payload)
         t0 = time.perf_counter()
+        if self._driver is not None:
+            result = self._generate_batched(prompt, max_tokens, knobs, adapter, stream_cb,
+                                            cancel_event)
+        else:
+            result = self._generate_engine(prompt, max_tokens, knobs, adapter, stream_cb,
+                                           cancel_event)
+        with self._stats_lock:
+            self._latencies.setdefault(result["backend"], deque(maxlen=512)).append(
+                time.perf_counter() - t0)
+        return result
+
+    def _generate_batched(self, prompt, max_tokens, knobs, adapter, stream_cb, cancel_event):
+        """Through the batcher's driver: concurrent requests, also with
+        different adapters, share its batched decode."""
+        sampling = dataclasses.replace(self.batcher.sampling, **knobs) if knobs else None
+        tok = self.engine.tokenizer
+        callback = finish = None
+        if stream_cb is not None:
+            decoder = tok.streaming_decoder()
+
+            def callback(t: int) -> None:
+                piece = decoder.push(t)
+                if piece:
+                    stream_cb(piece)
+
+            def finish() -> None:
+                tail = decoder.flush()
+                if tail:
+                    stream_cb(tail)
+        try:
+            ids = self._driver.submit_and_wait(prompt, max_tokens=max_tokens, sampling=sampling,
+                                               callback=callback, adapter=adapter,
+                                               cancel=cancel_event)
+        except ValueError as e:        # refused by submit (e.g. too many stop tokens)
+            raise BadRequest(str(e)) from e
+        if finish is not None:
+            finish()
+        result = {"output": tok.decode(ids), "backend": "batcher"}
+        if cancel_event is not None and cancel_event.is_set():
+            result["cancelled"] = True
+        return result
+
+    def _generate_engine(self, prompt, max_tokens, knobs, adapter, stream_cb, cancel_event):
+        """On the engine under the service's lock."""
         callback = stream_cb
         if cancel_event is not None and stream_cb is not None:
             def callback(piece):
@@ -210,15 +299,25 @@ class ServingService:
         try:
             with self._lock:
                 result["output"] = self.engine.generate(
-                    prompt, max_tokens=max_tokens, sampling=sampling, callback=callback,
+                    prompt, max_tokens=max_tokens, sampling=SamplingParams(**knobs),
+                    callback=callback, adapter=adapter,
                     block_size=1 if stream_cb is not None else BLOCKING_BLOCK_SIZE,
                 )
         except _ClientDisconnected:
             result.update(output=None, cancelled=True)
-        with self._stats_lock:
-            self._latencies.setdefault("engine", deque(maxlen=512)).append(
-                time.perf_counter() - t0)
         return result
+
+    def process_text(self, payload: Dict) -> Dict:
+        """/process_text: {"text", "action"} -> generation from the named
+        state ``action`` (default "default") on its template."""
+        text, action = payload.get("text"), payload.get("action", "default")
+        if not isinstance(text, str) or not text:
+            raise BadRequest("'text' must be a non-empty string")
+        if action not in self.states.names():
+            raise BadRequest(f"unknown action {action!r}; serving {self.states.names()}")
+        with self._lock:
+            out = self.states.generate(self.engine, action, text)
+        return {"action": action, "output": out}
 
     def generate_sse(self, payload: Dict) -> Iterator[bytes]:
         """Server-sent events of a streaming /generate. Validates first, so
@@ -271,6 +370,12 @@ class ServingService:
                 }
                 for backend, xs in lat.items()
             }
+        if self.batcher is not None:
+            out["batcher"] = self.batcher.stats()
+        if self.engine is not None and self.engine.state_cache is not None:
+            out["prefix_cache"] = self.engine.state_cache.stats()
+        if self.engine is not None and self.engine.adapter_ids:
+            out["adapters"] = sorted(self.engine.adapter_ids)
         return out
 
     def _count(self, route: str) -> None:
@@ -292,6 +397,8 @@ class ServingService:
             return self.similarity(_texts(payload, "texts_a"), _texts(payload, "texts_b"))
         if route == "/fill_mask":
             return self.fill_mask(**self._fill_mask_args(payload))
+        if route == "/process_text":
+            return self.process_text(payload)
         if payload.get("stream"):
             raise BadRequest("stream=true needs the SSE transport (serve_http)")
         return self.generate(payload)
@@ -351,6 +458,21 @@ def serve_http(
                 body = json.dumps({"error": str(e)}).encode()
                 self.send_response(500)
             self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path in ("/", "/index.html"):
+                body, kind = INDEX_HTML.encode(), "text/html; charset=utf-8"
+                self.send_response(200)
+            elif self.path == "/stats":
+                body, kind = json.dumps(service.stats()).encode(), "application/json"
+                self.send_response(200)
+            else:
+                body, kind = b'{"error": "unknown route"}', "application/json"
+                self.send_response(404)
+            self.send_header("Content-Type", kind)
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)

@@ -1389,3 +1389,170 @@ def test_new_bodies_at_the_1b6_widths(dev):
         for a, b, p in zip(ch, sq, (py, psT)):
             _close(a, p, WKV_CHUNKED_REL)
             _close(a, b, WKV_CHUNKED_REL)
+
+
+# -- CUDA-graph decode blocks: the engine's and the batcher's ---------------
+
+def _eager_blocks(monkeypatch):
+    """The engine's and the batcher's private eager block bodies in place of
+    their graph replays, on the card."""
+    from rwkv_lm_ext_tpu_torch.infer import continuous, engine
+
+    monkeypatch.setattr(engine._Decoder, "_replay", engine._Decoder._block)
+    monkeypatch.setattr(continuous.ContinuousBatcher, "_replay", lambda self, key, body: body())
+
+
+def _states_equal(a, b):
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+GRAPH_GREEDY = dict(temperature=0.0, top_p=1.0, alpha_presence=0.0, alpha_frequency=0.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("k", [1, 4, 16])
+def test_generate_graph_blocks_are_bit_equal_to_eager_blocks(dev, dtype, fused, k, monkeypatch):
+    """generate at block size k as CUDA-graph replays and as the eager
+    block: the same tokens and the same final state (torch.equal), greedy,
+    sampled and with a stop token inside a block."""
+    from rwkv_lm_ext_tpu_torch.infer.engine import GenerationEngine
+    from rwkv_lm_ext_tpu_torch.infer.sampling import SamplingParams
+
+    model, _ = _decode_model(dev, 40, dtype=dtype)
+    eng = GenerationEngine(model, fused_prep=fused)
+    prompt, n = [5, 9, 23, 411, 7], 2 * k + 3
+    greedy = SamplingParams(**GRAPH_GREEDY, token_stop=())
+    first = eng.generate(prompt, max_tokens=n, sampling=greedy, block_size=k)
+    cases = [greedy, SamplingParams(temperature=1.0, top_p=0.9, token_stop=()),
+             SamplingParams(**GRAPH_GREEDY, token_stop=(first[n // 2],))]
+    graph = [eng.generate(prompt, max_tokens=n, sampling=sp, block_size=k, seed=3,
+                          return_state=True) for sp in cases]
+    assert all(d.graphs for d in eng._decoders.values())
+    _eager_blocks(monkeypatch)
+    for sp, (toks, state) in zip(cases, graph):
+        e_toks, e_state = eng.generate(prompt, max_tokens=n, sampling=sp, block_size=k, seed=3,
+                                       return_state=True)
+        assert toks == e_toks and _states_equal(state, e_state), sp
+    assert len(graph[2][0]) < n
+
+
+def test_new_knobs_and_lengths_replay_the_captured_graphs(dev):
+    """generate's knobs and budget are data in its decoder's buffers: once
+    a length's graph is captured, requests with other temperatures, top_p,
+    penalties, stop tokens and lengths replay it and capture nothing."""
+    from rwkv_lm_ext_tpu_torch.infer.engine import GenerationEngine
+    from rwkv_lm_ext_tpu_torch.infer.sampling import SamplingParams
+
+    model, _ = _decode_model(dev, 44, dtype="bfloat16")
+    eng = GenerationEngine(model)
+    eng.generate([5, 9], max_tokens=16, sampling=SamplingParams(token_stop=()), block_size=16)
+    (dec,) = eng._decoders.values()
+    graph = dec.graphs[16]
+    for n, sp in ((5, SamplingParams(**GRAPH_GREEDY, token_stop=(3,))),
+                  (21, SamplingParams(temperature=0.6, top_p=0.5, repetition_penalty=1.3)),
+                  (40, SamplingParams(alpha_presence=1.0, alpha_frequency=0.5, token_stop=(0, 7)))):
+        out = eng.generate([8, 2, 77], max_tokens=n, sampling=sp, block_size=16, seed=4)
+        assert len(out) <= n
+    assert list(eng._decoders.values()) == [dec] and dec.graphs == {16: graph}
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("k", [1, 4, 16])
+def test_batcher_graph_blocks_are_bit_equal_to_eager_blocks(dev, fused, k, monkeypatch):
+    """The batcher (bf16, 4 slots, slot-LoRA adapters per request, greedy
+    and sampled rows, stops and budgets) as graph replays and eagerly: the
+    same outputs and the same final pool state."""
+    from rwkv_lm_ext_tpu_torch.adapters.slot_lora import build_slot_lora
+    from rwkv_lm_ext_tpu_torch.infer.continuous import ContinuousBatcher
+    from rwkv_lm_ext_tpu_torch.infer.engine import GenerationEngine
+    from rwkv_lm_ext_tpu_torch.infer.sampling import SamplingParams
+
+    model, gen = _decode_model(dev, 41, dtype="bfloat16")
+    lc = LoraConfig(r=4, alpha=8.0)
+    adapter = init_lora_params(model, lc, gen)
+    for ab in adapter.values():
+        ab["B"] = torch.randn(ab["B"].shape, generator=gen, device=dev) * 0.05
+    model, ids = build_slot_lora(model, {"a": adapter}, lc)
+    eng = GenerationEngine(model, adapter_ids=ids, fused_prep=fused)
+    greedy = SamplingParams(**GRAPH_GREEDY, token_stop=())
+    reqs = [([5, 9, 23], 9, greedy, None), ([77, 3], 7, SamplingParams(top_p=0.9, token_stop=()), "a"),
+            ([14, 60, 2, 8], 12, greedy, "a"), ([99], 5, SamplingParams(token_stop=(3, 7)), None),
+            ([31, 8, 120], 10, greedy, None), ([6], 6, greedy, "a")]
+
+    def run():
+        batcher = ContinuousBatcher(eng, n_slots=4, sampling=greedy, block_size=k, seed=5)
+        rids = [batcher.submit(p, max_tokens=m, sampling=sp, adapter=a) for p, m, sp, a in reqs]
+        out = batcher.run()
+        return [out[r] for r in rids], {key: v.clone() for key, v in batcher._state.items()}, batcher
+
+    toks, state, batcher = run()
+    assert batcher._graphs
+    _eager_blocks(monkeypatch)
+    e_toks, e_state, _ = run()
+    assert toks == e_toks and _states_equal(state, e_state)
+    assert [len(t) for i, t in enumerate(toks) if reqs[i][2] is greedy] == [9, 12, 10, 6]
+
+
+def test_a_failing_capture_raises_instead_of_falling_back(dev, monkeypatch):
+    """A decode block that reads a value back to the host cannot be
+    captured: generate and the batcher raise on the card, with no eager
+    fallback."""
+    from rwkv_lm_ext_tpu_torch.infer import continuous, engine
+    from rwkv_lm_ext_tpu_torch.infer.sampling import SamplingParams
+
+    model, _ = _decode_model(dev, 42, dtype="bfloat16")
+    greedy = SamplingParams(**GRAPH_GREEDY, token_stop=())
+
+    def syncing(real):
+        def sample(logits, *args, **kwargs):
+            token, occ = real(logits, *args, **kwargs)
+            token.sum().item()            # a host read: refused under capture
+            return token, occ
+        return sample
+
+    monkeypatch.setattr(engine, "sample_token_rows", syncing(engine.sample_token_rows))
+    monkeypatch.setattr(continuous, "sample_token_rows", syncing(continuous.sample_token_rows))
+    with pytest.raises(RuntimeError):
+        engine.GenerationEngine(model).generate([5, 9, 23], max_tokens=8, sampling=greedy,
+                                                block_size=4)
+    batcher = continuous.ContinuousBatcher(engine.GenerationEngine(model), n_slots=2,
+                                           sampling=greedy, block_size=4)
+    batcher.submit([5, 9, 23], max_tokens=8)
+    with pytest.raises(RuntimeError):
+        batcher.run()
+
+
+def test_garbage_holding_a_graph_is_collected_before_a_capture(dev, monkeypatch):
+    """An engine dropped in a reference cycle still holds its CUDA graphs;
+    a garbage collection inside a later capture would destroy them there,
+    which invalidates the capture. capture_graph collects first and keeps
+    the collector off while it captures."""
+    import gc
+    import weakref
+
+    from rwkv_lm_ext_tpu_torch.infer import engine
+    from rwkv_lm_ext_tpu_torch.infer.sampling import SamplingParams
+
+    model, _ = _decode_model(dev, 43, dtype="bfloat16")
+    greedy = SamplingParams(**GRAPH_GREEDY, token_stop=())
+
+    class Holder:
+        pass
+
+    holder = Holder()
+    holder.cycle, holder.engine = holder, engine.GenerationEngine(model)
+    holder.engine.generate([5, 9], max_tokens=4, sampling=greedy, block_size=4)
+    assert any(d.graphs for d in holder.engine._decoders.values())
+    alive = weakref.ref(holder)
+    del holder
+    seen = []
+    real = engine._Decoder._block
+
+    def block(self, k, gen):
+        seen.append((gc.isenabled(), alive() is None))
+        return real(self, k, gen)
+
+    monkeypatch.setattr(engine._Decoder, "_block", block)
+    engine.GenerationEngine(model).generate([5, 9], max_tokens=4, sampling=greedy, block_size=4)
+    assert seen == [(False, True)] and gc.isenabled()

@@ -36,8 +36,9 @@ from rwkv_lm_ext_tpu_torch.infer.engine import GenerationEngine, _chunk_plan
 from rwkv_lm_ext_tpu_torch.infer.sampling import (
     SamplingParams,
     inverse_cdf_pick,
-    penalize_and_filter,
-    pick_token,
+    penalize_and_filter_rows,
+    pick_token_rows,
+    slot_params,
 )
 from rwkv_lm_ext_tpu_torch.models.init import init_rwkv_params
 from rwkv_lm_ext_tpu_torch.models.rwkv import RWKV
@@ -83,12 +84,19 @@ def test_chunk_plan_matches_jax(n, chunk_len):
 ])
 @pytest.mark.parametrize("batched", [False, True])
 def test_penalize_and_filter_matches_jax(knobs, batched):
+    """The port's per-row penalties and filters, every row filled with the
+    same knobs, against the JAX package's whole-batch ones on (B, V) and
+    (V,) logits."""
     rng = np.random.default_rng(len(knobs))
     shape = (3, 300) if batched else (300,)
     logits = (rng.normal(size=shape) * 3).astype(np.float32)
     occ = (rng.integers(0, 3, size=shape) * (rng.uniform(size=shape) < 0.1)).astype(np.float32)
     want = np.asarray(jax_penalize_and_filter(jnp.asarray(logits), jnp.asarray(occ), JaxSamplingParams(**knobs)))
-    got = penalize_and_filter(torch.from_numpy(logits), torch.from_numpy(occ), SamplingParams(**knobs)).numpy()
+    sp, rows2d = SamplingParams(**knobs), (-1, shape[-1])
+    got = penalize_and_filter_rows(torch.from_numpy(logits).reshape(rows2d),
+                                   torch.from_numpy(occ).reshape(rows2d),
+                                   slot_params(int(np.prod(shape[:-1])), sp, device="cpu"),
+                                   sp).reshape(shape).numpy()
     np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
     kept = np.isfinite(want)
     assert 0 < kept.sum() < kept.size or knobs == {}
@@ -111,7 +119,9 @@ def test_gumbel_pick_with_jax_noise():
     key = jax.random.PRNGKey(4)
     want = np.asarray(jax.random.categorical(key, jnp.asarray(logits)))
     noise = np.array(jax.random.gumbel(key, logits.shape, jnp.float32))
-    got = pick_token(torch.from_numpy(logits), torch.from_numpy(noise), SamplingParams())
+    sp = SamplingParams()
+    got = pick_token_rows(torch.from_numpy(logits), torch.from_numpy(noise),
+                          slot_params(16, sp, device="cpu"), sp)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -152,6 +162,24 @@ def test_stop_token_mid_block_freezes_the_state(small_model):
         assert torch.equal(st[key], st_ref[key]) and torch.equal(st[key], st_3[key])
 
 
+def test_one_decoder_serves_every_knob_and_length(small_model):
+    """The per-request knobs, stop tokens and budget are rows of one
+    decoder's buffers: requests that share the batch-shaping knobs share it
+    (and, on a card, its graphs), and each gives what a decoder of its own
+    gives."""
+    eng = GenerationEngine(small_model)
+    cases = [(5, SamplingParams(**GREEDY)),
+             (11, SamplingParams(temperature=0.6, top_p=0.5, repetition_penalty=1.3, token_stop=())),
+             (7, SamplingParams(alpha_presence=1.0, alpha_frequency=0.5, token_stop=(0, 7)))]
+    got = [eng.generate([5, 9, 23], max_tokens=n, sampling=sp, seed=2, block_size=4)
+           for n, sp in cases]
+    assert len(eng._decoders) == 1
+    for (n, sp), out in zip(cases, got):
+        assert out == GenerationEngine(small_model).generate([5, 9, 23], max_tokens=n, sampling=sp,
+                                                             seed=2, block_size=4)
+    assert len(got[1]) == 11
+
+
 class _PieceTokenizer:
     """Each token streams as its own piece."""
 
@@ -172,9 +200,10 @@ class _PieceTokenizer:
 
 
 def test_default_block_size_streams_each_token_before_the_next_step(small_model, monkeypatch):
-    """The library default fetches after every step, so the callback for
-    token i fires before step i + 1 runs; block_size=16 fires once the whole
-    block has run. The output is the same."""
+    """block_size=1 fetches after every step, so the callback for token i
+    fires before step i + 1 runs; the library default, 16 as in the JAX
+    engine, fires once the whole block has run: 16 steps, the ten past the
+    budget of 6 frozen. The output is the same."""
     steps = []
     real_step = engine_module.rwkv_decode_step
 
@@ -185,16 +214,16 @@ def test_default_block_size_streams_each_token_before_the_next_step(small_model,
     monkeypatch.setattr(engine_module, "rwkv_decode_step", counted)
     eng = GenerationEngine(small_model, _PieceTokenizer())
     seen = {}
-    for block in (None, 16):
+    for block in (1, None):
         steps.clear()
         at = []
         kw = {} if block is None else {"block_size": block}
         out = eng.generate([5, 9], max_tokens=6, sampling=SamplingParams(**GREEDY),
                            callback=lambda piece: at.append(len(steps)), **kw)
         seen[block] = (out, at)
-    assert seen[None][1] == [1, 2, 3, 4, 5, 6]
-    assert seen[16][1] == [6] * 6
-    assert seen[None][0] == seen[16][0]
+    assert seen[1][1] == [1, 2, 3, 4, 5, 6]
+    assert seen[None][1] == [16] * 6
+    assert seen[None][0] == seen[1][0]
 
 
 def test_streaming_decoder_matches_jax_on_split_characters():
