@@ -124,7 +124,30 @@ Phases, each printing its own lines:
      a batcher in this process, each token the argmax of its route's
      teacher-forced logits under its adapter, held to the fp32 plain route
      (bf16: cosine >= 0.999; int8c: as phase 5 holds int8c); the batcher's
-     aggregate tok/s.
+     aggregate tok/s;
+ 16. reranking and the contrastive trainers: (a) gradients of a 2-layer
+     full-width model at B=8, T=512, kernel route against plain route, of
+     the cross-encoder loss (LoRA + score head), of CoSENT over every
+     parameter with fp32 master weights (B.5's full form; fp32, and bf16
+     compute against the fp32 plain route) and of the group softmax on the
+     bidirectional sentence embedding (B.8, B.6/B.7 with gn=False), and the
+     launches of one full-parameter step; (b) the trainers `bi-encoder`,
+     `cross-encoder`, `simcse`, `instructor`, `encoder-biencoder`,
+     `encoder-crossencoder` and `mae --uni` through `python -m
+     rwkv_lm_ext_tpu_torch.train.cli` on the 24-layer model (subprocesses,
+     2 steps each), their files under the JAX names, and `nli --sts-file`
+     through the same CLI in this process (its launches are B.5's full-form
+     main path); (c) `/rerank` and `/embed` through `python -m
+     rwkv_lm_ext_tpu_torch.serve.cli --cross-adapter --cross-head
+     --bi-adapter` on what (b) trained: the scores against a fp32 plain-route
+     reranker on the same merged weights (no further from it than the bf16
+     plain route, plus 1e-2 of max|plain|; the cls states at cosine >= 0.999;
+     the ranking where no deviation could swap neighbours), 400 on malformed
+     payloads, unit-norm embeddings, 404 with no cross-encoder, and the
+     launches of the reranker in this process; (d) readings: reranked pairs/s
+     (64 pairs, bucket 512), a cross-encoder LoRA step and an `nli` step at
+     B=8, T=512 (ms, Kt/s, busy and idle) and B.5's full form in the `nli`
+     step (launches and device ms).
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no result. Without a CUDA device it exits non-zero
@@ -166,20 +189,25 @@ from rwkv_lm_ext_tpu_torch.checkpoint.convert import (
     load_rwkv_checkpoint,
     load_state_dict_into,
     save_rwkv_checkpoint,
+    score_head_from_state_dict,
 )
-from rwkv_lm_ext_tpu_torch.config import EMB_ID, MASK_ID, TrainConfig, rwkv6_1b6
+from rwkv_lm_ext_tpu_torch.config import CLS_ID, EMB_ID, MASK_ID, SEP_ID, TrainConfig, rwkv6_1b6
 from rwkv_lm_ext_tpu_torch.data.collators import mlm_collate
 from rwkv_lm_ext_tpu_torch.data.sft import encode_sft_example
 from rwkv_lm_ext_tpu_torch.data.tokenizer import WorldTokenizer
 from rwkv_lm_ext_tpu_torch.infer import engine as engine_module
 from rwkv_lm_ext_tpu_torch.infer.continuous import ContinuousBatcher
-from rwkv_lm_ext_tpu_torch.infer.encoders import BiEncoder
+from rwkv_lm_ext_tpu_torch.infer.encoders import BiEncoder, CrossEncoder, pair_ids
 from rwkv_lm_ext_tpu_torch.infer.engine import GenerationEngine
 from rwkv_lm_ext_tpu_torch.infer.sampling import SamplingParams
 from rwkv_lm_ext_tpu_torch.infer.state_cache import PrefixStateCache
 from rwkv_lm_ext_tpu_torch.models.bidirectional import encoder_forward, sequence_lengths
 from rwkv_lm_ext_tpu_torch.models.decode import rwkv_decode_step
-from rwkv_lm_ext_tpu_torch.models.heads import embed_sequences
+from rwkv_lm_ext_tpu_torch.models.heads import (
+    embed_sequences,
+    first_token_position,
+    init_classification_head,
+)
 from rwkv_lm_ext_tpu_torch.models.init import init_rwkv_params
 from rwkv_lm_ext_tpu_torch.models.rwkv import KERNEL_OPS, PLAIN_OPS, RWKV
 from rwkv_lm_ext_tpu_torch.models.state import clone_state, init_model_state
@@ -245,7 +273,14 @@ from rwkv_lm_ext_tpu_torch.ops.wkv_fused import (
 from rwkv_lm_ext_tpu_torch.serve import cli
 from rwkv_lm_ext_tpu_torch.serve.api import ServingService, serve_http
 from rwkv_lm_ext_tpu_torch.train import cli as train_cli
-from rwkv_lm_ext_tpu_torch.train.loop import make_train_step, mlm_loss_fn, sft_loss_fn
+from rwkv_lm_ext_tpu_torch.train.loop import (
+    contrastive_loss_fn,
+    cross_encoder_loss_fn,
+    encoder_crossencoder_loss_fn,
+    make_train_step,
+    mlm_loss_fn,
+    sft_loss_fn,
+)
 from rwkv_lm_ext_tpu_torch.train.optim import apply_trainable_mask, trainable_mask
 from rwkv_lm_ext_tpu_torch.train.losses import causal_lm_loss
 
@@ -2070,12 +2105,12 @@ def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(a @ b / (a.norm() * b.norm()))
 
 
-def two_layer_sd(path: str) -> dict:
-    """Layers 0 and 1 (and the embedding, ln_out and head) of the saved
-    full-width model."""
+def two_layer_sd(path: str, n_layer: int = 2) -> dict:
+    """The first `n_layer` layers (and the embedding, ln_out and head) of
+    the saved full-width model."""
     sd = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
     return {k: v for k, v in sd.items()
-            if not k.startswith("blocks.") or int(k.split(".")[1]) < 2}
+            if not k.startswith("blocks.") or int(k.split(".")[1]) < n_layer}
 
 
 def phase_train_grads(path: str) -> None:
@@ -2176,11 +2211,11 @@ ENCODER_KERNELS = (("wkv6_raw_chunked_kernel",), ("wkv6_kernel",))
 
 
 def step_profile(step, batch, step_ms: float, groups: dict = STEP_GROUPS,
-                 what: str = "one step (remat on)", kernels=((), ())) -> None:
+                 what: str = "one step (remat on)", kernels=((), ())) -> dict:
     """Device time of one train step (or forward) by kernel group
     (torch.profiler, device operations only); idle = the step's CUDA-event
     time less busy. `kernels`: the kernel names the step must run, and those
-    it must not."""
+    it must not. Returns {group: ms}."""
     ops = device_ops(lambda: step(batch), 1)
     names = {e.name for e in ops}
     present, absent = kernels
@@ -2193,8 +2228,10 @@ def step_profile(step, batch, step_ms: float, groups: dict = STEP_GROUPS,
     busy = sum(e.self_device_time_total for e in ops) / 1e3
     print(f"  profile of {what}: {len(ops)} device ops, busy {busy:.3f} ms of "
           f"{step_ms:.3f} ms, idle {100 * max(step_ms - busy, 0) / step_ms:.2f} %")
-    for g, v in split_by_group(ops, groups).items():
+    split = split_by_group(ops, groups)
+    for g, v in split.items():
         print(f"    {g}: {v:.3f} ms ({100 * v / busy:.1f} %)")
+    return split
 
 
 def chained_steps(step, batch, iters: int, trainable: list):
@@ -3270,6 +3307,529 @@ def phase_encoder_readings(path: str, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: reranking and the contrastive trainers
+# ---------------------------------------------------------------------------
+
+CE_GROUPS = 2                # encoder-crossencoder: groups of G = TB // CE_GROUPS documents
+RERANK_REL = 1e-2            # bf16 scores against the fp32 plain route, x max|plain|
+RERANK_PAIRS = 64            # the pairs/s reading: 64 pairs in the 512 bucket
+
+
+def full_step_counts(n_layer: int, remat: bool, fields: int) -> dict:
+    """Launches of one full-parameter train step of the causal model over
+    `fields` forwards (a triplet: 3): each forward's kernels, again under
+    remat; B.5 in its full form, B.6 and B.7 in every layer (layer 0's
+    prologue inputs and weights train too)."""
+    fwd = 2 if remat else 1
+    return dict(NO_LAUNCH, layer_norm=fields * ((1 + n_layer) * fwd + 1),
+                tmix_prologue=fields * n_layer * fwd, wkv6_fused_output=fields * n_layer * fwd,
+                tmix_prologue_bwd=fields * n_layer, wkv6_bwd_forward_pass=fields * n_layer,
+                wkv6_bwd_reverse_pass=fields * n_layer)
+
+
+def forward_counts(n_layer: int) -> dict:
+    """Launches of one forward (PER_FORWARD at n_layer layers)."""
+    return dict(PER_FORWARD, layer_norm=n_layer + 2, tmix_prologue=n_layer,
+                wkv6_fused_output=n_layer)
+
+
+def ragged_rows(gen, vocab: int, b: int, t: int, end_id: int = EMB_ID) -> torch.Tensor:
+    """(b, t) rows of tokens ending in `end_id` at ragged lengths (one row
+    full), pads after."""
+    tokens = torch.randint(4, vocab, (b, t), device=DEV, generator=gen)
+    ends = torch.randint(t // 4, t, (b,), device=DEV, generator=gen)
+    ends[0] = t - 1
+    pos = torch.arange(t, device=DEV)[None, :]
+    tokens[pos == ends[:, None]] = end_id
+    tokens[pos > ends[:, None]] = 0
+    return tokens
+
+
+def pair_rows(gen, vocab: int, b: int = TB, t: int = T) -> dict:
+    """Cross-encoder rows `q [sep] d [cls]` at ragged lengths, labels 0/1."""
+    tokens = ragged_rows(gen, vocab, b, t, end_id=CLS_ID)
+    tokens[:, t // 8] = SEP_ID
+    return {"input_ids": tokens, "labels": torch.arange(b, device=DEV) % 2}
+
+
+def triplet_rows(gen, vocab: int, b: int = TB, t: int = T) -> dict:
+    return {k: ragged_rows(gen, vocab, b, t) for k in ("query", "positive", "negative")}
+
+
+def trainable_grads(model, loss_fn, batch, *, reference: bool, skip=("head.weight",)) -> dict:
+    """Gradients of every parameter that trains, but `skip` (parameters the
+    loss does not reach, whose gradient must stay None); each must exist, be
+    fp32 and non-zero."""
+    model.zero_grad(set_to_none=True)
+    loss_fn(model, batch, reference=reference).backward()
+    grads = {}
+    for n, p in model.named_parameters():
+        if not p.requires_grad:
+            continue
+        if n in skip:
+            check(p.grad is None, f"{n} got a gradient the loss cannot give it")
+            continue
+        check(p.grad is not None and p.grad.dtype == torch.float32 and bool(p.grad.abs().max() > 0),
+              f"{n} got no gradient ({'plain' if reference else 'kernel'} route)")
+        grads[n] = p.grad.detach().clone()
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def kernel_vs_plain(what: str, model, loss_fn, batch, zero=(), **kw) -> dict:
+    """The kernel route's gradients against the plain route's, each tensor
+    within 1e-3 of its largest plain value (fp32). The tensors in `zero` have
+    a gradient that is zero analytically (rounding noise on either route):
+    both routes' must stay under 1e-6 of the largest gradient. Returns the
+    plain ones."""
+    k = trainable_grads(model, loss_fn, batch, reference=False, **kw)
+    p = trainable_grads(model, loss_fn, batch, reference=True, **kw)
+    floor = 1e-6 * max(g.abs().max().item() for g in p.values())
+    noise = max([g[n].abs().max().item() for g in (k, p) for n in zero], default=0.0)
+    check(noise < floor, f"{what}: the gradient of {zero} is {noise}, not zero")
+    rel = {n: (k[n] - p[n]).abs().max().item() / p[n].abs().max().item() for n in p
+           if n not in zero}
+    worst = max(rel, key=rel.get)
+    print(f"  {what}, {len(p)} gradient tensors: max |kernel - plain| / max|plain| = "
+          f"{rel[worst]:.3e} ({worst}; limit 1e-3)"
+          + (f"; {', '.join(zero)} zero on both routes ({noise:.1e} < {floor:.1e})" if zero else ""))
+    check(rel[worst] <= 1e-3, f"{what}: gradient {worst} off by {rel[worst]}")
+    return p
+
+
+def phase_contrastive_grads(path: str) -> dict:
+    """A 2-layer full-width model (C=2048) at B=8, T=512, remat on, kernel
+    route against plain route: the cross-encoder loss (LoRA r=8 + score
+    head, fp32); CoSENT on lasttoken embeddings over every parameter with
+    fp32 master weights (B.5's full form), in fp32 and in bf16 compute; the
+    group-softmax loss on the bidirectional sentence embedding (B.8, B.6 /
+    B.7 with gn=False, fp32). Then the launches of one full-parameter CoSENT
+    step, held to full_step_counts. Returns those counts."""
+    sd2 = two_layer_sd(path)
+    gen = torch.Generator(device=DEV).manual_seed(30)
+
+    def model_of(dtype, param_dtype=""):
+        cfg = rwkv6_1b6(n_layer=2, dtype=dtype, param_dtype=param_dtype)
+        return load_state_dict_into(RWKV(cfg, device=DEV), sd2)
+
+    m = model_of("float32")
+    adapter = init_lora_params(m, LORA, gen)
+    for ab in adapter.values():
+        ab["B"].normal_(0.0, 0.01, generator=gen)
+    apply_lora(m, LORA, adapter)
+    m.score = init_classification_head(m.cfg, generator=gen)
+    kernel_vs_plain("cross-encoder loss (LoRA r=8 + score head, fp32)", m,
+                    functools.partial(cross_encoder_loss_fn, remat=True),
+                    pair_rows(gen, m.cfg.vocab_size))
+    del m
+
+    cosent = functools.partial(contrastive_loss_fn, loss="cosent", pooling="lasttoken", remat=True)
+    triplets = triplet_rows(gen, rwkv6_1b6().vocab_size)
+    m32 = model_of("float32")
+    p32 = kernel_vs_plain("CoSENT over every parameter (fp32)", m32, cosent, triplets)
+    del m32
+    m16 = model_of("bfloat16", "float32")
+    k16 = trainable_grads(m16, cosent, triplets, reference=False)
+    p16 = trainable_grads(m16, cosent, triplets, reference=True)
+    margins = {n: cosine(k16[n], p32[n]) - cosine(p16[n], p32[n]) for n in p32}
+    worst = min(margins, key=margins.get)
+    print(f"  CoSENT, bf16 compute over fp32 masters vs the fp32 plain route, per gradient tensor: "
+          f"min cosine kernel route {min(cosine(k16[n], p32[n]) for n in p32):.6f}, plain route in "
+          f"bf16 {min(cosine(p16[n], p32[n]) for n in p32):.6f}; worst margin {margins[worst]:+.2e} "
+          f"({worst}; the kernel route may trail bf16's own by 1e-3)")
+    check(margins[worst] >= -1e-3, f"bf16 kernel-route gradient {worst} trails bf16 itself")
+    del k16, p16, p32
+    apply_trainable_mask(m16, trainable_mask(m16, "full"))
+    step = make_train_step(m16, TrainConfig(lr_init=1e-5, warmup_steps=0, total_steps=10), cosent)
+    reset_launch_counts()
+    loss = step(triplets)["loss"]
+    torch.cuda.synchronize()
+    counts, want = launch_counts(), full_step_counts(2, True, 3)
+    print(f"  launches in one full-parameter CoSENT train step (2 layers, 3 fields, remat on): "
+          f"{counts}; B.5 in its full form {counts['tmix_prologue_bwd']} times")
+    check(counts == want and bool(torch.isfinite(loss)), f"CoSENT step counts {counts} != {want}")
+    del step, m16
+
+    enc = model_of("float32")
+    enc.score = init_classification_head(enc.cfg, generator=gen)
+    rows = ragged_rows(gen, enc.cfg.vocab_size, TB, T, end_id=CLS_ID)
+    rows[:, T // 8] = SEP_ID
+    # the scores' gradients sum to zero in each group: ln_out.bias gets none
+    kernel_vs_plain(f"group softmax on encode_sentence (G={TB // CE_GROUPS}, fp32)", enc,
+                    functools.partial(encoder_crossencoder_loss_fn, group_size=TB // CE_GROUPS,
+                                      remat=True), {"input_ids": rows}, zero=("ln_out.bias",))
+    del enc
+    torch.cuda.empty_cache()
+    return counts
+
+
+def contrastive_files(tmp: Path) -> dict:
+    """One small data file a trainer: 16 rows each, the triplets' and
+    pairs' queries in the 64 bucket (batches of micro_bsz * 64 // 64 rows,
+    collated to 128 tokens), an AllNLI .tsv and an STS-b .tsv."""
+    words = "retrieval ranks the passages that answer a query about rivers mountains and cities".split()
+
+    def text(i, n):
+        return " ".join(words[(i * 7 + j) % len(words)] for j in range(n))
+
+    def jsonl(name, rows):
+        (tmp / name).write_text("".join(json.dumps(r) + "\n" for r in rows))
+        return str(tmp / name)
+
+    files = {
+        "triplet": jsonl("triplet.jsonl", [{"query": text(i, 20), "positive": text(i + 1, 40),
+                                            "negative": text(i + 2, 40)} for i in range(16)]),
+        "pair": jsonl("pair.jsonl", [{"query": text(i, 20), "document": text(i + 3, 80),
+                                      "label": i % 2} for i in range(16)]),
+        "simcse": jsonl("simcse.jsonl", [{"sentence_a": text(i, 30), "sentence_b": text(i + 1, 30)}
+                                         for i in range(16)]),
+        "instructor": jsonl("instructor.jsonl", [
+            {"instruction": "Represent the passage for retrieval: ", "query": text(i, 20),
+             "positive": text(i + 1, 30), "negative": text(i + 2, 30)} for i in range(16)]),
+        "documents": jsonl("documents.jsonl", [{"query": text(i, 10),
+                                                "documents": [text(i + j, 30) for j in range(4)]}
+                                               for i in range(16)]),
+        "text": jsonl("text.jsonl", [{"text": text(i, 40)} for i in range(16)]),
+    }
+    with open(tmp / "allnli.tsv", "w") as f:
+        f.write("split\tdataset\tfilename\tsentence1\tsentence2\tlabel\n")
+        for i in range(16):
+            for label, j in (("entailment", 1), ("contradiction", 2), ("neutral", 3)):
+                f.write(f"train\tSNLI\tx\t{text(i, 12)}\t{text(i + j, 12)}\t{label}\n")
+    with open(tmp / "sts.tsv", "w") as f:
+        f.write("split\tgenre\tdataset\tyear\tsid\tscore\tsentence1\tsentence2\n")
+        for i in range(8):
+            f.write(f"dev\tmain\tx\t2012\t{i}\t{i % 5}.0\t{text(i, 12)}\t{text(i + 1, 12)}\n")
+    files.update(nli=str(tmp / "allnli.tsv"), sts=str(tmp / "sts.tsv"))
+    return files
+
+
+# command, data, its own flags, the files it must write (JAX names)
+TRAINER_RUNS = [
+    ("bi-encoder", "triplet", [], ["bi-encoder-step2.pth"]),
+    ("cross-encoder", "pair", [], ["cross-encoder-step2.pth", "score-step2.pth"]),
+    ("simcse", "simcse", [], ["simcse-step2.pth"]),
+    ("instructor", "instructor", [], ["instructor-step2.pth"]),
+    ("encoder-biencoder", "triplet", [], ["encoder-bi-step2.pth"]),
+    ("encoder-crossencoder", "documents", ["--group-size", "4"], ["encoder-cross-step2.pth"]),
+    ("mae", "text", ["--uni"], ["encoder-step2.pth"]),
+]
+
+
+def check_trained_file(path: Path, base: dict) -> str:
+    """A trainer's output against the JAX package's layout: LoRA factors of
+    every target, the score head, or the base keys in fp32 with the heads
+    beside them."""
+    sd = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    check(all(v.dtype == torch.float32 for v in sd.values()), f"{path.name}: not fp32")
+    name, C = path.name, base["emb.weight"].shape[1]
+    n_layer = 1 + max(int(k.split(".")[1]) for k in base if k.startswith("blocks."))
+    if name.startswith(("bi-encoder", "cross-encoder")):
+        check(len(sd) == n_layer * 8 * 2 and sd["blocks.0.att.key.lora_A"].shape == (8, C)
+              and sd[f"blocks.{n_layer - 1}.ffn.value.lora_B"].shape == (C, 8),
+              f"{name}: not a LoRA file")
+        return f"{name} ({len(sd)} LoRA tensors)"
+    if name.startswith("score"):
+        check(list(sd) == ["score.weight"] and sd["score.weight"].shape == (1, C), f"{name}")
+        return f"{name} (score.weight {tuple(sd['score.weight'].shape)})"
+    heads = {"instructor": ["dense.weight", "dense.bias", "ln_dense.weight", "ln_dense.bias"],
+             "encoder-cross": ["score.weight"]}
+    extra = next((v for k, v in heads.items() if name.startswith(k)), [])
+    check(sorted(sd) == sorted(list(base) + extra), f"{name}: other keys than the base and {extra}")
+    check(all(sd[k].shape == base[k].shape for k in base), f"{name}: a base shape differs")
+    return f"{name} (the base's {len(base)} keys{' + ' + ', '.join(extra) if extra else ''})"
+
+
+# the trainers that hold every parameter, fp32 masters and AdamW state (about
+# 30 GB at 1B6): at most two of them run at once
+FULL_PARAMETER = {"simcse", "instructor", "encoder-biencoder", "encoder-crossencoder", "mae", "nli"}
+# Each full-parameter trainer saves the whole model in fp32, 6.4 GB at 24
+# layers; the card machine takes at most 45 GiB of writes a call, and the
+# earlier phases write about 23 GB. So these six train the first CUT_LAYERS
+# layers of the same weights at full width (1.9 GB a file); the LoRA trainers,
+# whose files /rerank serves in phase 16c, train all 24.
+CUT_LAYERS = 4
+
+
+def run_trainers(models: dict, files: dict, out: Path) -> dict:
+    """TRAINER_RUNS through `python -m rwkv_lm_ext_tpu_torch.train.cli` on
+    models["full"] (the full-parameter ones) or models["lora"], four
+    subprocesses at a time (two of them full-parameter at most), 2 steps
+    each; the logged losses must be finite. Returns {command: losses}."""
+    common = ["--micro-bsz", "4", "--ctx-len", "128", "--max-steps", "2", "--log-every", "1",
+              "--warmup-steps", "0", "--platform", DEV]
+    pending, running, losses = list(TRAINER_RUNS), [], {}
+
+    def full(run):
+        return run[0] in FULL_PARAMETER
+
+    while pending or running:
+        for run in list(pending):
+            if len(running) < 4 and (not full(run) or sum(full(r) for r, _, _ in running) < 2):
+                pending.remove(run)
+                command, data, flags, _ = run
+                cmd = [sys.executable, "-m", "rwkv_lm_ext_tpu_torch.train.cli", command, *flags,
+                       "--model", models["full" if full(run) else "lora"], "--train-data",
+                       files[data], "--output-dir", str(out / command), *common]
+                log = out / f"{command}.log"
+                log.parent.mkdir(parents=True, exist_ok=True)
+                with open(log, "w") as f:     # the child keeps its own copy of the handle
+                    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+                running.append((run, time.perf_counter(), proc))
+        done = next((r for r in running if r[2].poll() is not None), None)
+        if done is None:
+            for run, t0, proc in running:
+                if time.perf_counter() - t0 > 600:
+                    proc.kill()
+                    proc.wait()
+                    raise AssertionError(f"train.cli {run[0]} ran past 600 s")
+            time.sleep(0.5)
+            continue
+        running.remove(done)
+        (command, _, flags, _), t0, proc = done
+        text = (out / f"{command}.log").read_text()
+        check(proc.returncode == 0, f"train.cli {command} exited {proc.returncode}:\n{text[-3000:]}")
+        steps = [json.loads(ln.split(": ", 1)[1]) for ln in text.splitlines()
+                 if ln.startswith("step ")]
+        losses[command] = [m["loss"] for m in steps]
+        check(len(steps) == 2 and all(np.isfinite(losses[command])), f"{command}: {losses[command]}")
+        print(f"  python -m rwkv_lm_ext_tpu_torch.train.cli {command} {' '.join(flags)}: "
+              f"{time.perf_counter() - t0:.1f} s, losses {[round(x, 4) for x in losses[command]]}")
+    return losses
+
+
+def phase_contrastive_cli(path: str, tmp: Path) -> dict:
+    """The eight trainers: `bi-encoder` and `cross-encoder` on the saved
+    24-layer model, the full-parameter ones on its first CUT_LAYERS layers;
+    seven through `python -m rwkv_lm_ext_tpu_torch.train.cli`
+    (subprocesses), `nli` (with STS-b evaluation) through the same CLI in
+    this process, whose launches are B.5's full-form main path; the files
+    each writes under the JAX names. Returns nli's launch counts and the
+    output directory."""
+    files = contrastive_files(tmp)
+    out = tmp / "contrastive"
+    cut = str(tmp / f"rwkv6_1b6_synthetic_{CUT_LAYERS}_layers.pth")
+    torch.save(two_layer_sd(path, CUT_LAYERS), cut)
+    run_trainers({"lora": path, "full": cut}, files, out)
+    bases = {p: torch.load(p, map_location="cpu", weights_only=True, mmap=True) for p in (path, cut)}
+    for command, _, _, names in TRAINER_RUNS:
+        base = bases[cut if command in FULL_PARAMETER else path]
+        for name in names:
+            print(f"  {command}: {check_trained_file(out / command / name, base)}")
+    nli = out / "nli"
+    args = ["nli", "--model", cut, "--train-data", files["nli"], "--sts-file", files["sts"],
+            "--max-seq-len", "64", "--micro-bsz", "4", "--max-steps", "2", "--log-every", "1",
+            "--warmup-steps", "0", "--platform", DEV, "--output-dir", str(nli)]
+    reset_launch_counts()
+    train_cli.main(args)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    # two steps of 3 fields, then the STS evaluation's two forwards of 8 rows
+    want = {k: 2 * n for k, n in full_step_counts(CUT_LAYERS, True, 3).items()}
+    for k, n in forward_counts(CUT_LAYERS).items():
+        want[k] += 2 * n
+    print(f"  in-process train.cli nli --max-steps 2 --sts-file ({CUT_LAYERS} layers): launches "
+          f"{counts}")
+    check(counts == want, f"CLI nli launch counts {counts} != {want}")
+    print(f"  nli: {check_trained_file(nli / 'nli-step2.pth', bases[cut])}")
+    rows = (nli / "similarity_evaluation_sts-dev_results.csv").read_text().splitlines()
+    check(rows[0].startswith("epoch,steps,cosine_pearson") and len(rows) == 2, f"STS CSV {rows}")
+    print(f"  nli: similarity_evaluation_sts-dev_results.csv {rows[1]}")
+    del bases
+    torch.cuda.empty_cache()
+    return {"counts": counts, "out": out}
+
+
+def cls_states(model, batches: list, *, reference: bool) -> torch.Tensor:
+    """fp32 hidden states at the first CLS_ID of each row, the state that
+    classify_sequences scores."""
+    out = []
+    with torch.inference_mode():
+        for tokens in batches:
+            hidden, _ = model(tokens, return_hidden=True, return_logits=False, reference=reference)
+            pos = first_token_position(tokens, CLS_ID)
+            out.append(hidden[torch.arange(len(tokens), device=DEV), pos].float())
+    return torch.cat(out)
+
+
+def rerank_documents(tok) -> list:
+    """Documents of a few lengths about one query (pairs in the 64 ... 512
+    buckets)."""
+    docs = [SHORT, CJK, MIXED, "Paris is the capital of France. " * 12,
+            "RWKV mixes time like a transformer and decodes like an RNN. " * 6,
+            "Rerankers score a query against each passage. " * 30]
+    check(max(len(tok.encode(d)) for d in docs) < 500, "a rerank document is too long")
+    return docs
+
+
+def phase_rerank(path: str, out: Path) -> dict:
+    """/rerank and /embed through `python -m rwkv_lm_ext_tpu_torch.serve.cli
+    --bi-adapter --cross-adapter --cross-head` (a subprocess, bf16) on the
+    adapters that phase 16b trained: scores against a fp32 plain-route
+    CrossEncoder on the same merged weights, the ranking, 400 on malformed
+    payloads; /embed rows unit-norm; 404 from a server with no
+    cross-encoder. Then the same reranker in this process for its launches.
+    Returns those counts and the merged bf16 reranker."""
+    tok = WorldTokenizer()
+    query, docs = "What is the capital of France?", rerank_documents(tok)
+    cross, head = out / "cross-encoder" / "cross-encoder-step2.pth", out / "cross-encoder" / "score-step2.pth"
+    bi = out / "bi-encoder" / "bi-encoder-step2.pth"
+    args = ["--model", path, "--bi-adapter", str(bi), "--cross-adapter", str(cross), "--cross-head",
+            str(head), "--platform", DEV, "--port", "0"]
+    t0 = time.perf_counter()
+    with CliServer(args) as base:
+        print(f"  python -m rwkv_lm_ext_tpu_torch.serve.cli --bi-adapter --cross-adapter "
+              f"--cross-head: serving on {base} after {time.perf_counter() - t0:.1f} s")
+        code, served = post(base + "/rerank", {"query": query, "documents": docs})
+        check(code == 200, f"/rerank answered {code}")
+        bad = [post(base + "/rerank", p)[0] for p in
+               ({"documents": docs}, {"query": query, "documents": []}, {"query": query},
+                {"query": query, "documents": [1]})]
+        check(bad == [400] * 4, f"malformed /rerank payloads answered {bad}")
+        code, emb = post(base + "/embed", {"texts": [SHORT, CJK, MIXED]})
+        norms = np.linalg.norm(np.asarray(emb["embeddings"]), axis=1)
+        check(code == 200 and np.allclose(norms, 1.0, atol=1e-3), f"/embed: {code}, norms {norms}")
+        code, stats = post(base + "/stats", {})
+        check(stats["requests"].get("/rerank") == 5, f"/stats {stats['requests']}")
+    print(f"  /rerank: scores {np.round(served['scores'], 4).tolist()}, ranking {served['ranking']}; "
+          f"4 malformed payloads 400; /embed through the bi adapter: unit rows (norms "
+          f"{norms.min():.6f} .. {norms.max():.6f})")
+
+    sd = torch.load(cross, map_location="cpu", weights_only=True)
+    score = score_head_from_state_dict(torch.load(head, map_location="cpu", weights_only=True),
+                                       device=DEV)
+    model, cfg = load_rwkv_checkpoint(path, device=DEV)
+    merge_lora(apply_lora(model, LORA, lora_state_dict_to_tree(sd)))
+    f32, _ = load_rwkv_checkpoint(path, device=DEV, dtype="float32")
+    merge_lora(apply_lora(f32, LORA, lora_state_dict_to_tree(sd)))
+    batches = [torch.from_numpy(a).to(DEV)
+               for a in CrossEncoder(model, tok, score).token_batches([(query, d) for d in docs])]
+    h16, p16, p32 = (cls_states(m, batches, reference=r)
+                     for m, r in ((model, False), (model, True), (f32, True)))
+    del f32
+    torch.cuda.empty_cache()
+    plain16, plain = ((h @ score.weight.detach().float()[0]).cpu().numpy() for h in (p16, p32))
+    scores = np.asarray(served["scores"])
+    scale = np.abs(plain).max()
+    err, err16 = np.abs(scores - plain).max() / scale, np.abs(plain16 - plain).max() / scale
+    cos = min_cosine(h16, p32)
+    # the ranking where no two scores' deviations from the fp32 route could swap neighbours
+    order, tie = np.argsort(-plain), 2 * np.abs(scores - plain).max()
+    gaps = -np.diff(plain[order])
+    held = [i for i in range(len(order))
+            if (i == 0 or gaps[i - 1] > tie) and (i == len(order) - 1 or gaps[i] > tie)]
+    agree = all(served["ranking"][i] == order[i] for i in held)
+    print(f"  served bf16 scores vs the fp32 plain route on the same merged weights: max |diff| / "
+          f"max|plain| = {err:.3e}, the bf16 plain route's {err16:.3e} (the kernel route may trail "
+          f"it by {RERANK_REL}); the cls states' min cosine to the fp32 plain route {cos:.6f} "
+          f"(limit 0.999); fp32 plain ranking {order.tolist()}, served ranking equal at the "
+          f"{len(held)} places whose neighbours differ by more than twice the largest deviation: "
+          f"{agree}")
+    check(err <= err16 + RERANK_REL and cos >= 0.999 and agree and held,
+          "the served reranker is off the plain route")
+
+    with Served(ServingService(bi_encoder=BiEncoder(model, tok))) as base:
+        code, _ = post(base + "/rerank", {"query": query, "documents": docs})
+        check(code == 404, f"/rerank on a server with no cross-encoder answered {code}")
+    print("  /rerank on a server with no cross-encoder: 404")
+    rerank = CrossEncoder(model, tok, score)
+    pairs = [(query, d) for d in docs]
+    n_batches = len(list(rerank.token_batches(pairs)))
+    reset_launch_counts()
+    got = rerank.score_pairs(pairs)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {k: n * n_batches for k, n in forward_counts(cfg.n_layer).items()}
+    print(f"  in-process CrossEncoder.score_pairs ({len(pairs)} pairs, {n_batches} batch): launches "
+          f"{counts}")
+    check(counts == want, f"rerank launch counts {counts} != {want}")
+    check(np.abs(got - scores).max() <= 1e-6 * max(1.0, np.abs(scores).max()),
+          "the in-process reranker scores otherwise than the served one")
+    return {"counts": counts, "reranker": rerank}
+
+
+def rerank_pairs(tok, n: int = RERANK_PAIRS) -> list:
+    """`n` (query, document) pairs whose rows land in the 512 bucket."""
+    doc = "Rerankers score a query against each passage, one pair at a time. " * 22
+    pairs = [(f"query number {i}: which passage explains reranking?", doc) for i in range(n)]
+    length = len(pair_ids(tok, *pairs[0]))
+    check(256 < length <= 512, f"a rerank pair is {length} tokens, not in the 512 bucket")
+    return pairs
+
+
+def phase_contrastive_readings(path: str, reranker, smi: str) -> None:
+    """Readings, not benchmark cells: reranked pairs a second (64 pairs in
+    the 512 bucket, bf16, CrossEncoder.score_pairs, host clock over 3 calls
+    after a warm-up, busy time of one call); a cross-encoder LoRA step and
+    an nli (CoSENT, every parameter over fp32 masters) step at B=8, T=512:
+    ms (CUDA events over chained steps with a canary), Kt/s, busy and idle
+    share; B.5's full form in the nli step, device ms and launches."""
+    tok = WorldTokenizer()
+    pairs = rerank_pairs(tok)
+    reranker.score_pairs(pairs, batch_size=RERANK_PAIRS)        # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        scores = reranker.score_pairs(pairs, batch_size=RERANK_PAIRS)
+    wall = (time.perf_counter() - t0) / 3
+    check(np.isfinite(scores).all(), "non-finite rerank scores")
+    busy = busy_us(device_ops(lambda: reranker.score_pairs(pairs, batch_size=RERANK_PAIRS), 1)) / 1e3
+    print(f"  reading: {RERANK_PAIRS / wall:.2f} reranked pairs/s ({RERANK_PAIRS} pairs, bucket 512, "
+          f"bf16, {wall * 1e3:.1f} ms a call, device busy {busy:.3f} ms) on {smi}")
+    del reranker
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    model, cfg = load_rwkv_checkpoint(path, device=DEV)
+    apply_lora(model, LORA, init_lora_params(model, LORA, gen))
+    model.score = init_classification_head(cfg, generator=gen)
+    loss_fn = functools.partial(cross_encoder_loss_fn, remat=True)
+    step = make_train_step(model, TrainConfig(lr_init=1e-4, warmup_steps=0, total_steps=100), loss_fn)
+    batch = pair_rows(gen, cfg.vocab_size)
+    step(batch)      # warm-up
+    torch.cuda.synchronize()
+    trainable = [p for p in model.parameters() if p.requires_grad]
+    ms, losses, before_last = chained_steps(step, batch, 3, trainable)
+    check(bool(torch.isfinite(losses).all()), f"non-finite cross-encoder losses {losses}")
+    train_canary(model, loss_fn, trainable, before_last, batch, pair_rows(gen, cfg.vocab_size),
+                 losses[-1], "cross-encoder train steps")
+    del before_last
+    print(f"  reading: cross-encoder train step (LoRA r=8 + score head) {ms:.2f} ms, "
+          f"{TB * T / ms:.2f} Kt/s (B={TB}, T={T}, bf16, remat on) on {smi}")
+    step_profile(step, batch, ms, what="one cross-encoder step", kernels=LORA_STEP_KERNELS)
+    del model, step
+    torch.cuda.empty_cache()
+
+    model, cfg = load_rwkv_checkpoint(path, device=DEV, param_dtype="float32")
+    apply_trainable_mask(model, trainable_mask(model, "full"))
+    loss_fn = functools.partial(contrastive_loss_fn, loss="cosent", pooling="lasttoken", remat=True)
+    step = make_train_step(model, TrainConfig(lr_init=1e-5, warmup_steps=0, total_steps=100), loss_fn)
+    batch = triplet_rows(gen, cfg.vocab_size)
+    step(batch)      # warm-up; builds the optimizer state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainable = [p for p in model.parameters() if p.requires_grad]
+    reset_launch_counts()
+    ms, losses, before_last = chained_steps(step, batch, 3, trainable)
+    b5 = launch_counts()["tmix_prologue_bwd"] // 3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(bool(torch.isfinite(losses).all()), f"non-finite nli losses {losses}")
+    train_canary(model, loss_fn, trainable, before_last, batch, triplet_rows(gen, cfg.vocab_size),
+                 losses[-1], "nli train steps")
+    del before_last
+    tokens = 3 * TB * T
+    print(f"  reading: nli train step (CoSENT over triplets, every parameter, fp32 master weights, "
+          f"bf16 compute) {ms:.2f} ms, {tokens / ms:.2f} Kt/s ({tokens} tokens a step: B={TB} "
+          f"triplets of T={T}, remat on, peak {peak:.1f} GiB) on {smi}")
+    split = step_profile(step, batch, ms, what="one nli step", kernels=LORA_STEP_KERNELS)
+    print(f"  reading: B.5 in its full form (with the weight gradients) in the nli step: {b5} launches "
+          f"a step, {split['B.5']:.3f} ms a step, {split['B.5'] / max(b5, 1):.4f} ms a launch on {smi}")
+    check(b5 == 3 * cfg.n_layer, f"B.5 ran {b5} times a step, not {3 * cfg.n_layer}")
+    del model, step
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     """With no arguments the whole check; with --merge-calibration only the
     readings behind the merged-adapter budgets (merge_calibration)."""
@@ -3395,19 +3955,36 @@ def main() -> None:
         phase("phase 13: encoder readings (not benchmark cells)")
         phase_encoder_readings(path, smi)
 
+        phase(f"phase 16a: reranking and contrastive gradients, kernel route vs plain route (2 "
+              f"layers, full width, B={TB}, T={T})")
+        phase_contrastive_grads(path)
+        phase("phase 16b: the contrastive and reranking trainers through python -m "
+              "rwkv_lm_ext_tpu_torch.train.cli")
+        trained = phase_contrastive_cli(path, tmp)
+        phase("phase 16c: /rerank through python -m rwkv_lm_ext_tpu_torch.serve.cli "
+              "--cross-adapter, on the adapters that phase 16b trained")
+        rerank = phase_rerank(path, trained["out"])
+        phase("phase 16d: reranking and contrastive training readings (not benchmark cells)")
+        phase_contrastive_readings(path, rerank.pop("reranker"), smi)
+
     # each kernel's launches on a main path that runs it: embedding serving,
     # int8c generation (on the device: its decode blocks are graph replays),
-    # LoRA training, /fill_mask, the mlm trainer, and the fused decode route
-    # on the bf16 model (B.10, B.12) and the int8c one (B.11)
+    # LoRA training, the nli trainer (B.5's full form), /fill_mask, the mlm
+    # trainer, and the fused decode route on the bf16 model (B.10, B.12) and
+    # the int8c one (B.11); /rerank's own launches are checked in phase 16c
     launches = {k: embed_counts[k] for k in ("layer_norm", "tmix_prologue", "wkv6_fused_output")}
     launches.update({k: generate_counts[k] for k in ("wkv6_decode_step", "quantize_rows")})
     launches.update({k: train_counts[k] for k in NO_BACKWARD})
+    launches["tmix_prologue_bwd"] = trained["counts"]["tmix_prologue_bwd"]
     launches.update(wkv=fill_mask_counts["wkv"], wkv_bwd_state_pass=mlm_counts["wkv_bwd_state_pass"])
     launches.update({k: fused_counts[k] for k in ("att_prep_fused", "ffn_block_fused")})
     launches.update(ffn_prep_fused=fused_counts_q["ffn_prep_fused"],
                     wkv6_decode_step_transposed=bench_counts["wkv6_decode_step_transposed"])
     check(all(n > 0 for n in launches.values()) and mlm_counts["wkv"] > 0
-          and mlm_counts["wkv6_bwd_reverse_pass"] > 0 and fill_mask_counts["layer_norm"] > 0,
+          and mlm_counts["wkv6_bwd_reverse_pass"] > 0 and fill_mask_counts["layer_norm"] > 0
+          and train_counts["tmix_prologue_bwd"] > 0
+          and all(rerank["counts"][k] > 0 for k in ("layer_norm", "tmix_prologue",
+                                                    "wkv6_fused_output")),
           f"a kernel was launched no time on its main path: {launches}")
     print(f"whole script: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": [

@@ -78,8 +78,10 @@ class LoraLinear(Linear):
     def __init__(self, base: Linear, A: torch.Tensor, B: torch.Tensor, scale: float):
         nn.Module.__init__(self)
         self.weight = base.weight
-        self.lora_A = nn.Parameter(A.detach().clone().float())    # (in, r)
-        self.lora_B = nn.Parameter(B.detach().clone().float())    # (r, out)
+        # copies on the projection's device: an adapter file loads on the CPU
+        dev = base.weight.device
+        self.lora_A = nn.Parameter(A.detach().to(dev, torch.float32, copy=True))    # (in, r)
+        self.lora_B = nn.Parameter(B.detach().to(dev, torch.float32, copy=True))    # (r, out)
         self.scale = scale
 
     def forward(self, x: torch.Tensor, ops=None) -> torch.Tensor:

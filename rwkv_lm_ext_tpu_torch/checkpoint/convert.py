@@ -6,8 +6,16 @@ flattened vectors); the port's module already uses the flat keys and
 shapes, so loading is a checked copy. The flat dict of fp32 numpy arrays
 (what the JAX ``params_to_state_dict`` emits) is also how weights are
 carried between the two packages; ``lora_tree_from_jax`` carries a LoRA
-adapter the same way and ``one_layer_decoder_from_jax`` the RetroMAE
-decoder's parameter tree.
+adapter the same way, ``one_layer_decoder_from_jax`` the RetroMAE
+decoder's parameter tree, and ``score_head_from_jax``,
+``embedding_head_from_jax`` and ``instructor_head_from_jax`` the task heads'
+trees (``{"kernel": (C, n)}``, ``{"dense": {kernel, bias}}`` and
+``{"dense": ..., "ln": {scale, bias}}``) as the port's head modules in the
+reference's layout: ``score.weight`` (n, C) (JAX serve/cli.py:124-131
+``_load_head`` reads it back transposed), ``dense.weight`` (out, C) and
+``dense.bias``, ``ln_dense.weight`` and ``ln_dense.bias`` (JAX
+train/cli.py:1258-1276). ``score_head_from_state_dict`` reads the score
+head of a checkpoint or adapter file.
 
 The JAX loader also runs ``apply_wkv_dispatch``; the port's WKV kernel is
 exact at any decay, so there is nothing to dispatch.
@@ -23,7 +31,8 @@ from rwkv_lm_ext_tpu_torch.adapters.quant import quantize_model
 from rwkv_lm_ext_tpu_torch.checkpoint.pth import sniff_model_config, strip_prefix
 from rwkv_lm_ext_tpu_torch.config import ModelConfig
 from rwkv_lm_ext_tpu_torch.models.bidirectional import OneLayerDecoder
-from rwkv_lm_ext_tpu_torch.models.rwkv import RWKV
+from rwkv_lm_ext_tpu_torch.models.heads import DenseHead, ScoreHead, init_layer_norm
+from rwkv_lm_ext_tpu_torch.models.rwkv import RWKV, Norm
 
 
 def load_state_dict_into(model, state_dict: Dict):
@@ -88,6 +97,53 @@ def one_layer_decoder_from_jax(tree: Dict, cfg: ModelConfig, *, device="cpu") ->
                 sd[f"{part}.{name}"] = arr(value)
     sd["head.weight"] = arr(tree["head"]).T
     return load_state_dict_into(OneLayerDecoder(cfg, device=device), sd)
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, np.float32), device=device)
+
+
+def score_head_from_jax(tree: Dict, *, device="cpu") -> ScoreHead:
+    """{"kernel": (C, n)} -> ScoreHead with weight (n, C)."""
+    kernel = _f32(tree["kernel"], device)
+    head = ScoreHead(kernel.shape[0], kernel.shape[1], device=device)
+    with torch.no_grad():
+        head.weight.copy_(kernel.T)
+    return head
+
+
+def embedding_head_from_jax(tree: Dict, *, device="cpu") -> DenseHead:
+    """{"dense": {"kernel": (C, out), "bias": (out,)}} -> DenseHead."""
+    kernel = _f32(tree["dense"]["kernel"], device)
+    head = DenseHead(kernel.shape[0], kernel.shape[1], device=device)
+    with torch.no_grad():
+        head.weight.copy_(kernel.T)
+        head.bias.copy_(_f32(tree["dense"]["bias"], device))
+    return head
+
+
+def instructor_head_from_jax(tree: Dict, *, device="cpu") -> Tuple[DenseHead, Norm]:
+    """{"dense": {kernel, bias}, "ln": {scale, bias}} -> (dense, ln_dense)."""
+    dense = embedding_head_from_jax(tree, device=device)
+    ln = init_layer_norm(dense.weight.shape[0], device=device)
+    with torch.no_grad():
+        ln.weight.copy_(_f32(tree["ln"]["scale"], device))
+        ln.bias.copy_(_f32(tree["ln"]["bias"], device))
+    return dense, ln
+
+
+def score_head_from_state_dict(sd: Dict, *, device="cpu") -> Optional[ScoreHead]:
+    """The ScoreHead of a file's ``score.weight`` (n, C), or None without
+    one."""
+    if "score.weight" not in sd:
+        return None
+    w = sd["score.weight"]
+    w = w.detach().float() if isinstance(w, torch.Tensor) else torch.from_numpy(
+        np.asarray(w, np.float32))
+    head = ScoreHead(w.shape[1], w.shape[0], device=device)
+    with torch.no_grad():
+        head.weight.copy_(w)
+    return head
 
 
 def save_rwkv_checkpoint(model: RWKV, path: str) -> None:

@@ -2,11 +2,13 @@
 
 Jax-free copies of collators of rwkv_lm_ext_tpu/data/collators.py:
 ``sft_collate`` (:25-53, without the slot-LoRA adapter ids),
+``triplet_collate`` (:56), ``cross_encoder_collate`` (:89),
 ``whole_word_mask`` (:115), ``mlm_collate`` (:130) and ``mae_collate``
 (:171). The masking collators make the same ``np.random.default_rng(seed)``
 draws in the same order as the originals, so both packages mask the same
-tokens for a seed. The triplet and cross-encoder collators wait for their
-trainers.
+tokens for a seed; ``triplet_collate`` picks among several candidates of a
+field from its own ``np.random.default_rng(0)`` per call, by the same calls,
+so both packages pick the same ones.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from rwkv_lm_ext_tpu_torch.config import EOS_ID, MASK_ID, PAD_ID
+from rwkv_lm_ext_tpu_torch.config import EOS_ID, MASK_ID, PAD_ID, SEP_ID
 
 IGNORE = -100
 
@@ -35,6 +37,49 @@ def sft_collate(examples: List[Dict], fixed_len: int, *, pad_id: int = PAD_ID) -
     labels = np.full_like(labels_raw, IGNORE)
     labels[:, :-1] = labels_raw[:, 1:]
     return {"input_ids": input_ids, "labels": labels}
+
+
+def triplet_collate(
+    examples: List[Dict], fixed_len: int, *, emb_id: int = EOS_ID, pad_id: int = PAD_ID,
+    rng: Optional[np.random.Generator] = None,
+) -> Dict[str, np.ndarray]:
+    """{"query", "positive", "negative"} token lists -> one (B, fixed_len)
+    int32 array a field, each row cut to fixed_len - 1, emb_id-terminated and
+    padded. A field holding several candidates gives one, drawn from `rng`
+    (``default_rng(0)`` when none is given)."""
+    rng = rng or np.random.default_rng(0)
+
+    def pick(v):
+        if v and isinstance(v[0], (list, tuple, np.ndarray)):
+            return list(v[int(rng.integers(len(v)))])
+        return list(v)
+
+    out = {}
+    for key in ("query", "positive", "negative"):
+        if key not in examples[0]:
+            continue
+        out[key] = np.stack([_pad_to(pick(e[key])[: fixed_len - 1] + [emb_id], fixed_len, pad_id)
+                             for e in examples])
+    return out
+
+
+def cross_encoder_collate(
+    examples: List[Dict], fixed_len: int, *, sep_id: int = SEP_ID, cls_id: int = EOS_ID,
+    pad_id: int = PAD_ID,
+) -> Dict[str, np.ndarray]:
+    """{"query", "document", "label"} -> ``q [sep] d [cls]`` rows (B,
+    fixed_len) int32, the document cut first when the pair exceeds
+    fixed_len - 2, and labels (B,) int32 (1 when absent)."""
+    rows, labels = [], []
+    for e in examples:
+        q, d = list(e["query"]), list(e["document"])
+        budget = fixed_len - 2
+        if len(q) + len(d) > budget:
+            d = d[: max(budget - len(q), 0)]
+            q = q[: budget - len(d)]
+        rows.append(_pad_to(q + [sep_id] + d + [cls_id], fixed_len, pad_id))
+        labels.append(int(e.get("label", 1)))
+    return {"input_ids": np.stack(rows), "labels": np.asarray(labels, np.int32)}
 
 
 def whole_word_mask(

@@ -34,9 +34,10 @@ def extract_time_states(state_dict: Dict, n_layer: int) -> torch.Tensor:
 
 class StatesRegistry:
     """name -> (L, H, N, N) initial WKV states and instruction templates,
-    kept on ``device``."""
+    kept on ``device`` (the engine's: a required keyword, as ``RWKV(cfg, *,
+    device)`` has it)."""
 
-    def __init__(self, cfg, *, device="cpu"):
+    def __init__(self, cfg, *, device):
         self.cfg = cfg
         self.device = torch.device(device)
         self._states: Dict[str, torch.Tensor] = {}

@@ -5,7 +5,8 @@ Counterpart of rwkv_lm_ext_tpu/models/bidirectional.py: ``sequence_lengths``
 ``encoder_forward`` (:143), ``encode_sentence`` (:180), the RetroMAE
 one-layer decoder (``aggressive_decoder_time_mix`` :193,
 ``one_layer_decoder_forward`` :219, ``init_one_layer_decoder`` :307),
-``mae_forward`` (:249, bidirectional only so far), ``dupmae_bow_loss`` (:298)
+``mae_forward`` (:249; ``bidirectional=False`` runs the causal model and adds
+``seq_emb`` back onto the token states, :283-284), ``dupmae_bow_loss`` (:298)
 and the streaming variant (:340-469).
 
 The two bidirectional modes:
@@ -233,17 +234,24 @@ def init_one_layer_decoder(cfg, *, generator: torch.Generator, device) -> OneLay
 
 def mae_forward(
     model: RWKV, encoder_ids: torch.Tensor, decoder_ids: Optional[torch.Tensor] = None, *,
-    mode: str = "average", emb_id: int = EMB_ID, remat: bool = False, reference: bool = False,
+    bidirectional: bool = True, mode: str = "average", emb_id: int = EMB_ID,
+    remat: bool = False, reference: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """RetroMAE forward with the bidirectional encoder: ``seq_emb`` (B, C),
-    the hidden state at the first emb_id; ``encoder_logits`` (B, T, V) fp32
-    from the tied head; and, with decoder_ids and a ``model.onelayer_decoder``,
-    ``decoder_logits`` (B, T, V) and their max over T, ``ot_logits`` (the
-    DupMAE bag-of-words logits)."""
-    hidden = encoder_forward(model, encoder_ids, mode=mode, remat=remat, reference=reference)
+    """RetroMAE forward: ``seq_emb`` (B, C), the encoder's hidden state at
+    the first emb_id; ``encoder_logits`` (B, T, V) fp32 from the tied head;
+    and, with decoder_ids and a ``model.onelayer_decoder``, ``decoder_logits``
+    (B, T, V) and their max over T, ``ot_logits`` (the DupMAE bag-of-words
+    logits). The encoder is the bidirectional one, or with
+    ``bidirectional=False`` the causal model (K1/K2), whose token states get
+    seq_emb added back before the head."""
+    if bidirectional:
+        hidden = encoder_forward(model, encoder_ids, mode=mode, remat=remat, reference=reference)
+    else:
+        hidden, _ = model(encoder_ids, return_hidden=True, return_logits=False, remat=remat,
+                          reference=reference)
     seq_emb = _take_position(hidden, first_token_position(encoder_ids, emb_id))
-    out = {"seq_emb": seq_emb,
-           "encoder_logits": hidden.float() @ model.emb.weight.float().T}
+    x = hidden if bidirectional else hidden + seq_emb[:, None, :]
+    out = {"seq_emb": seq_emb, "encoder_logits": x.float() @ model.emb.weight.float().T}
     if decoder_ids is not None and model.onelayer_decoder is not None:
         out["decoder_logits"] = model.onelayer_decoder(
             seq_emb, decoder_ids, model.emb.weight, PLAIN_OPS if reference else KERNEL_OPS)

@@ -1,10 +1,13 @@
-"""Embedding, generation and fill-mask service over JSON HTTP.
+"""Embedding, reranking, generation and fill-mask service over JSON HTTP.
 
 Counterpart of rwkv_lm_ext_tpu/serve/api.py:40-495 and 554-590 with a
-bi-encoder, a generation engine (alone or behind a continuous batcher), a
-states registry and a bidirectional encoder:
+bi-encoder, a cross-encoder, a generation engine (alone or behind a
+continuous batcher), a states registry and a bidirectional encoder:
 
 - POST /embed {"texts": [...]}, POST /similarity {"texts_a", "texts_b"};
+- POST /rerank {"query", "documents": [...]}: {"scores": one a document,
+  "ranking": the documents' indices by descending score} (JAX
+  serve/api.py:404-413);
 - POST /fill_mask {"text", "top_k", "cumulative_prob"}: the text is split at
   each ``[MASK]``, encoded with an emb terminator, padded to a bucket of
   32 ... 2048 and run through the bidirectional encoder and its tied MLM
@@ -31,8 +34,7 @@ and neither is counted. A malformed payload answers 400. Transport: the
 standard library's ThreadingHTTPServer; one lock serialises the model's
 work; the batcher's thread takes the engine's own lock. The blocking
 engine /generate fetches tokens every 16 decode steps; its stream fetches
-every step, so each token streams as it is produced. /rerank waits for the
-cross-encoder.
+every step, so each token streams as it is produced.
 """
 from __future__ import annotations
 
@@ -100,9 +102,10 @@ def _sse(obj: Dict) -> bytes:
 
 
 class ServingService:
-    def __init__(self, *, engine=None, bi_encoder=None, encoder=None, tokenizer=None,
-                 mask_id: int = MASK_ID, batcher=None, states_registry=None):
-        """``encoder`` is an RWKV module served as the bidirectional encoder
+    def __init__(self, *, engine=None, bi_encoder=None, cross_encoder=None, encoder=None,
+                 tokenizer=None, mask_id: int = MASK_ID, batcher=None, states_registry=None):
+        """``cross_encoder`` (infer.encoders.CrossEncoder) serves /rerank.
+        ``encoder`` is an RWKV module served as the bidirectional encoder
         behind /fill_mask; it needs ``tokenizer``. ``batcher`` (a
         ContinuousBatcher over ``engine``) serves /generate once ``warmup``
         has started its driver; ``states_registry`` serves /process_text."""
@@ -112,6 +115,7 @@ class ServingService:
             raise ValueError("a batcher or a states registry needs the engine")
         self.engine = engine
         self.bi = bi_encoder
+        self.cross = cross_encoder
         self.encoder = encoder
         self.tokenizer = tokenizer
         self.mask_id = mask_id
@@ -126,6 +130,8 @@ class ServingService:
         self.routes = {"/stats"}
         if bi_encoder is not None:
             self.routes |= {"/embed", "/similarity"}
+        if cross_encoder is not None:
+            self.routes.add("/rerank")
         if engine is not None:
             self.routes.add("/generate")
         if states_registry is not None:
@@ -140,6 +146,8 @@ class ServingService:
         batcher's driver."""
         if self.bi is not None:
             self.bi.encode_texts(["warmup"])
+        if self.cross is not None:
+            self.cross.score_pairs([("warm", "up")])
         if self.engine is not None:
             for block in (BLOCKING_BLOCK_SIZE, 1):     # blocking, streaming
                 self.engine.generate("warmup", max_tokens=2, block_size=block)
@@ -165,6 +173,13 @@ class ServingService:
             ea = self.bi.encode_texts(texts_a)
             eb = self.bi.encode_texts(texts_b)
         return {"similarity": (ea @ eb.T).tolist()}
+
+    def rerank(self, query: str, documents: List[str]) -> Dict:
+        """Scores of (query, document) pairs and the documents' indices by
+        descending score."""
+        with self._lock:
+            scores = self.cross.score_pairs([(query, d) for d in documents])
+        return {"scores": scores.tolist(), "ranking": np.argsort(-scores).tolist()}
 
     def fill_mask(self, text: str, *, top_k: int = 10, cumulative_prob: float = 0.95,
                   reference: bool = False) -> Dict:
@@ -395,6 +410,14 @@ class ServingService:
             return self.embed(_texts(payload, "texts"))
         if route == "/similarity":
             return self.similarity(_texts(payload, "texts_a"), _texts(payload, "texts_b"))
+        if route == "/rerank":
+            query = payload.get("query")
+            if not isinstance(query, str):
+                raise BadRequest("'query' must be a string")
+            docs = payload.get("documents")
+            if not isinstance(docs, list) or not docs or not all(isinstance(d, str) for d in docs):
+                raise BadRequest("'documents' must be a non-empty list of strings")
+            return self.rerank(query, docs)
         if route == "/fill_mask":
             return self.fill_mask(**self._fill_mask_args(payload))
         if route == "/process_text":

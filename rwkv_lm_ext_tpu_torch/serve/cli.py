@@ -1,14 +1,16 @@
 """Serving CLI: one command from a checkpoint to an HTTP server.
 
-Counterpart of rwkv_lm_ext_tpu/serve/cli.py:38-121, 134-227 and 286-325
-with the generation engine, its LoRA adapters (merged and per request),
-named states, the continuous batcher, the prefix cache and the
-bidirectional encoder:
+Counterpart of rwkv_lm_ext_tpu/serve/cli.py:38-131, 134-227, 268-285 and
+286-325 with the generation engine, its LoRA adapters (merged and per
+request), named states, the continuous batcher, the prefix cache, the bi-
+and cross-encoders and the bidirectional encoder:
 
   python -m rwkv_lm_ext_tpu_torch.serve.cli --model m.pth [--quant int8c] \
       [--chat-adapter chat.pth] [--slot-adapter a=a.pth --slot-adapter b=b.pth] \
       [--lora-r 8 --lora-alpha 32] [--states-config states.json] \
-      [--batcher-slots 16 --batcher-block 16] [--prefix-cache 8]
+      [--batcher-slots 16 --batcher-block 16] [--prefix-cache 8] \
+      [--bi-adapter bi.pth [--bi-pooling weightedmean]] \
+      [--cross-adapter cross.pth [--cross-head score.pth]]
   python -m rwkv_lm_ext_tpu_torch.serve.cli --encoder enc.pth
 
 states.json maps action names to state-tuning checkpoints and templates:
@@ -22,10 +24,15 @@ dequantized on use; int8c: int8 products with dynamic per-row activation
 quantization). ``--chat-adapter`` merges a LoRA into the base before
 that; each ``--slot-adapter NAME=PATH`` is served per request (/generate
 {"adapter": NAME}) on the same base, unmerged, so requests under different
-adapters share the batcher's step. ``--platform`` is the torch device:
-``cuda`` by default, ``cpu`` only when asked. ``--draft`` (speculative
-decoding), ``--tp``, ``--pissa-init``, ``--tokenizer-json``, the bi- and
-cross-encoders and multi-host serving wait for later slices.
+adapters share the batcher's step. ``--bi-adapter`` serves /embed and
+/similarity, ``--cross-adapter`` /rerank, each from its own copy of the
+checkpoint's weights with the LoRA merged in, unquantized whatever --quant
+says (as the JAX CLI merges them into its base before quantizing the
+generation weights); the reranker's ``score.weight`` comes from the adapter
+file or from ``--cross-head``, and without one the command refuses to
+start. ``--platform`` is the torch device: ``cuda`` by default, ``cpu`` only
+when asked. ``--draft`` (speculative decoding), ``--tp``, ``--pissa-init``,
+``--tokenizer-json`` and multi-host serving wait for later slices.
 """
 from __future__ import annotations
 
@@ -42,9 +49,13 @@ from rwkv_lm_ext_tpu_torch.adapters.lora import (
 )
 from rwkv_lm_ext_tpu_torch.adapters.quant import quantize_model
 from rwkv_lm_ext_tpu_torch.adapters.slot_lora import build_slot_lora
-from rwkv_lm_ext_tpu_torch.checkpoint.convert import load_rwkv_checkpoint
+from rwkv_lm_ext_tpu_torch.checkpoint.convert import (
+    load_rwkv_checkpoint,
+    score_head_from_state_dict,
+)
 from rwkv_lm_ext_tpu_torch.data.tokenizer import WorldTokenizer
 from rwkv_lm_ext_tpu_torch.infer.continuous import ContinuousBatcher
+from rwkv_lm_ext_tpu_torch.infer.encoders import BiEncoder, CrossEncoder
 from rwkv_lm_ext_tpu_torch.infer.engine import GenerationEngine
 from rwkv_lm_ext_tpu_torch.infer.state_cache import PrefixStateCache
 from rwkv_lm_ext_tpu_torch.infer.states_registry import StatesRegistry
@@ -70,6 +81,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                         '(/generate {"adapter": NAME}), not merged; uses --lora-r/--lora-alpha')
     p.add_argument("--lora-r", type=int, default=8)
     p.add_argument("--lora-alpha", type=float, default=32.0)
+    p.add_argument("--bi-adapter", default=None,
+                   help="LoRA .pth for the bi-encoder (/embed, /similarity)")
+    p.add_argument("--bi-pooling", default="weightedmean")
+    p.add_argument("--cross-adapter", default=None,
+                   help="LoRA .pth for the cross-encoder (/rerank); its score.weight (or "
+                        "--cross-head's) is the scoring head")
+    p.add_argument("--cross-head", default=None,
+                   help=".pth holding score.weight if the adapter does not")
     p.add_argument("--states-config", default=None,
                    help="JSON: name -> {path, template} of state-tuned tasks (/process_text)")
     p.add_argument("--batcher-slots", type=int, default=0,
@@ -96,9 +115,30 @@ def build_service(args: argparse.Namespace) -> ServingService:
     overrides = {"dtype": args.dtype} if args.dtype else {}
     device = torch.device(args.platform)
     tok = WorldTokenizer(args.vocab)
-    engine = encoder = batcher = states = None
+    engine = encoder = batcher = states = bi = cross = None
+    if (args.bi_adapter or args.cross_adapter) and not args.model:
+        raise SystemExit("--bi-adapter and --cross-adapter need --model")
     if args.model:
         lc = LoraConfig(r=args.lora_r, alpha=args.lora_alpha)
+
+        def merged(path):
+            """The checkpoint's weights with the LoRA at `path` merged in,
+            unquantized, and the adapter file's state dict."""
+            sd = _load(path)
+            model, _ = load_rwkv_checkpoint(args.model, device=device, **overrides)
+            return merge_lora(apply_lora(model, lc, lora_state_dict_to_tree(sd))), sd
+
+        if args.bi_adapter:
+            bi = BiEncoder(merged(args.bi_adapter)[0], tok, pooling_type=args.bi_pooling)
+        if args.cross_adapter:
+            cross_model, sd = merged(args.cross_adapter)
+            head = score_head_from_state_dict(sd, device=device)
+            if head is None and args.cross_head:
+                head = score_head_from_state_dict(_load(args.cross_head), device=device)
+            if head is None:
+                raise SystemExit("--cross-adapter needs score.weight (in the adapter or via "
+                                 "--cross-head)")
+            cross = CrossEncoder(cross_model, tok, head)
         if args.chat_adapter:
             # merged into the checkpoint's weights, then quantized
             model, cfg = load_rwkv_checkpoint(args.model, device=device, **overrides)
@@ -130,13 +170,17 @@ def build_service(args: argparse.Namespace) -> ServingService:
                                         adaptive_block=args.batcher_adaptive)
     if args.encoder:
         encoder, _ = load_rwkv_checkpoint(args.encoder, device=device, **overrides)
-    return ServingService(engine=engine, encoder=encoder, tokenizer=tok, batcher=batcher,
-                          states_registry=states)
+    return ServingService(engine=engine, bi_encoder=bi, cross_encoder=cross, encoder=encoder,
+                          tokenizer=tok, batcher=batcher, states_registry=states)
+
+
+def _load(path: str) -> dict:
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def _adapter(path: str):
     """A LoRA .pth (reference or peft keys) as an adapter dict."""
-    return lora_state_dict_to_tree(torch.load(path, map_location="cpu", weights_only=True))
+    return lora_state_dict_to_tree(_load(path))
 
 
 def main(argv=None) -> None:

@@ -1,8 +1,13 @@
-"""Training callbacks: metrics logging and adapter checkpoints.
+"""Training callbacks: metrics logging and checkpoints.
 
 Counterpart of rwkv_lm_ext_tpu/train/callbacks.py:28-135: ``MetricsLogger``
 (it/s, Kt/s, ``train_log.txt`` lines), ``save_lora_checkpoint`` and
-``save_states_checkpoint``. The JAX logger takes Kt/s as ctx_len *
+``save_states_checkpoint``; and of the JAX trainers' own save functions
+(train/cli.py): ``save_score_head`` (``score-step{N}.pth``, ``score.weight``
+(n, C)) and ``save_model_checkpoint``, the base checkpoint's layout with the
+heads attached to the model beside it (``score.weight``, or ``dense.*`` and
+``ln_dense.*``) and without the RetroMAE decoder, as ``params_to_state_dict``
+plus the heads writes it. The JAX logger takes Kt/s as ctx_len *
 micro_bsz tokens over the time since its previous log; the bucket sampler's
 batch holds micro_bsz * 64 // bucket rows of the bucket's length, and a log
 every N steps spans N steps, so both rates were off (ROADMAP.md C.8). This
@@ -66,3 +71,15 @@ def save_states_checkpoint(model, path: str) -> None:
         f"blocks.{i}.att.time_state": block.att.time_state.detach().float().contiguous().cpu()
         for i, block in enumerate(model.blocks) if block.att.time_state is not None
     }, path)
+
+
+def save_score_head(score, path: str) -> None:
+    """``score.weight`` (num_labels, C) fp32."""
+    torch.save({"score.weight": score.weight.detach().float().contiguous().cpu()}, path)
+
+
+def save_model_checkpoint(model, path: str) -> None:
+    """Every weight of the model and of the heads attached to it, fp32, in
+    the base checkpoint's flat layout; the RetroMAE decoder stays out."""
+    torch.save({k: v.detach().float().contiguous().cpu() for k, v in model.state_dict().items()
+                if not k.startswith("onelayer_decoder.")}, path)

@@ -1,29 +1,55 @@
-"""Trainer entry point: LoRA and state-tuning SFT, and full-parameter MLM
-and RetroMAE training of the bidirectional encoder, on one device.
+"""Trainer entry point: LoRA and state-tuning SFT, the contrastive and
+reranking trainers, and full-parameter training of the causal model as an
+embedder and of the bidirectional encoder, on one device.
 
 Counterpart of rwkv_lm_ext_tpu/train/cli.py: the ``sft`` subcommand
 (``cmd_sft``, :355-548, with ``_common_args`` :28-90, ``_train_config``,
 ``_sft_batches`` :320-352 and ``_run_loop`` :225-317) for the train types
-``lora`` and ``state``/``states``, and the ``mlm`` and ``mae`` subcommands
-(``cmd_mlm``, :999-1086), which train every parameter over fp32 master
-weights with bf16 compute. Full fine-tuning under ``sft``, PiSSA, slot-LoRA,
-QLoRA (--quant), TBPTT (--chunk-ctx), LISA, dp/tp/pp, Orbax train-state I/O,
-the ``dots`` remat policies, ``mae --uni`` and the other trainers wait; their
-flags and train types are refused by argparse.
+``lora`` and ``state``/``states``; ``bi-encoder`` (``cmd_bi_encoder`` :665,
+LoRA, in-batch InfoNCE or CoSENT) and ``cross-encoder``
+(``cmd_cross_encoder`` :945, LoRA and a score head, MSE on 0/1 labels), both
+on ``_contrastive_batches`` (:627-662: bucketed by query length, collated to
+min(2 * bucket, ctx_len)); ``nli`` (``cmd_nli`` :714, AllNLI triplets, STS-b
+evaluation), ``simcse`` (``cmd_simcse`` :1089, the sentence-pair variant) and
+``instructor`` (``cmd_instructor`` :1178, a dense + LayerNorm head), which
+train every parameter of the causal model; ``encoder-biencoder``
+(:823) and ``encoder-crossencoder`` (:863, group softmax over G documents a
+query) on the bidirectional encoder; and ``mlm`` and ``mae`` (``cmd_mlm``,
+:999-1086, ``--uni``: the causal model as the RetroMAE encoder). The
+full-parameter commands train over fp32 master weights with bf16 compute.
+
+Refused, by argparse (exit 2), until their slices: ``--quant`` (QLoRA) under
+``sft``, ``bi-encoder`` and ``cross-encoder``; ``simcse --dropout-noise``
+(by name: the model has no dropout yet); full fine-tuning under ``sft``,
+PiSSA, slot-LoRA, TBPTT (--chunk-ctx), LISA, dp/tp/pp, Orbax train-state
+I/O and the ``dots`` remat policies.
 
 Usage:
   python -m rwkv_lm_ext_tpu_torch.train.cli sft --model base.pth \\
       --train-data data.jsonl --output-dir out --train-type lora
-  python -m rwkv_lm_ext_tpu_torch.train.cli mlm --model base.pth \\
-      --train-data text.jsonl --output-dir out
-  python -m rwkv_lm_ext_tpu_torch.train.cli mae --dup-mae --model base.pth \\
+  python -m rwkv_lm_ext_tpu_torch.train.cli bi-encoder|cross-encoder|nli|simcse|instructor \\
+      --model base.pth --train-data data.jsonl --output-dir out
+  python -m rwkv_lm_ext_tpu_torch.train.cli encoder-biencoder|encoder-crossencoder|mlm \\
+      --model base.pth --train-data data.jsonl --output-dir out
+  python -m rwkv_lm_ext_tpu_torch.train.cli mae [--dup-mae] [--uni] --model base.pth \\
       --train-data text.jsonl --output-dir out
 
-``mlm`` and ``mae`` read jsonl rows ``{"text": ...}`` (or bare strings).
+Data: ``sft`` jsonl rows {"instruction", "input", "output"}; ``bi-encoder``,
+``encoder-biencoder`` {"query", "positive", "negative"} (a field may hold a
+list of candidates); ``cross-encoder`` {"query", "document", "label"};
+``nli`` an AllNLI .tsv (``--sts-file`` an STS-benchmark .tsv); ``simcse``
+{"sentence_a", "sentence_b"}; ``instructor`` {"instruction", "query",
+"positive", "negative"}; ``encoder-crossencoder`` {"query", "documents"}
+(the first the positive); ``mlm`` and ``mae`` {"text"} (or bare strings).
 Prints ``step N: {json}`` lines (loss, grad_norm, lr, it/s, Kt/s) and writes
-``lora-step{N}.pth``, ``states-step{N}.pth`` or ``encoder-step{N}.pth`` (the
-base checkpoint's layout in fp32, without the RetroMAE decoder) and
-``train_log.txt`` into --output-dir.
+the JAX package's files into --output-dir: ``lora-step{N}.pth``,
+``states-step{N}.pth``, ``bi-encoder-step{N}.pth`` and
+``cross-encoder-step{N}.pth`` (LoRA, reference layout), ``score-step{N}.pth``
+(``score.weight`` (n, C)); ``nli-``, ``simcse-``, ``instructor-``,
+``encoder-bi-``, ``encoder-cross-`` and ``encoder-step{N}.pth`` in the base
+checkpoint's layout (fp32; with ``score.weight`` or ``dense.*`` /
+``ln_dense.*`` beside it; without the RetroMAE decoder); ``train_log.txt``;
+and for ``nli --sts-file`` ``similarity_evaluation_sts-{split}_results.csv``.
 """
 from __future__ import annotations
 
@@ -45,21 +71,45 @@ from rwkv_lm_ext_tpu_torch.adapters.lora import (
 from rwkv_lm_ext_tpu_torch.checkpoint.convert import load_rwkv_checkpoint
 from rwkv_lm_ext_tpu_torch.config import TrainConfig
 from rwkv_lm_ext_tpu_torch.data.buckets import BucketBatchSampler, LengthBucketedDataset
-from rwkv_lm_ext_tpu_torch.data.collators import mae_collate, mlm_collate, sft_collate
+from rwkv_lm_ext_tpu_torch.config import EMB_ID
+from rwkv_lm_ext_tpu_torch.data.collators import (
+    _pad_to,
+    cross_encoder_collate,
+    mae_collate,
+    mlm_collate,
+    sft_collate,
+    triplet_collate,
+)
+from rwkv_lm_ext_tpu_torch.data.nli import load_allnli_triplets, load_stsb_pairs
 from rwkv_lm_ext_tpu_torch.data.sft import load_sft_jsonl
 from rwkv_lm_ext_tpu_torch.data.tokenizer import WorldTokenizer
+from rwkv_lm_ext_tpu_torch.eval.sts import SimilarityEvaluator
 from rwkv_lm_ext_tpu_torch.models.bidirectional import init_one_layer_decoder
+from rwkv_lm_ext_tpu_torch.models.heads import (
+    embed_sequences,
+    init_classification_head,
+    init_embedding_head,
+    init_layer_norm,
+)
 from rwkv_lm_ext_tpu_torch.models.rwkv import normalize_remat
 from rwkv_lm_ext_tpu_torch.train.callbacks import (
     MetricsLogger,
     save_lora_checkpoint,
+    save_model_checkpoint,
+    save_score_head,
     save_states_checkpoint,
 )
 from rwkv_lm_ext_tpu_torch.train.loop import (
+    contrastive_loss_fn,
+    cross_encoder_loss_fn,
+    encoder_biencoder_loss_fn,
+    encoder_crossencoder_loss_fn,
+    instructor_loss_fn,
     mae_loss_fn,
     make_train_step,
     mlm_loss_fn,
     sft_loss_fn,
+    simcse_loss_fn,
 )
 from rwkv_lm_ext_tpu_torch.train.optim import apply_trainable_mask, make_schedule, trainable_mask
 
@@ -81,7 +131,9 @@ def _common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--accumulate-grad-batches", type=int, default=1)
     p.add_argument("--max-steps", type=int, default=0, help="0 = all data")
     p.add_argument("--ctx-len", type=int, default=512,
-                   help="mlm, mae: the longest bucket a text may take; SFT batches take "
+                   help="the longest bucket a text (mlm, mae), a query or a pair may take; "
+                        "contrastive batches are collated to min(2 * bucket, ctx-len); SFT "
+                        "batches take "
                         "their bucket's length")
     p.add_argument("--grad-checkpoint", choices=["on", "off"], default="on",
                    help="per-block activation recompute in the backward")
@@ -92,18 +144,39 @@ def _common_args(p: argparse.ArgumentParser) -> None:
                    help="torch device: cuda (default) or cpu (the kernels' plain versions)")
 
 
+def _jsonl(path: str):
+    with open(path, "r", encoding="utf-8") as f:
+        for line in f:
+            if line.strip():
+                yield json.loads(line)
+
+
+def _sizes(args, ds, least: int = 1) -> dict:
+    """Per-bucket batch sizes: micro_bsz * 64 // bucket, at least `least`."""
+    return {b.fixed_len: max(least, args.micro_bsz * 64 // b.fixed_len) for b in ds.buckets}
+
+
+def _bucketed(args, ds, sizes, collate) -> Callable[[int], Iterator]:
+    """batches(epoch) -> the collated batches of one epoch, the buckets'
+    orders drawn from seed + epoch."""
+    def batches(epoch: int):
+        sampler = BucketBatchSampler(ds, sizes, seed=args.seed + epoch)
+        for fixed_len, examples in sampler.batches():
+            yield collate(examples, fixed_len)
+
+    return batches
+
+
+def _lora_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--lora-r", type=int, default=8)
+    p.add_argument("--lora-alpha", type=float, default=32.0)
+
+
 def _sft_batches(args, tokenizer) -> Callable[[int], Iterator]:
     """batches(epoch) -> iterator of {"input_ids", "labels"} numpy arrays,
     one length bucket a batch, bucket batch size micro_bsz * 64 // len."""
     ds = load_sft_jsonl(args.train_data, tokenizer)
-    sizes = {b.fixed_len: max(1, args.micro_bsz * 64 // b.fixed_len) for b in ds.buckets}
-
-    def batches(epoch: int):
-        sampler = BucketBatchSampler(ds, sizes, seed=args.seed + epoch)
-        for fixed_len, examples in sampler.batches():
-            yield sft_collate(examples, fixed_len)
-
-    return batches
+    return _bucketed(args, ds, _sizes(args, ds), sft_collate)
 
 
 def _group_accum(batch_iter, accum: int):
@@ -118,7 +191,20 @@ def _group_accum(batch_iter, accum: int):
             yield {k: np.stack([g[k] for g in grp]) for k in grp[0]}
 
 
-def _run_loop(args, tc: TrainConfig, step_fn, batches, save_fn, device) -> None:
+def _tokens(batch) -> int:
+    """Tokens a batch trains on: its input ids (the RetroMAE encoder's
+    view), or the sum over the contrastive fields."""
+    for key in ("input_ids", "encoder_input_ids"):
+        if key in batch:
+            return batch[key].numel()
+    return sum(batch[k].numel() for k in ("query", "positive", "negative", "a", "b") if k in batch)
+
+
+def _run_loop(args, tc: TrainConfig, step_fn, batches, save_fn, device, eval_fn=None) -> None:
+    """The epochs: a step a batch, a log line every --log-every steps, a
+    save every --save-every-steps and at each epoch's end; ``eval_fn(step,
+    epoch)`` every --eval-every-steps (where the command has it) and at
+    each epoch's end."""
     os.makedirs(args.output_dir, exist_ok=True)
     schedule = make_schedule(tc)
     logger = MetricsLogger(args.output_dir)
@@ -136,8 +222,7 @@ def _run_loop(args, tc: TrainConfig, step_fn, batches, save_fn, device) -> None:
                      for k, v in batch.items()}
             metrics = step_fn(batch)
             epoch_losses.append(float(metrics["loss"]))
-            ids = batch["input_ids"] if "input_ids" in batch else batch["encoder_input_ids"]
-            steps, tokens = steps + 1, tokens + ids.numel()
+            steps, tokens = steps + 1, tokens + _tokens(batch)
             if step % args.log_every == 0:
                 m = logger.on_step(step, metrics, schedule(step), steps=steps, tokens=tokens)
                 steps = tokens = 0
@@ -145,8 +230,13 @@ def _run_loop(args, tc: TrainConfig, step_fn, batches, save_fn, device) -> None:
             step += 1
             if args.save_every_steps and step % args.save_every_steps == 0:
                 save_fn(step)
+            if eval_fn is not None and getattr(args, "eval_every_steps", 0) and \
+                    step % args.eval_every_steps == 0:
+                eval_fn(step, epoch)
         logger.on_epoch_end(epoch, float(np.mean(epoch_losses or [0.0])), schedule(step))
         save_fn(step)
+        if eval_fn is not None:
+            eval_fn(step, epoch)
 
 
 def _train_config(args, batches) -> TrainConfig:
@@ -158,6 +248,36 @@ def _train_config(args, batches) -> TrainConfig:
         micro_bsz=args.micro_bsz, accumulate_grad_batches=args.accumulate_grad_batches,
         grad_checkpoint=normalize_remat(args.grad_checkpoint), seed=args.seed,
     )
+
+
+def _full_model(args):
+    """(device, model, cfg) for a command that trains every parameter: fp32
+    master weights, cast to the compute dtype at each use."""
+    device = torch.device(args.platform)
+    model, cfg = load_rwkv_checkpoint(args.model, device=device, param_dtype="float32")
+    return device, model, cfg
+
+
+def _train_full(args, model, tc, loss_fn, batches, device, prefix: str, eval_fn=None) -> None:
+    """Train every parameter of the model and of the heads attached to it;
+    save ``{prefix}-step{N}.pth`` in the base checkpoint's layout."""
+    def save_fn(step):
+        save_model_checkpoint(model, os.path.join(args.output_dir, f"{prefix}-step{step}.pth"))
+
+    apply_trainable_mask(model, trainable_mask(model, "full"))
+    step_fn = make_train_step(model, tc, loss_fn)
+    _run_loop(args, tc, step_fn, batches, save_fn, device, eval_fn)
+
+
+def _lora_model(args):
+    """(device, model, cfg, lc) with a fresh LoRA adapter (seed --seed)
+    applied; only the adapter trains."""
+    device = torch.device(args.platform)
+    model, cfg = load_rwkv_checkpoint(args.model, device=device)
+    lc = LoraConfig(r=args.lora_r, alpha=args.lora_alpha)
+    apply_lora(model, lc, init_lora_params(model, lc, torch.Generator(device).manual_seed(args.seed)))
+    apply_trainable_mask(model, trainable_mask(model, "lora"))
+    return device, model, cfg, lc
 
 
 def cmd_sft(args) -> None:
@@ -195,14 +315,10 @@ def _text_batches(args, tokenizer, vocab_size: int, mae: bool) -> Callable[[int]
     the jsonl's texts, one length bucket a batch (a text of n tokens takes
     n + 1 slots: the emb terminator), masks drawn from seed + epoch."""
     ds = LengthBucketedDataset()
-    with open(args.train_data, "r", encoding="utf-8") as f:
-        for line in f:
-            if not line.strip():
-                continue
-            row = json.loads(line)
-            ids = tokenizer.encode(row["text"] if isinstance(row, dict) else row)
-            ds.add({"input_ids": ids}, min(len(ids) + 1, args.ctx_len))
-    sizes = {b.fixed_len: max(1, args.micro_bsz * 64 // b.fixed_len) for b in ds.buckets}
+    for row in _jsonl(args.train_data):
+        ids = tokenizer.encode(row["text"] if isinstance(row, dict) else row)
+        ds.add({"input_ids": ids}, min(len(ids) + 1, args.ctx_len))
+    sizes = _sizes(args, ds)
 
     def batches(epoch: int):
         sampler = BucketBatchSampler(ds, sizes, seed=args.seed + epoch)
@@ -217,29 +333,215 @@ def _text_batches(args, tokenizer, vocab_size: int, mae: bool) -> Callable[[int]
 
 
 def cmd_mlm(args, mae: bool = False) -> None:
-    device = torch.device(args.platform)
-    # every parameter trains: fp32 master weights, cast to the compute dtype
-    # at each use
-    model, cfg = load_rwkv_checkpoint(args.model, device=device, param_dtype="float32")
+    device, model, cfg = _full_model(args)
     if mae:
         model.onelayer_decoder = init_one_layer_decoder(
             cfg, generator=torch.Generator(device).manual_seed(args.seed), device=device)
     batches = _text_batches(args, WorldTokenizer(args.vocab), cfg.vocab_size, mae)
     tc = _train_config(args, batches)
     if mae:
-        loss_fn = functools.partial(mae_loss_fn, remat=tc.grad_checkpoint, dup_mae=args.dup_mae)
+        loss_fn = functools.partial(mae_loss_fn, remat=tc.grad_checkpoint, dup_mae=args.dup_mae,
+                                    bidirectional=not args.uni)
     else:
         loss_fn = functools.partial(mlm_loss_fn, remat=tc.grad_checkpoint)
+    # the encoder alone, in the base checkpoint's layout
+    _train_full(args, model, tc, loss_fn, batches, device, "encoder")
+
+
+def _contrastive_batches(args, tokenizer, collate) -> Callable[[int], Iterator]:
+    """Rows with "query", "positive", "negative", "document" (a string or a
+    list of candidates) and "label", bucketed by the query's length + 1 (at
+    most ctx_len), collated to min(2 * bucket, ctx_len)."""
+    ds = LengthBucketedDataset()
+    for row in _jsonl(args.train_data):
+        ex = {k: ([tokenizer.encode(x) for x in v] if isinstance(v, list) else tokenizer.encode(v))
+              for k, v in row.items() if k in ("query", "positive", "negative", "document")}
+        if "label" in row:
+            ex["label"] = row["label"]
+        ds.add(ex, min(len(ex.get("query", [])) + 1, args.ctx_len))
+    return _bucketed(args, ds, _sizes(args, ds),
+                     lambda examples, n: collate(examples, min(n * 2, args.ctx_len)))
+
+
+def cmd_bi_encoder(args) -> None:
+    device, model, cfg, lc = _lora_model(args)
+    batches = _contrastive_batches(args, WorldTokenizer(args.vocab), triplet_collate)
+    tc = _train_config(args, batches)
+    loss_fn = functools.partial(contrastive_loss_fn, loss=args.loss, pooling=args.pooling,
+                                remat=tc.grad_checkpoint)
 
     def save_fn(step):
-        # the encoder alone, in the base checkpoint's layout
-        torch.save({k: v.detach().float().cpu() for k, v in model.state_dict().items()
-                    if not k.startswith("onelayer_decoder.")},
-                   os.path.join(args.output_dir, f"encoder-step{step}.pth"))
+        save_lora_checkpoint(model, os.path.join(args.output_dir, f"bi-encoder-step{step}.pth"))
 
-    apply_trainable_mask(model, trainable_mask(model, "full"))
-    step_fn = make_train_step(model, tc, loss_fn)
-    _run_loop(args, tc, step_fn, batches, save_fn, device)
+    _run_loop(args, tc, make_train_step(model, tc, loss_fn), batches, save_fn, device)
+
+
+def cmd_cross_encoder(args) -> None:
+    device, model, cfg, lc = _lora_model(args)
+    batches = _contrastive_batches(args, WorldTokenizer(args.vocab), cross_encoder_collate)
+    tc = _train_config(args, batches)
+    # the score head trains beside the adapter
+    model.score = init_classification_head(
+        cfg, generator=torch.Generator(device).manual_seed(args.seed + 1))
+    loss_fn = functools.partial(cross_encoder_loss_fn, remat=tc.grad_checkpoint)
+
+    def save_fn(step):
+        save_lora_checkpoint(model, os.path.join(args.output_dir, f"cross-encoder-step{step}.pth"))
+        save_score_head(model.score, os.path.join(args.output_dir, f"score-step{step}.pth"))
+
+    _run_loop(args, tc, make_train_step(model, tc, loss_fn), batches, save_fn, device)
+
+
+def _nli_batches(args, tokenizer) -> Callable[[int], Iterator]:
+    """AllNLI triplets, every field cut to max_seq_len - 1 tokens and added
+    at length max_seq_len, a batch size of micro_bsz keyed by max_seq_len.
+    As in the JAX command, the sampler looks a bucket's size up by the
+    bucket's length, so a max_seq_len that is not a bucket length (33, the
+    default, lands in 64) gives batches of one row, collated to the bucket."""
+    L = args.max_seq_len
+    rows = load_allnli_triplets(args.train_data, seed=args.seed)
+    if not rows:
+        raise SystemExit("no usable AllNLI triplets in --train-data")
+    ds = LengthBucketedDataset()
+    for r in rows:
+        ds.add({k: tokenizer.encode(v)[: L - 1] for k, v in r.items()}, L)
+    return _bucketed(args, ds, {L: args.micro_bsz}, triplet_collate)
+
+
+def cmd_nli(args) -> None:
+    device, model, cfg = _full_model(args)
+    tokenizer = WorldTokenizer(args.vocab)
+    batches = _nli_batches(args, tokenizer)
+    tc = _train_config(args, batches)
+    loss_fn = functools.partial(contrastive_loss_fn, pooling=args.pooling, remat=tc.grad_checkpoint,
+                                loss="infonce" if args.in_batch_negative else "cosent")
+    eval_fn = None
+    if args.sts_file:
+        s1, s2, gold = load_stsb_pairs(args.sts_file, split=args.sts_split)
+        evaluator = SimilarityEvaluator(s1, s2, gold, csv_dir=args.output_dir,
+                                        name="sts-" + args.sts_split)
+        L, Bv = args.max_seq_len, max(1, args.micro_bsz * 4)
+
+        def encode(sentences):
+            toks = np.zeros((len(sentences), L), np.int64)
+            for i, s in enumerate(sentences):
+                ids = tokenizer.encode(s)[: L - 1] + [EMB_ID]
+                toks[i, : len(ids)] = ids
+            with torch.inference_mode():
+                return np.concatenate([
+                    embed_sequences(model, torch.from_numpy(toks[i: i + Bv]).to(device),
+                                    pooling_type=args.pooling).cpu().numpy()
+                    for i in range(0, len(sentences), Bv)])
+
+        def eval_fn(step, epoch):
+            out = evaluator(encode, epoch=epoch, steps=step)
+            print(f"nli eval step {step}: cosine_spearman={out['cosine_spearman']:.4f} "
+                  f"cosine_pearson={out['cosine_pearson']:.4f}", flush=True)
+
+    _train_full(args, model, tc, loss_fn, batches, device, "nli", eval_fn)
+
+
+def _simcse_batches(args, tokenizer) -> Callable[[int], Iterator]:
+    """Rows {"sentence_a", "sentence_b"} (or {"text"} for both), bucketed by
+    the longer + 1, at least 2 rows a batch; each side cut to bucket - 1,
+    emb-terminated and padded: {"a", "b"}."""
+    ds = LengthBucketedDataset()
+    for row in _jsonl(args.train_data):
+        if "sentence_b" in row:
+            a, b = tokenizer.encode(row["sentence_a"]), tokenizer.encode(row["sentence_b"])
+        else:
+            a = b = tokenizer.encode(row["text"])
+        ds.add({"a": a, "b": b}, min(max(len(a), len(b)) + 1, args.ctx_len))
+
+    def collate(examples, n):
+        return {k: np.stack([_pad_to(e[k][: n - 1] + [1], n, 0) for e in examples])
+                for k in ("a", "b")}
+
+    return _bucketed(args, ds, _sizes(args, ds, 2), collate)
+
+
+def cmd_simcse(args, parser) -> None:
+    if args.dropout_noise:
+        parser.error("--dropout-noise needs dropout in the model, which the port does not have "
+                     "yet; train on sentence pairs")
+    device, model, cfg = _full_model(args)
+    batches = _simcse_batches(args, WorldTokenizer(args.vocab))
+    tc = _train_config(args, batches)
+    loss_fn = functools.partial(simcse_loss_fn, pooling=args.pooling,
+                                temperature=args.temperature, remat=tc.grad_checkpoint)
+    _train_full(args, model, tc, loss_fn, batches, device, "simcse")
+
+
+def _instructor_batches(args, tokenizer) -> Callable[[int], Iterator]:
+    """Rows {"instruction", "query", "positive", "negative"}: each field
+    prefixed by the instruction, bucketed by the query's length + 1, at least
+    2 rows a batch, cut to bucket - 1, emb-terminated and padded."""
+    ds = LengthBucketedDataset()
+    for row in _jsonl(args.train_data):
+        inst = row.get("instruction", "")
+        ex = {k: tokenizer.encode(inst + row[k]) for k in ("query", "positive", "negative")
+              if k in row}
+        ds.add(ex, min(len(ex["query"]) + 1, args.ctx_len))
+
+    def collate(examples, n):
+        return {k: np.stack([_pad_to(e[k][: n - 1] + [1], n, 0) for e in examples])
+                for k in ("query", "positive", "negative") if k in examples[0]}
+
+    return _bucketed(args, ds, _sizes(args, ds, 2), collate)
+
+
+def cmd_instructor(args) -> None:
+    device, model, cfg = _full_model(args)
+    batches = _instructor_batches(args, WorldTokenizer(args.vocab))
+    tc = _train_config(args, batches)
+    out_dim = args.output_dim or cfg.n_embd
+    model.dense = init_embedding_head(cfg, generator=torch.Generator(device).manual_seed(args.seed),
+                                      output_dim=out_dim)
+    model.ln_dense = init_layer_norm(out_dim, device=device)
+    loss_fn = functools.partial(instructor_loss_fn, pooling=args.pooling,
+                                temperature=args.temperature, remat=tc.grad_checkpoint)
+    _train_full(args, model, tc, loss_fn, batches, device, "instructor")
+
+
+def cmd_encoder_biencoder(args) -> None:
+    device, model, cfg = _full_model(args)
+    batches = _contrastive_batches(args, WorldTokenizer(args.vocab), triplet_collate)
+    tc = _train_config(args, batches)
+    loss_fn = functools.partial(encoder_biencoder_loss_fn, mode=args.bi_mode,
+                                temperature=args.temperature, remat=tc.grad_checkpoint)
+    _train_full(args, model, tc, loss_fn, batches, device, "encoder-bi")
+
+
+def _encoder_crossencoder_batches(args, tokenizer) -> Callable[[int], Iterator]:
+    """Rows {"query", "documents"} (the first document the positive): the
+    first G documents as G ``q [sep] d [cls]`` rows, a row with fewer than G
+    dropped, bucketed by its longest pair (at most ctx_len), each pair cut to
+    the bucket: {"input_ids" (B * G, T)}."""
+    G = args.group_size
+    ds = LengthBucketedDataset()
+    for row in _jsonl(args.train_data):
+        q = tokenizer.encode(row["query"])
+        docs = [tokenizer.encode(d) for d in row["documents"]][:G]
+        if len(docs) < G:
+            continue
+        pairs = [q + [2] + d + [1] for d in docs]
+        ds.add({"pairs": pairs}, min(max(map(len, pairs)), args.ctx_len))
+
+    def collate(examples, n):
+        return {"input_ids": np.stack([_pad_to(p[:n], n, 0) for e in examples for p in e["pairs"]])}
+
+    return _bucketed(args, ds, _sizes(args, ds), collate)
+
+
+def cmd_encoder_crossencoder(args) -> None:
+    device, model, cfg = _full_model(args)
+    batches = _encoder_crossencoder_batches(args, WorldTokenizer(args.vocab))
+    tc = _train_config(args, batches)
+    model.score = init_classification_head(
+        cfg, generator=torch.Generator(device).manual_seed(args.seed + 1))
+    loss_fn = functools.partial(encoder_crossencoder_loss_fn, group_size=args.group_size,
+                                mode=args.bi_mode, remat=tc.grad_checkpoint)
+    _train_full(args, model, tc, loss_fn, batches, device, "encoder-cross")
 
 
 def main(argv=None) -> None:
@@ -248,11 +550,63 @@ def main(argv=None) -> None:
     p = sub.add_parser("sft")
     _common_args(p)
     p.add_argument("--train-type", default="lora", choices=["lora", "state", "states"])
-    p.add_argument("--lora-r", type=int, default=8)
-    p.add_argument("--lora-alpha", type=float, default=32.0)
+    _lora_args(p)
     p.add_argument("--peft-checkpoint", default=None,
                    help="start from this LoRA .pth (reference layout)")
     p.set_defaults(fn=cmd_sft)
+
+    p = sub.add_parser("bi-encoder")
+    _common_args(p)
+    _lora_args(p)
+    p.add_argument("--pooling", default="weightedmean")
+    p.add_argument("--loss", default="infonce", choices=["infonce", "cosent"])
+    p.set_defaults(fn=cmd_bi_encoder)
+
+    p = sub.add_parser("cross-encoder")
+    _common_args(p)
+    _lora_args(p)
+    p.set_defaults(fn=cmd_cross_encoder)
+
+    p = sub.add_parser("nli")
+    _common_args(p)
+    p.add_argument("--sts-file", default=None,
+                   help="stsbenchmark.tsv for per-eval STS validation")
+    p.add_argument("--sts-split", default="dev")
+    p.add_argument("--max-seq-len", type=int, default=33,
+                   help="fixed pad length incl. the emb token")
+    p.add_argument("--pooling", default="lasttoken")
+    p.add_argument("--in-batch-negative", action="store_true",
+                   help="in-batch InfoNCE instead of CoSENT")
+    p.add_argument("--eval-every-steps", type=int, default=0)
+    p.set_defaults(fn=cmd_nli)
+
+    p = sub.add_parser("encoder-biencoder")
+    _common_args(p)
+    p.add_argument("--temperature", type=float, default=0.05)
+    p.add_argument("--bi-mode", default="average", choices=["average", "fused"])
+    p.set_defaults(fn=cmd_encoder_biencoder)
+
+    p = sub.add_parser("encoder-crossencoder")
+    _common_args(p)
+    p.add_argument("--group-size", type=int, default=4)
+    p.add_argument("--bi-mode", default="average", choices=["average", "fused"])
+    p.set_defaults(fn=cmd_encoder_crossencoder)
+
+    p = sub.add_parser("simcse")
+    _common_args(p)
+    p.add_argument("--temperature", type=float, default=0.05)
+    p.add_argument("--pooling", default="weightedmean")
+    p.add_argument("--dropout-noise", action="store_true",
+                   help="refused: the model has no dropout yet")
+    p.set_defaults(fn=functools.partial(cmd_simcse, parser=p))
+
+    p = sub.add_parser("instructor")
+    _common_args(p)
+    p.add_argument("--temperature", type=float, default=0.05)
+    p.add_argument("--pooling", default="weightedmean")
+    p.add_argument("--output-dim", type=int, default=0)
+    p.set_defaults(fn=cmd_instructor)
+
     p = sub.add_parser("mlm")
     _common_args(p)
     p.set_defaults(fn=functools.partial(cmd_mlm, mae=False))
@@ -260,10 +614,11 @@ def main(argv=None) -> None:
     _common_args(p)
     p.add_argument("--dup-mae", action="store_true",
                    help="add the DupMAE bag-of-words loss")
+    p.add_argument("--uni", action="store_true",
+                   help="the causal model as the encoder, seq_emb added to its token states")
     p.set_defaults(fn=functools.partial(cmd_mlm, mae=True))
     args = parser.parse_args(argv)
     args.fn(args)
-
 
 if __name__ == "__main__":
     main()

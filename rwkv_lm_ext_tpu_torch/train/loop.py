@@ -6,9 +6,23 @@ differentiated by autograd through the kernel route (K1-K3 forward, B.5-B.7
 backward) and the optimizer (train/optim.py) updates the parameters that
 require grad. ``mlm_loss_fn`` and ``mae_loss_fn`` are the encoder trainers'
 losses (the closures of ``cmd_mlm``, train/cli.py:1052-1074), through the
-bidirectional encoder and the unfused WKV kernel B.8 with its backward. With ``accumulate_grad_batches`` > 1 a batch has a leading
-micro-batch axis and the step takes the mean of the micro losses and
-gradients, as ``micro`` does (:151-157).
+bidirectional encoder and the unfused WKV kernel B.8 with its backward
+(``mae_loss_fn(bidirectional=False)`` is ``mae --uni``: the causal model as
+the encoder). The sequence-level trainers' losses are the closures of the JAX
+train/cli.py, one function each: ``contrastive_loss_fn`` (``cmd_bi_encoder``
+:665 and ``cmd_nli`` :714: pooled embeddings of query / positive / negative,
+in-batch InfoNCE or CoSENT), ``cross_encoder_loss_fn`` (``cmd_cross_encoder``
+:945: the score head at the cls position, MSE on 0/1 labels),
+``simcse_loss_fn`` (``cmd_simcse`` :1089, the sentence-pair variant),
+``instructor_loss_fn`` (``cmd_instructor`` :1178: dense + LayerNorm head,
+symmetric InfoNCE), ``encoder_biencoder_loss_fn`` (:823: bidirectional
+sentence embeddings, symmetric InfoNCE) and ``encoder_crossencoder_loss_fn``
+(:863: the score head on the bidirectional sentence embedding, group
+softmax). The heads they read (``model.score``, ``model.dense``,
+``model.ln_dense``) are attached to the model before ``make_train_step``, so
+they count among its trainable parameters. With ``accumulate_grad_batches`` >
+1 a batch has a leading micro-batch axis and the step takes the mean of the
+micro losses and gradients, as ``micro`` does (:151-157).
 """
 from __future__ import annotations
 
@@ -20,11 +34,28 @@ import torch
 from rwkv_lm_ext_tpu_torch.config import TrainConfig
 from rwkv_lm_ext_tpu_torch.models.bidirectional import (
     dupmae_bow_loss,
+    encode_sentence,
     encoder_forward,
     mae_forward,
 )
-from rwkv_lm_ext_tpu_torch.models.heads import mlm_logits
-from rwkv_lm_ext_tpu_torch.train.losses import causal_lm_loss, mlm_loss
+from rwkv_lm_ext_tpu_torch.models.heads import (
+    classify_sequences,
+    embed_sequences,
+    first_token_position,
+    instructor_embed,
+    mlm_logits,
+    pool_hidden,
+)
+from rwkv_lm_ext_tpu_torch.train.losses import (
+    causal_lm_loss,
+    classification_loss,
+    cosent_loss,
+    group_softmax_loss,
+    in_batch_infonce,
+    mlm_loss,
+    simcse_loss,
+    symmetric_infonce,
+)
 from rwkv_lm_ext_tpu_torch.train.optim import make_optimizer
 
 
@@ -48,18 +79,88 @@ def mlm_loss_fn(model, batch: Dict[str, torch.Tensor], *, remat: bool = True,
 
 
 def mae_loss_fn(model, batch: Dict[str, torch.Tensor], *, remat: bool = True,
-                dup_mae: bool = False, mode: str = "average",
+                dup_mae: bool = False, mode: str = "average", bidirectional: bool = True,
                 reference: bool = False) -> torch.Tensor:
     """RetroMAE loss: the encoder's MLM loss plus the one-layer decoder's
     (``model.onelayer_decoder``), plus the DupMAE bag-of-words loss when
     ``dup_mae`` and the batch carries ``bag_word_weight``."""
     out = mae_forward(model, batch["encoder_input_ids"], batch["decoder_input_ids"],
-                      mode=mode, remat=remat, reference=reference)
+                      bidirectional=bidirectional, mode=mode, remat=remat, reference=reference)
     loss = mlm_loss(out["encoder_logits"], batch["encoder_labels"])
     loss = loss + mlm_loss(out["decoder_logits"], batch["decoder_labels"])
     if dup_mae and "bag_word_weight" in batch:
         loss = loss + dupmae_bow_loss(out["ot_logits"], batch["bag_word_weight"])
     return loss
+
+
+TRIPLET_KEYS = ("query", "positive", "negative")
+
+
+def _triplet(embed, batch):
+    """The embeddings of the batch's query / positive / negative fields
+    (negative None when the batch has none)."""
+    embs = {k: embed(batch[k]) for k in TRIPLET_KEYS if k in batch}
+    return embs["query"], embs["positive"], embs.get("negative")
+
+
+def contrastive_loss_fn(model, batch, *, loss: str = "infonce", pooling: str = "weightedmean",
+                        remat: bool = True, reference: bool = False) -> torch.Tensor:
+    """``bi-encoder`` and ``nli``: pooled embeddings of the triplet, in-batch
+    InfoNCE (scale 20, ``loss="infonce"``) or CoSENT (``"cosent"``)."""
+    fn = in_batch_infonce if loss == "infonce" else cosent_loss
+    return fn(*_triplet(lambda t: embed_sequences(model, t, pooling_type=pooling, remat=remat,
+                                                  reference=reference), batch))
+
+
+def cross_encoder_loss_fn(model, batch, *, remat: bool = True,
+                          reference: bool = False) -> torch.Tensor:
+    """``cross-encoder``: ``model.score`` at the cls position of ``q [sep] d
+    [cls]`` rows, MSE on the 0/1 labels."""
+    scores = classify_sequences(model, batch["input_ids"], model.score, remat=remat,
+                                reference=reference)
+    return classification_loss(scores, batch["labels"])
+
+
+def simcse_loss_fn(model, batch, *, pooling: str = "weightedmean", temperature: float = 0.05,
+                   remat: bool = True, reference: bool = False) -> torch.Tensor:
+    """``simcse`` over sentence pairs: pooled embeddings of a and b, in-batch
+    cross entropy at the temperature."""
+    def embed(tokens):
+        hidden, _ = model(tokens, return_hidden=True, return_logits=False, remat=remat,
+                          reference=reference)
+        return pool_hidden(hidden, first_token_position(tokens, 1), pooling)
+
+    return simcse_loss(embed(batch["a"]), embed(batch["b"]), temperature=temperature)
+
+
+def instructor_loss_fn(model, batch, *, pooling: str = "weightedmean",
+                       temperature: float = 0.05, remat: bool = True,
+                       reference: bool = False) -> torch.Tensor:
+    """``instructor``: instruction-prefixed triplets through the dense +
+    LayerNorm head (``model.dense``, ``model.ln_dense``), symmetric InfoNCE.
+    The JAX closure runs ``instructor_embed`` without remat; the gradient is
+    the same either way."""
+    return symmetric_infonce(*_triplet(lambda t: instructor_embed(
+        model, t, model.dense, model.ln_dense, pooling_type=pooling, remat=remat,
+        reference=reference), batch), temperature=temperature)
+
+
+def encoder_biencoder_loss_fn(model, batch, *, mode: str = "average", temperature: float = 0.05,
+                              remat: bool = True, reference: bool = False) -> torch.Tensor:
+    """``encoder-biencoder``: bidirectional sentence embeddings of the
+    triplet, symmetric InfoNCE."""
+    return symmetric_infonce(*_triplet(lambda t: encode_sentence(
+        model, t, mode=mode, remat=remat, reference=reference), batch), temperature=temperature)
+
+
+def encoder_crossencoder_loss_fn(model, batch, *, group_size: int, mode: str = "average",
+                                 remat: bool = True, reference: bool = False) -> torch.Tensor:
+    """``encoder-crossencoder``: (B * G, T) ``q [sep] d [cls]`` rows, the
+    bidirectional sentence embedding times ``model.score``, group softmax
+    with the positive in column 0 of each group of G."""
+    emb = encode_sentence(model, batch["input_ids"], mode=mode, remat=remat, reference=reference)
+    scores = emb.float() @ model.score.weight.float().T
+    return group_softmax_loss(scores.reshape(-1, group_size))
 
 
 def make_train_step(model, tc: TrainConfig, loss_fn: Optional[Callable] = None):

@@ -49,6 +49,11 @@ from rwkv_lm_ext_tpu_torch.adapters.quant import int8_product, quantize_model
 from rwkv_lm_ext_tpu_torch.config import ModelConfig
 from rwkv_lm_ext_tpu_torch.checkpoint.convert import load_state_dict_into
 from rwkv_lm_ext_tpu_torch.models.decode import rwkv_decode_step
+from rwkv_lm_ext_tpu_torch.models.heads import (
+    init_classification_head,
+    init_embedding_head,
+    init_layer_norm,
+)
 from rwkv_lm_ext_tpu_torch.models.init import init_rwkv_params
 from rwkv_lm_ext_tpu_torch.models.rwkv import RWKV
 from rwkv_lm_ext_tpu_torch.ops import _lib, launch_counts
@@ -108,7 +113,13 @@ from rwkv_lm_ext_tpu_torch.ops.wkv_fused import (
     wkv6_fused_output_plain,
     wkv_bwd_body,
 )
-from rwkv_lm_ext_tpu_torch.train.loop import mlm_loss_fn
+from rwkv_lm_ext_tpu_torch.train.loop import (
+    contrastive_loss_fn,
+    cross_encoder_loss_fn,
+    instructor_loss_fn,
+    mlm_loss_fn,
+    simcse_loss_fn,
+)
 from rwkv_lm_ext_tpu_torch.train.losses import causal_lm_loss
 
 pytestmark = pytest.mark.cuda
@@ -1556,3 +1567,94 @@ def test_garbage_holding_a_graph_is_collected_before_a_capture(dev, monkeypatch)
     monkeypatch.setattr(engine._Decoder, "_block", block)
     engine.GenerationEngine(model).generate([5, 9], max_tokens=4, sampling=greedy, block_size=4)
     assert seen == [(False, True)] and gc.isenabled()
+
+
+# ------------------------------- the contrastive and reranking trainers' steps
+
+
+def _rows(dev, gen, B, T, end_id=1):
+    """(B, T) rows ending in `end_id` at ragged lengths, pads after."""
+    tokens = torch.randint(4, 1000, (B, T), generator=gen, device=dev)
+    ends = torch.randint(T // 4, T, (B,), generator=gen, device=dev)
+    pos = torch.arange(T, device=dev)[None, :]
+    tokens[pos == ends[:, None]] = end_id
+    tokens[pos > ends[:, None]] = 0
+    return tokens
+
+
+# loss, the batch's token fields, K3 launches of the head a field
+CONTRASTIVE = {
+    "cosent": (lambda m, b, **k: contrastive_loss_fn(m, b, loss="cosent", pooling="lasttoken", **k),
+               ("query", "positive", "negative"), 0),
+    "infonce": (lambda m, b, **k: contrastive_loss_fn(m, b, loss="infonce", **k),
+                ("query", "positive", "negative"), 0),
+    "simcse": (simcse_loss_fn, ("a", "b"), 0),
+    "instructor": (instructor_loss_fn, ("query", "positive", "negative"), 1),
+}
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("name", sorted(CONTRASTIVE))
+def test_contrastive_full_step_kernel_route_matches_plain_route(dev, name, remat):
+    """A 2-layer full-parameter step of the causal model over fp32 master
+    weights (``nli``, ``simcse``, ``instructor``): every gradient but the
+    untied head's within 1e-3 * max|plain| of the plain route's, and the
+    launches exact: each field's forward (again under remat), B.5 in its full
+    form, B.6 and B.7 in every layer, and the instructor head's LayerNorm
+    through K3."""
+    loss_fn, fields, head_ln = CONTRASTIVE[name]
+    model, gen = _model(dev, 11)
+    for p in model.parameters():
+        p.requires_grad_(True)
+    if name == "instructor":
+        model.dense = init_embedding_head(model.cfg, generator=gen, output_dim=96)
+        model.ln_dense = init_layer_norm(96, device=dev)
+    batch = {k: _rows(dev, gen, 3, 40) for k in fields}
+    grads = {}
+    for reference in (False, True):
+        model.zero_grad(set_to_none=True)
+        before = launch_counts()
+        loss_fn(model, batch, remat=remat, reference=reference).backward()
+        after = launch_counts()
+        fwd, f = (2 if remat else 1), len(fields)
+        assert {k: after[k] - before[k] for k in after} == (NO_LAUNCH if reference else dict(
+            NO_LAUNCH, layer_norm=f * (3 * fwd + 1 + head_ln), tmix_prologue=2 * f * fwd,
+            wkv6_fused_output=2 * f * fwd, tmix_prologue_bwd=2 * f, wkv6_bwd_forward_pass=2 * f,
+            wkv6_bwd_reverse_pass=2 * f))
+        grads[reference] = {n: p.grad for n, p in model.named_parameters()}
+    for n, want in grads[True].items():
+        got = grads[False][n]
+        if n == "head.weight":
+            assert got is None and want is None
+            continue
+        assert got is not None and bool(got.abs().max() > 0), n
+        _close(got, want, 1e-3, n)
+
+
+def test_cross_encoder_step_kernel_route_matches_plain_route(dev):
+    """LoRA r=8 (B seeded) and the score head: their gradients against the
+    plain route's (the score head's too), B.5 dx-only in layer 1 alone."""
+    model, gen = _model(dev, 12)
+    lc = LoraConfig(r=8, alpha=32.0)
+    adapter = init_lora_params(model, lc, gen)
+    for ab in adapter.values():
+        ab["B"] = torch.randn(ab["B"].shape, generator=gen, device=dev) * 0.05
+    apply_lora(model, lc, adapter)
+    model.score = init_classification_head(model.cfg, generator=gen)
+    tokens = _rows(dev, gen, 4, 40, end_id=1)
+    tokens[:, 3] = 2
+    batch = {"input_ids": tokens, "labels": torch.tensor([0, 1, 1, 0], device=dev)}
+    grads = {}
+    for reference in (False, True):
+        model.zero_grad(set_to_none=True)
+        before = launch_counts()
+        cross_encoder_loss_fn(model, batch, remat=False, reference=reference).backward()
+        after = launch_counts()
+        assert {k: after[k] - before[k] for k in after} == (NO_LAUNCH if reference else dict(
+            NO_LAUNCH, layer_norm=4, tmix_prologue=2, wkv6_fused_output=2, tmix_prologue_bwd=1,
+            wkv6_bwd_forward_pass=2, wkv6_bwd_reverse_pass=2))
+        grads[reference] = {n: p.grad for n, p in model.named_parameters() if p.requires_grad}
+    assert len(grads[False]) == 2 * 8 * 2 + 1
+    for n, want in grads[True].items():
+        assert bool(grads[False][n].abs().max() > 0), n
+        _close(grads[False][n], want, 1e-3, n)

@@ -353,7 +353,8 @@ def test_train_cli_mlm_and_mae(tiny_run, command, extra):
     assert cfg.n_layer == 2 and model.emb.weight.dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("command,flag", [("mae", ["--uni"]), ("mlm", ["--chunk-ctx", "64"]),
+# mae --uni is ported (tests/test_torch_contrastive*.py); --chunk-ctx is not
+@pytest.mark.parametrize("command,flag", [("mae", ["--chunk-ctx", "64"]), ("mlm", ["--chunk-ctx", "64"]),
                                           ("mlm", ["--dup-mae"]), ("mlm", ["--quant", "int8"])])
 def test_train_cli_refuses_unported_encoder_options(tiny_run, command, flag):
     proc = _cli(tiny_run, command, "--output-dir", str(tiny_run / "refused"), *flag)

@@ -215,7 +215,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "for name in ('models.bidirectional', 'ops.wkv', 'ops.decode_fused', 'train.cli', 'serve.cli',\n"
-        "             'infer.continuous', 'infer.beam', 'adapters.slot_lora', 'serve.webui'):\n"
+        "             'infer.continuous', 'infer.beam', 'adapters.slot_lora', 'serve.webui',\n"
+        "             'infer.encoders', 'models.heads', 'train.losses', 'train.loop',\n"
+        "             'train.callbacks', 'data.collators', 'data.nli', 'eval.sts',\n"
+        "             'adapters.registry', 'checkpoint.convert'):\n"
         "    assert p.__name__ + '.' + name in sys.modules, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0].startswith('jax')\n"
         "             or m.split('.')[0] == 'rwkv_lm_ext_tpu')\n"

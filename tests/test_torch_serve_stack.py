@@ -118,7 +118,7 @@ def test_states_registry_round_trip_and_process_text(world, tmp_path):
     model, tok = world
     sd = _time_states(model.cfg, 1)
     torch.save(sd, tmp_path / "s.pth")
-    reg = StatesRegistry(model.cfg)
+    reg = StatesRegistry(model.cfg, device="cpu")
     reg.register_pth("sum", str(tmp_path / "s.pth"), template="sum: {input}")
     want_stack = np.asarray(jax_extract_time_states({k: v.numpy() for k, v in sd.items()}, 2))
     np.testing.assert_array_equal(extract_time_states(sd, 2).numpy(), want_stack)
