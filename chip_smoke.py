@@ -147,7 +147,29 @@ Phases, each printing its own lines:
      launches of the reranker in this process; (d) readings: reranked pairs/s
      (64 pairs, bucket 512), a cross-encoder LoRA step and an `nli` step at
      B=8, T=512 (ms, Kt/s, busy and idle) and B.5's full form in the `nli`
-     step (launches and device ms).
+     step (launches and device ms);
+ 17. the rest of PEFT training: (a) gradients of a 2-layer full-width model
+     at B=8, T=512, kernel route against plain route, in fp32 (1e-3 of max)
+     and in bf16 (the cosine margin to the fp32 plain route): QLoRA over
+     int8c (B.4 under grad, the straight-through backward) and over nf4; a
+     TBPTT step at chunk_ctx T/4 over every parameter (K1 / B.6 / B.7 and K2
+     / B.5 with a carried state and its gradient), held also to the
+     full-sequence loss without L2Wrap on the kernel route; `sft --train-type
+     full` over fp32 masters; the `dots` and `dots_nobatch` policies against
+     remat on, bit for bit; (b) `python -m rwkv_lm_ext_tpu_torch.train.cli
+     sft` with `--train-type pissa`, `--quant int8c`, `--quant nf4` and
+     `--train-type slot-lora` (two tasks) on the 24-layer model and `--train-type
+     full --lisa-k 2` and `--chunk-ctx 128` on its first 4 layers
+     (subprocesses, 2 steps each), their files under the JAX names; then
+     `serve.cli --quant nf4 --chat-adapter --pissa-init` on the PiSSA adapter:
+     a greedy /generate whose tokens are the argmax of the served model's
+     teacher-forced logits; (c) readings at 24 layers, B=8, T=512: QLoRA
+     steps in int8c, int8 and nf4, the LoRA step under `dots` and
+     `dots_nobatch`, the `full` step, a TBPTT step at chunk_ctx 128 and a
+     LISA k=2 step (ms over chained steps with a canary, Kt/s, busy time,
+     idle share, peak memory), B.4's launches in an int8c QLoRA step (192
+     remat off, 384 on; on the device too) and K1 / B.6 / B.7's in the TBPTT
+     step (4 chunks x 24 layers).
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no result. Without a CUDA device it exits non-zero
@@ -182,8 +204,9 @@ from rwkv_lm_ext_tpu_torch.adapters.lora import (
     init_lora_params,
     lora_state_dict_to_tree,
     merge_lora,
+    merge_pissa,
 )
-from rwkv_lm_ext_tpu_torch.adapters.quant import QuantLinear, quantize_model
+from rwkv_lm_ext_tpu_torch.adapters.quant import QuantLinear, quantize_linear, quantize_model
 from rwkv_lm_ext_tpu_torch.adapters.slot_lora import build_slot_lora, set_slot_idx
 from rwkv_lm_ext_tpu_torch.checkpoint.convert import (
     load_rwkv_checkpoint,
@@ -273,6 +296,7 @@ from rwkv_lm_ext_tpu_torch.ops.wkv_fused import (
 from rwkv_lm_ext_tpu_torch.serve import cli
 from rwkv_lm_ext_tpu_torch.serve.api import ServingService, serve_http
 from rwkv_lm_ext_tpu_torch.train import cli as train_cli
+from rwkv_lm_ext_tpu_torch.train.callbacks import LisaSchedule
 from rwkv_lm_ext_tpu_torch.train.loop import (
     contrastive_loss_fn,
     cross_encoder_loss_fn,
@@ -280,6 +304,7 @@ from rwkv_lm_ext_tpu_torch.train.loop import (
     make_train_step,
     mlm_loss_fn,
     sft_loss_fn,
+    tbptt_loss_fn,
 )
 from rwkv_lm_ext_tpu_torch.train.optim import apply_trainable_mask, trainable_mask
 from rwkv_lm_ext_tpu_torch.train.losses import causal_lm_loss
@@ -2317,24 +2342,41 @@ def sft_jsonl(path: Path, tok) -> None:
     print(f"  {path.name}: 64 identical rows of {n} tokens (bucket 512, batch 64 * 64 // 512 = 8)")
 
 
-def run_train_cli(args, command: str = "sft", falling: bool = True) -> list:
-    """`python -m rwkv_lm_ext_tpu_torch.train.cli <command> ...` as a
-    subprocess; returns the logged losses, which must be finite and, with
-    `falling`, end below where they began."""
-    cmd = [sys.executable, "-m", "rwkv_lm_ext_tpu_torch.train.cli", command, *args]
+def run_train_clis(runs: list) -> list:
+    """`python -m rwkv_lm_ext_tpu_torch.train.cli <command> ...` once a run
+    (args, command, falling), as concurrent subprocesses; returns each run's
+    logged losses, which must be finite and, with `falling`, end below where
+    they began. A failure stops the runs still going."""
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-    check(proc.returncode == 0, f"{' '.join(cmd)} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
-    steps = [json.loads(ln.split(": ", 1)[1]) for ln in proc.stdout.splitlines()
-             if ln.startswith("step ")]
-    losses = [m["loss"] for m in steps]
-    shown = " ".join(a for a in args if not a.startswith("/"))
-    print(f"  python -m rwkv_lm_ext_tpu_torch.train.cli {command} {shown}: "
-          f"{time.perf_counter() - t0:.1f} s, losses {[round(x, 4) for x in losses]}, last "
-          f"logged Kt/s {steps[-1].get('Kt/s', float('nan')):.2f}")
-    check(len(losses) >= 2 and all(np.isfinite(losses)), f"losses {losses}")
-    check(not falling or losses[-1] < losses[0], f"the loss did not fall on repeated rows: {losses}")
-    return losses
+    procs = [subprocess.Popen([sys.executable, "-m", "rwkv_lm_ext_tpu_torch.train.cli", command,
+                               *args], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for args, command, _ in runs]
+    try:
+        outs = [proc.communicate(timeout=600) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    all_losses = []
+    for (args, command, falling), proc, (stdout, stderr) in zip(runs, procs, outs):
+        check(proc.returncode == 0, f"train.cli {command} {' '.join(args)} exited "
+              f"{proc.returncode}:\n{stderr[-3000:]}")
+        steps = [json.loads(ln.split(": ", 1)[1]) for ln in stdout.splitlines()
+                 if ln.startswith("step ")]
+        losses = [m["loss"] for m in steps]
+        shown = " ".join(a for a, b in zip(args, args[1:] + [""])
+                         if not a.startswith("/") and not b.startswith("/"))
+        print(f"  python -m rwkv_lm_ext_tpu_torch.train.cli {command} {shown}: losses "
+              f"{[round(x, 4) for x in losses]}, last logged Kt/s "
+              f"{steps[-1].get('Kt/s', float('nan')) if steps else float('nan'):.2f} "
+              f"({len(runs)} runs together in {wall:.1f} s)")
+        check(len(losses) >= 2 and all(np.isfinite(losses)), f"losses {losses}")
+        check(not falling or losses[-1] < losses[0],
+              f"the loss did not fall on repeated rows: {losses}")
+        all_losses.append(losses)
+    return all_losses
 
 
 def sft_args(path: str, data: Path) -> list:
@@ -2437,7 +2479,9 @@ def phase_train_cli(path: str, tmp: Path) -> dict:
     sft_jsonl(data, WorldTokenizer())
     common = sft_args(path, data)
     out = tmp / "lora"
-    run_train_cli(common + ["--output-dir", str(out), *LORA_ARGS])
+    run_train_clis([(common + ["--output-dir", str(out), *LORA_ARGS], "sft", True),
+                    (common + ["--output-dir", str(tmp / "states"), "--train-type", "states",
+                               "--max-steps", "4"], "sft", True)])
     check((out / "train_log.txt").is_file(), "no train_log.txt")
     sd = torch.load(out / "lora-step8.pth", map_location=DEV, weights_only=True)
     model, cfg = load_rwkv_checkpoint(path, device=DEV)
@@ -2464,7 +2508,6 @@ def phase_train_cli(path: str, tmp: Path) -> dict:
     torch.cuda.empty_cache()
 
     out = tmp / "states"
-    run_train_cli(common + ["--output-dir", str(out), "--train-type", "states", "--max-steps", "4"])
     sd = torch.load(out / "states-step4.pth", map_location="cpu", weights_only=True)
     check(sorted(sd) == sorted(f"blocks.{i}.att.time_state" for i in range(cfg.n_layer))
           and all(tuple(t.shape) == (H, N, N) for t in sd.values()), f"states-step4.pth: {list(sd)[:3]}")
@@ -3181,7 +3224,9 @@ def phase_mlm_cli(path: str, tmp: Path) -> dict:
     common = ["--model", path, "--train-data", str(data), "--micro-bsz", "64", "--ctx-len", str(T),
               "--warmup-steps", "0", "--log-every", "1", "--platform", DEV]
     out = tmp / "mlm"
-    run_train_cli(["--output-dir", str(out), "--max-steps", "4", *common], command="mlm")
+    # one at a time: each holds fp32 masters and AdamW state of all 24
+    # layers (36.6 GiB at its peak), so two together do not fit
+    run_train_clis([(["--output-dir", str(out), "--max-steps", "4", *common], "mlm", True)])
     check((out / "train_log.txt").is_file(), "no train_log.txt")
     base = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
     saved = torch.load(out / "encoder-step4.pth", map_location="cpu", weights_only=True, mmap=True)
@@ -3203,8 +3248,8 @@ def phase_mlm_cli(path: str, tmp: Path) -> dict:
     torch.cuda.empty_cache()
 
     out = tmp / "mae"
-    run_train_cli(["--dup-mae", "--output-dir", str(out), "--max-steps", "2", *common],
-                  command="mae", falling=False)
+    run_train_clis([(["--dup-mae", "--output-dir", str(out), "--max-steps", "2", *common], "mae",
+                     False)])
     saved = torch.load(out / "encoder-step2.pth", map_location="cpu", weights_only=True, mmap=True)
     check(not any("onelayer_decoder" in k for k in saved) and "blocks.0.ln0.weight" in saved,
           "mae's saved encoder holds decoder keys")
@@ -3542,7 +3587,7 @@ def check_trained_file(path: Path, base: dict) -> str:
 
 
 # the trainers that hold every parameter, fp32 masters and AdamW state (about
-# 30 GB at 1B6): at most two of them run at once
+# 30 GB at 1B6, about 10 GB at CUT_LAYERS layers)
 FULL_PARAMETER = {"simcse", "instructor", "encoder-biencoder", "encoder-crossencoder", "mae", "nli"}
 # Each full-parameter trainer saves the whole model in fp32, 6.4 GB at 24
 # layers; the card machine takes at most 45 GiB of writes a call, and the
@@ -3552,51 +3597,71 @@ FULL_PARAMETER = {"simcse", "instructor", "encoder-biencoder", "encoder-crossenc
 CUT_LAYERS = 4
 
 
+def run_cli_jobs(jobs: list, out: Path, width: int = 4, full_width: int = 2) -> dict:
+    """`python -m rwkv_lm_ext_tpu_torch.train.cli` once a job (label, argv,
+    full-parameter?), `width` subprocesses at a time (`full_width`
+    full-parameter ones at most), each log under `out`; each must exit 0 and
+    log 2 finite losses. A failure stops the jobs still running. Returns
+    {label: losses}."""
+    pending, running, losses = list(jobs), [], {}
+
+    def full(job):
+        return job[2]
+
+    try:
+        while pending or running:
+            for job in list(pending):
+                if len(running) < width and (not full(job)
+                                             or sum(full(j) for j, _, _ in running) < full_width):
+                    pending.remove(job)
+                    label, argv, _ = job
+                    cmd = [sys.executable, "-m", "rwkv_lm_ext_tpu_torch.train.cli", *argv]
+                    log = out / f"{label}.log"
+                    log.parent.mkdir(parents=True, exist_ok=True)
+                    with open(log, "w") as f:     # the child keeps its own copy of the handle
+                        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+                    running.append((job, time.perf_counter(), proc))
+            done = next((r for r in running if r[2].poll() is not None), None)
+            if done is None:
+                for job, t0, proc in running:
+                    check(time.perf_counter() - t0 <= 600, f"train.cli {job[0]} ran past 600 s")
+                time.sleep(0.5)
+                continue
+            running.remove(done)
+            (label, argv, _), t0, proc = done
+            text = (out / f"{label}.log").read_text()
+            check(proc.returncode == 0, f"train.cli {label} exited {proc.returncode}:\n{text[-3000:]}")
+            steps = [json.loads(ln.split(": ", 1)[1]) for ln in text.splitlines()
+                     if ln.startswith("step ")]
+            losses[label] = [m["loss"] for m in steps]
+            check(len(steps) == 2 and all(np.isfinite(losses[label])), f"{label}: {losses[label]}")
+            # the flags, without the paths
+            shown = " ".join(a for a, b in zip(argv, argv[1:] + [""])
+                             if not a.startswith("/") and not b.startswith("/"))
+            print(f"  python -m rwkv_lm_ext_tpu_torch.train.cli {shown}: "
+                  f"{time.perf_counter() - t0:.1f} s, losses {[round(x, 4) for x in losses[label]]}")
+    finally:
+        for _, _, proc in running:
+            proc.kill()
+            proc.wait()
+    return losses
+
+
 def run_trainers(models: dict, files: dict, out: Path) -> dict:
     """TRAINER_RUNS through `python -m rwkv_lm_ext_tpu_torch.train.cli` on
-    models["full"] (the full-parameter ones) or models["lora"], four
-    subprocesses at a time (two of them full-parameter at most), 2 steps
-    each; the logged losses must be finite. Returns {command: losses}."""
+    models["full"] (the full-parameter ones, CUT_LAYERS layers: about 10 GB
+    each) or models["lora"], five subprocesses at a time (three of them
+    full-parameter at most), 2 steps each (run_cli_jobs). Returns {command:
+    losses}."""
     common = ["--micro-bsz", "4", "--ctx-len", "128", "--max-steps", "2", "--log-every", "1",
               "--warmup-steps", "0", "--platform", DEV]
-    pending, running, losses = list(TRAINER_RUNS), [], {}
-
-    def full(run):
-        return run[0] in FULL_PARAMETER
-
-    while pending or running:
-        for run in list(pending):
-            if len(running) < 4 and (not full(run) or sum(full(r) for r, _, _ in running) < 2):
-                pending.remove(run)
-                command, data, flags, _ = run
-                cmd = [sys.executable, "-m", "rwkv_lm_ext_tpu_torch.train.cli", command, *flags,
-                       "--model", models["full" if full(run) else "lora"], "--train-data",
-                       files[data], "--output-dir", str(out / command), *common]
-                log = out / f"{command}.log"
-                log.parent.mkdir(parents=True, exist_ok=True)
-                with open(log, "w") as f:     # the child keeps its own copy of the handle
-                    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
-                running.append((run, time.perf_counter(), proc))
-        done = next((r for r in running if r[2].poll() is not None), None)
-        if done is None:
-            for run, t0, proc in running:
-                if time.perf_counter() - t0 > 600:
-                    proc.kill()
-                    proc.wait()
-                    raise AssertionError(f"train.cli {run[0]} ran past 600 s")
-            time.sleep(0.5)
-            continue
-        running.remove(done)
-        (command, _, flags, _), t0, proc = done
-        text = (out / f"{command}.log").read_text()
-        check(proc.returncode == 0, f"train.cli {command} exited {proc.returncode}:\n{text[-3000:]}")
-        steps = [json.loads(ln.split(": ", 1)[1]) for ln in text.splitlines()
-                 if ln.startswith("step ")]
-        losses[command] = [m["loss"] for m in steps]
-        check(len(steps) == 2 and all(np.isfinite(losses[command])), f"{command}: {losses[command]}")
-        print(f"  python -m rwkv_lm_ext_tpu_torch.train.cli {command} {' '.join(flags)}: "
-              f"{time.perf_counter() - t0:.1f} s, losses {[round(x, 4) for x in losses[command]]}")
-    return losses
+    jobs = []
+    for command, data, flags, _ in TRAINER_RUNS:
+        full = command in FULL_PARAMETER
+        jobs.append((command, [command, *flags, "--model", models["full" if full else "lora"],
+                               "--train-data", files[data], "--output-dir", str(out / command),
+                               *common], full))
+    return run_cli_jobs(jobs, out, width=5, full_width=3)
 
 
 def phase_contrastive_cli(path: str, tmp: Path) -> dict:
@@ -3830,6 +3895,403 @@ def phase_contrastive_readings(path: str, reranker, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+TBPTT_CHUNK = T // 4        # phase 17a's chunk_ctx: 4 chunks of 128
+QLORA_MODES = ("int8c", "nf4")
+
+
+def qlora_step_counts(n_layer: int, remat: bool) -> dict:
+    """Launches of one QLoRA int8c step (LoRA r=8 over an int8c base): the
+    LoRA step's, and B.4 once a projection a forward (8 a layer), again
+    under remat; its straight-through backward launches none."""
+    return dict(train_step_counts(n_layer, remat),
+                quantize_rows=INT8C_PER_LAYER * n_layer * (2 if remat else 1))
+
+
+def rel_grads(what: str, got: dict, want: dict, limit: float = 1e-3) -> None:
+    """Each tensor of `got` within `limit` of the largest value of `want`'s."""
+    rel = {n: (got[n] - want[n]).abs().max().item() / want[n].abs().max().item() for n in want}
+    worst = max(rel, key=rel.get)
+    print(f"  {what}, {len(want)} gradient tensors: max |a - b| / max|b| = {rel[worst]:.3e} "
+          f"({worst}; limit {limit:g})")
+    check(rel[worst] <= limit, f"{what}: gradient {worst} off by {rel[worst]}")
+
+
+def int8c_under_grad() -> None:
+    """B.4 under a training step, alone: one int8c projection of an input
+    that requires grad, at the QLoRA path's shape ((B*T, C) fp32 and bf16
+    against (F, C) weights), through QuantLinear on the kernel route (B.4
+    inside the straight-through Function) and on the plain route: the
+    outputs and dx bit-equal, B.4 launched once a forward and not in the
+    backward."""
+    gen = torch.Generator(device=DEV).manual_seed(42)
+    w = torch.randn(F, C, device=DEV, generator=gen) * 0.02
+    lin = quantize_linear(w, "int8c")
+    for dtype in (torch.float32, BF16):
+        x = torch.randn(TB * T, C, device=DEV, generator=gen).to(dtype)
+        g = torch.randn(TB * T, F, device=DEV, generator=gen).to(dtype)
+        outs = []
+        for ops in (KERNEL_OPS, PLAIN_OPS):
+            xr = x.clone().requires_grad_(True)
+            reset_launch_counts()
+            y = lin(xr, ops)
+            y.backward(g)
+            torch.cuda.synchronize()
+            outs.append((y.detach(), xr.grad, launch_counts()["quantize_rows"]))
+        (yk, dk, nk), (yp, dp, np_) = outs
+        print(f"  int8c projection under grad ({TB * T}, {C}) x ({F}, {C}), {dtype}: output and dx "
+              f"bit-equal kernel vs plain: {torch.equal(yk, yp)}, {torch.equal(dk, dp)}; B.4 launches "
+              f"{nk} (plain route {np_})")
+        check(torch.equal(yk, yp) and torch.equal(dk, dp) and (nk, np_) == (1, 0),
+              f"int8c under grad, {dtype}: the routes differ, or B.4 launches {(nk, np_)} != (1, 0)")
+
+
+def route_gap(what: str, k: dict, p: dict, d: dict, against: str, floor: float = 0.0,
+              scale: float = 1.0) -> None:
+    """Per gradient tensor, the kernel route (k) no farther from the plain
+    route (p), as 1 - cosine, than `scale` times the distance of `d` from
+    the plain route (or than `floor`, whichever is larger)."""
+    gap = {n: (1 - cosine(k[n], p[n]), max(floor, scale * (1 - cosine(p[n], d[n])))) for n in p}
+    worst = max(gap, key=lambda n: gap[n][0] / gap[n][1])
+    rel = max((k[n] - p[n]).abs().max().item() / p[n].abs().max().item() for n in p)
+    print(f"  {what}, {len(p)} gradient tensors: kernel vs plain max |a - b| / max|b| {rel:.3e}; "
+          f"1 - cosine kernel vs plain {gap[worst][0]:.3e} against {against} {gap[worst][1]:.3e} "
+          f"({worst}, the largest ratio; limit 1)")
+    check(all(a <= b for a, b in gap.values()),
+          f"{what}: the kernel route departs from the plain route by more than {against} "
+          f"({worst}: {gap[worst]})")
+
+
+def int8c_gradient_drift(model, loss_fn, batch, k: dict, p: dict, label: str) -> None:
+    """int8c rounds every projection's input to int8 rows, so the last-bit
+    differences between the kernel route's and the plain route's
+    activations move roundings across a half, each by 1/127 of a row's
+    absmax: no 1e-3 limit holds for its gradients. The kernel route is held
+    no farther from the plain route than int8c's rounding moves the plain
+    route's gradient from the int8 mode's on the same codes, the rule by
+    which phase 5 holds int8c's forward."""
+    modes = [m for m in model.modules() if isinstance(m, QuantLinear)]
+    for m in modes:
+        m.mode = "int8"
+    d = trainable_grads(model, loss_fn, batch, reference=True, skip=())
+    for m in modes:
+        m.mode = "int8c"
+    route_gap(f"QLoRA over int8c, {label}", k, p, d, "int8c vs int8 on the plain route")
+
+
+def bf16_gap(what: str, k16: dict, p16: dict, p32: dict) -> None:
+    """bf16 over a 4-bit base and over every parameter of the causal loss:
+    PERF.md section 2's margin (the kernel route's cosine to the fp32 plain
+    route within 1e-3 of the bf16 plain route's) is read, not held: there
+    both bf16 routes sit about 1e-2 from fp32 and the margin reaches -4e-3
+    (PERF.md section 6). Held instead: the kernel route no farther
+    from the bf16 plain route than twice the bf16 plain route's distance
+    from fp32 (or 1e-3): two bf16 computations whose rounding errors are
+    independent and as large as the plain route's lie that far apart."""
+    margins = {n: cosine(k16[n], p32[n]) - cosine(p16[n], p32[n]) for n in p32}
+    worst = min(margins, key=margins.get)
+    print(f"  {what}, bf16 vs the fp32 plain route: min cosine kernel route "
+          f"{min(cosine(k16[n], p32[n]) for n in p32):.6f}, plain route in bf16 "
+          f"{min(cosine(p16[n], p32[n]) for n in p32):.6f}; worst margin {margins[worst]:+.2e} "
+          f"({worst}; read)")
+    route_gap(f"{what}, bf16", k16, p16, p32, "twice the bf16 plain route vs fp32", floor=1e-3,
+              scale=2.0)
+
+
+def full_sequence_loss_fn(model, batch, *, reference: bool = False) -> torch.Tensor:
+    """The causal loss of the whole sequence without L2Wrap: what TBPTT's
+    loss equals."""
+    logits, _ = model(batch["input_ids"], t1_step=False, remat=True, reference=reference)
+    return causal_lm_loss(logits, batch["labels"], l2_wrap=False)
+
+
+def phase_peft_grads(path: str) -> None:
+    """Phase 17a (the module docstring): a 2-layer full-width model, kernel
+    route against plain route."""
+    sd2 = two_layer_sd(path)
+    gen = torch.Generator(device=DEV).manual_seed(40)
+    batch = train_batch(gen, rwkv6_1b6().vocab_size)
+
+    def model_of(dtype, param_dtype="", quant=None):
+        m = load_state_dict_into(RWKV(rwkv6_1b6(n_layer=2, dtype=dtype, param_dtype=param_dtype),
+                                      device=DEV), sd2)
+        return quantize_model(m, quant, weights=sd2) if quant else m
+
+    adapter = init_lora_params(model_of("float32"), LORA, gen)
+    for ab in adapter.values():
+        ab["B"].normal_(0.0, 0.01, generator=gen)
+    sft = functools.partial(sft_loss_fn, remat=True)
+    int8c_under_grad()
+    for mode in QLORA_MODES:
+        m32 = apply_lora(model_of("float32", quant=mode), LORA, adapter)
+        k32 = trainable_grads(m32, sft, batch, reference=False, skip=())
+        p32 = trainable_grads(m32, sft, batch, reference=True, skip=())
+        if mode == "int8c":
+            int8c_gradient_drift(m32, sft, batch, k32, p32, "fp32")
+        else:
+            rel_grads(f"QLoRA over {mode}, fp32, kernel vs plain", k32, p32)
+        del m32
+        m16 = apply_lora(model_of("bfloat16", quant=mode), LORA, adapter)
+        k16 = trainable_grads(m16, sft, batch, reference=False, skip=())
+        p16 = trainable_grads(m16, sft, batch, reference=True, skip=())
+        if mode == "int8c":
+            int8c_gradient_drift(m16, sft, batch, k16, p16, "bf16")
+        else:
+            bf16_gap(f"QLoRA over {mode}", k16, p16, p32)
+        if mode == "int8c":
+            step = make_train_step(m16, TrainConfig(lr_init=1e-5, warmup_steps=0, total_steps=10))
+            reset_launch_counts()
+            loss = step(batch)["loss"]
+            torch.cuda.synchronize()
+            counts, want = launch_counts(), qlora_step_counts(2, True)
+            print(f"  launches in one QLoRA int8c step (2 layers, remat on): {counts}")
+            check(counts == want and bool(torch.isfinite(loss)), f"QLoRA counts {counts} != {want}")
+            del step
+        del m16, k32, p32, k16, p16
+        torch.cuda.empty_cache()
+
+    tbptt = functools.partial(tbptt_loss_fn, chunk_ctx=TBPTT_CHUNK, remat=True)
+    m = model_of("float32")
+    k = trainable_grads(m, tbptt, batch, reference=False, skip=())
+    p = trainable_grads(m, tbptt, batch, reference=True, skip=())
+    rel_grads(f"TBPTT (chunk_ctx {TBPTT_CHUNK}) over every parameter, fp32, kernel vs plain", k, p)
+    whole = trainable_grads(m, full_sequence_loss_fn, batch, reference=False, skip=())
+    with torch.no_grad():
+        losses = [tbptt(m, batch).item(), full_sequence_loss_fn(m, batch).item()]
+    print(f"  TBPTT against the full sequence without L2Wrap, kernel route: losses {losses[0]:.6f} "
+          f"and {losses[1]:.6f}")
+    check(abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1]), f"TBPTT loss {losses}")
+    rel_grads("TBPTT vs the full-sequence loss, kernel route, fp32", k, whole)
+    del k, p, whole
+    apply_trainable_mask(m, trainable_mask(m, "full"))
+    step = make_train_step(m, TrainConfig(lr_init=1e-5, warmup_steps=0, total_steps=10,
+                                          chunk_ctx=TBPTT_CHUNK))
+    reset_launch_counts()
+    loss = step(batch)["loss"]
+    torch.cuda.synchronize()
+    counts, want = launch_counts(), full_step_counts(2, True, T // TBPTT_CHUNK)
+    print(f"  launches in one TBPTT step (2 layers, {T // TBPTT_CHUNK} chunks, remat on): {counts}")
+    check(counts == want and bool(torch.isfinite(loss)), f"TBPTT counts {counts} != {want}")
+    del step, m
+    torch.cuda.empty_cache()
+
+    m32 = model_of("float32")
+    p32 = kernel_vs_plain("sft --train-type full (causal loss over every parameter, fp32)", m32,
+                          sft, batch, skip=())
+    del m32
+    m16 = model_of("bfloat16", "float32")
+    k16 = trainable_grads(m16, sft, batch, reference=False, skip=())
+    p16 = trainable_grads(m16, sft, batch, reference=True, skip=())
+    bf16_gap("sft --train-type full over fp32 masters", k16, p16, p32)
+    del m16, k16, p16, p32
+    torch.cuda.empty_cache()
+
+    m = apply_lora(model_of("bfloat16"), LORA, adapter)
+    on = trainable_grads(m, sft, batch, reference=False, skip=())
+    for policy in ("dots", "dots_nobatch"):
+        got = trainable_grads(m, functools.partial(sft_loss_fn, remat=policy), batch,
+                              reference=False, skip=())
+        check(all(torch.equal(got[n], on[n]) for n in on), f"{policy} gives other gradients")
+    print("  LoRA, bf16, kernel route: dots and dots_nobatch give the gradients of remat on, "
+          "bit for bit")
+    del m, on
+    torch.cuda.empty_cache()
+
+
+def sft_task_jsonl(path: Path, tok) -> None:
+    """phase 9's 64 rows in the 512 bucket, tasks "chat" and "kg" in turns."""
+    sft_jsonl(path, tok)
+    rows = [json.loads(ln) for ln in path.read_text().splitlines()]
+    path.write_text("".join(json.dumps(dict(r, task=("chat", "kg")[i % 2])) + "\n"
+                            for i, r in enumerate(rows)))
+
+
+def phase_peft_cli(path: str, tmp: Path) -> None:
+    """Phase 17b (the module docstring). Each run's files are held to the
+    JAX names and layouts; the served PiSSA adapter's greedy tokens to its
+    teacher-forced argmax."""
+    tok = WorldTokenizer()
+    data, tasks = tmp / "sft.jsonl", tmp / "sft_tasks.jsonl"
+    if not data.exists():
+        sft_jsonl(data, tok)
+    sft_task_jsonl(tasks, tok)
+    cut = tmp / f"rwkv6_1b6_synthetic_{CUT_LAYERS}_layers.pth"
+    if not cut.exists():
+        torch.save(two_layer_sd(path, CUT_LAYERS), cut)
+    out = tmp / "peft"
+    common = ["--micro-bsz", "64", "--ctx-len", str(T), "--max-steps", "2", "--log-every", "1",
+              "--warmup-steps", "0", "--lr-init", "1e-4", "--platform", DEV]
+    jobs = [
+        ("pissa", ["sft", "--train-type", "pissa", "--model", path, "--train-data", str(data)], False),
+        ("int8c", ["sft", "--quant", "int8c", "--model", path, "--train-data", str(data)], False),
+        ("nf4", ["sft", "--quant", "nf4", "--model", path, "--train-data", str(data)], False),
+        ("slot-lora", ["sft", "--train-type", "slot-lora", "--model", path, "--train-data",
+                       str(tasks)], False),
+        ("lisa", ["sft", "--train-type", "full", "--lisa-k", "2", "--model", str(cut),
+                  "--train-data", str(data)], True),
+        ("tbptt", ["sft", "--train-type", "full", "--chunk-ctx", "128", "--model", str(cut),
+                   "--train-data", str(data)], True),
+    ]
+    jobs = [(label, argv + ["--output-dir", str(out / label), *common], full)
+            for label, argv, full in jobs]
+    run_cli_jobs(jobs, out, width=6)
+    cfg = rwkv6_1b6()
+    for name in ("pissa/init_pissa.pth", "pissa/lora-step2.pth", "int8c/lora-step2.pth",
+                 "nf4/lora-step2.pth", "slot-lora/lora-chat-step2.pth",
+                 "slot-lora/lora-kg-step2.pth"):
+        sd = torch.load(out / name, map_location="cpu", weights_only=True)
+        check(len(sd) == cfg.n_layer * 8 * 2 and sd["blocks.0.att.key.lora_A"].shape == (8, C)
+              and sd[f"blocks.{cfg.n_layer - 1}.ffn.value.lora_B"].shape == (C, 8)
+              and all(v.dtype == torch.float32 for v in sd.values()), f"{name}: not a LoRA file")
+    print(f"  LoRA files in the reference layout ({cfg.n_layer * 16} tensors each): init_pissa.pth "
+          f"and lora-step2.pth (pissa), lora-step2.pth (int8c, nf4), lora-chat-step2.pth and "
+          f"lora-kg-step2.pth (slot-lora)")
+    base = torch.load(cut, map_location="cpu", weights_only=True, mmap=True)
+    for label in ("lisa", "tbptt"):
+        print(f"  {label}: {check_trained_file(out / label / 'model-step2.pth', base)}")
+    del base
+
+    args = ["--model", path, "--quant", "nf4", "--chat-adapter", str(out / "pissa/lora-step2.pth"),
+            "--pissa-init", str(out / "pissa/init_pissa.pth"), "--platform", DEV]
+    prompt = "The passage is about foxes."
+    payload = {"prompt": prompt, "max_tokens": 16, "temperature": 0.0, "top_p": 1.0,
+               "alpha_presence": 0.0, "alpha_frequency": 0.0, "token_stop": []}
+    with CliServer(args + ["--port", "0"]) as url:
+        code, answer = post(url + "/generate", payload)
+    check(code == 200 and isinstance(answer.get("output"), str), f"/generate answered {code}")
+    service = cli.build_service(cli.parse_args(args))
+    model = service.engine.model
+    check(model.blocks[0].att.key.mode == "nf4", "the served PiSSA model is not nf4")
+    prompt_ids = tok.encode(prompt)
+    outs = GenerationEngine(model, None).generate(prompt_ids, max_tokens=16, sampling=GREEDY)
+    check(tok.decode(outs) == answer["output"], "the CLI's greedy answer is not the engine's")
+    logits = teacher_forced_rows(model, [prompt_ids], [outs], None, reference=False)
+    check(bool((logits.argmax(-1) == torch.tensor([outs], device=DEV)).all()),
+          "a served PiSSA token is not the argmax of its teacher-forced logits")
+    print(f"  python -m rwkv_lm_ext_tpu_torch.serve.cli {' '.join(a for a in args if '/' not in a)}: "
+          f"/generate 200, {len(outs)} greedy tokens, each the argmax of the served nf4 model's "
+          f"teacher-forced logits")
+    service.close()
+    del service, model
+    torch.cuda.empty_cache()
+
+
+def read_train_step(model, step, loss_fn, batch, other, what: str, smi: str, iters: int = 3,
+                    split: bool = False) -> list:
+    """A reading of `step` on `batch`: ms over `iters` chained steps (CUDA
+    events, after a warm-up) with the train canary, Kt/s, the busy time of
+    one step (the union of its kernel intervals), its idle share and the
+    peak memory; with `split`, its device time by kernel group. Returns the
+    device ops of the profiled step."""
+    step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainable = [p for p in model.parameters() if p.requires_grad]
+    ms, losses, before_last = chained_steps(step, batch, iters, trainable)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(bool(torch.isfinite(losses).all()), f"{what}: non-finite losses {losses}")
+    train_canary(model, loss_fn, trainable, before_last, batch, other, losses[-1], what)
+    del before_last
+    ops = device_ops(lambda: step(batch), 1)
+    busy = busy_us(ops) / 1e3
+    print(f"  reading: {what}: {ms:.2f} ms, {TB * T / ms:.2f} Kt/s, busy {busy:.3f} ms in "
+          f"{len(ops)} device ops, idle {100 * max(ms - busy, 0) / ms:.2f} %, peak {peak:.1f} GiB "
+          f"(B={TB}, T={T}) on {smi}")
+    if split:
+        print("    " + ", ".join(f"{g} {v:.3f}" for g, v in split_by_group(ops, STEP_GROUPS).items()
+                                 if v > 0))
+    return ops
+
+
+def kernel_launches(ops: list, name: str) -> int:
+    return sum(1 for e in ops if name in e.name)
+
+
+def phase_peft_readings(path: str, smi: str) -> None:
+    """Phase 17c (the module docstring), 24 layers."""
+    gen = torch.Generator(device=DEV).manual_seed(41)
+    batch, other = train_batch(gen, rwkv6_1b6().vocab_size), train_batch(gen, rwkv6_1b6().vocab_size)
+    for mode in ("int8c", "int8", "nf4"):
+        model, cfg = load_rwkv_checkpoint(path, device=DEV, quant=mode)
+        apply_lora(model, LORA, init_lora_params(model, LORA, gen))
+        if mode == "int8c":
+            for remat in (False, True):
+                step = make_train_step(model, TrainConfig(lr_init=1e-4, warmup_steps=0,
+                                                          total_steps=100, grad_checkpoint=remat))
+                reset_launch_counts()
+                step(batch)
+                torch.cuda.synchronize()
+                counts, want = launch_counts(), qlora_step_counts(cfg.n_layer, remat)
+                print(f"  launches in one QLoRA int8c step, remat {'on' if remat else 'off'}: "
+                      f"B.4 {counts['quantize_rows']}; {counts}")
+                check(counts == want, f"QLoRA int8c step counts {counts} != {want}")
+        step = make_train_step(model, TrainConfig(lr_init=1e-4, warmup_steps=0, total_steps=100))
+        ops = read_train_step(model, step, functools.partial(sft_loss_fn, remat=True), batch, other,
+                              f"QLoRA {mode} step (LoRA r=8, remat on)", smi)
+        if mode == "int8c":
+            # the profiler may lose one record in ten (device_ops)
+            b4, want = kernel_launches(ops, "quant_rows"), INT8C_PER_LAYER * cfg.n_layer * 2
+            print(f"  B.4 on the device in one QLoRA int8c step (remat on): {b4} launches")
+            check(0.9 * want <= b4 <= want, f"B.4 ran {b4} times on the device, not {want}")
+        del model, step, ops
+        torch.cuda.empty_cache()
+
+    model, cfg = load_rwkv_checkpoint(path, device=DEV)
+    apply_lora(model, LORA, init_lora_params(model, LORA, gen))
+    for policy in ("dots", "dots_nobatch"):
+        step = make_train_step(model, TrainConfig(lr_init=1e-4, warmup_steps=0, total_steps=100,
+                                                  grad_checkpoint=policy))
+        read_train_step(model, step, functools.partial(sft_loss_fn, remat=policy), batch, other,
+                        f"LoRA step under {policy}", smi)
+        del step
+    del model
+    torch.cuda.empty_cache()
+
+    model, cfg = load_rwkv_checkpoint(path, device=DEV, param_dtype="float32")
+    apply_trainable_mask(model, trainable_mask(model, "full"))
+    tc = dict(lr_init=1e-5, warmup_steps=0, total_steps=100)
+    sft = functools.partial(sft_loss_fn, remat=True)
+    step = make_train_step(model, TrainConfig(**tc))
+    read_train_step(model, step, sft, batch, other,
+                    "sft --train-type full step (fp32 masters, bf16 compute)", smi, split=True)
+    del step
+    torch.cuda.empty_cache()
+
+    chunks = T // 128
+    step = make_train_step(model, TrainConfig(**tc, chunk_ctx=128))
+    reset_launch_counts()
+    step(batch)
+    torch.cuda.synchronize()
+    counts, want = launch_counts(), full_step_counts(cfg.n_layer, True, chunks)
+    print(f"  launches in one TBPTT step ({chunks} chunks x {cfg.n_layer} layers, remat on): K1 "
+          f"{counts['wkv6_fused_output']}, B.6 {counts['wkv6_bwd_forward_pass']}, B.7 "
+          f"{counts['wkv6_bwd_reverse_pass']}; {counts}")
+    check(counts == want, f"TBPTT step counts {counts} != {want}")
+    ops = read_train_step(model, step, functools.partial(tbptt_loss_fn, chunk_ctx=128, remat=True),
+                          batch, other, "TBPTT step (chunk_ctx 128, every parameter)", smi,
+                          split=True)
+    on_device = {k: kernel_launches(ops, name) for k, name in (
+        ("K1", "wkv6_chunked_kernel"), ("B.6", "wkv6_bwd_forward_chunked_kernel"),
+        ("B.7", "wkv6_bwd_reverse_chunked_kernel"))}
+    print(f"  on the device in one TBPTT step: {on_device}")
+    want = {"K1": 2 * chunks * cfg.n_layer, "B.6": chunks * cfg.n_layer, "B.7": chunks * cfg.n_layer}
+    check(all(0.9 * want[k] <= n <= want[k] for k, n in on_device.items()),
+          f"TBPTT device launches {on_device}, not {want}")
+    del step, ops
+    torch.cuda.empty_cache()
+
+    raw = make_train_step(model, TrainConfig(**tc))
+    lisa, count = LisaSchedule(cfg.n_layer, k=2, interval=20, seed=0), [0]
+
+    def lisa_step(b):
+        count[0] += 1
+        return raw(b, lisa.trainable_mask(raw.optimizer.names, count[0] - 1))
+
+    read_train_step(model, lisa_step, sft, batch, other, "LISA k=2 step (every parameter, two "
+                    f"blocks updated: {lisa.active_layers(0)})", smi)
+    del raw, lisa_step, model
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     """With no arguments the whole check; with --merge-calibration only the
     readings behind the merged-adapter budgets (merge_calibration)."""
@@ -3966,6 +4428,15 @@ def main() -> None:
         rerank = phase_rerank(path, trained["out"])
         phase("phase 16d: reranking and contrastive training readings (not benchmark cells)")
         phase_contrastive_readings(path, rerank.pop("reranker"), smi)
+
+        phase(f"phase 17a: PEFT gradients, kernel route vs plain route (QLoRA int8c / nf4, TBPTT, "
+              f"full, dots; 2 layers, full width, B={TB}, T={T})")
+        phase_peft_grads(path)
+        phase("phase 17b: python -m rwkv_lm_ext_tpu_torch.train.cli sft --train-type pissa | "
+              "slot-lora | full --lisa-k | --chunk-ctx, --quant int8c | nf4; serve.cli --pissa-init")
+        phase_peft_cli(path, tmp)
+        phase("phase 17c: PEFT training readings (not benchmark cells)")
+        phase_peft_readings(path, smi)
 
     # each kernel's launches on a main path that runs it: embedding serving,
     # int8c generation (on the device: its decode blocks are graph replays),

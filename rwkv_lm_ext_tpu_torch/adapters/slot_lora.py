@@ -4,7 +4,7 @@ Counterpart of rwkv_lm_ext_tpu/adapters/slot_lora.py:43-246: the per-row
 apply (``SlotLoraLeaf.slot_apply``, :43-74) as the ``SlotLoraLinear`` module,
 ``build_slot_lora`` (:77-138), the joint-training stacks
 ``init_slot_stacks`` / ``apply_slot_stacks`` / ``split_slot_stacks``
-(:175-233), ``set_slot_idx`` (:236) and ``has_slot_lora`` (:243).
+(:165-233), ``set_slot_idx`` (:236) and ``has_slot_lora`` (:243).
 
 Adapters are stacked: an adapted projection holds its base (a ``Linear`` or
 a ``QuantLinear``), A (n, in, r_max) and B (n, r_max, out), and a per-row
@@ -16,6 +16,13 @@ largest, and each adapter's alpha / r is folded into its B, so the runtime
 math is uniform. The JAX package computes the delta of every adapter and
 selects one by a one-hot product; the port gathers each row's A and B,
 which is the same sum without the n - 1 zero terms.
+
+Joint multi-task training (``sft --train-type slot-lora``): the raw stacks
+that ``apply_slot_stacks`` installs are the model's trainable parameters
+(``slot_stacks`` reads them back), the scale applied at use as plain LoRA's;
+each step points the modules at its batch's ``adapter_ids``
+(``set_slot_idx``), so a row's gradient reaches only its task's rows of the
+stacks, and the base row 0, never routed, gets none.
 
 The index is a buffer that every ``SlotLoraLinear`` of a model shares
 (``set_slot_idx``): a CUDA graph captured over the model reads whatever
@@ -34,7 +41,7 @@ from typing import Dict, Iterable, Tuple, Union
 import torch
 from torch import nn
 
-from rwkv_lm_ext_tpu_torch.adapters.lora import Adapter, LoraConfig, init_lora_params
+from rwkv_lm_ext_tpu_torch.adapters.lora import Adapter, LoraConfig, init_lora_params, weight_shape
 
 
 class SlotLoraLinear(nn.Module):
@@ -58,9 +65,8 @@ class SlotLoraLinear(nn.Module):
         if self.idx.shape[0] != rows:
             raise ValueError(f"the slot index has {self.idx.shape[0]} rows, the input {rows}: "
                              "set_slot_idx with one adapter id a row first")
-        B = self.B[self.idx].to(dt)
-        if self.scale != 1.0:
-            B = self.scale * B
+        B = self.B[self.idx]
+        B = (B if self.scale == 1.0 else self.scale * B).to(dt)
         t = torch.bmm(x.reshape(rows, -1, x.shape[-1]), self.A[self.idx].to(dt))
         return y + torch.bmm(t, B).reshape(y.shape)
 
@@ -76,8 +82,8 @@ def _leaf(model, key: str) -> Tuple[nn.Module, str]:
 
 
 def _fans(base: nn.Module) -> Tuple[int, int]:
-    w = base.weight if hasattr(base, "weight") else base.q        # (out, in)
-    return w.shape[1], w.shape[0]
+    n_out, n_in = weight_shape(base)
+    return n_in, n_out
 
 
 def build_slot_lora(
@@ -155,6 +161,13 @@ def apply_slot_stacks(model, stacks: Dict, idx: torch.Tensor, lc: LoraConfig):
         B = ab["B"].detach().clone().requires_grad_(True)
         setattr(parent, attr, SlotLoraLinear(base, A, B, idx, scale=lc.scaling))
     return model
+
+
+def slot_stacks(model) -> Dict:
+    """The model's stacks by adapter key, {"A", "B"} (detached), as
+    ``apply_slot_stacks`` installed them and training left them."""
+    return {name: {"A": m.A.detach(), "B": m.B.detach()} for name, m in model.named_modules()
+            if isinstance(m, SlotLoraLinear)}
 
 
 def split_slot_stacks(stacks: Dict, name_to_id: Dict[str, int]) -> Dict[str, Adapter]:

@@ -10,6 +10,7 @@ exact at any decay, so there is no chunk length or factoring to choose.
 from __future__ import annotations
 
 import dataclasses
+from typing import Union
 
 import torch
 
@@ -81,7 +82,8 @@ class TrainConfig:
     """Optimizer and schedule settings, the JAX TrainConfig's fields and
     defaults (rwkv_lm_ext_tpu/config.py:117-140). ``dp``/``tp`` and
     ``shard_opt_state`` are kept for parity; the port trains on one device
-    so far. ``grad_checkpoint`` is on/off only (no ``dots`` policies)."""
+    so far. ``grad_checkpoint`` is a utils.remat spec (False, True, "dots"
+    or "dots_nobatch"); ``chunk_ctx`` > 0 makes TBPTT the default loss."""
 
     lr_init: float = 3e-4
     lr_final: float = 1e-5
@@ -96,7 +98,7 @@ class TrainConfig:
     micro_bsz: int = 8
     accumulate_grad_batches: int = 1
     layerwise_lr: bool = True
-    grad_checkpoint: bool = True
+    grad_checkpoint: Union[bool, str] = True
     chunk_ctx: int = 0
     dp: int = 1
     tp: int = 1

@@ -1,7 +1,7 @@
 """Batch collators (host-side numpy -> fixed-shape arrays).
 
 Jax-free copies of collators of rwkv_lm_ext_tpu/data/collators.py:
-``sft_collate`` (:25-53, without the slot-LoRA adapter ids),
+``sft_collate`` (:25-53),
 ``triplet_collate`` (:56), ``cross_encoder_collate`` (:89),
 ``whole_word_mask`` (:115), ``mlm_collate`` (:130) and ``mae_collate``
 (:171). The masking collators make the same ``np.random.default_rng(seed)``
@@ -31,12 +31,17 @@ def _pad_to(ids: Sequence[int], length: int, pad: int) -> np.ndarray:
 def sft_collate(examples: List[Dict], fixed_len: int, *, pad_id: int = PAD_ID) -> Dict[str, np.ndarray]:
     """examples: {"input_ids", "labels"} (labels -100 over the prompt) ->
     {"input_ids", "labels"} (B, fixed_len) int32, labels shifted so that
-    labels[t] is the target of the logits at t."""
+    labels[t] is the target of the logits at t; with "adapter_ids" (B,)
+    int32 when the examples carry an "adapter_id" (slot-LoRA's task
+    routing)."""
     input_ids = np.stack([_pad_to(e["input_ids"], fixed_len, pad_id) for e in examples])
     labels_raw = np.stack([_pad_to(e["labels"], fixed_len, IGNORE) for e in examples])
     labels = np.full_like(labels_raw, IGNORE)
     labels[:, :-1] = labels_raw[:, 1:]
-    return {"input_ids": input_ids, "labels": labels}
+    out = {"input_ids": input_ids, "labels": labels}
+    if "adapter_id" in examples[0]:
+        out["adapter_ids"] = np.asarray([e["adapter_id"] for e in examples], np.int32)
+    return out
 
 
 def triplet_collate(

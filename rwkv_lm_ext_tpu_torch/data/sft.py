@@ -29,7 +29,8 @@ def load_sft_jsonl(
     max_examples: Optional[int] = None,
 ) -> LengthBucketedDataset:
     """jsonl rows {"instruction", "input", "output"} -> bucketed dataset;
-    examples longer than the largest bucket are dropped."""
+    examples longer than the largest bucket are dropped. A row's "task"
+    (multi-task SFT, slot-LoRA) is kept on its example as a string."""
     ds = LengthBucketedDataset(buckets)
     with open(path, "r", encoding="utf-8") as f:
         for n, line in enumerate(f):
@@ -41,5 +42,7 @@ def load_sft_jsonl(
             row = json.loads(line)
             ex = encode_sft_example(tokenizer, row.get("instruction", ""),
                                     row.get("input", ""), row.get("output", ""))
+            if "task" in row:
+                ex["task"] = str(row["task"])
             ds.add(ex, len(ex["input_ids"]))
     return ds

@@ -41,7 +41,6 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from rwkv_lm_ext_tpu_torch.config import EMB_ID, PAD_ID
 from rwkv_lm_ext_tpu_torch.models.heads import first_token_position
@@ -55,6 +54,7 @@ from rwkv_lm_ext_tpu_torch.ops.wkv import (
     wkv6_bi_plain,
     wkv_plain,
 )
+from rwkv_lm_ext_tpu_torch.utils.remat import remat_call
 
 
 class BiOps(NamedTuple):
@@ -133,20 +133,16 @@ def _run_block(block, x, lengths, mode, ops):
 
 def encoder_forward(
     model: RWKV, tokens: torch.Tensor, *, mode: str = "average", pad_id: int = PAD_ID,
-    emb_id: Optional[int] = EMB_ID, remat: bool = False, reference: bool = False,
+    emb_id: Optional[int] = EMB_ID, remat=False, reference: bool = False,
 ) -> torch.Tensor:
     """Bidirectional encoder: emb -> bi blocks -> ln_out. tokens (B, T) int;
-    returns the hidden states (B, T, C) in the compute dtype. ``remat``
-    checkpoints each block while grad mode is on."""
+    returns the hidden states (B, T, C) in the compute dtype. ``remat`` (a
+    utils.remat spec) checkpoints each block while grad mode is on."""
     ops = PLAIN_OPS if reference else KERNEL_OPS
     lengths = sequence_lengths(tokens, pad_id=pad_id, emb_id=emb_id)
     x = model.embed(tokens)
-    remat = remat and torch.is_grad_enabled()
     for block in model.blocks:
-        if remat:
-            x = checkpoint(_run_block, block, x, lengths, mode, ops, use_reentrant=False)
-        else:
-            x = bi_block_forward(block, x, lengths, mode=mode, ops=ops)
+        x = remat_call(_run_block, block, x, lengths, mode, ops, remat=remat)
     return _ln(ops, x, model.ln_out)
 
 

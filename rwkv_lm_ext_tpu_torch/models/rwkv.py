@@ -41,7 +41,8 @@ Training (train/): the kernel wrappers are autograd Functions whenever an
 input requires grad, so a loss differentiates through K1-K3 (backward
 kernels B.5-B.7). ``remat=True`` recomputes each block in the backward
 (``torch.utils.checkpoint``, the counterpart of ``remat_wrap``,
-utils/remat.py); ``use_state_params=True`` feeds each layer's learnable
+utils/remat.py), and ``remat="dots"`` or ``"dots_nobatch"`` keeps the
+matrix products' outputs and recomputes the rest; ``use_state_params=True`` feeds each layer's learnable
 ``att.time_state`` (H, N, N) fp32, added by ``add_state_params``, as the WKV
 initial state of every sequence (state tuning,
 rwkv_lm_ext_tpu/models/rwkv.py:471-476).
@@ -53,7 +54,6 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from rwkv_lm_ext_tpu_torch.models.state import ModelState, init_model_state
 from rwkv_lm_ext_tpu_torch.ops.ddlerp import tmix_prologue, tmix_prologue_plain
@@ -75,6 +75,7 @@ from rwkv_lm_ext_tpu_torch.ops.wkv_fused import (
     wkv6_fused_output,
     wkv6_fused_output_plain,
 )
+from rwkv_lm_ext_tpu_torch.utils.remat import remat_call
 
 
 class Ops(NamedTuple):
@@ -99,17 +100,6 @@ PLAIN_OPS = Ops(
 )
 
 LayerState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
-
-
-def normalize_remat(spec) -> bool:
-    """CLI spellings of per-block remat: on/true -> True, off/false -> False.
-    The JAX package's selective ``dots`` policies have no counterpart yet."""
-    value = spec.lower() if isinstance(spec, str) else spec
-    if value in (True, "on", "true", "1"):
-        return True
-    if value in (False, None, "off", "false", "0"):
-        return False
-    raise ValueError(f"unknown remat spec {spec!r}; expected on or off")
 
 
 def _param(*shape, device, dtype) -> nn.Parameter:
@@ -453,7 +443,7 @@ class RWKV(nn.Module):
         return_logits: bool = True,
         reference: bool = False,
         t1_step: bool = True,
-        remat: bool = False,
+        remat=False,
         use_state_params: bool = False,
     ):
         """tokens: (B, T) int. state: a models.state dict, or None for zeros.
@@ -464,7 +454,8 @@ class RWKV(nn.Module):
         plain versions (see the module docstring). A plain T=1 call (logits
         only) goes through models.decode.rwkv_decode_step unless
         ``t1_step=False`` or ``use_state_params``; either way ``state`` is left
-        as it was. ``remat`` checkpoints each block while grad mode is on;
+        as it was. ``remat`` (a utils.remat spec: off, on or a policy name)
+        checkpoints each block while grad mode is on;
         ``use_state_params`` (see the module docstring) replaces the WKV part
         of ``state``."""
         from rwkv_lm_ext_tpu_torch.models.decode import decode_supported, rwkv_decode_step
@@ -479,13 +470,9 @@ class RWKV(nn.Module):
             state = init_model_state(self.cfg, B, device=tokens.device)
         x = self.embed(tokens)
         new_state = {key: [] for key in ("att_shift", "wkv", "ffn_shift")}
-        remat = remat and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
             ls = (state["att_shift"][i], state["wkv"][i], state["ffn_shift"][i])
-            if remat:
-                x, ls = checkpoint(block, x, ls, ops, use_state_params, use_reentrant=False)
-            else:
-                x, ls = block(x, ls, ops, use_state_params)
+            x, ls = remat_call(block, x, ls, ops, use_state_params, remat=remat)
             for key, value in zip(new_state, ls):
                 new_state[key].append(value)
         new_state = {key: torch.stack(vs) for key, vs in new_state.items()}

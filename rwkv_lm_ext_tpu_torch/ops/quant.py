@@ -30,15 +30,18 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., C) -> int8 (..., C) and fp32 row scales (..., 1), with
     ``x ~= q * s``. CPU tensors take the plain version; CUDA tensors launch
     B.4, for any row count and any C, in fp32 or bf16. B.4 has no backward
-    yet (QLoRA training waits for it): on the CUDA route an input that
-    requires grad, with grad mode on, raises instead of giving outputs
-    detached from the graph."""
+    (its outputs are integers and a row scale): QLoRA over an int8c base
+    reaches it through ``adapters.quant._Int8cMatmul``, which quantizes the
+    detached input and gives the product a straight-through backward. On
+    the CUDA route an input that requires grad, with grad mode on, raises
+    instead of giving outputs detached from the graph."""
     if x.device.type == "cpu":
         return quantize_rows_plain(x)
     if _lib.needs_grad(x):
         raise RuntimeError(
             "quantize_rows (B.4) has no backward on the CUDA route: run it under "
-            "torch.no_grad() or torch.inference_mode(), or on an input that needs no grad"
+            "torch.no_grad() or torch.inference_mode(), or on an input that needs no grad "
+            "(an int8c projection under grad goes through adapters.quant.QuantLinear)"
         )
     C = x.shape[-1]
     device = _lib.check_cuda(x=x)

@@ -5,8 +5,9 @@ Counterpart of rwkv_lm_ext_tpu/serve/cli.py:38-131, 134-227, 268-285 and
 request), named states, the continuous batcher, the prefix cache, the bi-
 and cross-encoders and the bidirectional encoder:
 
-  python -m rwkv_lm_ext_tpu_torch.serve.cli --model m.pth [--quant int8c] \
-      [--chat-adapter chat.pth] [--slot-adapter a=a.pth --slot-adapter b=b.pth] \
+  python -m rwkv_lm_ext_tpu_torch.serve.cli --model m.pth [--quant int8c|nf4] \
+      [--chat-adapter chat.pth [--pissa-init init_pissa.pth]] \
+      [--slot-adapter a=a.pth --slot-adapter b=b.pth] \
       [--lora-r 8 --lora-alpha 32] [--states-config states.json] \
       [--batcher-slots 16 --batcher-block 16] [--prefix-cache 8] \
       [--bi-adapter bi.pth [--bi-pooling weightedmean]] \
@@ -19,10 +20,15 @@ states.json maps action names to state-tuning checkpoints and templates:
 ``--model`` serves /generate; ``--encoder`` (a bidirectional encoder's .pth,
 as ``train.cli mlm`` writes it) serves /fill_mask; one of the two is needed.
 
-``--quant`` quantizes the generation base's block projections (int8:
-dequantized on use; int8c: int8 products with dynamic per-row activation
-quantization). ``--chat-adapter`` merges a LoRA into the base before
-that; each ``--slot-adapter NAME=PATH`` is served per request (/generate
+``--quant`` quantizes the generation base's block projections (int8, nf4
+and fp4: dequantized on use; int8c: int8 products with dynamic per-row
+activation quantization). ``--chat-adapter`` merges a LoRA into the base
+before that; with ``--pissa-init`` (the ``init_pissa.pth`` that ``train.cli
+sft --train-type pissa`` writes) the adapter is a PiSSA one and merges
+against the original base, W + A @ B - A_init @ B_init (``merge_pissa``).
+The JAX CLI builds that merge's config without ``pissa=True`` and so stops
+at merge_pissa's assertion (ROADMAP C.20); the port gives it the PiSSA
+config (scale 1). Each ``--slot-adapter NAME=PATH`` is served per request (/generate
 {"adapter": NAME}) on the same base, unmerged, so requests under different
 adapters share the batcher's step. ``--bi-adapter`` serves /embed and
 /similarity, ``--cross-adapter`` /rerank, each from its own copy of the
@@ -31,8 +37,8 @@ says (as the JAX CLI merges them into its base before quantizing the
 generation weights); the reranker's ``score.weight`` comes from the adapter
 file or from ``--cross-head``, and without one the command refuses to
 start. ``--platform`` is the torch device: ``cuda`` by default, ``cpu`` only
-when asked. ``--draft`` (speculative decoding), ``--tp``, ``--pissa-init``,
-``--tokenizer-json`` and multi-host serving wait for later slices.
+when asked. ``--draft`` (speculative decoding), ``--tp``, ``--tokenizer-json``
+and multi-host serving wait for later slices.
 """
 from __future__ import annotations
 
@@ -46,8 +52,9 @@ from rwkv_lm_ext_tpu_torch.adapters.lora import (
     apply_lora,
     lora_state_dict_to_tree,
     merge_lora,
+    merge_pissa,
 )
-from rwkv_lm_ext_tpu_torch.adapters.quant import quantize_model
+from rwkv_lm_ext_tpu_torch.adapters.quant import MODES, quantize_model
 from rwkv_lm_ext_tpu_torch.adapters.slot_lora import build_slot_lora
 from rwkv_lm_ext_tpu_torch.checkpoint.convert import (
     load_rwkv_checkpoint,
@@ -72,10 +79,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="bidirectional encoder .pth for /fill_mask")
     p.add_argument("--vocab", default=None, help="world-vocabulary path")
     p.add_argument("--dtype", default=None, help="compute dtype override (e.g. float32)")
-    p.add_argument("--quant", default=None, choices=("int8", "int8c"),
+    p.add_argument("--quant", default=None, choices=MODES,
                    help="quantize the generation base's block projections")
     p.add_argument("--chat-adapter", default=None,
                    help="LoRA .pth merged into the generation base")
+    p.add_argument("--pissa-init", default=None,
+                   help="init_pissa.pth for a PiSSA chat adapter (merged against the original "
+                        "base)")
     p.add_argument("--slot-adapter", action="append", default=None, metavar="NAME=PATH",
                    help="repeatable: a named LoRA served per request on the same base "
                         '(/generate {"adapter": NAME}), not merged; uses --lora-r/--lora-alpha')
@@ -139,10 +149,16 @@ def build_service(args: argparse.Namespace) -> ServingService:
                 raise SystemExit("--cross-adapter needs score.weight (in the adapter or via "
                                  "--cross-head)")
             cross = CrossEncoder(cross_model, tok, head)
+        if args.pissa_init and not args.chat_adapter:
+            raise SystemExit("--pissa-init needs --chat-adapter")
         if args.chat_adapter:
             # merged into the checkpoint's weights, then quantized
             model, cfg = load_rwkv_checkpoint(args.model, device=device, **overrides)
-            merge_lora(apply_lora(model, lc, _adapter(args.chat_adapter)))
+            if args.pissa_init:
+                merge_pissa(model, _adapter(args.chat_adapter), _adapter(args.pissa_init),
+                            LoraConfig(r=args.lora_r, alpha=args.lora_alpha, pissa=True))
+            else:
+                merge_lora(apply_lora(model, lc, _adapter(args.chat_adapter)))
             if args.quant:
                 quantize_model(model, args.quant)
         else:

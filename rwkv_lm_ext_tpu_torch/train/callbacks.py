@@ -1,8 +1,8 @@
-"""Training callbacks: metrics logging and checkpoints.
+"""Training callbacks: metrics logging, checkpoints and LISA's schedule.
 
-Counterpart of rwkv_lm_ext_tpu/train/callbacks.py:28-135: ``MetricsLogger``
-(it/s, Kt/s, ``train_log.txt`` lines), ``save_lora_checkpoint`` and
-``save_states_checkpoint``; and of the JAX trainers' own save functions
+Counterpart of rwkv_lm_ext_tpu/train/callbacks.py:28-165: ``MetricsLogger``
+(it/s, Kt/s, ``train_log.txt`` lines), ``save_lora_checkpoint``,
+``save_states_checkpoint`` and ``LisaSchedule``; and of the JAX trainers' own save functions
 (train/cli.py): ``save_score_head`` (``score-step{N}.pth``, ``score.weight``
 (n, C)) and ``save_model_checkpoint``, the base checkpoint's layout with the
 heads attached to the model beside it (``score.weight``, or ``dense.*`` and
@@ -14,15 +14,18 @@ every N steps spans N steps, so both rates were off (ROADMAP.md C.8). This
 one divides the steps and tokens actually trained since the previous log by
 the time they took. The files
 are plain {key: fp32 tensor} dicts written with torch.save, so the JAX
-package's torch-free ``load_torch_pth`` reads them. wandb and LISA wait.
+package's torch-free ``load_torch_pth`` reads them. The logger has no wandb
+(``--wandb-project`` needs a network service, so the CLI refuses it).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from rwkv_lm_ext_tpu_torch.adapters.lora import lora_state_dict
@@ -83,3 +86,29 @@ def save_model_checkpoint(model, path: str) -> None:
     the base checkpoint's flat layout; the RetroMAE decoder stays out."""
     torch.save({k: v.detach().float().contiguous().cpu() for k, v in model.state_dict().items()
                 if not k.startswith("onelayer_decoder.")}, path)
+
+
+@dataclasses.dataclass
+class LisaSchedule:
+    """LISA layerwise sampling: every ``interval`` steps ``k`` random blocks
+    train, drawn from ``np.random.default_rng(seed + step // interval)`` as
+    the JAX schedule draws them; the parameters outside the blocks (emb,
+    ln_out, head) follow ``train_head``."""
+
+    n_layer: int
+    k: int = 2
+    interval: int = 20
+    train_head: bool = True
+    seed: int = 0
+
+    def active_layers(self, step: int) -> List[int]:
+        rng = np.random.default_rng(self.seed + step // self.interval)
+        return sorted(rng.choice(self.n_layer, size=min(self.k, self.n_layer),
+                                 replace=False).tolist())
+
+    def trainable_mask(self, names, step: int) -> Dict[str, bool]:
+        """{name: trains at this step} of parameter names in the BlinkDL
+        layout (``blocks.{i}.…``, ``emb.weight``, ``ln_out.*``, ``head.weight``)."""
+        active = set(self.active_layers(step))
+        return {n: int(n.split(".")[1]) in active if n.startswith("blocks.") else self.train_head
+                for n in names}

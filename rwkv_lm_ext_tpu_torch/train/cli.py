@@ -1,11 +1,17 @@
-"""Trainer entry point: LoRA and state-tuning SFT, the contrastive and
-reranking trainers, and full-parameter training of the causal model as an
-embedder and of the bidirectional encoder, on one device.
+"""Trainer entry point: SFT (full, LoRA, PiSSA, state tuning, slot-LoRA;
+QLoRA, TBPTT and LISA), the contrastive and reranking trainers, and
+full-parameter training of the causal model as an embedder and of the
+bidirectional encoder, on one device.
 
 Counterpart of rwkv_lm_ext_tpu/train/cli.py: the ``sft`` subcommand
-(``cmd_sft``, :355-548, with ``_common_args`` :28-90, ``_train_config``,
-``_sft_batches`` :320-352 and ``_run_loop`` :225-317) for the train types
-``lora`` and ``state``/``states``; ``bi-encoder`` (``cmd_bi_encoder`` :665,
+(``cmd_sft``, :355-625, with ``_common_args`` :28-90, ``_train_config``,
+``_wrap_save`` :155-188, ``_run_loop`` :225-317 and ``_sft_batches``
+:320-352) for every train type: ``full`` (every parameter over fp32 master
+weights with bf16 compute, ``--chunk-ctx`` TBPTT, ``--lisa-k`` LISA),
+``lora`` and ``pissa`` (``--quant`` QLoRA over an int8, int8c, nf4 or fp4
+base, ``--lora-apply unfused|merge``), ``state``/``states`` and
+``slot-lora`` (one adapter a row's ``task``, trained jointly);
+``bi-encoder`` (``cmd_bi_encoder`` :665,
 LoRA, in-batch InfoNCE or CoSENT) and ``cross-encoder``
 (``cmd_cross_encoder`` :945, LoRA and a score head, MSE on 0/1 labels), both
 on ``_contrastive_batches`` (:627-662: bucketed by query length, collated to
@@ -17,16 +23,33 @@ train every parameter of the causal model; ``encoder-biencoder``
 query) on the bidirectional encoder; and ``mlm`` and ``mae`` (``cmd_mlm``,
 :999-1086, ``--uni``: the causal model as the RetroMAE encoder). The
 full-parameter commands train over fp32 master weights with bf16 compute.
+Every command takes ``--grad-checkpoint on|off|dots|dots_nobatch``
+(utils/remat.py), ``--skip-steps``, ``--upload-cmd``, ``--save-train-state``
+and ``--resume-train-state`` (checkpoint/orbax_io.py).
 
-Refused, by argparse (exit 2), until their slices: ``--quant`` (QLoRA) under
-``sft``, ``bi-encoder`` and ``cross-encoder``; ``simcse --dropout-noise``
-(by name: the model has no dropout yet); full fine-tuning under ``sft``,
-PiSSA, slot-LoRA, TBPTT (--chunk-ctx), LISA, dp/tp/pp, Orbax train-state
-I/O and the ``dots`` remat policies.
+As in JAX, ``--chunk-ctx`` and ``--lisa-k`` act under ``--train-type full``
+only and ``--quant`` under lora, pissa and slot-lora; the other train types
+ignore them.
+
+Refused, by argparse (exit 2), and why:
+- ``--stack-layers`` and ``--bwd-transpose``: TPU layout workarounds (the
+  scan-over-layers tree for XLA's compile time; a stored W^T for a transpose
+  XLA materialized), with no counterpart in torch (ROADMAP "Not to port");
+- ``--dp``, ``--tp``, ``--pp``, ``--n-micro`` and ``--coordinator`` (and
+  ``--num-processes``, ``--process-id``): parallelism, ROADMAP A.12;
+- ``--wandb-project``: it needs a network service;
+- ``--quant`` under ``mlm``, ``mae``, ``bi-encoder`` and ``cross-encoder``:
+  the JAX ``bi-encoder`` and ``cross-encoder`` accept it and never read it
+  (ROADMAP C.19), and the encoders have no QLoRA;
+- ``--chunk-ctx`` under any command but ``sft``;
+- ``simcse --dropout-noise`` (by name: the model has no dropout yet,
+  ROADMAP A.11).
 
 Usage:
   python -m rwkv_lm_ext_tpu_torch.train.cli sft --model base.pth \\
-      --train-data data.jsonl --output-dir out --train-type lora
+      --train-data data.jsonl --output-dir out --train-type lora [--quant nf4]
+  python -m rwkv_lm_ext_tpu_torch.train.cli sft --train-type full [--chunk-ctx 128] \\
+      [--lisa-k 2] --model base.pth --train-data data.jsonl --output-dir out
   python -m rwkv_lm_ext_tpu_torch.train.cli bi-encoder|cross-encoder|nli|simcse|instructor \\
       --model base.pth --train-data data.jsonl --output-dir out
   python -m rwkv_lm_ext_tpu_torch.train.cli encoder-biencoder|encoder-crossencoder|mlm \\
@@ -34,7 +57,8 @@ Usage:
   python -m rwkv_lm_ext_tpu_torch.train.cli mae [--dup-mae] [--uni] --model base.pth \\
       --train-data text.jsonl --output-dir out
 
-Data: ``sft`` jsonl rows {"instruction", "input", "output"}; ``bi-encoder``,
+Data: ``sft`` jsonl rows {"instruction", "input", "output"} (and "task"
+for slot-lora); ``bi-encoder``,
 ``encoder-biencoder`` {"query", "positive", "negative"} (a field may hold a
 list of candidates); ``cross-encoder`` {"query", "document", "label"};
 ``nli`` an AllNLI .tsv (``--sts-file`` an STS-benchmark .tsv); ``simcse``
@@ -42,14 +66,17 @@ list of candidates); ``cross-encoder`` {"query", "document", "label"};
 "positive", "negative"}; ``encoder-crossencoder`` {"query", "documents"}
 (the first the positive); ``mlm`` and ``mae`` {"text"} (or bare strings).
 Prints ``step N: {json}`` lines (loss, grad_norm, lr, it/s, Kt/s) and writes
-the JAX package's files into --output-dir: ``lora-step{N}.pth``,
-``states-step{N}.pth``, ``bi-encoder-step{N}.pth`` and
+the JAX package's files into --output-dir: ``lora-step{N}.pth`` (lora,
+pissa), ``init_pissa.pth`` (pissa, the SVD init, at the start),
+``lora-{task}-step{N}.pth`` (slot-lora), ``model-step{N}.pth`` (full, the
+base layout in fp32), ``states-step{N}.pth``, ``bi-encoder-step{N}.pth`` and
 ``cross-encoder-step{N}.pth`` (LoRA, reference layout), ``score-step{N}.pth``
 (``score.weight`` (n, C)); ``nli-``, ``simcse-``, ``instructor-``,
 ``encoder-bi-``, ``encoder-cross-`` and ``encoder-step{N}.pth`` in the base
 checkpoint's layout (fp32; with ``score.weight`` or ``dense.*`` /
 ``ln_dense.*`` beside it; without the RetroMAE decoder); ``train_log.txt``;
-and for ``nli --sts-file`` ``similarity_evaluation_sts-{split}_results.csv``.
+``train_state.pth`` with ``--save-train-state``; and for ``nli --sts-file``
+``similarity_evaluation_sts-{split}_results.csv``.
 """
 from __future__ import annotations
 
@@ -57,6 +84,8 @@ import argparse
 import functools
 import json
 import os
+import subprocess
+import threading
 from typing import Callable, Iterator
 
 import numpy as np
@@ -64,11 +93,22 @@ import torch
 
 from rwkv_lm_ext_tpu_torch.adapters.lora import (
     LoraConfig,
+    adapter_state_dict,
     apply_lora,
     init_lora_params,
     lora_state_dict_to_tree,
+    pissa_init,
+)
+from rwkv_lm_ext_tpu_torch.adapters.quant import quantize_model
+from rwkv_lm_ext_tpu_torch.adapters.slot_lora import (
+    apply_slot_stacks,
+    init_slot_stacks,
+    set_slot_idx,
+    slot_stacks,
+    split_slot_stacks,
 )
 from rwkv_lm_ext_tpu_torch.checkpoint.convert import load_rwkv_checkpoint
+from rwkv_lm_ext_tpu_torch.checkpoint.orbax_io import load_checkpoint, save_checkpoint
 from rwkv_lm_ext_tpu_torch.config import TrainConfig
 from rwkv_lm_ext_tpu_torch.data.buckets import BucketBatchSampler, LengthBucketedDataset
 from rwkv_lm_ext_tpu_torch.config import EMB_ID
@@ -91,8 +131,8 @@ from rwkv_lm_ext_tpu_torch.models.heads import (
     init_embedding_head,
     init_layer_norm,
 )
-from rwkv_lm_ext_tpu_torch.models.rwkv import normalize_remat
 from rwkv_lm_ext_tpu_torch.train.callbacks import (
+    LisaSchedule,
     MetricsLogger,
     save_lora_checkpoint,
     save_model_checkpoint,
@@ -112,6 +152,7 @@ from rwkv_lm_ext_tpu_torch.train.loop import (
     simcse_loss_fn,
 )
 from rwkv_lm_ext_tpu_torch.train.optim import apply_trainable_mask, make_schedule, trainable_mask
+from rwkv_lm_ext_tpu_torch.utils.remat import normalize_remat
 
 
 def _common_args(p: argparse.ArgumentParser) -> None:
@@ -135,11 +176,24 @@ def _common_args(p: argparse.ArgumentParser) -> None:
                         "contrastive batches are collated to min(2 * bucket, ctx-len); SFT "
                         "batches take "
                         "their bucket's length")
-    p.add_argument("--grad-checkpoint", choices=["on", "off"], default="on",
-                   help="per-block activation recompute in the backward")
+    p.add_argument("--grad-checkpoint", choices=["on", "off", "dots", "dots_nobatch"],
+                   default="on",
+                   help="per-block activation recompute in the backward: on (the whole block), "
+                        "off, or a selective policy that keeps the matrix products' outputs "
+                        "(dots) or the unbatched ones (dots_nobatch) and recomputes the rest")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--save-every-steps", type=int, default=0)
+    p.add_argument("--skip-steps", type=int, default=0,
+                   help="skip this many batches (with --resume-train-state: the steps done)")
     p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--upload-cmd", default=None,
+                   help="shell command run in the background after each save; {dir} expands "
+                        "to --output-dir")
+    p.add_argument("--save-train-state", action="store_true",
+                   help="also write train_state.pth (trainable parameters, optimizer state, "
+                        "step count) at each save, for an exact resume")
+    p.add_argument("--resume-train-state", default=None,
+                   help="a train_state.pth to resume from (pair it with --skip-steps)")
     p.add_argument("--platform", default="cuda",
                    help="torch device: cuda (default) or cpu (the kernels' plain versions)")
 
@@ -172,11 +226,23 @@ def _lora_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--lora-alpha", type=float, default=32.0)
 
 
-def _sft_batches(args, tokenizer) -> Callable[[int], Iterator]:
-    """batches(epoch) -> iterator of {"input_ids", "labels"} numpy arrays,
-    one length bucket a batch, bucket batch size micro_bsz * 64 // len."""
+def _sft_batches(args, tokenizer, *, want_tasks: bool = False):
+    """(batches, task names): batches(epoch) -> iterator of {"input_ids",
+    "labels"} numpy arrays, one length bucket a batch, bucket batch size
+    micro_bsz * 64 // len. With ``want_tasks`` (slot-lora) every row needs a
+    "task"; the sorted names get the adapter ids 1..n, and the batches carry
+    "adapter_ids"."""
     ds = load_sft_jsonl(args.train_data, tokenizer)
-    return _bucketed(args, ds, _sizes(args, ds), sft_collate)
+    task_names = None
+    if want_tasks:
+        exs = [e for b in ds.buckets for e in b.examples]
+        task_names = sorted({e["task"] for e in exs if "task" in e})
+        if not task_names or any("task" not in e for e in exs):
+            raise SystemExit("--train-type slot-lora needs a 'task' field on every training row")
+        task_to_id = {n: i + 1 for i, n in enumerate(task_names)}
+        for e in exs:
+            e["adapter_id"] = task_to_id[e["task"]]
+    return _bucketed(args, ds, _sizes(args, ds), sft_collate), task_names
 
 
 def _group_accum(batch_iter, accum: int):
@@ -200,12 +266,34 @@ def _tokens(batch) -> int:
     return sum(batch[k].numel() for k in ("query", "positive", "negative", "a", "b") if k in batch)
 
 
+def _wrap_save(args, save_fn, optimizer):
+    """save_fn(step), then the train state (--save-train-state) and the
+    upload command (--upload-cmd, in a background thread), as ``_wrap_save``
+    does. The thread is not a daemon, as JAX's is: the process waits for the
+    last upload before it exits, where JAX's drops it."""
+    def wrapped(step):
+        save_fn(step)
+        if args.save_train_state:
+            save_checkpoint(os.path.join(args.output_dir, "train_state.pth"),
+                            optimizer.state_dict())
+        if args.upload_cmd:
+            cmd = args.upload_cmd.format(dir=args.output_dir)
+            threading.Thread(target=subprocess.run, args=(cmd,),
+                             kwargs={"shell": True, "check": False}).start()
+
+    return wrapped
+
+
 def _run_loop(args, tc: TrainConfig, step_fn, batches, save_fn, device, eval_fn=None) -> None:
-    """The epochs: a step a batch, a log line every --log-every steps, a
-    save every --save-every-steps and at each epoch's end; ``eval_fn(step,
-    epoch)`` every --eval-every-steps (where the command has it) and at
-    each epoch's end."""
+    """The epochs: a step a batch (the first --skip-steps batches skipped),
+    a log line every --log-every steps, a save every --save-every-steps and
+    at each epoch's end; ``eval_fn(step, epoch)`` every --eval-every-steps
+    (where the command has it) and at each epoch's end.
+    --resume-train-state restores ``step_fn.optimizer`` first."""
     os.makedirs(args.output_dir, exist_ok=True)
+    if args.resume_train_state:
+        step_fn.optimizer.load_state_dict(load_checkpoint(args.resume_train_state))
+    save_fn = _wrap_save(args, save_fn, step_fn.optimizer)
     schedule = make_schedule(tc)
     logger = MetricsLogger(args.output_dir)
     step = steps = tokens = 0   # steps and tokens since the last log
@@ -215,6 +303,9 @@ def _run_loop(args, tc: TrainConfig, step_fn, batches, save_fn, device, eval_fn=
         if tc.accumulate_grad_batches > 1:
             epoch_batches = _group_accum(epoch_batches, tc.accumulate_grad_batches)
         for batch in epoch_batches:
+            if step < args.skip_steps:
+                step += 1
+                continue
             if args.max_steps and step >= args.max_steps:
                 break
             # token ids and labels as int64; the DupMAE target stays fp32
@@ -247,6 +338,7 @@ def _train_config(args, batches) -> TrainConfig:
         lr_schedule=args.lr_schedule, total_steps=args.max_steps or n_batches * args.epochs,
         micro_bsz=args.micro_bsz, accumulate_grad_batches=args.accumulate_grad_batches,
         grad_checkpoint=normalize_remat(args.grad_checkpoint), seed=args.seed,
+        chunk_ctx=getattr(args, "chunk_ctx", 0),
     )
 
 
@@ -280,30 +372,100 @@ def _lora_model(args):
     return device, model, cfg, lc
 
 
+def _lora_sft(args, device, lc):
+    """The model for --train-type lora or pissa: the checkpoint, the base
+    quantized under --quant after the PiSSA subtraction, and the adapter
+    (PiSSA's SVD init, written to init_pissa.pth, or a fresh one from
+    --seed; --peft-checkpoint's in their place) applied."""
+    quant = None if args.quant == "none" else args.quant
+    gen = torch.Generator(device).manual_seed(args.seed)
+    if lc.pissa:
+        # the SVD of the checkpoint's values, the fp32 residual kept as JAX
+        # keeps it, cast at every use
+        model, _ = load_rwkv_checkpoint(args.model, device=device, param_dtype="float32")
+        adapter, _ = pissa_init(model, lc, gen)
+        os.makedirs(args.output_dir, exist_ok=True)
+        torch.save(adapter_state_dict(adapter), os.path.join(args.output_dir, "init_pissa.pth"))
+        if quant:
+            quantize_model(model, quant)
+    else:
+        model, _ = load_rwkv_checkpoint(args.model, device=device, quant=quant)
+        adapter = init_lora_params(model, lc, gen)
+    if args.peft_checkpoint:
+        loaded = torch.load(args.peft_checkpoint, map_location=device, weights_only=True)
+        adapter = lora_state_dict_to_tree(loaded)
+    return apply_lora(model, lc, adapter, merge=args.lora_apply == "merge")
+
+
+def _lisa_step(step_fn, model, args):
+    """step_fn with LISA's update mask: --lisa-k blocks train, drawn anew
+    every --lisa-interval steps (LisaSchedule, seed --seed); the optimizer
+    and its moments stay, as under JAX's mask."""
+    lisa = LisaSchedule(model.cfg.n_layer, k=args.lisa_k, interval=args.lisa_interval,
+                        seed=args.seed)
+    names = step_fn.optimizer.names
+    count = {"step": 0}
+
+    def step(batch):
+        mask = lisa.trainable_mask(names, count["step"])
+        count["step"] += 1
+        return step_fn(batch, mask)
+
+    step.optimizer = step_fn.optimizer
+    return step
+
+
 def cmd_sft(args) -> None:
     device = torch.device(args.platform)
-    model, cfg = load_rwkv_checkpoint(args.model, device=device)
     tokenizer = WorldTokenizer(args.vocab)
-    batches = _sft_batches(args, tokenizer)
+    batches, task_names = _sft_batches(args, tokenizer, want_tasks=args.train_type == "slot-lora")
     tc = _train_config(args, batches)
     remat = tc.grad_checkpoint
-    if args.train_type == "lora":
-        lc = LoraConfig(r=args.lora_r, alpha=args.lora_alpha)
-        adapter = init_lora_params(model, lc, torch.Generator(device).manual_seed(args.seed))
-        if args.peft_checkpoint:
-            loaded = torch.load(args.peft_checkpoint, map_location=device, weights_only=True)
-            adapter = lora_state_dict_to_tree(loaded)
-        apply_lora(model, lc, adapter)
+    out = args.output_dir
+    if args.train_type == "full":
+        # every parameter over fp32 masters; TBPTT when --chunk-ctx
+        model, cfg = load_rwkv_checkpoint(args.model, device=device, param_dtype="float32")
+        apply_trainable_mask(model, trainable_mask(model, "full"))
+        step_fn = make_train_step(model, tc)
+        if args.lisa_k > 0:
+            step_fn = _lisa_step(step_fn, model, args)
+
+        def save_fn(step):
+            save_model_checkpoint(model, os.path.join(out, f"model-step{step}.pth"))
+
+        _run_loop(args, tc, step_fn, batches, save_fn, device)
+        return
+    if args.train_type in ("lora", "pissa"):
+        lc = LoraConfig(r=args.lora_r, alpha=args.lora_alpha, pissa=args.train_type == "pissa")
+        model = _lora_sft(args, device, lc)
         loss_fn = functools.partial(sft_loss_fn, remat=remat)
 
         def save_fn(step):
-            save_lora_checkpoint(model, os.path.join(args.output_dir, f"lora-step{step}.pth"))
+            save_lora_checkpoint(model, os.path.join(out, f"lora-step{step}.pth"))
+    elif args.train_type == "slot-lora":
+        # one adapter a task, trained jointly: each row routes to its task's
+        # rows of the stacks (adapters.slot_lora)
+        lc = LoraConfig(r=args.lora_r, alpha=args.lora_alpha)
+        quant = None if args.quant == "none" else args.quant
+        model, _ = load_rwkv_checkpoint(args.model, device=device, quant=quant)
+        stacks, name_to_id = init_slot_stacks(model, lc, task_names,
+                                              torch.Generator(device).manual_seed(args.seed))
+        apply_slot_stacks(model, stacks, torch.zeros(1, dtype=torch.int64, device=device), lc)
+
+        def loss_fn(model_, batch):
+            set_slot_idx(model_, batch["adapter_ids"])
+            return sft_loss_fn(model_, batch, remat=remat)
+
+        def save_fn(step):
+            for name, adapter in split_slot_stacks(slot_stacks(model), name_to_id).items():
+                torch.save(adapter_state_dict(adapter), os.path.join(out, f"lora-{name}-step{step}.pth"))
     else:   # state / states: only the per-layer initial WKV states train
+        model, _ = load_rwkv_checkpoint(args.model, device=device)
         model.add_state_params()
         loss_fn = functools.partial(sft_loss_fn, remat=remat, use_state_params=True)
 
         def save_fn(step):
-            save_states_checkpoint(model, os.path.join(args.output_dir, f"states-step{step}.pth"))
+            save_states_checkpoint(model, os.path.join(out, f"states-step{step}.pth"))
 
     apply_trainable_mask(model, trainable_mask(model, args.train_type))
     step_fn = make_train_step(model, tc, loss_fn)
@@ -549,10 +711,26 @@ def main(argv=None) -> None:
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("sft")
     _common_args(p)
-    p.add_argument("--train-type", default="lora", choices=["lora", "state", "states"])
+    p.add_argument("--train-type", default="lora",
+                   choices=["full", "lora", "pissa", "state", "states", "slot-lora"])
     _lora_args(p)
+    p.add_argument("--lora-apply", default="unfused", choices=["unfused", "merge"],
+                   help="how LoRA enters the loss: x @ W + (x @ A) @ (scale * B) (unfused), or "
+                        "x @ (W + scale * A @ B) formed at every step (merge)")
+    p.add_argument("--quant", default="none", choices=["none", "int8", "int8c", "nf4", "fp4"],
+                   help="QLoRA (lora, pissa and slot-lora; the other train types ignore it): "
+                        "quantize the frozen base (int8 and the 4-bit codes dequantize on use; "
+                        "int8c runs int8 products with a straight-through backward)")
     p.add_argument("--peft-checkpoint", default=None,
-                   help="start from this LoRA .pth (reference layout)")
+                   help="start from this LoRA .pth (reference or HF-peft keys)")
+    p.add_argument("--chunk-ctx", type=int, default=0,
+                   help="TBPTT under --train-type full (the other train types ignore it): "
+                        "chunks of this many tokens, the state and its gradient carried "
+                        "across them")
+    p.add_argument("--lisa-k", type=int, default=0,
+                   help="LISA under --train-type full (the other train types ignore it): "
+                        "train k random blocks, drawn anew every --lisa-interval steps")
+    p.add_argument("--lisa-interval", type=int, default=20)
     p.set_defaults(fn=cmd_sft)
 
     p = sub.add_parser("bi-encoder")

@@ -1,10 +1,25 @@
 """The training step.
 
-Counterpart of rwkv_lm_ext_tpu/train/loop.py:49-60 (``sft_loss_fn``) and
-:100-182 (``make_train_step``) on one device, without a mesh: the loss is
-differentiated by autograd through the kernel route (K1-K3 forward, B.5-B.7
-backward) and the optimizer (train/optim.py) updates the parameters that
-require grad. ``mlm_loss_fn`` and ``mae_loss_fn`` are the encoder trainers'
+Counterpart of rwkv_lm_ext_tpu/train/loop.py:49-60 (``sft_loss_fn``),
+:63-99 (``tbptt_loss_fn``) and :100-182 (``make_train_step``) on one
+device, without a mesh: the loss is differentiated by autograd through the
+kernel route (K1-K3 forward, B.5-B.7 backward) and the optimizer
+(train/optim.py) updates the parameters that require grad. The step takes
+an optional per-parameter 0/1 ``update_mask``, JAX's LISA hook (:165-169):
+the masked parameters keep their values while the clip, the global norm and
+the Adam moments run over every parameter.
+
+``tbptt_loss_fn`` (TBPTT, the reference's infctx training) cuts each
+sequence into ``chunk_ctx`` chunks and carries the whole model state (the
+token shifts and the WKV state) from chunk to chunk *with its gradient*, as
+the JAX scan does (the wkv6infctx "gs path"): K1 takes the carried state as
+an input that requires grad and B.6/B.7 give it its gradient (``ds0``), K2
+and B.5 the same for the token shift (``dshift``). So the loss and the
+gradients are those of the whole sequence without L2Wrap; nothing is
+truncated, and only the activations a chunk holds are bounded. The state
+starts at zeros (``init_model_state``), as JAX's does, also where the model
+has a ``time_state``: the full-sequence loss that TBPTT equals does not read
+it either. ``mlm_loss_fn`` and ``mae_loss_fn`` are the encoder trainers'
 losses (the closures of ``cmd_mlm``, train/cli.py:1052-1074), through the
 bidirectional encoder and the unfused WKV kernel B.8 with its backward
 (``mae_loss_fn(bidirectional=False)`` is ``mae --uni``: the causal model as
@@ -56,16 +71,38 @@ from rwkv_lm_ext_tpu_torch.train.losses import (
     simcse_loss,
     symmetric_infonce,
 )
+from rwkv_lm_ext_tpu_torch.models.state import init_model_state
 from rwkv_lm_ext_tpu_torch.train.optim import make_optimizer
 
 
-def sft_loss_fn(model, batch: Dict[str, torch.Tensor], *, remat: bool = True,
-                use_state_params: bool = False) -> torch.Tensor:
+def sft_loss_fn(model, batch: Dict[str, torch.Tensor], *, remat=True,
+                use_state_params: bool = False, reference: bool = False) -> torch.Tensor:
     """Causal-LM SFT loss: batch = {"input_ids" (B, T), "labels" (B, T)}
     with labels -100 on prompt and padding."""
     logits, _ = model(batch["input_ids"], remat=remat, use_state_params=use_state_params,
-                      t1_step=False)
+                      t1_step=False, reference=reference)
     return causal_lm_loss(logits, batch["labels"])
+
+
+def tbptt_loss_fn(model, batch: Dict[str, torch.Tensor], *, chunk_ctx: int, remat=True,
+                  reference: bool = False) -> torch.Tensor:
+    """TBPTT loss (the module docstring): the running token-weighted mean of
+    ``causal_lm_loss(..., l2_wrap=False)`` over the chunks of ``chunk_ctx``
+    tokens, the state carried with its gradient."""
+    tokens, labels = batch["input_ids"], batch["labels"]
+    B, T = tokens.shape
+    if T % chunk_ctx:
+        raise ValueError("pad sequences to a multiple of chunk_ctx")
+    state = init_model_state(model.cfg, B, device=tokens.device)
+    loss_sum = torch.zeros((), device=tokens.device)
+    n_sum = torch.zeros((), dtype=torch.int64, device=tokens.device)
+    for start in range(0, T, chunk_ctx):
+        tk, lb = tokens[:, start:start + chunk_ctx], labels[:, start:start + chunk_ctx]
+        logits, state = model(tk, state, remat=remat, t1_step=False, reference=reference)
+        valid = (lb != -100).sum()
+        loss_sum = loss_sum + causal_lm_loss(logits, lb, l2_wrap=False) * valid
+        n_sum = n_sum + valid
+    return loss_sum / n_sum.clamp_min(1)
 
 
 def mlm_loss_fn(model, batch: Dict[str, torch.Tensor], *, remat: bool = True,
@@ -164,16 +201,22 @@ def encoder_crossencoder_loss_fn(model, batch, *, group_size: int, mode: str = "
 
 
 def make_train_step(model, tc: TrainConfig, loss_fn: Optional[Callable] = None):
-    """step(batch) -> {"loss", "grad_norm"} (0-d tensors on the model's
-    device). ``loss_fn(model, batch)`` defaults to sft_loss_fn with
-    tc.grad_checkpoint as remat. The optimizer, over the parameters that
-    require grad when this is called, is ``step.optimizer``."""
-    if loss_fn is None:
+    """step(batch, update_mask=None) -> {"loss", "grad_norm"} (0-d tensors
+    on the model's device). ``loss_fn(model, batch)`` defaults, as in JAX
+    (:115-120), to tbptt_loss_fn when tc.chunk_ctx is set and to sft_loss_fn
+    otherwise, with tc.grad_checkpoint as remat. ``update_mask`` maps
+    trainable parameter names to 0/1 (LISA): the parameters at 0 keep their
+    values. The optimizer, over the parameters that require grad when this
+    is called, is ``step.optimizer``."""
+    if loss_fn is None and tc.chunk_ctx:
+        loss_fn = functools.partial(tbptt_loss_fn, chunk_ctx=tc.chunk_ctx, remat=tc.grad_checkpoint)
+    elif loss_fn is None:
         loss_fn = functools.partial(sft_loss_fn, remat=tc.grad_checkpoint)
     trainable = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     optimizer = make_optimizer(tc, trainable)
 
-    def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def step(batch: Dict[str, torch.Tensor],
+             update_mask: Optional[Dict[str, float]] = None) -> Dict[str, torch.Tensor]:
         for _, p in trainable:
             p.grad = None
         accum = tc.accumulate_grad_batches
@@ -187,7 +230,8 @@ def make_train_step(model, tc: TrainConfig, loss_fn: Optional[Callable] = None):
             loss = loss_fn(model, batch)
             loss.backward()
             loss = loss.detach()
-        return {"loss": loss, "grad_norm": optimizer.step()}
+        frozen = None if update_mask is None else [p for n, p in trainable if not update_mask[n]]
+        return {"loss": loss, "grad_norm": optimizer.step(keep=frozen)}
 
     step.optimizer = optimizer
     return step

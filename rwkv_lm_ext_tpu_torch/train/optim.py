@@ -12,6 +12,12 @@ decay) pair, its lr set to multiplier * schedule(count) before each step:
 AdamW's ``p -= lr * (wd * p + m_hat / (sqrt(v_hat) + eps))`` is the same
 update.
 
+``step(keep=...)`` is the update mask of LISA (JAX train/loop.py:165-169,
+updates multiplied by 0/1): the parameters in ``keep`` get their values back
+after AdamW's step, so their change, weight decay included, is cancelled
+while their Adam moments advance and their gradients count in the norm and
+the clip, as under the JAX mask.
+
 The norm and the clip are over the parameters that train. The JAX states
 mode clips over the gradients of the whole tree, frozen weights included
 (train/loop.py:164, optim.py:120): see ROADMAP.md.
@@ -19,7 +25,7 @@ mode clips over the gradients of the whole tree, frozen weights included
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -92,6 +98,7 @@ class Optimizer:
         self.tc = tc
         self.schedule = make_schedule(tc)
         self.count = 0
+        self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
         labels = lr_scale_labels(named_params) if tc.layerwise_lr else {}
         decays = decay_mask(named_params)
@@ -106,7 +113,7 @@ class Optimizer:
         )
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
+    def step(self, keep: Optional[List[torch.nn.Parameter]] = None) -> torch.Tensor:
         if all(p.grad is None for p in self.params):
             raise RuntimeError("no trainable parameter got a gradient")
         # a parameter the loss does not reach (the untied head under the MLM
@@ -124,9 +131,30 @@ class Optimizer:
         lr = self.schedule(self.count)
         for group in self.opt.param_groups:
             group["lr"] = lr * group["mult"]
+        kept = [p.clone() for p in keep or ()]
         self.opt.step()
+        for p, value in zip(keep or (), kept):
+            p.copy_(value)
         self.count += 1
         return norm
+
+
+    def state_dict(self) -> Dict:
+        """The train state: the trainable parameters by name, AdamW's state
+        and the update count (the JAX TrainState's params, opt_state and
+        step)."""
+        return {"params": {n: p.detach().clone() for n, p in zip(self.names, self.params)},
+                "adam": self.opt.state_dict(), "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore what ``state_dict`` saved, over the same parameters."""
+        if sorted(state["params"]) != sorted(self.names):
+            raise ValueError("the train state holds other parameters than the ones that train")
+        for n, p in zip(self.names, self.params):
+            p.copy_(state["params"][n])
+        self.opt.load_state_dict(state["adam"])
+        self.count = int(state["count"])
 
 
 def make_optimizer(tc: TrainConfig, named_params) -> Optimizer:
@@ -135,15 +163,18 @@ def make_optimizer(tc: TrainConfig, named_params) -> Optimizer:
 
 def trainable_mask(model: torch.nn.Module, train_type: str) -> Dict[str, bool]:
     """Which parameters train (the reference's requires_grad filters):
-    'full' - everything; 'lora' - LoRA factors, time_state and head_* leaves;
-    'states' - only att.time_state."""
+    'full' - everything; 'lora' (and 'pissa') - LoRA factors, time_state and
+    head_* leaves; 'states' - only att.time_state; 'slot-lora' - the stacks
+    of the slot-LoRA projections (``<path>.A``, ``<path>.B``)."""
     def keep(name: str) -> bool:
         if train_type == "full":
             return True
         if train_type in ("state", "states"):
             return "time_state" in name
-        if train_type == "lora":
+        if train_type in ("lora", "pissa"):
             return "lora" in name or "time_state" in name or name.startswith("head_")
+        if train_type == "slot-lora":
+            return name.rsplit(".", 1)[-1] in ("A", "B")
         raise ValueError(f"unknown train type {train_type!r}")
 
     return {name: keep(name) for name, _ in model.named_parameters()}

@@ -34,6 +34,13 @@ sequential body (fp32 sums on both sides of the same values) and <= 1e-4 for
 its chunked body (the state and r exp(c) enter the tensor cores as two bf16
 limbs), its two-pass backward as B.6 + B.7.
 
+The PEFT paths: an int8c projection under grad launches B.4 once and gives
+the plain route's output and straight-through dx bit for bit; LoRA over an
+int8, nf4 or fp4 base and TBPTT over every parameter hold the model
+gradient limit (TBPTT also against the full sequence's loss without
+L2Wrap); the selective remat policies give remat on's gradients bit for
+bit; a 4-bit model's decode blocks capture and equal the eager ones.
+
 B.5 and B.8 have two bodies each since their redesign (tensor cores or
 chunked for bf16, CUDA cores or sequential for fp32 and the shapes the new
 ones do not take): both are held to their plain versions and to each other
@@ -45,7 +52,12 @@ import pytest
 import torch
 
 from rwkv_lm_ext_tpu_torch.adapters.lora import LoraConfig, apply_lora, init_lora_params
-from rwkv_lm_ext_tpu_torch.adapters.quant import int8_product, quantize_model
+from rwkv_lm_ext_tpu_torch.adapters.quant import (
+    dequantize_int8,
+    int8_product,
+    quantize_linear,
+    quantize_model,
+)
 from rwkv_lm_ext_tpu_torch.config import ModelConfig
 from rwkv_lm_ext_tpu_torch.checkpoint.convert import load_state_dict_into
 from rwkv_lm_ext_tpu_torch.models.decode import rwkv_decode_step
@@ -55,7 +67,7 @@ from rwkv_lm_ext_tpu_torch.models.heads import (
     init_layer_norm,
 )
 from rwkv_lm_ext_tpu_torch.models.init import init_rwkv_params
-from rwkv_lm_ext_tpu_torch.models.rwkv import RWKV
+from rwkv_lm_ext_tpu_torch.models.rwkv import KERNEL_OPS, PLAIN_OPS, RWKV
 from rwkv_lm_ext_tpu_torch.ops import _lib, launch_counts
 from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
     _launch_att_prep,
@@ -119,6 +131,7 @@ from rwkv_lm_ext_tpu_torch.train.loop import (
     instructor_loss_fn,
     mlm_loss_fn,
     simcse_loss_fn,
+    tbptt_loss_fn,
 )
 from rwkv_lm_ext_tpu_torch.train.losses import causal_lm_loss
 
@@ -1658,3 +1671,127 @@ def test_cross_encoder_step_kernel_route_matches_plain_route(dev):
     for n, want in grads[True].items():
         assert bool(grads[False][n].abs().max() > 0), n
         _close(grads[False][n], want, 1e-3, n)
+
+
+# ---------------------------------------------------------------------------
+# The rest of PEFT training: QLoRA, TBPTT, the remat policies
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_int8c_projection_under_grad_launches_b4_and_is_straight_through(dev, dtype):
+    """QuantLinear int8c on an input that requires grad: B.4 once in the
+    forward (on the detached input), none in the backward; output and dx
+    bit-equal to the plain route's, dx = g @ dequantize(q, scale)."""
+    gen = torch.Generator(device=dev).manual_seed(60)
+    lin = quantize_linear(torch.randn(96, 160, device=dev, generator=gen) * 0.05, "int8c")
+    x = torch.randn(3, 37, 160, device=dev, generator=gen).to(dtype)
+    g = torch.randn(3, 37, 96, device=dev, generator=gen).to(dtype)
+    outs = []
+    for ops in (KERNEL_OPS, PLAIN_OPS):
+        xr = x.clone().requires_grad_(True)
+        before = launch_counts()["quantize_rows"]
+        y = lin(xr, ops)
+        y.backward(g)
+        outs.append((y, xr.grad, launch_counts()["quantize_rows"] - before))
+    (yk, dk, nk), (yp, dp, np_) = outs
+    assert (nk, np_) == (1, 0)
+    assert torch.equal(yk, yp) and torch.equal(dk, dp)
+    assert torch.equal(dk, g @ dequantize_int8(lin.q, lin.scale, dtype))
+
+
+@pytest.mark.parametrize("mode", ["int8", "nf4", "fp4"])
+def test_qlora_grads_kernel_route_match_plain_route(dev, mode):
+    """LoRA over a dequantized-on-use base (fp32): the kernel route's A/B
+    gradients within 1e-3 of the plain route's."""
+    model, gen = _model(dev, 61)
+    quantize_model(model, mode)
+    lc = LoraConfig(r=8, alpha=32.0)
+    adapter = init_lora_params(model, lc, gen)
+    for ab in adapter.values():
+        ab["B"] = torch.randn(ab["B"].shape, generator=gen, device=dev) * 0.05
+    apply_lora(model, lc, adapter)
+    tokens = torch.randint(4, 1000, (2, 45), generator=gen, device=dev)
+    labels = torch.randint(4, 1000, (2, 45), generator=gen, device=dev)
+    got = _grads(model, tokens, labels, reference=False, remat=True)
+    want = _grads(model, tokens, labels, reference=True)
+    assert len(got) == 2 * 8 * 2
+    for name in want:
+        assert bool(got[name].abs().max() > 0), name
+        _close(got[name], want[name], 1e-3, name)
+
+
+def test_tbptt_grads_kernel_route_match_plain_route_and_the_full_sequence(dev):
+    """TBPTT over every parameter (chunks of 16 of T=64, fp32): the kernel
+    route against the plain route within 1e-3, and against the full
+    sequence's causal loss without L2Wrap on the kernel route within 1e-3;
+    K1 launched 2 x 4 chunks x 2 layers (remat), B.6 and B.7 4 x 2."""
+    model, gen = _model(dev, 62)
+    tokens = torch.randint(4, 1000, (2, 64), generator=gen, device=dev)
+    batch = {"input_ids": tokens, "labels": torch.randint(4, 1000, (2, 64), generator=gen, device=dev)}
+
+    def grads(loss_fn):
+        model.zero_grad()
+        loss_fn().backward()
+        return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    before = launch_counts()
+    got = grads(lambda: tbptt_loss_fn(model, batch, chunk_ctx=16, remat=True))
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in ("wkv6_fused_output", "wkv6_bwd_forward_pass",
+                                              "wkv6_bwd_reverse_pass")} == {
+        "wkv6_fused_output": 16, "wkv6_bwd_forward_pass": 8, "wkv6_bwd_reverse_pass": 8}
+    plain = grads(lambda: tbptt_loss_fn(model, batch, chunk_ctx=16, reference=True))
+
+    def whole():
+        logits, _ = model(tokens, t1_step=False)
+        return causal_lm_loss(logits, batch["labels"], l2_wrap=False)
+
+    full = grads(whole)
+    for name in plain:
+        assert bool(got[name].abs().max() > 0), name
+        _close(got[name], plain[name], 1e-3, name)
+        _close(got[name], full[name], 1e-3, name)
+
+
+@pytest.mark.parametrize("policy", ["dots", "dots_nobatch"])
+def test_remat_policies_give_the_gradients_of_remat_on(dev, policy):
+    """LoRA, bf16 compute, kernel route: a selective policy's gradients are
+    remat on's, bit for bit, and it runs the blocks' kernels twice as on
+    does (they launch outside the dispatcher, so no policy saves them)."""
+    model, gen = _model(dev, 63)
+    model = load_state_dict_into(RWKV(ModelConfig(n_layer=2, n_embd=256, vocab_size=1000,
+                                                  head_size=64), device=dev), model.state_dict())
+    lc = LoraConfig(r=8, alpha=32.0)
+    adapter = init_lora_params(model, lc, gen)
+    for ab in adapter.values():
+        ab["B"] = torch.randn(ab["B"].shape, generator=gen, device=dev) * 0.05
+    apply_lora(model, lc, adapter)
+    tokens = torch.randint(4, 1000, (2, 45), generator=gen, device=dev)
+    labels = torch.randint(4, 1000, (2, 45), generator=gen, device=dev)
+    on = _grads(model, tokens, labels, reference=False, remat=True)
+    before = launch_counts()["wkv6_fused_output"]
+    got = _grads(model, tokens, labels, reference=False, remat=policy)
+    assert launch_counts()["wkv6_fused_output"] - before == 4
+    assert all(torch.equal(got[n], on[n]) for n in on)
+
+
+@pytest.mark.parametrize("mode", ["nf4", "fp4"])
+def test_4bit_model_decodes_in_graph_blocks(dev, mode):
+    """A 4-bit model's decode blocks capture (dequantizing copies nothing
+    from the host) and give the eager blocks' greedy tokens."""
+    from unittest import mock
+
+    from rwkv_lm_ext_tpu_torch.infer import engine as engine_module
+    from rwkv_lm_ext_tpu_torch.infer.engine import GenerationEngine
+    from rwkv_lm_ext_tpu_torch.infer.sampling import SamplingParams
+
+    model, gen = _model(dev, 64)
+    model = quantize_model(load_state_dict_into(RWKV(ModelConfig(
+        n_layer=2, n_embd=256, vocab_size=1000, head_size=64), device=dev), model.state_dict()), mode)
+    greedy = SamplingParams(temperature=0.0, top_p=1.0, alpha_presence=0.0, alpha_frequency=0.0,
+                            token_stop=())
+    prompt = torch.randint(4, 1000, (9,), generator=gen, device=dev).tolist()
+    graphs = GenerationEngine(model, None).generate(prompt, max_tokens=20, sampling=greedy)
+    with mock.patch.object(engine_module._Decoder, "_replay", engine_module._Decoder._block):
+        eager = GenerationEngine(model, None).generate(prompt, max_tokens=20, sampling=greedy)
+    assert len(graphs) == 20 and graphs == eager

@@ -197,5 +197,5 @@ def test_quantize_rows_refuses_non_cpu_tensors_without_a_kernel():
     with pytest.raises(ValueError):
         quantize_rows(torch.empty(4, 16, device="meta"))
     with pytest.raises(ValueError, match="unknown quant mode"):
-        quantize_model(None, "nf4")
+        quantize_model(None, "int4")
     assert launch_counts() == before

@@ -190,8 +190,11 @@ def test_registry_materializes_the_jax_weights(setup):
     # the base is untouched
     np.testing.assert_array_equal(base.state_dict()["blocks.0.att.key.weight"].numpy(),
                                   jax_params_to_state_dict(params, cfg)["blocks.0.att.key.weight"])
-    with pytest.raises(NotImplementedError, match="PiSSA"):
-        reg.register("p", ads["a1"], LoraConfig(r=4, pissa=True))
+    # a PiSSA adapter against its own SVD init merges back to the base
+    reg.register("p", ads["a1"], LoraConfig(r=4, pissa=True), pissa_init=ads["a1"])
+    got = reg.materialize("p").state_dict()
+    for key, value in base.state_dict().items():
+        torch.testing.assert_close(got[key], value, rtol=0, atol=1e-6)
 
 
 def test_training_stacks_route_gradients_to_their_rows(setup):

@@ -321,8 +321,9 @@ def test_train_cli_sft(tiny_run, train_type):
         assert np.abs(sd["blocks.1.att.time_state"]).max() > 0
 
 
-@pytest.mark.parametrize("flag", [["--quant", "int8"], ["--train-type", "pissa"],
-                                  ["--grad-checkpoint", "dots"], ["--chunk-ctx", "64"]])
+# TPU layout workarounds (ROADMAP "Not to port") and parallelism (A.12)
+@pytest.mark.parametrize("flag", [["--stack-layers"], ["--bwd-transpose"], ["--tp", "2"],
+                                  ["--pp", "2"]])
 def test_train_cli_refuses_unported_options(tiny_run, flag):
     proc = _cli(tiny_run, "--output-dir", str(tiny_run / "refused"), *flag)
     assert proc.returncode == 2 and "error" in proc.stderr

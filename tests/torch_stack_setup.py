@@ -3,6 +3,8 @@ built by the JAX package and carried into the port with checkpoint.convert,
 both in fp32, so the two run the same weights; and the harness that holds
 the port's contrastive trainers against the JAX commands
 (``check_trainer_against_jax``, TRAINER_DOC)."""
+import contextlib
+import functools
 import importlib
 import json
 from unittest import mock
@@ -18,7 +20,11 @@ from rwkv_lm_ext_tpu.models import init_rwkv_params as jax_init_rwkv_params
 from rwkv_lm_ext_tpu.train import cli as jcli
 from rwkv_lm_ext_tpu.train.optim import decay_mask as jax_decay_mask
 from rwkv_lm_ext_tpu.train.optim import lr_scale_labels as jax_lr_scale_labels
-from rwkv_lm_ext_tpu_torch.adapters.lora import lora_modules
+from rwkv_lm_ext_tpu.adapters import LoraConfig as JaxLoraConfig
+from rwkv_lm_ext_tpu.adapters import pissa_init as jax_pissa_init
+from rwkv_lm_ext_tpu_torch.adapters.lora import LoraLinear, lora_modules
+from rwkv_lm_ext_tpu_torch.adapters.quant import quantize_linear, quantize_model
+from rwkv_lm_ext_tpu_torch.adapters.slot_lora import SlotLoraLinear
 from rwkv_lm_ext_tpu_torch.checkpoint.convert import load_state_dict_into, one_layer_decoder_from_jax
 from rwkv_lm_ext_tpu_torch.checkpoint.pth import sniff_model_config
 from rwkv_lm_ext_tpu_torch.models.rwkv import RWKV
@@ -353,3 +359,181 @@ def _check_trainer(data, tmp_path, command, fmt, extra):
     assert _port_groups(port_run["step_fn"].optimizer, model) == _jax_groups(
         jax_run["init"] if command not in ("bi-encoder", "cross-encoder") else init, jcfg, model.cfg)
 
+
+
+# ---------------------------------------------------------------------------
+# The SFT command against the JAX command
+# ---------------------------------------------------------------------------
+
+SFT_DOC = """``check_sft_against_jax`` runs ``sft`` of both trainer CLIs on the same
+jsonl (TRAINER_DOC's set-up: the loaders replaced by the same fp32 weights,
+the loops by a probe, remat off unless `extra` names a policy, the JAX WKV on
+its sequential reference),
+compares the pipelines batch for batch, carries the JAX command's initial
+trainables into the port's model (LoRA B, and slot-LoRA's task rows of B,
+seeded on both sides; PiSSA's deflated base and SVD adapter; the full
+model's weights are the same already), and runs three steps of each
+command's own step function: loss at rtol 1e-5, grad_norm at rtol 1e-4, the
+trainables after the steps within 1e-5 of their largest value or half the
+lr (``rtol`` and ``compare_params`` loosen these where a test says why).
+``ste=True`` runs the JAX side with the test-built straight-through int8c
+VJP (``ste_int8_mm``) in place of the package's own (ROADMAP C.18)."""
+
+
+def sft_data(d, n: int = 8, tasks=None):
+    """An SFT jsonl of `n` rows in the 64 bucket under the directory `d`;
+    with `tasks`, row i carries tasks[i % len(tasks)]."""
+    words = "the quick brown fox jumps over a lazy dog near rivers and stones".split()
+    rows = []
+    for i in range(n):
+        row = {"instruction": "Continue", "input": " ".join(words[i % 5: i % 5 + 4]),
+               "output": " ".join(words[(i + j) % len(words)] for j in range(5 + i % 4))}
+        if tasks:
+            row["task"] = tasks[i % len(tasks)]
+        rows.append(row)
+    return _write(d / ("sft_tasks.jsonl" if tasks else "sft.jsonl"), rows)
+
+
+jquant = importlib.import_module("rwkv_lm_ext_tpu.adapters.quant")
+
+
+def ste_int8_mm():
+    """A jax.custom_vjp over the JAX package's own int8c forward (the XLA
+    composition ``_int8_mm_impl``) with the ``int8`` mode's backward, dx = g
+    @ dequantize(q, scale)^T: the straight-through reference of the port's
+    int8c backward. The weight and its scale get zero gradients."""
+    @functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
+    def mm(x, q, scale, dtype):
+        return jquant._int8_mm_impl(x, q, scale, dtype, False)
+
+    def fwd(x, q, scale, dtype):
+        return mm(x, q, scale, dtype), (q, scale)
+
+    def bwd(dtype, res, g):
+        q, scale = res
+        w = (q.astype(jnp.float32) * scale).astype(g.dtype)
+        return g @ w.T, np.zeros(q.shape, jax.dtypes.float0), jnp.zeros_like(scale)
+
+    mm.defvjp(fwd, bwd)
+    return mm
+
+
+def check_sft_against_jax(data_path, tmp_path, extra, *, ste=False, steps=3, seed=0,
+                          rtol=(1e-5, 1e-4), compare_params=True):
+    """Run ``sft`` `extra` of both CLIs on `data_path` and hold them
+    together (SFT_DOC). Returns the port model after the steps."""
+    jtok = importlib.import_module("rwkv_lm_ext_tpu.data.tokenizer")
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(jwkv, "_resolve_backend", _reference_wkv))
+        stack.enter_context(mock.patch.object(jtok, "WorldTokenizer",
+                                              _tokenizer(jtok.WorldTokenizer)))
+        stack.enter_context(mock.patch.object(pcli, "WorldTokenizer",
+                                              _tokenizer(pcli.WorldTokenizer)))
+        if ste:
+            stack.enter_context(mock.patch.object(jquant, "_int8_mm", ste_int8_mm()))
+        return _check_sft(data_path, tmp_path, extra, steps, seed, rtol, compare_params)
+
+
+def _opt(extra, flag, default=None):
+    return extra[extra.index(flag) + 1] if flag in extra else default
+
+
+def _check_sft(data_path, tmp_path, extra, steps, seed, rtol, compare_params):
+    params, jcfg = _params(seed)
+    train_type = _opt(extra, "--train-type", "lora")
+    quant = _opt(extra, "--quant", "none")
+    # `extra` last: its --grad-checkpoint, where it has one, wins
+    argv = ["sft", "--model", "unused.pth", "--train-data", data_path, "--output-dir",
+            str(tmp_path), "--micro-bsz", "2", "--lr-init", str(LR), "--warmup-steps", "0",
+            "--weight-decay", "2.0", "--seed", "3", "--grad-checkpoint", "off", "--lora-r", "4",
+            "--lora-alpha", "16", *extra]
+    jax_run, port_run, made = {}, {}, {}
+
+    def jax_loop(args, cfg, tc, init, step_fn, init_fn, batches, **kw):
+        jax_run.update(init=init, step_fn=step_fn, init_fn=init_fn, batches=batches,
+                       frozen=kw.get("frozen"))
+
+    def port_load(path, *, device, quant=None, **kw):
+        made["model"] = torch_model(params, jcfg)
+        if quant:
+            quantize_model(made["model"], quant)
+        return made["model"], made["model"].cfg
+
+    def port_loop(args, tc, step_fn, batches, save_fn, device, eval_fn=None):
+        port_run.update(step_fn=step_fn, batches=batches)
+
+    with mock.patch.object(jcli, "_load_base", lambda args: (dict(params), jcfg)), \
+            mock.patch.object(jcli, "_run_loop", jax_loop):
+        jcli.main(argv)
+    with mock.patch.object(pcli, "load_rwkv_checkpoint", port_load), \
+            mock.patch.object(pcli, "_run_loop", port_loop):
+        pcli.main(argv + ["--platform", "cpu"])
+
+    batches = []
+    for epoch in (0, 1):
+        got, want = list(port_run["batches"](epoch)), list(jax_run["batches"](epoch))
+        assert len(got) == len(want) >= steps
+        for g, w in zip(got, want):
+            assert sorted(g) == sorted(w)
+            for k in g:
+                assert g[k].dtype == w[k].dtype, k
+                np.testing.assert_array_equal(g[k], w[k])
+        batches = batches or want
+
+    model, rng = made["model"], np.random.default_rng(5)
+    init, track = jax_run["init"], {}
+    if train_type in ("lora", "pissa"):
+        if train_type == "pissa":
+            # the JAX command's own deflated base (its SVD is deterministic)
+            deflated, _ = jax_pissa_init(dict(params), JaxLoraConfig(r=4, alpha=16.0, pissa=True))
+            flat = jax_params_to_state_dict(deflated, jcfg)
+        else:
+            init = {k: {"A": ab["A"], "B": jnp.asarray(rng.normal(size=ab["B"].shape) * 0.05,
+                                                       jnp.float32)} for k, ab in init.items()}
+        for name, m in model.named_modules():
+            if not isinstance(m, LoraLinear):
+                continue
+            if train_type == "pissa":
+                w = torch.from_numpy(np.array(flat[f"{name}.weight"], np.float32))
+                if quant == "none":
+                    _set(m.base.weight, w)
+                else:
+                    m.base = quantize_linear(w, quant)
+            _set(m.lora_A, init[name]["A"])
+            _set(m.lora_B, init[name]["B"])
+            track[f"{name}.lora_A"] = (name, "A")
+            track[f"{name}.lora_B"] = (name, "B")
+    elif train_type == "slot-lora":
+        init = {k: {"A": ab["A"], "B": ab["B"].at[1:].set(
+            jnp.asarray(rng.normal(size=ab["B"][1:].shape) * 0.05, jnp.float32))}
+            for k, ab in init.items()}
+        for name, m in model.named_modules():
+            if isinstance(m, SlotLoraLinear):
+                _set(m.A, init[name]["A"])
+                _set(m.B, init[name]["B"])
+                track[f"{name}.A"] = (name, "A")
+                track[f"{name}.B"] = (name, "B")
+    else:   # full: the same weights on both sides already
+        track = {n: None for n, _ in model.named_parameters()}
+    ts = jax_run["init_fn"](init)
+    for batch in batches[:steps]:
+        batch = _fold(batch)
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        if jax_run["frozen"] is not None:
+            ts, jm = jax_run["step_fn"](ts, jb, jax_run["frozen"])
+        else:
+            ts, jm = jax_run["step_fn"](ts, jb)
+        m = port_run["step_fn"](_tb(batch))
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=rtol[0])
+        np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]), rtol=rtol[1])
+    named = dict(model.named_parameters())
+    want_flat = jax_params_to_state_dict(ts.params, jcfg) if train_type == "full" else None
+    for name, path in track.items() if compare_params else ():
+        got = named[name].detach().double().numpy()
+        want = np.asarray(want_flat[name] if path is None else _leaf(ts.params, path), np.float64)
+        err = np.abs(got - want.reshape(got.shape)).max()
+        assert err <= max(1e-5 * np.abs(want).max(), 0.5 * LR), (name, err)
+    if train_type in ("lora", "pissa", "full"):
+        assert _port_groups(port_run["step_fn"].optimizer, model) == _jax_groups(
+            init, jcfg, model.cfg)
+    return model, port_run["step_fn"]
