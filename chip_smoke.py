@@ -96,9 +96,10 @@ Phases, each printing its own lines:
  11. full-parameter MLM gradients over fp32 master weights (2 layers, full
      width, B=8, T=512, both modes), kernel route against plain route in fp32
      and in bf16 compute, remat on against off, the launch counts of a step;
- 12. `python -m rwkv_lm_ext_tpu_torch.train.cli mlm` (4 steps) and `mae
-     --dup-mae` (2 steps) on the 24-layer model as subprocesses, the saved
-     encoder, then `mlm` in this process for its launch counts;
+ 12. `python -m rwkv_lm_ext_tpu_torch.train.cli mlm` (4 steps, the 24-layer
+     model) and `mae --dup-mae` (2 steps, its first 4 layers) as
+     subprocesses, the saved encoder, then `mlm` in this process for its
+     launch counts;
  13. encoder readings (not benchmark cells): sequences a second at B=64,
      T=512 in both modes with a profile of one forward (B.8's chunked body
      and not its sequential one), the `mlm` step time, Kt/s, peak memory and
@@ -108,8 +109,9 @@ Phases, each printing its own lines:
      B.9, B.11, B.4): 16 teacher-forced steps at B=64 against the fp32 plain
      route and the unfused route, the state after them, the launch counts of
      a step, greedy tokens against the unfused route; then readings: the
-     decode-step ablation (step, step_fused, step_attprep, step_ffnblk at
-     B=64 and B=1: ms a step over a data chain with a canary, device operations and busy
+     decode-step ablation (step and step_fused at B=64 and B=1; the spliced
+     step_attprep and step_ffnblk only when phase_decode_ablation is called
+     with its default variants: ms a step over a data chain with a canary, device operations and busy
      time of one step, whose profile must name B.10's cluster body and B.12's
      stream kernels) and the op-level comparison of the decode step on the
      logical and on the transposed state;
@@ -170,6 +172,26 @@ Phases, each printing its own lines:
      idle share, peak memory), B.4's launches in an int8c QLoRA step (192
      remat off, 384 on; on the device too) and K1 / B.6 / B.7's in the TBPTT
      step (4 chunks x 24 layers).
+ 18. RWKV-5.x and RWKV-4 through the serving path: (a) B.14 (`wkv4`, the
+     RWKV-4 recurrence) against its plain version at B in {1, 64}, T in {1,
+     17, 512}, fp32 and bf16, from a fresh state (pp = -1e38) and a carried
+     one with k up to +60, in place, and timed at B=64, T=512 beside its
+     bound; K1 and B.9 on v5's constant decays (per channel and per head,
+     with a gate and with ones) and the cost of K1's expanded decay; (b) a
+     synthetic RWKV-5-World-1B5 (v5.2, 24 layers, bf16): embeddings at B=64,
+     T=512 against the fp32 plain route and the launches of the forward (50
+     K3, 24 K1, no K2), prefill + decode against one forward and the
+     launches of a step (50 K3, 24 B.9), greedy generation in graph blocks
+     against eager blocks and against its teacher-forced argmax, readings
+     (seq/s embedded, generate_batch and generate tok/s), and `python -m
+     rwkv_lm_ext_tpu_torch.serve.cli --model` on its first 4 layers (a
+     subprocess: one greedy /generate, the in-process engine's text); (c) a
+     synthetic RWKV-4-World-1.5B (24 layers, C=2048, F=8192, bf16): logits
+     at B=64, T=512 against the fp32 plain route and the launches of the
+     forward and of a step (50 K3, 24 B.14 each), greedy generation as in
+     (b), the continuous batcher over 8 concurrent requests (each row the
+     argmax of its teacher-forced logits), and readings (prefill seq/s,
+     decode tok/s).
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no result. Without a CUDA device it exits non-zero
@@ -214,7 +236,16 @@ from rwkv_lm_ext_tpu_torch.checkpoint.convert import (
     save_rwkv_checkpoint,
     score_head_from_state_dict,
 )
-from rwkv_lm_ext_tpu_torch.config import CLS_ID, EMB_ID, MASK_ID, SEP_ID, TrainConfig, rwkv6_1b6
+from rwkv_lm_ext_tpu_torch.config import (
+    CLS_ID,
+    EMB_ID,
+    MASK_ID,
+    SEP_ID,
+    TrainConfig,
+    rwkv4_1b5,
+    rwkv5_1b5,
+    rwkv6_1b6,
+)
 from rwkv_lm_ext_tpu_torch.data.collators import mlm_collate
 from rwkv_lm_ext_tpu_torch.data.sft import encode_sft_example
 from rwkv_lm_ext_tpu_torch.data.tokenizer import WorldTokenizer
@@ -275,6 +306,7 @@ from rwkv_lm_ext_tpu_torch.ops.wkv import (
     wkv_chunked_plain,
     wkv_plain,
 )
+from rwkv_lm_ext_tpu_torch.ops.wkv4 import wkv4, wkv4_plain
 from rwkv_lm_ext_tpu_torch.ops.wkv_decode import (
     transpose_state,
     wkv6_decode_step,
@@ -350,6 +382,9 @@ KERNELS = {
     # by the op-level comparison only, as in the JAX package
     "wkv6_decode_step_transposed": dict(source="rwkv_lm_ext_tpu_torch/csrc/wkv_decode.cu",
                                         replaces="scripts/bench_decode_transposed.py:65"),
+    # RWKV-4's WKV: an XLA lax.scan in the JAX package, not a Pallas kernel
+    "wkv4": dict(source="rwkv_lm_ext_tpu_torch/csrc/wkv4.cu",
+                 replaces="rwkv_lm_ext_tpu/ops/wkv4.py:23"),
 }
 NO_BACKWARD = {"tmix_prologue_bwd": 0, "wkv6_bwd_forward_pass": 0, "wkv6_bwd_reverse_pass": 0,
                "wkv_bwd_state_pass": 0}
@@ -361,9 +396,11 @@ NO_FUSED = {"att_prep_fused": 0, "ffn_prep_fused": 0, "ffn_block_fused": 0,
 # prologue and one WKV per layer; a decode step swaps K1 for the decode
 # kernel; int8c adds 8 row quantizations a layer (5 att + 3 ffn projections)
 PER_FORWARD = {"layer_norm": 26, "tmix_prologue": 24, "wkv6_fused_output": 24,
-               "wkv6_decode_step": 0, "quantize_rows": 0, "wkv": 0, **NO_BACKWARD, **NO_FUSED}
+               "wkv6_decode_step": 0, "quantize_rows": 0, "wkv": 0, "wkv4": 0, **NO_BACKWARD,
+               **NO_FUSED}
 PER_STEP = {"layer_norm": 26, "tmix_prologue": 24, "wkv6_fused_output": 0,
-            "wkv6_decode_step": 24, "quantize_rows": 0, "wkv": 0, **NO_BACKWARD, **NO_FUSED}
+            "wkv6_decode_step": 24, "quantize_rows": 0, "wkv": 0, "wkv4": 0, **NO_BACKWARD,
+            **NO_FUSED}
 # one forward of the bidirectional encoder, either mode: ln0 + 24 x (ln1, ln2)
 # + ln_out through K3 (the plain projections take ln1's output), and the
 # unfused WKV twice a layer
@@ -1034,9 +1071,10 @@ def phase_backward_kernels() -> dict:
 
 
 def synthetic_1b6(cfg, seed: int) -> dict:
-    """Seeded full-width weights; the projections that init zeroes
-    (att.output, ffn.value, ffn.receptance, which would make every block a
-    no-op) get small seeded values."""
+    """Seeded full-width weights of cfg's family (RWKV-6, and for phase 18
+    RWKV-5.x and RWKV-4: init_rwkv_params follows cfg.version); the
+    projections that init zeroes (att.output, ffn.value, ffn.receptance,
+    which would make every block a no-op) get small seeded values."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     sd = init_rwkv_params(cfg, generator=gen, device=DEV)
     for key in [k for k in sd if k.endswith(("att.output.weight", "ffn.value.weight",
@@ -1339,7 +1377,7 @@ def phase_int8c_cli(path: str) -> tuple:
           "in-process int8c /generate")
     print(f"  in-process CLI build, warm-up + /generate blocking + SSE: wrapper launches {counts}")
     check(all(n > 0 for k, n in counts.items()
-              if k not in NO_BACKWARD and k not in NO_FUSED and k != "wkv"),
+              if k not in NO_BACKWARD and k not in NO_FUSED and k not in ("wkv", "wkv4")),
           f"a kernel's wrapper did not run in /generate: {counts}")
     pieces = len(engine_module._chunk_plan(len(WorldTokenizer().encode(SHORT)),
                                            service.engine.chunk_len))
@@ -1980,7 +2018,8 @@ def phase_decode_ablation(model, label: str, smi: str, variants=ABLATION) -> Non
     """Readings, not checks: ms a step and aggregate tok/s of the decode step
     alone, greedy without sampling, at B=64 and B=1. Each variant runs 32
     steps in place over a data chain (the next token is the argmax of the last
-    logits) between CUDA events, after 4 warm-up steps, in turns and twice;
+    logits) between CUDA events, after 4 warm-up steps, in turns and twice
+    (16 steps, for the script's time limit);
     then one step under the profiler for its device operations, busy time
     and split."""
     def step_logits(variant, tok, state):
@@ -1992,7 +2031,7 @@ def phase_decode_ablation(model, label: str, smi: str, variants=ABLATION) -> Non
         lg, state = step_logits(variant, tok, state)
         return lg.argmax(-1), state
 
-    iters = 32
+    iters = 16
 
     def timed(variant, b):
         """ms a step over the chain, the state before its last step copied
@@ -3216,7 +3255,8 @@ def text_jsonl(path: Path, tok) -> None:
 def phase_mlm_cli(path: str, tmp: Path) -> dict:
     """The encoder trainers' normal entry point on the saved 24-layer model,
     as subprocesses: `mlm` for 4 steps (fp32 master weights, bf16 compute,
-    B=8, T=512) and its saved encoder, `mae --dup-mae` for 2 steps; then
+    B=8, T=512) and its saved encoder, `mae --dup-mae` for 2 steps on the
+    first 4 layers; then
     `mlm` in this process, whose launches are the training path's. Returns
     those counts."""
     data = tmp / "text.jsonl"
@@ -3247,9 +3287,16 @@ def phase_mlm_cli(path: str, tmp: Path) -> dict:
     del model, hidden
     torch.cuda.empty_cache()
 
+    # mae on the first 4 layers (for the script's time limit):
+    # the 24-layer run's load and 6.4 GB save cost the time, and its path is
+    # mlm's but for the decoder
+    cut = tmp / "rwkv6_1b6_first_4_layers.pth"
+    torch.save(two_layer_sd(path, 4), cut)
     out = tmp / "mae"
-    run_train_clis([(["--dup-mae", "--output-dir", str(out), "--max-steps", "2", *common], "mae",
-                     False)])
+    mae_common = [str(cut) if a == path else a for a in common]
+    run_train_clis([(["--dup-mae", "--output-dir", str(out), "--max-steps", "2", *mae_common],
+                     "mae", False)])
+    cut.unlink()
     saved = torch.load(out / "encoder-step2.pth", map_location="cpu", weights_only=True, mmap=True)
     check(not any("onelayer_decoder" in k for k in saved) and "blocks.0.ln0.weight" in saved,
           "mae's saved encoder holds decoder keys")
@@ -4292,6 +4339,357 @@ def phase_peft_readings(path: str, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: RWKV-5.x and RWKV-4 through the serving path
+# ---------------------------------------------------------------------------
+
+WKV4_REL = {torch.float32: 1e-4, BF16: 1e-2}    # B.14's y, x max|plain|; its state 1e-4
+V5_FORWARD = dict(NO_LAUNCH, layer_norm=50, wkv6_fused_output=24)
+V5_STEP = dict(NO_LAUNCH, layer_norm=50, wkv6_decode_step=24)
+V4_FORWARD = V4_STEP = dict(NO_LAUNCH, layer_norm=50, wkv4=24)
+FAMILY_NEW = 48                                # greedy tokens of the engine checks
+
+
+def wkv4_inputs(rng: Inputs, b: int, t: int, dtype, carried: bool) -> tuple:
+    """k in [-3, 60] (large k: the running max keeps exp in range), v, the
+    decay w = -exp(.) and the bonus u (C,), and a carried state or None (a
+    fresh one: pp = -1e38)."""
+    f = torch.float32
+    k = rng.uniform(b, t, C, lo=-3.0, hi=60.0, dtype=dtype)
+    v = rng.normal(b, t, C, dtype=dtype)
+    w, u = -torch.exp(rng.normal(C, dtype=f)), rng.normal(C, dtype=f)
+    state = None
+    if carried:
+        state = (rng.normal(b, C, dtype=f), torch.exp(rng.normal(b, C, dtype=f)),
+                 rng.normal(b, C, scale=5.0, dtype=f))
+    return k, v, w, u, state
+
+
+def phase_wkv4_kernel(smi: str) -> dict:
+    """B.14 against wkv4_plain at B in {1, 64}, T in {1, 17, 512}, fp32 and
+    bf16 inputs, from a fresh state and a carried one; in place; then timed
+    at the prefill shape (B=64, T=512, bf16) beside its bound, and at the
+    decode shape. Returns its entry of the kernels line."""
+    rng = Inputs(18)
+    errs = []
+    for dtype in (torch.float32, BF16):
+        for b in (1, B):
+            for t in (1, 17, T):
+                for carried in (False, True):
+                    k, v, w, u, state = wkv4_inputs(rng, b, t, dtype, carried)
+                    y, st = wkv4(k, v, w, u, state)
+                    py, pst = wkv4_plain(k, v, w, u, state)
+                    check(bool(torch.isfinite(y).all()), "wkv4: non-finite y")
+                    err = (y - py).abs().max().item()
+                    scale = py.abs().max().item()
+                    serr = max((a - p).abs().max().item() / p.abs().max().item()
+                               for a, p in zip(st, pst))
+                    print(f"  wkv4 {'fp32' if dtype == torch.float32 else 'bf16'} B={b} T={t} "
+                          f"{'carried' if carried else 'fresh (pp = -1e38)'}: max |kernel - plain| "
+                          f"y {err:.3e} (limit {WKV4_REL[dtype] * scale:.3e}), state "
+                          f"{serr:.3e} x max|plain| (limit 1e-4)")
+                    check(err <= WKV4_REL[dtype] * scale and serr <= 1e-4,
+                          f"wkv4 B={b} T={t} {dtype}: y {err}, state {serr}")
+                    errs.append(err)
+    k, v, w, u, state = wkv4_inputs(rng, B, T, BF16, True)
+    y, fresh = wkv4(k, v, w, u, state)
+    buf = tuple(s.clone() for s in state)
+    y2, out = wkv4(k, v, w, u, buf, out_state=buf)
+    check(torch.equal(y, y2) and all(torch.equal(a, b) for a, b in zip(out, fresh)),
+          "wkv4 in place differs from a fresh output")
+    buf = tuple(s.clone() for s in state)
+    ms = device_ms(lambda: wkv4(k, v, w, u, buf, out_state=buf), 20)
+    plain_ms = device_ms(lambda: wkv4_plain(k, v, w, u, state), 2)
+    # k and v read, y written in fp32, w and u, the state read and written;
+    # a step is 4 exp, a division, 2 max and ~9 adds and products (fp32)
+    bound = roofline(nbytes(k, v, y, w, u) + 2 * nbytes(*state), {"fp32": 16 * B * T * C})
+    k1, v1, w1, u1, s1 = wkv4_inputs(rng, 1, 1, BF16, True)
+    ms1 = device_ms(lambda: wkv4(k1, v1, w1, u1, s1, out_state=s1), 50)
+    print(f"  reading: wkv4 B={B}, T={T}, C={C}, bf16: kernel {ms:.4f} ms, bound {bound['bound_ms']:.4f} "
+          f"ms ({bound['bound_by']}; {100 * bound['bound_ms'] / ms:.1f} % of it), plain "
+          f"{plain_ms:.2f} ms; the decode shape B=1, T=1: {ms1:.4f} ms, on {smi}")
+    return {"wkv4": dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, **bound)}
+
+
+def v5_decay(rng: Inputs, per_head: bool) -> torch.Tensor:
+    """A v5 decay (H, N) in [-6, 1] (real RWKV-5 checkpoints), one value a
+    head or one a channel."""
+    return rng.uniform(H, 1 if per_head else N, lo=-6.0, hi=1.0, dtype=torch.float32).expand(H, N)
+
+
+def phase_v5_kernels(smi: str) -> None:
+    """K1 and B.9 on v5's constant decays, per channel and per head, with a
+    silu gate and with ones (v5.0): K1 at B=8, T=512 (out within 1e-2, state
+    within 1e-3 of max|plain|, as phase 2 holds K1) and B.9 at B=64 in place
+    (out 1e-2, state 1e-5); then K1 at B=64, T=512 with the decay expanded
+    over (B, T) (what TimeMixV5 passes; the wrapper makes it contiguous)
+    beside a contiguous one."""
+    rng = Inputs(19)
+    lsc, lbi = rng.normal(H * N, scale=0.1) + 1, rng.normal(H * N, scale=0.1)
+    u = rng.normal(H, N, scale=0.5)
+    for per_head in (False, True):
+        for gate in (True, False):
+            label = f"{'per head' if per_head else 'per channel'}, {'gate' if gate else 'ones'}"
+            td = v5_decay(rng, per_head)
+            r, k, v = (rng.normal(8, T, H, N) for _ in range(3))
+            g = torch.nn.functional.silu(rng.normal(8, T, H, N)) if gate else torch.ones_like(r)
+            w = td.reshape(1, 1, H, N).expand(8, T, H, N)
+            s0 = rng.normal(8, H, N, N, scale=0.1, dtype=torch.float32)
+            o, s = wkv6_fused_output(r, k, v, w, u, g, lsc, lbi, s0, eps=LN_X_EPS)
+            po, ps = wkv6_fused_output_plain(*f32(r, k, v, w, u, g, lsc, lbi, s0), eps=LN_X_EPS)
+            err_line(f"wkv6_fused_output v5 decay ({label}) B=8 T={T} out", o, po, 1e-2)
+            err_line(f"wkv6_fused_output v5 decay ({label}) B=8 T={T} state", s, ps, 1e-3)
+            rb, kb, vb = (rng.normal(B, C) for _ in range(3))
+            gb = torch.nn.functional.silu(rng.normal(B, C)) if gate else torch.ones_like(rb)
+            wb = td.reshape(1, C).expand(B, C).contiguous()
+            st = rng.normal(B, H, N, N, scale=0.1, dtype=torch.float32)
+            po, ps = wkv6_decode_step_plain(*f32(rb, kb, vb, wb, gb, u, lsc, lbi, st), eps=LN_X_EPS)
+            o, s = wkv6_decode_step(rb, kb, vb, wb, gb, u, lsc, lbi, st, eps=LN_X_EPS, out_state=st)
+            err_line(f"wkv6_decode_step v5 decay ({label}) B={B} out", o, po, 1e-2)
+            err_line(f"wkv6_decode_step v5 decay ({label}) B={B} state (in place)", s, ps, 1e-5)
+    r, k, v, g = (rng.normal(B, T, H, N) for _ in range(4))
+    expanded = v5_decay(rng, False).reshape(1, 1, H, N).expand(B, T, H, N)
+    dense = expanded.contiguous()
+    s0 = rng.normal(B, H, N, N, scale=0.1, dtype=torch.float32)
+    ms_x = device_ms(lambda: wkv6_fused_output(r, k, v, expanded, u, g, lsc, lbi, s0, eps=LN_X_EPS), 10)
+    ms_d = device_ms(lambda: wkv6_fused_output(r, k, v, dense, u, g, lsc, lbi, s0, eps=LN_X_EPS), 10)
+    print(f"  reading: K1 at B={B}, T={T} with v5's decay expanded over (B, T) {ms_x:.4f} ms, with "
+          f"it contiguous {ms_d:.4f} ms: the expansion costs {ms_x - ms_d:.4f} ms a layer "
+          f"({nbytes(dense) / 1e6:.0f} MB written and read), on {smi}")
+
+
+def family_models(cfg_fn, seed: int) -> tuple:
+    """The bf16 model at full width (seeded synthetic weights) and the fp32
+    plain-route model on the same bf16-rounded weights."""
+    model = load_state_dict_into(RWKV(cfg_fn(), device=DEV), synthetic_1b6(cfg_fn(), seed))
+    reference = load_state_dict_into(RWKV(cfg_fn(dtype="float32"), device=DEV), model.state_dict())
+    return model, reference
+
+
+def min_cosine_chunked(a: torch.Tensor, b: torch.Tensor, rows: int = 2048) -> float:
+    """min_cosine over the positions of two (..., V) tensors, a slice of
+    positions at a time (a (64, 512, 65536) logits pair in double would take
+    34 GB)."""
+    a, b = a.flatten(0, -2), b.flatten(0, -2)
+    return min(min_cosine(a[i:i + rows], b[i:i + rows]) for i in range(0, a.shape[0], rows))
+
+
+def count_launches(fn) -> tuple:
+    """(fn()'s result, the launches it made), counters set to 0 before it."""
+    reset_launch_counts()
+    out = fn()
+    return out, launch_counts()
+
+
+def prefill_decode_against_forward(model, label: str) -> None:
+    """Prefill 64 + 16 decode steps against one forward over 80 (B=4), and
+    the launches of exactly one decode step (in place)."""
+    gen = torch.Generator(device=DEV).manual_seed(22)
+    tokens = torch.randint(4, model.cfg.vocab_size, (4, 80), device=DEV, generator=gen)
+    with torch.inference_mode():
+        full, _ = model(tokens)
+        logits, state = model(tokens[:, :64])
+        steps = [logits[:, -1]]
+        for t in range(64, 79):
+            lg, state = rwkv_decode_step(model, tokens[:, t], state, out=state)
+            steps.append(lg)
+        _, counts = count_launches(lambda: rwkv_decode_step(model, tokens[:, 79], state, out=state))
+    cos = min_cosine(torch.stack(steps, 1), full[:, 63:79])
+    want = V5_STEP if model.cfg.version >= 5 else V4_STEP
+    print(f"  {label}: prefill 64 + 16 decode steps vs one forward over 80 (B=4): min per-position "
+          f"logits cosine {cos:.6f} (limit 0.999); launches of one decode step: {counts}")
+    check(cos >= 0.999, f"{label}: prefill+decode vs full forward cosine {cos}")
+    check(counts == want, f"{label}: decode-step launch counts {counts} != {want}")
+
+
+def family_generation(model, label: str) -> None:
+    """Greedy generate (48 tokens, 16-step blocks): CUDA-graph blocks against
+    eager blocks, tokens and final state bit-equal, and every token the
+    argmax of the same route's teacher-forced logits."""
+    engine = GenerationEngine(model)
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    prompt = torch.randint(4, model.cfg.vocab_size, (16,), device=DEV, generator=gen)
+    run = lambda: engine.generate(prompt.tolist(), max_tokens=FAMILY_NEW, sampling=GREEDY,
+                                  block_size=16, return_state=True)
+    out, state = run()
+    with eager_blocks():
+        e_out, e_state = run()
+    check(out == e_out and states_equal(state, e_state),
+          f"{label}: graph blocks and eager blocks differ")
+    toks = torch.tensor(out, device=DEV)
+    kern = teacher_forced(model, prompt, toks, reference=False)
+    check(len(out) == FAMILY_NEW and bool((kern.argmax(-1) == toks).all()),
+          f"{label}: the greedy tokens are not the argmax of the teacher-forced logits")
+    print(f"  {label}: greedy generate, {FAMILY_NEW} tokens in 16-step graph blocks: tokens and "
+          f"final state bit-equal to eager blocks, each token the argmax of its teacher-forced "
+          f"logits")
+
+
+def v4_batcher(model, label: str) -> None:
+    """8 concurrent greedy requests through the continuous batcher (8 slots,
+    16-step graph blocks): admission scatters each request's aa, bb and pp
+    rows into the pool; every row's tokens are the argmax of its logits
+    teacher-forced at B=8 through the batcher's chunk plan."""
+    engine = GenerationEngine(model)
+    batcher = ContinuousBatcher(engine, n_slots=8, sampling=GREEDY, block_size=16)
+    gen = torch.Generator(device=DEV).manual_seed(24)
+    prompts = torch.randint(4, model.cfg.vocab_size, (8, 16), device=DEV, generator=gen).tolist()
+    rids = [batcher.submit(p, max_tokens=32) for p in prompts]
+    results = batcher.run()
+    outs = [results[r] for r in rids]
+    check(all(len(o) == 32 for o in outs), f"{label}: batcher rows of {[len(o) for o in outs]} tokens")
+    with torch.inference_mode():
+        prompt, state, off = torch.tensor(prompts, device=DEV), None, 0
+        for size in engine_module._chunk_plan(15, engine.chunk_len):
+            _, state = model(prompt[:, off: off + size], state)
+            off += size
+        feed = torch.cat([prompt[:, -1:], torch.tensor(outs, device=DEV)[:, :-1]], 1)
+        picks = []
+        for t in range(32):
+            lg, state = rwkv_decode_step(model, feed[:, t], state, out=state)
+            picks.append(lg.argmax(-1))
+    check(torch.equal(torch.stack(picks, 1), torch.tensor(outs, device=DEV)),
+          f"{label}: batcher tokens are not the argmax of their teacher-forced logits")
+    print(f"  {label}: the batcher over 8 concurrent requests (8 slots, 32 tokens each): every "
+          f"token the argmax of its row's teacher-forced logits")
+
+
+def family_decode_readings(model, label: str, smi: str) -> None:
+    """Decode tok/s on graph blocks: generate_batch at B=64 (16-token prompts,
+    128 new tokens) and generate at B=1 (128 tokens, block_size=16), each
+    timed once after a warm-up run (host clock around synchronised work);
+    graph against eager blocks is family_generation's check."""
+    engine = GenerationEngine(model)
+    sp = SamplingParams(token_stop=())
+    gen = torch.Generator(device=DEV).manual_seed(27)
+    prompts = torch.randint(4, model.cfg.vocab_size, (B, 16), device=DEV, generator=gen).tolist()
+    runs = {"generate_batch": (B, lambda: engine.generate_batch(prompts, max_tokens=128, sampling=sp)),
+            "generate": (1, lambda: engine.generate(prompts[0], max_tokens=128, sampling=sp,
+                                                    block_size=16))}
+    for name, (b, fn) in runs.items():
+        fn()
+        out, seconds = timed_s(fn)
+        check(len(out) == b if name == "generate_batch" else len(out) == 128,
+              f"{label} {name}: wrong output")
+        print(f"  reading: {name} (B={b}, 128 new tokens, {label}): {b * 128 / seconds:.1f} tok/s on "
+              f"graph blocks ({seconds * 1e3:.1f} ms) on {smi}")
+
+
+def chained_rate(step, tokens: torch.Tensor, iters: int = 3) -> tuple:
+    """(seconds a call, the last input, the last output) of a data chain of
+    `iters` calls after a warm-up: step(tokens) -> (next tokens, output)."""
+    with torch.inference_mode():
+        tokens, out = step(tokens)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            last_in = tokens
+            tokens, out = step(tokens)
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / 1e3 / iters, last_in, out
+
+
+def phase_v5_serving(smi: str, tmp: Path) -> None:
+    """Synthetic RWKV-5-World-1B5 (v5.2: 24 layers, C=2048, H=32, F=7168),
+    bf16: embeddings at B=64, T=512 against the fp32 plain route with the
+    launches of the forward; prefill + decode against one forward; greedy
+    generation (graph blocks against eager); the 4-layer .pth through
+    `python -m rwkv_lm_ext_tpu_torch.serve.cli`; readings."""
+    model, reference = family_models(rwkv5_1b5, seed=20)
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    tokens = torch.randint(4, model.cfg.vocab_size, (B, T), device=DEV, generator=gen)
+    tokens[:, -1] = EMB_ID
+    with torch.inference_mode():
+        emb, counts = count_launches(lambda: embed_sequences(model, tokens, normalize=True))
+        ref = embed_sequences(reference, tokens, normalize=True, reference=True)
+    cos = float((emb.double() * ref.double()).sum(-1).min())
+    print(f"  v5.2 embeddings B={B}, T={T}, bf16 vs the fp32 plain route: min cosine {cos:.6f} "
+          f"(limit 0.999); launches of the forward: {counts}")
+    check(cos >= 0.999, f"v5 embedding cosine {cos}")
+    check(counts == V5_FORWARD, f"v5 forward launch counts {counts} != {V5_FORWARD}")
+    del reference
+    torch.cuda.empty_cache()
+    prefill_decode_against_forward(model, "v5.2")
+    family_generation(model, "v5.2")
+
+    n_feed = min(T, C)
+
+    def step(tokens):
+        tokens = tokens.clone()
+        tokens[:, -1] = EMB_ID
+        emb = embed_sequences(model, tokens)
+        # data chain: the next batch's tokens depend on these embeddings
+        tokens[:, :n_feed] = 4 + (tokens[:, :n_feed] + (emb[:, :n_feed] * 100).abs().long()) % 60000
+        return tokens, emb
+
+    seconds, last_in, last_out = chained_rate(step, tokens)
+    changed = last_in.clone()
+    changed[:, 0] = 4 + (changed[:, 0] + 1) % 60000
+    chain_canary(lambda t: step(t)[1], last_in, last_out, changed, "v5 embedding chain")
+    with torch.inference_mode():
+        busy = busy_us(device_ops(lambda: embed_sequences(model, tokens), 1)) / 1e3
+    print(f"  reading: v5.2 {B / seconds:.2f} seq/s embedded (B={B}, T={T}, bf16, "
+          f"{seconds * 1e3:.1f} ms a batch, device busy {busy:.1f} ms of it) on {smi}")
+    family_decode_readings(model, "v5.2 bf16", smi)
+
+    cfg4 = rwkv5_1b5(n_layer=min(4, model.cfg.n_layer))
+    sd4 = {k: v for k, v in model.state_dict().items()
+           if not k.startswith("blocks.") or int(k.split(".")[1]) < cfg4.n_layer}
+    small = load_state_dict_into(RWKV(cfg4, device=DEV), sd4)
+    del model
+    path = str(tmp / "rwkv5_first_layers.pth")
+    save_rwkv_checkpoint(small, path)
+    greedy = {"prompt": SHORT, "max_tokens": 16, "temperature": 0.0, "token_stop": []}
+    with CliServer(["--model", path, "--port", "0"]) as base:
+        code, r = post(base + "/generate", greedy)
+    want = GenerationEngine(small, WorldTokenizer()).generate(SHORT, max_tokens=16, sampling=GREEDY)
+    print(f"  serve.cli --model on a {cfg4.n_layer}-layer v5.2 .pth ({Path(path).stat().st_size / 2**30:.2f} "
+          f"GiB): /generate {code}, backend {r.get('backend')}, output {r.get('output')!r}")
+    check(code == 200 and r["backend"] == "engine" and r["output"] == want,
+          f"serve.cli v5 /generate answered {code}: {r} (in process: {want!r})")
+    Path(path).unlink()
+
+
+def phase_v4_serving(smi: str) -> int:
+    """Synthetic RWKV-4-World-1.5B (24 layers, C=2048, F=8192), bf16: logits
+    at B=64, T=512 against the fp32 plain route with the launches of the
+    forward; prefill + decode against one forward; greedy generation (graph
+    blocks against eager); the batcher over 8 requests; readings. Returns the
+    launches of wkv4 in the forward."""
+    model, reference = family_models(rwkv4_1b5, seed=25)
+    gen = torch.Generator(device=DEV).manual_seed(26)
+    tokens = torch.randint(4, model.cfg.vocab_size, (B, T), device=DEV, generator=gen)
+    with torch.inference_mode():
+        (logits, _), counts = count_launches(lambda: model(tokens))
+        ref, _ = reference(tokens, reference=True)
+        cos = min_cosine_chunked(logits, ref)
+    del logits, ref, reference
+    torch.cuda.empty_cache()
+    print(f"  v4 logits B={B}, T={T}, bf16 vs the fp32 plain route: min per-position cosine "
+          f"{cos:.6f} (limit 0.999); launches of the forward: {counts}")
+    check(cos >= 0.999, f"v4 logits cosine {cos}")
+    check(counts == V4_FORWARD, f"v4 forward launch counts {counts} != {V4_FORWARD}")
+    prefill_decode_against_forward(model, "v4")
+    family_generation(model, "v4")
+    v4_batcher(model, "v4")
+
+    def step(tokens):
+        logits, _ = model(tokens)
+        tokens = tokens.clone()
+        tokens[:, 0] = 4 + logits[:, -1].argmax(-1) % 60000
+        return tokens, logits[:, -1]
+
+    seconds, last_in, last_out = chained_rate(step, tokens)
+    changed = last_in.clone()
+    changed[:, 1] = 4 + (changed[:, 1] + 1) % 60000
+    chain_canary(lambda t: step(t)[1], last_in, last_out, changed, "v4 prefill chain")
+    print(f"  reading: v4 prefill {B / seconds:.2f} seq/s (B={B}, T={T}, bf16, logits of every "
+          f"position, {seconds * 1e3:.1f} ms a batch) on {smi}")
+    family_decode_readings(model, "v4 bf16", smi)
+    return counts["wkv4"]
+
+
 def main() -> None:
     """With no arguments the whole check; with --merge-calibration only the
     readings behind the merged-adapter budgets (merge_calibration)."""
@@ -4382,7 +4780,10 @@ def main() -> None:
         phase_throughput(model, cfg, "bf16", smi)
         phase_decode_readings(model, "bf16", smi)
         phase("phase 14c: decode-step ablation, bf16 (readings)")
-        phase_decode_ablation(model, "bf16", smi)
+        # the spliced variants (step_attprep, step_ffnblk) are left out to
+        # keep the script inside its time limit (PERF.md §5 has their
+        # readings): call phase_decode_ablation(model, "bf16", smi) for all four
+        phase_decode_ablation(model, "bf16", smi, variants=("step", "step_fused"))
         del model
         phase_throughput(model_q, cfg, "int8c", smi)
         phase_decode_readings(model_q, "int8c", smi)
@@ -4437,6 +4838,18 @@ def main() -> None:
         phase_peft_cli(path, tmp)
         phase("phase 17c: PEFT training readings (not benchmark cells)")
         phase_peft_readings(path, smi)
+        torch.cuda.empty_cache()
+
+        phase("phase 18a: B.14 (wkv4) against its plain version; K1 and B.9 on RWKV-5 decays")
+        kernels.update(phase_wkv4_kernel(smi))
+        phase_v5_kernels(smi)
+        phase("phase 18b: synthetic RWKV-5-World-1B5 (v5.2, 24 layers, bf16): embeddings, "
+              "generation, python -m rwkv_lm_ext_tpu_torch.serve.cli")
+        phase_v5_serving(smi, tmp)
+        torch.cuda.empty_cache()
+        phase("phase 18c: synthetic RWKV-4-World-1.5B (24 layers, bf16): logits, generation, the "
+              "batcher")
+        v4_launches = phase_v4_serving(smi)
 
     # each kernel's launches on a main path that runs it: embedding serving,
     # int8c generation (on the device: its decode blocks are graph replays),
@@ -4450,7 +4863,8 @@ def main() -> None:
     launches.update(wkv=fill_mask_counts["wkv"], wkv_bwd_state_pass=mlm_counts["wkv_bwd_state_pass"])
     launches.update({k: fused_counts[k] for k in ("att_prep_fused", "ffn_block_fused")})
     launches.update(ffn_prep_fused=fused_counts_q["ffn_prep_fused"],
-                    wkv6_decode_step_transposed=bench_counts["wkv6_decode_step_transposed"])
+                    wkv6_decode_step_transposed=bench_counts["wkv6_decode_step_transposed"],
+                    wkv4=v4_launches)
     check(all(n > 0 for n in launches.values()) and mlm_counts["wkv"] > 0
           and mlm_counts["wkv6_bwd_reverse_pass"] > 0 and fill_mask_counts["layer_norm"] > 0
           and train_counts["tmix_prologue_bwd"] > 0

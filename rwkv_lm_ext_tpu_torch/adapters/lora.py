@@ -63,8 +63,11 @@ def _targets(model: RWKV, lc: LoraConfig) -> Iterator[Tuple[str, nn.Module, str]
     for i, block in enumerate(model.blocks):
         for part, names in (("att", ATT_TARGETS), ("ffn", FFN_TARGETS)):
             if part in lc.parts:
+                parent = getattr(block, part)
                 for name in names:
-                    yield f"blocks.{i}.{part}.{name}", getattr(block, part), name
+                    # a projection the block lacks (v5.0's gate) is skipped, as in JAX
+                    if isinstance(getattr(parent, name, None), nn.Module):
+                        yield f"blocks.{i}.{part}.{name}", parent, name
 
 
 def weight_shape(proj: nn.Module) -> Tuple[int, int]:

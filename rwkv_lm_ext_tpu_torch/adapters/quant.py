@@ -221,12 +221,15 @@ def quantize_linear(w: torch.Tensor, mode: str) -> QuantLinear:
 
 
 def _targets(model, include_head: bool):
-    """(parent module, attribute, BlinkDL weight key) of every target."""
+    """(parent module, attribute, BlinkDL weight key) of every target the
+    model has (a v5.0 or v4 block has no gate, MishGLU only ``value``, a
+    ``pre_ffn`` layer 0 no att), as quantize_tree skips absent leaves."""
     for i, block in enumerate(model.blocks):
-        for name in ATT_TARGETS:
-            yield block.att, name, f"blocks.{i}.att.{name}.weight"
-        for name in FFN_TARGETS:
-            yield block.ffn, name, f"blocks.{i}.ffn.{name}.weight"
+        for part, names in (("att", ATT_TARGETS), ("ffn", FFN_TARGETS)):
+            parent = getattr(block, part)
+            for name in names:
+                if isinstance(getattr(parent, name, None), nn.Module):
+                    yield parent, name, f"blocks.{i}.{part}.{name}.weight"
     if include_head:
         yield model, "head", "head.weight"
 

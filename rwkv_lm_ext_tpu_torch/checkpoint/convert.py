@@ -17,11 +17,26 @@ reference's layout: ``score.weight`` (n, C) (JAX serve/cli.py:124-131
 train/cli.py:1258-1276). ``score_head_from_state_dict`` reads the score
 head of a checkpoint or adapter file.
 
+RWKV-5.x and RWKV-4 dicts load the same way (JAX :69-92). A v5.0/5.1 per-head
+decay (H,) is broadcast to the (H, N) parameter and a v5 ``att.time_first``
+is read as ``att.time_faaaa``, as the JAX converter does; ``checkpoint_config``
+is ``sniff_model_config`` plus one rule the JAX forward applies per block (its
+``has_gate``, models/rwkv.py:524): a v5 dict without a gate is v5.0, whatever
+the shape of its decay (the JAX converter writes every v5 decay as (H, N)).
+
+``state_dict_from_jax_tree`` carries a whole JAX parameter tree, the legacy
+options' weights included, into the port's flat keys. The JAX flat dict
+cannot carry those (ROADMAP C.22): ``params_to_state_dict`` drops
+``head_q``/``head_k``, ``tiny_*``, ``pos_emb_*`` and ``ffn_pre`` and writes
+MishGLU's ``ffn.aa``/``ffn.bb`` (C, F) matrices as (1, 1, C*F) vectors, and
+``state_dict_to_params`` reads none of them.
+
 The JAX loader also runs ``apply_wkv_dispatch``; the port's WKV kernel is
 exact at any decay, so there is nothing to dispatch.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -39,8 +54,10 @@ def load_state_dict_into(model, state_dict: Dict):
     """Copy a flat BlinkDL dict ({key: numpy array or tensor}, prefix
     already stripped) into `model` (an RWKV, or any module with flat keys),
     casting to the parameters' dtype and device.
-    Vectors stored flat, e.g. (C,) for a (1, 1, C) time_maa, are reshaped.
-    Raises on missing or unknown keys and on a size mismatch."""
+    Vectors stored flat, e.g. (C,) for a (1, 1, C) time_maa, are reshaped,
+    and a per-head (H,) ``att.time_decay`` (RWKV-5.0/5.1) is broadcast to
+    the (H, N) parameter. Raises on missing or unknown keys and on a size
+    mismatch."""
     params = model.state_dict()
     missing = sorted(params.keys() - state_dict.keys())
     unknown = sorted(state_dict.keys() - params.keys())
@@ -51,6 +68,8 @@ def load_state_dict_into(model, state_dict: Dict):
             src = state_dict[key]
             if not isinstance(src, torch.Tensor):
                 src = torch.tensor(np.asarray(src))
+            if key.endswith("att.time_decay") and p.dim() == 2 and src.numel() == p.shape[0]:
+                src = src.reshape(-1, 1).expand(p.shape)
             if src.numel() != p.numel():
                 raise ValueError(f"{key}: {tuple(src.shape)} does not fit {tuple(p.shape)}")
             p.copy_(src.reshape(p.shape))
@@ -62,6 +81,55 @@ def params_to_state_dict(model: RWKV) -> Dict[str, np.ndarray]:
     return {
         k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()
     }
+
+
+# the JAX tree's (in, out) kernels: their flat keys end in ".weight", (out, in)
+_JAX_KERNELS = {"receptance", "key", "value", "gate", "output", "aa", "bb", "tiny_q", "tiny_k",
+                "tiny_v", "head", "head_q", "head_k"}
+# JAX tree names whose flat key differs (the reference's attribute names)
+_JAX_RENAMES = {"ffn_pre": "ffnPre", "emb": "emb.weight"}
+
+
+def state_dict_from_jax_tree(params: Dict, cfg) -> Dict[str, np.ndarray]:
+    """A JAX parameter tree (arrays; ``{emb, blocks: [...], ln_out, head,
+    head_q, head_k}``) -> the port's flat dict of fp32 numpy arrays, for
+    ``load_state_dict_into``: kernels transposed to (out, in), {scale, bias}
+    pairs as ``.weight``/``.bias``, ``ffn_pre`` as ``ffnPre``, vectors as
+    they are (the loader reshapes them). Under ``cfg.pre_ffn`` layer 0's
+    ``att``, which the JAX forward skips and the port's layer 0 does not
+    have, is left out."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def walk(prefix: str, tree: Dict) -> None:
+        for name, value in tree.items():
+            key = prefix + _JAX_RENAMES.get(name, name)
+            if isinstance(value, dict):
+                if set(value) == {"scale", "bias"}:
+                    sd[key + ".weight"] = np.asarray(value["scale"], np.float32)
+                    sd[key + ".bias"] = np.asarray(value["bias"], np.float32)
+                else:
+                    walk(key + ".", value)
+            elif name in _JAX_KERNELS:
+                sd[key + ".weight"] = np.asarray(value, np.float32).T
+            else:
+                sd[key] = np.asarray(value, np.float32)
+
+    walk("", {k: v for k, v in params.items() if k != "blocks"})
+    for i, block in enumerate(params["blocks"]):
+        if i == 0 and cfg.pre_ffn > 0:
+            block = {k: v for k, v in block.items() if k != "att"}
+        walk(f"blocks.{i}.", block)
+    return sd
+
+
+def checkpoint_config(state_dict: Dict, **overrides) -> ModelConfig:
+    """``sniff_model_config``, then a v5 dict with no ``att.gate`` is v5.0
+    (see the module docstring) unless ``version`` is overridden."""
+    cfg = sniff_model_config(state_dict, **overrides)
+    if (5 <= cfg.version < 6 and "version" not in overrides
+            and not any(k.endswith("att.gate.weight") for k in strip_prefix(state_dict))):
+        cfg = dataclasses.replace(cfg, version=5.0)
+    return cfg
 
 
 def lora_tree_from_jax(adapter: Dict, *, device="cpu") -> Dict[str, Dict[str, torch.Tensor]]:
@@ -156,14 +224,18 @@ def save_rwkv_checkpoint(model: RWKV, path: str) -> None:
 def load_rwkv_checkpoint(
     path: str, *, device, quant: Optional[str] = None, **cfg_overrides
 ) -> Tuple[RWKV, ModelConfig]:
-    """.pth -> (RWKV module on `device`, ModelConfig). cfg_overrides are
+    """.pth (RWKV-4, 5.x or 6) -> (RWKV module on `device`, ModelConfig,
+    from ``checkpoint_config``). cfg_overrides are
     ModelConfig fields, e.g. dtype="float32", or param_dtype="float32" for
     fp32 master weights under the default bf16 compute. ``quant``
     ("int8" or "int8c") quantizes the block projections from the
     checkpoint's own values upcast to fp32, before any cast to cfg.dtype,
     as the JAX loader hands fp32 params to quantize_tree."""
     sd = strip_prefix(torch.load(path, map_location="cpu", weights_only=True))
-    cfg = sniff_model_config(sd, **cfg_overrides)
+    cfg = checkpoint_config(sd, **cfg_overrides)
+    if 5 <= cfg.version < 6:
+        sd = {(k[:-len("time_first")] + "time_faaaa" if k.endswith("att.time_first") else k): v
+              for k, v in sd.items()}
     model = load_state_dict_into(RWKV(cfg, device=device), sd)
     if quant is not None:
         quantize_model(model, quant, weights=sd)

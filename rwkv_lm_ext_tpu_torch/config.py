@@ -1,7 +1,8 @@
 """Model and training configuration of the PyTorch port.
 
 Counterpart of rwkv_lm_ext_tpu/config.py (ModelConfig, TrainConfig,
-rwkv6_1b6 and the special token ids). The JAX ModelConfig also carries TPU kernel knobs
+rwkv6_1b6 and the special token ids); ``rwkv5_1b5`` and ``rwkv4_1b5`` are
+the geometries of RWKV-5-World-1B5 and RWKV-4-World-1.5B. The JAX ModelConfig also carries TPU kernel knobs
 (fused_chunk, fused_prologue, packed_decode, fused_decode, wkv_exact) and
 their RWKV_* environment overrides. They pick between Pallas code paths that
 the port does not have: its WKV kernel is a sequential recurrence that is
@@ -15,10 +16,18 @@ from typing import Union
 import torch
 
 
+VERSIONS = (4.0, 5.0, 5.1, 5.2, 6.0)
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyperparameters of an RWKV-5/6 model, as sniffed from a
-    checkpoint (checkpoint.pth.sniff_model_config)."""
+    """Architecture hyperparameters of an RWKV-4/5/6 model, as sniffed from a
+    checkpoint (checkpoint.pth.sniff_model_config). ``version`` is 4.0, 5.0,
+    5.1, 5.2 or 6.0. ``dropout`` and the legacy RWKV-LM options below
+    (``tiny_att_dim``/``tiny_att_layer``, ``head_qk``, ``pre_ffn``,
+    ``my_pos_emb``, ``ffn_type="mishglu"``) are the JAX fields of the same
+    names and defaults (rwkv_lm_ext_tpu/config.py:36-43); the forward runs
+    no dropout (training refuses ``dropout > 0`` so far)."""
 
     n_layer: int
     n_embd: int
@@ -28,6 +37,13 @@ class ModelConfig:
     head_size: int = 64
     head_size_divisor: int = 8
     version: float = 6.0
+    dropout: float = 0.0
+    tiny_att_dim: int = 0        # tiny attention after layer tiny_att_layer's channel mix
+    tiny_att_layer: int = -1
+    head_qk: int = 0             # the copy mechanism on the logits
+    pre_ffn: int = 0             # layer 0's attention replaced by a channel mix
+    my_pos_emb: int = 0          # additive 2D positional embedding after ln0
+    ffn_type: str = "relu_sq"    # "relu_sq" | "mishglu"
     # activations and weights; WKV state, norm statistics and the decay
     # low-rank stay fp32
     dtype: str = "bfloat16"
@@ -46,6 +62,10 @@ class ModelConfig:
             object.__setattr__(
                 self, "dim_ffn", int((self.n_embd * 3.5) // 32 * 32)
             )
+        if self.version not in VERSIONS:
+            raise ValueError(f"version {self.version} is not one of {VERSIONS}")
+        if self.ffn_type not in ("relu_sq", "mishglu"):
+            raise ValueError(f"ffn_type {self.ffn_type!r} is not relu_sq or mishglu")
         if self.dim_att % self.head_size != 0:
             raise ValueError(
                 f"dim_att {self.dim_att} is not a multiple of head_size "
@@ -55,6 +75,22 @@ class ModelConfig:
     @property
     def n_head(self) -> int:
         return self.dim_att // self.head_size
+
+    @property
+    def legacy_options(self) -> tuple:
+        """The names of the legacy options this model turns on."""
+        return tuple(name for name, on in (
+            ("tiny_att_dim", self.tiny_att_dim > 0), ("head_qk", self.head_qk > 0),
+            ("pre_ffn", self.pre_ffn > 0), ("my_pos_emb", self.my_pos_emb > 0),
+            ("ffn_type=mishglu", self.ffn_type == "mishglu")) if on)
+
+    @property
+    def chunk_dependent_options(self) -> tuple:
+        """The options on whose output the cutting of a prompt into calls
+        shows (tiny attention and head_qk attend over the call's tokens only,
+        my_pos_emb restarts its positions each call: ROADMAP C.21)."""
+        return tuple(name for name in self.legacy_options
+                     if name in ("tiny_att_dim", "head_qk", "my_pos_emb"))
 
     @property
     def ln_x_eps(self) -> float:
@@ -109,6 +145,23 @@ class TrainConfig:
 def rwkv6_1b6(**overrides) -> ModelConfig:
     """RWKV-6-World-1B6 geometry: 24 layers, C=2048, H=32, N=64, F=7168."""
     kw = dict(n_layer=24, n_embd=2048, vocab_size=65536, head_size=64)
+    kw.update(overrides)
+    return ModelConfig(**kw)
+
+
+def rwkv5_1b5(**overrides) -> ModelConfig:
+    """RWKV-5-World-1B5 (v5.2) geometry: 24 layers, C=2048, H=32, N=64,
+    F=7168."""
+    kw = dict(n_layer=24, n_embd=2048, vocab_size=65536, head_size=64, version=5.2)
+    kw.update(overrides)
+    return ModelConfig(**kw)
+
+
+def rwkv4_1b5(**overrides) -> ModelConfig:
+    """RWKV-4-World-1.5B geometry: 24 layers, C=2048, F=8192 (no heads: the
+    sniffed head size is C)."""
+    kw = dict(n_layer=24, n_embd=2048, vocab_size=65536, head_size=2048, dim_ffn=8192,
+              version=4.0)
     kw.update(overrides)
     return ModelConfig(**kw)
 

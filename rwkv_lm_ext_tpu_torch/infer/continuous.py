@@ -52,7 +52,12 @@ import numpy as np
 import torch
 
 from rwkv_lm_ext_tpu_torch.adapters.slot_lora import set_slot_idx
-from rwkv_lm_ext_tpu_torch.infer.engine import _chunk_plan, capture_graph, warm_step
+from rwkv_lm_ext_tpu_torch.infer.engine import (
+    _chunk_plan,
+    capture_graph,
+    refuse_chunk_dependent,
+    warm_step,
+)
 from rwkv_lm_ext_tpu_torch.infer.sampling import (
     GLOBAL_KNOBS,
     SLOT_PARAM_FIELDS,
@@ -99,6 +104,7 @@ class ContinuousBatcher:
         max_stop_tokens: int = 8,
         adaptive_block: bool = False,
     ):
+        refuse_chunk_dependent(engine.cfg, "ContinuousBatcher")
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         self.engine = engine
@@ -486,9 +492,11 @@ class ContinuousBatcher:
             toks = self._to_device(toks)
             eng.select_rows(G, aid)
             off = 0
+            # the prefix's states only: skip the head (an RWKV-4 model, which
+            # returns logits only, computes it)
+            skip_head = dict(return_hidden=True, return_logits=False) if eng.cfg.version >= 5 else {}
             for size in _chunk_plan(rem, eng.chunk_len):
-                _, state = eng.model(toks[:, off: off + size], state,
-                                     return_hidden=True, return_logits=False)
+                _, state = eng.model(toks[:, off: off + size], state, **skip_head)
                 off += size
                 for j, (req, prefix, consumed, _, use_cache) in enumerate(grp):
                     if use_cache:

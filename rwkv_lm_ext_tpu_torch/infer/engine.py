@@ -119,11 +119,23 @@ def capture_graph(body: Callable[[], None], warmup: Callable[[], None],
     return graph
 
 
+def refuse_chunk_dependent(cfg, what: str) -> None:
+    """Raise, by name, for a model whose answers depend on how a prompt is
+    cut into calls (``cfg.chunk_dependent_options``, ROADMAP C.21): a server
+    cuts prompts into prefill chunks and decode steps."""
+    if cfg.chunk_dependent_options:
+        raise ValueError(
+            f"{what} refuses a model with {', '.join(cfg.chunk_dependent_options)}: these options "
+            "see only the tokens of one call, so chunked prefill and decode steps would answer "
+            "otherwise than one call over the whole text (ROADMAP C.21)")
+
+
 def warm_step(model, rows: int, sampling_fn, fused_prep) -> None:
     """One decode step and one sampling draw on zero scratch buffers (the
     warm-up before a capture): nothing the caller holds changes."""
-    state = init_model_state(model.cfg, rows, device=model.emb.weight.device)
-    token = torch.zeros(rows, dtype=torch.int64, device=state["wkv"].device)
+    device = model.emb.weight.device
+    state = init_model_state(model.cfg, rows, device=device)
+    token = torch.zeros(rows, dtype=torch.int64, device=device)
     logits, _ = rwkv_decode_step(model, token, state, out=state, fused_prep=fused_prep)
     sampling_fn(logits)
 
@@ -248,13 +260,16 @@ class _Decoder:
 
 
 class GenerationEngine:
-    """Generation with one model (``RWKV``, possibly quantized or with
-    slot-LoRA projections) on its device; ``tokenizer`` turns str prompts
-    into ids and ids into text."""
+    """Generation with one model (``RWKV`` of any family, possibly quantized
+    or with slot-LoRA projections) on its device; ``tokenizer`` turns str
+    prompts into ids and ids into text. A model with ``head_qk``,
+    ``tiny_att_dim`` or ``my_pos_emb`` is refused by name
+    (``refuse_chunk_dependent``)."""
 
     def __init__(self, model, tokenizer=None, *, chunk_len: int = 256,
                  fused_prep: Optional[bool] = None, state_cache=None,
                  adapter_ids: Optional[Dict[str, int]] = None):
+        refuse_chunk_dependent(model.cfg, "GenerationEngine")
         self.model = model
         self.cfg = model.cfg
         self.tokenizer = tokenizer

@@ -35,9 +35,12 @@ def extract_time_states(state_dict: Dict, n_layer: int) -> torch.Tensor:
 class StatesRegistry:
     """name -> (L, H, N, N) initial WKV states and instruction templates,
     kept on ``device`` (the engine's: a required keyword, as ``RWKV(cfg, *,
-    device)`` has it)."""
+    device)`` has it). An RWKV-4 config is refused by name."""
 
     def __init__(self, cfg, *, device):
+        if cfg.version < 5:
+            raise ValueError("named states need an (H, N, N) WKV state: an RWKV-4 model has none "
+                             "(the JAX package asserts the same, models/state.py:78)")
         self.cfg = cfg
         self.device = torch.device(device)
         self._states: Dict[str, torch.Tensor] = {}

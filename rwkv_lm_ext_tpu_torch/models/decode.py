@@ -16,6 +16,12 @@ shift rows as unrounded fp32 LayerNorm outputs (the unfused one rounds them
 to the compute dtype first) and computes the decay from an unrounded ``xw``,
 so in bf16 the two routes' states differ in the last bf16 bit.
 
+RWKV-5.x takes the same step with ``TimeMixV5.step`` (K3 for ln1, B.9 with
+the constant decay); RWKV-4 its own (``models.rwkv4.rwkv4_step``, B.14); a
+model with a legacy option runs the generic forward at T=1, as in the JAX
+package, whose ``decode_supported`` (:38-53) turns those configs away. The
+fused route stays RWKV-6 only and refuses any other model by name.
+
 Unlike the generic forward, which stacks a fresh state every call, the step
 writes each layer's slice of an output state that the caller may pass in:
 ``out=state`` updates the state in place, which is what the generation
@@ -33,9 +39,15 @@ from rwkv_lm_ext_tpu_torch.ops.wkv_decode import HEAD_SIZES
 
 
 def decode_supported(cfg) -> bool:
-    """True when the step covers this config: an RWKV-6 block stack whose
-    head size the decode kernel takes."""
-    return cfg.version >= 6 and cfg.head_size in HEAD_SIZES
+    """True when the step covers this config: the JAX checks (no tiny
+    attention, pre_ffn, head_qk, positional embedding or MishGLU, no dropout)
+    on an RWKV-4 model or an RWKV-5/6 block stack whose head size the decode
+    kernel takes."""
+    return (
+        not cfg.legacy_options
+        and cfg.dropout == 0
+        and (cfg.version < 5 or cfg.head_size in HEAD_SIZES)
+    )
 
 
 def rwkv_decode_step(
@@ -55,12 +67,28 @@ def rwkv_decode_step(
     fused decode kernels (see the module docstring); None is off. Equals
     ``model(tokens[:, None], state, t1_step=False)`` up to summation order
     (and, with ``fused_prep`` in bf16, up to the roundings named above)."""
+    cfg = model.cfg
     ops = PLAIN_OPS if reference else KERNEL_OPS
     fused_prep = bool(fused_prep)
+    if fused_prep and (cfg.version < 6 or not decode_supported(cfg)):
+        raise ValueError(
+            f"fused_prep runs the RWKV-6 decode kernels B.10-B.12 only; this model is "
+            f"v{cfg.version} with options {cfg.legacy_options} (the unfused step takes it)")
     if state is None:
-        state = init_model_state(model.cfg, tokens.shape[0], device=tokens.device)
+        state = init_model_state(cfg, tokens.shape[0], device=tokens.device)
+    if not decode_supported(cfg):
+        logits, new = model(tokens[:, None], state, reference=reference, t1_step=False)
+        if out is None:
+            return logits[:, 0], new
+        for key, value in out.items():
+            value.copy_(new[key])
+        return logits[:, 0], out
     if out is None:
         out = {key: torch.empty_like(value) for key, value in state.items()}
+    if cfg.version < 5:
+        from rwkv_lm_ext_tpu_torch.models.rwkv4 import rwkv4_step
+
+        return rwkv4_step(model, tokens, state, out, ops)
     x = model.embed(tokens[:, None])                              # (B, 1, C)
     for i, block in enumerate(model.blocks):
         x = block.step(x, state, out, i, ops, fused_prep)

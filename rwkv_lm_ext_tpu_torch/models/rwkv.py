@@ -1,4 +1,4 @@
-"""RWKV-6 forward pass as PyTorch modules.
+"""RWKV-6, RWKV-5.x and RWKV-4 forward passes as PyTorch modules.
 
 Counterpart of rwkv_lm_ext_tpu/models/rwkv.py: ``Linear`` is ``proj`` for
 dense weights (:188-216), ``ln*`` modules are ``layer_norm`` (:218), the
@@ -23,6 +23,26 @@ swaps K1 for the decode kernel B.9, as ``rwkv_forward`` routes them
 ``ChannelMix.step_fused`` (kernels B.10-B.12). On CPU tensors every kernel wrapper runs its plain version.
 ``reference=True`` runs the plain versions on any device: it is the on-card
 reference that the kernels are checked against, not a serving path.
+
+Other families and options (``RWKV`` dispatches on ``cfg.version`` as
+``rwkv_forward`` does, :759-765). RWKV-5.x: ``TimeMixV5`` is ``time_mix_v5``
+(:496-572), fed ln1's output by K3, its static lerps, projections and K1 with
+the constant decay broadcast over (B, T) and a ones gate where the block has
+none (v5.0); its T=1 step swaps K1 for B.9. RWKV-4: ``models/rwkv4.py``
+(``TimeMixV4`` and the forward and step around the ``wkv4`` kernel B.14). Both
+use ``ChannelMixLegacy``, ``channel_mix(v6=False)`` (:575-594). The legacy
+RWKV-LM options are plain torch ops, as in the JAX package: ``MishGLU``
+(:597-611, ``ffn_type="mishglu"``), tiny attention (:614-627, after the
+channel mix of layer ``tiny_att_layer`` over the call's embeddings),
+``pre_ffn`` (layer 0's attention replaced by the channel mix ``ffnPre``,
+which reuses the att shift slot, :675-679), ``my_pos_emb`` (added after ln0,
+:661-668) and ``head_qk`` (the copy mechanism on the logits, :866-874).
+Their weights take the reference's keys (``blocks.{i}.tiny_q.weight``,
+``blocks.0.pos_emb_x``, ``blocks.0.ffnPre.*``, ``blocks.{i}.ffn.aa.weight``,
+``head_q.weight``, ...); under ``pre_ffn`` layer 0 has no ``att``, as in the
+reference. Tiny attention, ``head_qk`` and ``my_pos_emb`` see only the tokens
+of the call, so their answers depend on how a prompt is cut into calls
+(ROADMAP C.21): the serving entry points refuse them.
 
 Precision: weights and activations in cfg.dtype; LayerNorm/GroupNorm
 statistics, the WKV state and the decay low-rank in fp32. The parameters
@@ -67,6 +87,7 @@ from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
 )
 from rwkv_lm_ext_tpu_torch.ops.ln import layer_norm, layer_norm_plain
 from rwkv_lm_ext_tpu_torch.ops.quant import quantize_rows, quantize_rows_plain
+from rwkv_lm_ext_tpu_torch.ops.wkv4 import wkv4, wkv4_plain
 from rwkv_lm_ext_tpu_torch.ops.wkv_decode import (
     wkv6_decode_step,
     wkv6_decode_step_plain,
@@ -87,16 +108,17 @@ class Ops(NamedTuple):
     att_prep: object
     ffn_prep: object
     ffn_block: object
+    wkv4: object
 
 
 KERNEL_OPS = Ops(
     layer_norm, tmix_prologue, wkv6_fused_output, wkv6_decode_step, quantize_rows,
-    att_prep_fused, ffn_prep_fused, ffn_block_fused,
+    att_prep_fused, ffn_prep_fused, ffn_block_fused, wkv4,
 )
 PLAIN_OPS = Ops(
     layer_norm_plain, tmix_prologue_plain, wkv6_fused_output_plain,
     wkv6_decode_step_plain, quantize_rows_plain,
-    att_prep_plain, ffn_prep_plain, ffn_block_plain,
+    att_prep_plain, ffn_prep_plain, ffn_block_plain, wkv4_plain,
 )
 
 LayerState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -334,8 +356,151 @@ class ChannelMix(nn.Module):
         return x + torch.sigmoid(self.receptance(xr, ops)) * kv, xn
 
 
+def _prev(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """The previous-token stream [shift, x[0], ..., x[T-2]] (``_token_shift``)."""
+    return torch.cat([shift.to(x.dtype)[:, None], x[:, :-1]], dim=1)
+
+
+def _lerp(x: torch.Tensor, prev: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
+    """The static token mix of RWKV-4/5: x * mix + prev * (1 - mix)."""
+    m = mix.to(x.dtype)
+    return x * m + prev * (1 - m)
+
+
+class TimeMixV5(nn.Module):
+    """blocks.{i}.att of RWKV-5.x (``time_mix_v5``), fed ln1's output. v5.0
+    has no gate (K1 and B.9 get ones); ``time_decay`` is (H, N), the per-head
+    (H,) decay of a v5.0/5.1 checkpoint broadcast when it is loaded
+    (checkpoint.convert.load_state_dict_into), as the JAX converter does."""
+
+    def __init__(self, cfg, **kw):
+        super().__init__()
+        C, A = cfg.n_embd, cfg.dim_att
+        H, N = cfg.n_head, cfg.head_size
+        self.cfg = cfg
+        has_gate = cfg.version >= 5.1
+        for name in ("k", "v", "r", "g") if has_gate else ("k", "v", "r"):
+            setattr(self, f"time_mix_{name}", _param(1, 1, C, **kw))
+        self.time_decay = _param(H, N, **kw)
+        self.time_faaaa = _param(H, N, **kw)
+        self.receptance = Linear(C, A, **kw)
+        self.key = Linear(C, A, **kw)
+        self.value = Linear(C, A, **kw)
+        self.gate = Linear(C, A, **kw) if has_gate else None
+        self.output = Linear(A, C, **kw)
+        self.ln_x = Norm(A, **kw)
+
+    def _mix(self, x: torch.Tensor, att_shift: torch.Tensor, ops: Ops):
+        """r, k, v and the gate (silu, or ones without one), (B, T, A) in
+        x's dtype."""
+        prev = _prev(x, att_shift)
+        r = self.receptance(_lerp(x, prev, self.time_mix_r), ops)
+        k = self.key(_lerp(x, prev, self.time_mix_k), ops)
+        v = self.value(_lerp(x, prev, self.time_mix_v), ops)
+        if self.gate is None:
+            g = torch.ones_like(r)
+        else:
+            g = F.silu(self.gate(_lerp(x, prev, self.time_mix_g), ops))
+        return r, k, v, g
+
+    def forward(
+        self, x: torch.Tensor, att_shift: torch.Tensor, wkv_state: torch.Tensor, ops: Ops,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """x: (B, T, C), ln1's output; att_shift (B, C) fp32; wkv_state (B, H,
+        N, N) fp32. K1 runs with the decay broadcast to (B, T, H, N) and
+        ``cfg.ln_x_eps`` on the raw y: GroupNorm(y / d, 1e-5) is GroupNorm(y,
+        d^2 1e-5), the identity the JAX package's Pallas branch relies on
+        (rwkv.py:535-536). Returns (out, new att_shift, new wkv_state)."""
+        B, T, _ = x.shape
+        H, N = self.cfg.n_head, self.cfg.head_size
+        heads = (B, T, H, N)
+        r, k, v, g = self._mix(x, att_shift, ops)
+        w = self.time_decay.float().reshape(1, 1, H, N).expand(heads)
+        gated, new_wkv = ops.wkv6_fused_output(
+            r.view(heads), k.view(heads), v.view(heads), w, self.time_faaaa, g.view(heads),
+            self.ln_x.weight, self.ln_x.bias, wkv_state, eps=self.cfg.ln_x_eps,
+        )
+        return self.output(gated, ops), x[:, -1].float(), new_wkv
+
+    def step(
+        self, x: torch.Tensor, att_shift: torch.Tensor, wkv_state: torch.Tensor,
+        out_wkv: torch.Tensor, ops: Ops,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One token: x (B, 1, C), ln1's output. B.9 takes K1's place with the
+        decay broadcast to (B, A) and writes the new state into ``out_wkv``
+        (which may be ``wkv_state``). Returns (out (B, 1, C), new att_shift)."""
+        B = x.shape[0]
+        r, k, v, g = self._mix(x, att_shift, ops)
+        w = self.time_decay.float().reshape(1, -1).expand(B, -1).contiguous()
+        gated, _ = ops.wkv6_decode_step(
+            r.view(B, -1), k.view(B, -1), v.view(B, -1), w, g.view(B, -1), self.time_faaaa,
+            self.ln_x.weight, self.ln_x.bias, wkv_state, eps=self.cfg.ln_x_eps,
+            out_state=out_wkv,
+        )
+        return self.output(gated.view(B, 1, -1), ops), x[:, -1].float()
+
+
+class ChannelMixLegacy(nn.Module):
+    """blocks.{i}.ffn of RWKV-4/5 (and ``ffnPre``): the channel mix with
+    static lerps, ``channel_mix(v6=False)``."""
+
+    def __init__(self, cfg, **kw):
+        super().__init__()
+        C, F_ = cfg.n_embd, cfg.dim_ffn
+        self.time_mix_k = _param(1, 1, C, **kw)
+        self.time_mix_r = _param(1, 1, C, **kw)
+        self.key = Linear(C, F_, **kw)
+        self.receptance = Linear(C, C, **kw)
+        self.value = Linear(F_, C, **kw)
+
+    def forward(
+        self, x: torch.Tensor, ffn_shift: torch.Tensor, ops: Ops
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: (B, T, C), a LayerNorm's output. Returns (out, new shift)."""
+        prev = _prev(x, ffn_shift)
+        kv = self.value(torch.relu(self.key(_lerp(x, prev, self.time_mix_k), ops)) ** 2, ops)
+        r = torch.sigmoid(self.receptance(_lerp(x, prev, self.time_mix_r), ops))
+        return r * kv, x[:, -1].float()
+
+
+class MishGLU(nn.Module):
+    """blocks.{i}.ffn with ``ffn_type="mishglu"`` (``mish_glu``):
+    value(aa(xa) * mish(bb(xb))) with static lerps."""
+
+    def __init__(self, cfg, **kw):
+        super().__init__()
+        C, F_ = cfg.n_embd, cfg.dim_ffn
+        self.time_mix_k = _param(1, 1, C, **kw)
+        self.time_mix_r = _param(1, 1, C, **kw)
+        self.aa = Linear(C, F_, **kw)
+        self.bb = Linear(C, F_, **kw)
+        self.value = Linear(F_, C, **kw)
+
+    def forward(
+        self, x: torch.Tensor, ffn_shift: torch.Tensor, ops: Ops
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        prev = _prev(x, ffn_shift)
+        a = self.aa(_lerp(x, prev, self.time_mix_k), ops)
+        b = self.bb(_lerp(x, prev, self.time_mix_r), ops)
+        return self.value(a * (b * torch.tanh(F.softplus(b))), ops), x[:, -1].float()
+
+
+def tiny_attention(block, x: torch.Tensor, x_emb: torch.Tensor, ops: Ops) -> torch.Tensor:
+    """``tiny_attention`` on a block's ``tiny_ln``, ``tiny_q``, ``tiny_k`` and
+    ``tiny_v`` (the reference's keys): a causal, unnormalised q k^T over the
+    call's tokens on a small width, applied to the call's embeddings."""
+    T = x.shape[1]
+    xx = ops.layer_norm(x, block.tiny_ln.weight, block.tiny_ln.bias)
+    c = (block.tiny_q(xx, ops) @ block.tiny_k(xx, ops).transpose(1, 2)) * (
+        block.tiny_q.weight.shape[0] ** -0.5)
+    causal = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+    return c.masked_fill(~causal, 0.0) @ block.tiny_v(x_emb, ops)
+
+
 class Block(nn.Module):
-    """blocks.{i}: ln0 (layer 0) -> time mix -> ln2 -> channel mix."""
+    """blocks.{i}: ln0 (layer 0) -> time mix -> ln2 -> channel mix, with the
+    legacy options of ``block_forward`` (:635-725) on RWKV-5/6. The RWKV-4
+    block's forward is models.rwkv4's."""
 
     def __init__(self, cfg, layer_id: int, **kw):
         super().__init__()
@@ -343,23 +508,60 @@ class Block(nn.Module):
         self.ln0 = Norm(C, **kw) if layer_id == 0 else None
         self.ln1 = Norm(C, **kw)
         self.ln2 = Norm(C, **kw)
-        self.att = TimeMix(cfg, **kw)
-        self.ffn = ChannelMix(cfg, **kw)
+        legacy = cfg.version < 6
+        if cfg.version < 5:
+            from rwkv_lm_ext_tpu_torch.models.rwkv4 import TimeMixV4
+
+            self.att, self.ffn = TimeMixV4(cfg, **kw), ChannelMixLegacy(cfg, **kw)
+            return
+        pre_ffn = layer_id == 0 and cfg.pre_ffn > 0
+        if pre_ffn:
+            self.ffnPre = ChannelMixLegacy(cfg, **kw)
+            self.att = None
+        else:
+            self.att = (TimeMixV5 if legacy else TimeMix)(cfg, **kw)
+        if cfg.ffn_type == "mishglu":
+            self.ffn = MishGLU(cfg, **kw)
+        else:
+            self.ffn = (ChannelMixLegacy if legacy else ChannelMix)(cfg, **kw)
+        if layer_id == 0 and cfg.my_pos_emb > 0:
+            P = cfg.my_pos_emb
+            self.pos_emb_x = _param(1, P, C, **kw)
+            self.pos_emb_y = _param(P, 1, C, **kw)
+        if cfg.tiny_att_dim > 0 and layer_id == cfg.tiny_att_layer:
+            self.tiny_ln = Norm(C, **kw)
+            self.tiny_q = Linear(C, cfg.tiny_att_dim, **kw)
+            self.tiny_k = Linear(C, cfg.tiny_att_dim, **kw)
+            self.tiny_v = Linear(C, C, **kw)
 
     def forward(
         self, x: torch.Tensor, layer_state: LayerState, ops: Ops,
-        use_state_params: bool = False,
+        use_state_params: bool = False, x_emb: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, LayerState]:
+        """x_emb: the call's embeddings, which tiny attention reads."""
         att_shift, wkv_state, ffn_shift = layer_state
         if self.ln0 is not None:
             x = ops.layer_norm(x, self.ln0.weight, self.ln0.bias)
-        att_out, att_shift, wkv_state = self.att(
-            x, self.ln1, att_shift, wkv_state, ops, use_state_params)
+            if hasattr(self, "pos_emb_x"):
+                pe = (self.pos_emb_x + self.pos_emb_y).reshape(-1, x.shape[-1])[:x.shape[1]]
+                x = x + pe[None].to(x.dtype)
+        if self.att is None:
+            att_out, att_shift = self.ffnPre(
+                ops.layer_norm(x, self.ln1.weight, self.ln1.bias), att_shift, ops)
+        elif isinstance(self.att, TimeMixV5):
+            att_out, att_shift, wkv_state = self.att(
+                ops.layer_norm(x, self.ln1.weight, self.ln1.bias), att_shift, wkv_state, ops)
+        else:
+            att_out, att_shift, wkv_state = self.att(
+                x, self.ln1, att_shift, wkv_state, ops, use_state_params)
         x = x + att_out
         ffn_out, ffn_shift = self.ffn(
             ops.layer_norm(x, self.ln2.weight, self.ln2.bias), ffn_shift, ops
         )
-        return x + ffn_out, (att_shift, wkv_state, ffn_shift)
+        x = x + ffn_out
+        if hasattr(self, "tiny_q") and x_emb is not None:
+            x = x + tiny_attention(self, x, x_emb, ops)
+        return x, (att_shift, wkv_state, ffn_shift)
 
     def step(
         self, x: torch.Tensor, state: ModelState, out: ModelState, i: int, ops: Ops,
@@ -369,7 +571,9 @@ class Block(nn.Module):
         ``state`` and writes layer i of ``out``, which may be ``state``
         itself (each slice is read before it is written, in stream order).
         ``fused_prep`` takes the fused decode glue (``step_fused`` of the two
-        mixes) in place of K2, K3 and the plain channel mix."""
+        mixes) in place of K2, K3 and the plain channel mix (RWKV-6 only:
+        models.decode refuses it for another model). A v5 block runs ln1 in
+        K3 and its time mix's step (B.9)."""
         if self.ln0 is not None:
             x = ops.layer_norm(x, self.ln0.weight, self.ln0.bias)
         if fused_prep:
@@ -381,9 +585,14 @@ class Block(nn.Module):
             out["att_shift"][i].copy_(att_shift)
             out["ffn_shift"][i].copy_(ffn_shift)
             return x[:, None]
-        att_out, att_shift = self.att.step(
-            x, self.ln1, state["att_shift"][i], state["wkv"][i], out["wkv"][i], ops
-        )
+        if isinstance(self.att, TimeMixV5):
+            att_out, att_shift = self.att.step(
+                ops.layer_norm(x, self.ln1.weight, self.ln1.bias), state["att_shift"][i],
+                state["wkv"][i], out["wkv"][i], ops)
+        else:
+            att_out, att_shift = self.att.step(
+                x, self.ln1, state["att_shift"][i], state["wkv"][i], out["wkv"][i], ops
+            )
         x = x + att_out
         ffn_out, ffn_shift = self.ffn(
             ops.layer_norm(x, self.ln2.weight, self.ln2.bias), state["ffn_shift"][i], ops
@@ -394,7 +603,8 @@ class Block(nn.Module):
 
 
 class RWKV(nn.Module):
-    """Full RWKV-6 model: emb -> blocks -> ln_out -> head.
+    """Full RWKV-4/5/6 model: emb -> blocks -> ln_out -> head (and the
+    ``head_qk`` copy mechanism where the config asks for it).
 
     Built with uninitialised parameters in cfg.param_dtype on `device`; fill them
     with checkpoint.convert.load_state_dict_into (from a checkpoint or from
@@ -402,10 +612,6 @@ class RWKV(nn.Module):
 
     def __init__(self, cfg, *, device):
         super().__init__()
-        if cfg.version < 6:
-            raise NotImplementedError(
-                f"the port runs RWKV-6 only so far (checkpoint is v{cfg.version})"
-            )
         # the fp32 decay low-rank must not run in TF32
         torch.backends.cuda.matmul.allow_tf32 = False
         kw = dict(device=device, dtype=cfg.params_dtype)
@@ -415,6 +621,9 @@ class RWKV(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg, i, **kw) for i in range(cfg.n_layer))
         self.ln_out = Norm(cfg.n_embd, **kw)
         self.head = Linear(cfg.n_embd, cfg.vocab_size, **kw)
+        if cfg.head_qk > 0 and cfg.version >= 5:
+            self.head_q = Linear(cfg.n_embd, cfg.head_qk, **kw)
+            self.head_k = Linear(cfg.n_embd, cfg.head_qk, **kw)
         # the RetroMAE trainer's one-layer decoder
         # (models.bidirectional.OneLayerDecoder), attached after loading
         self.register_module("onelayer_decoder", None)
@@ -457,7 +666,9 @@ class RWKV(nn.Module):
         as it was. ``remat`` (a utils.remat spec: off, on or a policy name)
         checkpoints each block while grad mode is on;
         ``use_state_params`` (see the module docstring) replaces the WKV part
-        of ``state``."""
+        of ``state``. An RWKV-4 model (models.rwkv4) returns fp32 logits and
+        takes neither ``return_hidden`` nor ``use_state_params``, as the JAX
+        package asserts (rwkv.py:764)."""
         from rwkv_lm_ext_tpu_torch.models.decode import decode_supported, rwkv_decode_step
 
         if (t1_step and tokens.shape[1] == 1 and return_logits and not return_hidden
@@ -465,14 +676,22 @@ class RWKV(nn.Module):
             logits, new_state = rwkv_decode_step(self, tokens[:, 0], state, reference=reference)
             return logits[:, None], new_state
         ops = PLAIN_OPS if reference else KERNEL_OPS
+        if self.cfg.version < 5:
+            from rwkv_lm_ext_tpu_torch.models.rwkv4 import rwkv4_forward
+
+            if return_hidden or not return_logits or use_state_params:
+                raise ValueError("an RWKV-4 model returns logits only: return_hidden and "
+                                 "use_state_params are RWKV-5/6 features")
+            return rwkv4_forward(self, tokens, state, ops)
         B = tokens.shape[0]
         if state is None:
             state = init_model_state(self.cfg, B, device=tokens.device)
         x = self.embed(tokens)
+        x_emb = x if self.cfg.tiny_att_dim > 0 else None
         new_state = {key: [] for key in ("att_shift", "wkv", "ffn_shift")}
         for i, block in enumerate(self.blocks):
             ls = (state["att_shift"][i], state["wkv"][i], state["ffn_shift"][i])
-            x, ls = remat_call(block, x, ls, ops, use_state_params, remat=remat)
+            x, ls = remat_call(block, x, ls, ops, use_state_params, x_emb, remat=remat)
             for key, value in zip(new_state, ls):
                 new_state[key].append(value)
         new_state = {key: torch.stack(vs) for key, vs in new_state.items()}
@@ -480,6 +699,18 @@ class RWKV(nn.Module):
         if return_hidden and not return_logits:
             return x, new_state
         logits = self.head(x, ops)
+        if hasattr(self, "head_q"):
+            logits = self._copy_logits(logits, x, tokens, ops)
         if return_hidden:
             return (logits, x), new_state
         return logits, new_state
+
+    def _copy_logits(self, logits, x, tokens, ops) -> torch.Tensor:
+        """The copy mechanism (:866-874): a causal q k^T over the call's
+        hidden states, scaled by 1 / head_qk, added to the logits of each
+        earlier input token."""
+        T = tokens.shape[1]
+        c = (self.head_q(x, ops) @ self.head_k(x, ops).transpose(1, 2)) * (1.0 / self.cfg.head_qk)
+        causal = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+        c = c.masked_fill(~causal, 0.0).to(logits.dtype)
+        return logits.scatter_add(2, tokens[:, None, :].expand(-1, T, -1), c)

@@ -10,6 +10,13 @@ dict of stacked fp32 tensors with a leading layer axis:
     wkv:       (L, B, H, N, N)  WKV state in (K, V) layout
     ffn_shift: (L, B, C)        last ln2 output row fed to each channel mix
 
+An RWKV-4 model's state (rwkv_lm_ext_tpu/models/rwkv4.py:35-44) has no
+``wkv``; its WKV state is the log-space triple, each (L, B, C) fp32:
+
+    att_shift, aa, bb, pp (starts at -1e38), ffn_shift
+
+The functions below that walk the state's keys work on either layout.
+
 The JAX package keeps ``wkv`` tile-packed as (L, B, H, N*N/128, 128), a
 workaround for the TPU's 128-lane tiles; the port keeps it logical. The two
 numpy helpers below convert a JAX state to the port's layout and back, the
@@ -22,16 +29,28 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from rwkv_lm_ext_tpu_torch.ops.wkv4 import PP_START
+
 ModelState = Dict[str, torch.Tensor]
+
+V4_STATE_KEYS = ("att_shift", "aa", "bb", "pp", "ffn_shift")
 
 
 def init_model_state(cfg, batch_size: int, *, device,
                      wkv_init: Optional[torch.Tensor] = None) -> ModelState:
-    """Zero state; ``wkv_init`` ((L, H, N, N) shared by every row, or (L, B,
-    H, N, N)) sets the WKV part: the initial state of named-states serving."""
+    """Zero state (pp at -1e38 for RWKV-4); ``wkv_init`` ((L, H, N, N) shared
+    by every row, or (L, B, H, N, N)) sets the WKV part: the initial state of
+    named-states serving, which RWKV-4 has not."""
     L, B, C = cfg.n_layer, batch_size, cfg.n_embd
     H, N = cfg.n_head, cfg.head_size
     f32 = dict(dtype=torch.float32, device=device)
+    if cfg.version < 5:
+        if wkv_init is not None:
+            raise ValueError("an RWKV-4 model has no (H, N, N) WKV state to initialise: "
+                             "named states are RWKV-5/6 only")
+        state = {key: torch.zeros(L, B, C, **f32) for key in V4_STATE_KEYS}
+        state["pp"].fill_(PP_START)
+        return state
     if wkv_init is None:
         wkv = torch.zeros(L, B, H, N, N, **f32)
     else:
@@ -65,8 +84,11 @@ def scatter_rows(state: ModelState, rows: torch.Tensor, src: ModelState) -> None
 
 
 def state_from_jax(state: Dict[str, np.ndarray], head_size: int) -> Dict[str, np.ndarray]:
-    """JAX model state (packed or logical ``wkv``) -> the logical layout."""
+    """JAX model state (packed or logical ``wkv``) -> the logical layout; an
+    RWKV-4 state (no ``wkv``) is the same in both."""
     out = {k: np.asarray(v, np.float32) for k, v in state.items()}
+    if "wkv" not in out:
+        return out
     wkv = out["wkv"]
     out["wkv"] = wkv.reshape(wkv.shape[:3] + (head_size, head_size))
     return out
@@ -76,6 +98,8 @@ def state_to_jax(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """Logical state -> the JAX package's canonical layout (``wkv`` packed
     to (..., N*N/128, 128) where N*N is a multiple of 128)."""
     out = {k: np.asarray(v, np.float32) for k, v in state.items()}
+    if "wkv" not in out:
+        return out
     n = out["wkv"].shape[-1]
     if (n * n) % 128 == 0:
         out["wkv"] = out["wkv"].reshape(out["wkv"].shape[:3] + ((n * n) // 128, 128))

@@ -37,8 +37,18 @@ says (as the JAX CLI merges them into its base before quantizing the
 generation weights); the reranker's ``score.weight`` comes from the adapter
 file or from ``--cross-head``, and without one the command refuses to
 start. ``--platform`` is the torch device: ``cuda`` by default, ``cpu`` only
-when asked. ``--draft`` (speculative decoding), ``--tp``, ``--tokenizer-json``
-and multi-host serving wait for later slices.
+when asked. ``--draft`` (speculative decoding), ``--tp`` and multi-host
+serving wait for later slices.
+
+``--model`` takes RWKV-6, RWKV-5.x (5.0, 5.1, 5.2) and RWKV-4 checkpoints.
+``--tokenizer-json`` reads an HF tokenizer.json in place of the world
+vocabulary: RWKV-4 Pile and Raven pair with the GPT-NeoX
+``20B_tokenizer.json`` (RWKV-4-World with the world vocabulary). An RWKV-4
+model serves /generate only: it gives no hidden states, so ``--bi-adapter``,
+``--cross-adapter`` and ``--states-config`` refuse it by name (the JAX CLI
+builds them and stops at an assertion of rwkv_forward or of init_model_state
+when they are used). A model with ``head_qk``, ``tiny_att_dim`` or
+``my_pos_emb`` is refused by name (ROADMAP C.21).
 """
 from __future__ import annotations
 
@@ -57,13 +67,15 @@ from rwkv_lm_ext_tpu_torch.adapters.lora import (
 from rwkv_lm_ext_tpu_torch.adapters.quant import MODES, quantize_model
 from rwkv_lm_ext_tpu_torch.adapters.slot_lora import build_slot_lora
 from rwkv_lm_ext_tpu_torch.checkpoint.convert import (
+    checkpoint_config,
     load_rwkv_checkpoint,
     score_head_from_state_dict,
 )
 from rwkv_lm_ext_tpu_torch.data.tokenizer import WorldTokenizer
+from rwkv_lm_ext_tpu_torch.data.tokenizer_json import JsonTokenizer
 from rwkv_lm_ext_tpu_torch.infer.continuous import ContinuousBatcher
 from rwkv_lm_ext_tpu_torch.infer.encoders import BiEncoder, CrossEncoder
-from rwkv_lm_ext_tpu_torch.infer.engine import GenerationEngine
+from rwkv_lm_ext_tpu_torch.infer.engine import GenerationEngine, refuse_chunk_dependent
 from rwkv_lm_ext_tpu_torch.infer.state_cache import PrefixStateCache
 from rwkv_lm_ext_tpu_torch.infer.states_registry import StatesRegistry
 from rwkv_lm_ext_tpu_torch.serve.api import ServingService, serve_http
@@ -74,10 +86,13 @@ def parse_args(argv=None) -> argparse.Namespace:
         prog="rwkv_lm_ext_tpu_torch.serve.cli", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
-    p.add_argument("--model", default=None, help="RWKV-6 .pth for generation")
+    p.add_argument("--model", default=None, help="RWKV-4/5/6 .pth for generation")
     p.add_argument("--encoder", default=None,
                    help="bidirectional encoder .pth for /fill_mask")
     p.add_argument("--vocab", default=None, help="world-vocabulary path")
+    p.add_argument("--tokenizer-json", default=None,
+                   help="HF tokenizer.json instead of the world vocabulary (e.g. "
+                        "20B_tokenizer.json for RWKV-4 Pile / Raven)")
     p.add_argument("--dtype", default=None, help="compute dtype override (e.g. float32)")
     p.add_argument("--quant", default=None, choices=MODES,
                    help="quantize the generation base's block projections")
@@ -124,11 +139,20 @@ def build_service(args: argparse.Namespace) -> ServingService:
         raise SystemExit("need --model and/or --encoder")
     overrides = {"dtype": args.dtype} if args.dtype else {}
     device = torch.device(args.platform)
-    tok = WorldTokenizer(args.vocab)
+    tok = JsonTokenizer(args.tokenizer_json) if args.tokenizer_json else WorldTokenizer(args.vocab)
     engine = encoder = batcher = states = bi = cross = None
     if (args.bi_adapter or args.cross_adapter) and not args.model:
         raise SystemExit("--bi-adapter and --cross-adapter need --model")
     if args.model:
+        cfg = _config(args.model, overrides)
+        try:
+            refuse_chunk_dependent(cfg, "serve.cli")
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+        if cfg.version < 5 and (args.bi_adapter or args.cross_adapter or args.states_config):
+            raise SystemExit(
+                "--bi-adapter, --cross-adapter and --states-config need an RWKV-5/6 model: this "
+                "checkpoint is RWKV-4, which gives logits only and has no (H, N, N) WKV state")
         lc = LoraConfig(r=args.lora_r, alpha=args.lora_alpha)
 
         def merged(path):
@@ -188,6 +212,16 @@ def build_service(args: argparse.Namespace) -> ServingService:
         encoder, _ = load_rwkv_checkpoint(args.encoder, device=device, **overrides)
     return ServingService(engine=engine, bi_encoder=bi, cross_encoder=cross, encoder=encoder,
                           tokenizer=tok, batcher=batcher, states_registry=states)
+
+
+def _config(path: str, overrides: dict):
+    """The checkpoint's config, read without loading its tensors where the
+    file allows a memory map (files that torch.save wrote)."""
+    try:
+        sd = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    except RuntimeError:
+        sd = _load(path)
+    return checkpoint_config(sd, **overrides)
 
 
 def _load(path: str) -> dict:

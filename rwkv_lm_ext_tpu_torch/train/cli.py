@@ -45,6 +45,11 @@ Refused, by argparse (exit 2), and why:
 - ``simcse --dropout-noise`` (by name: the model has no dropout yet,
   ROADMAP A.11).
 
+Refused at load (exit 1, by name), until the next training slice holds them
+against the JAX package (ROADMAP A.11): an RWKV-4 or RWKV-5.x checkpoint, a
+model with a legacy option (tiny attention, head_qk, pre_ffn, my_pos_emb,
+MishGLU) and dropout above 0.
+
 Usage:
   python -m rwkv_lm_ext_tpu_torch.train.cli sft --model base.pth \\
       --train-data data.jsonl --output-dir out --train-type lora [--quant nf4]
@@ -342,11 +347,28 @@ def _train_config(args, batches) -> TrainConfig:
     )
 
 
+def _load_checkpoint(path: str, **kw):
+    """``load_rwkv_checkpoint``, refusing by name what the trainers have not
+    been held against the JAX package on yet: RWKV-4 and RWKV-5.x models, the
+    legacy options and dropout (the next training slice, ROADMAP A.11)."""
+    model, cfg = load_rwkv_checkpoint(path, **kw)
+    if cfg.version < 6:
+        raise SystemExit(f"training an RWKV-{cfg.version:g} model is not ported yet (the "
+                         "trainers run RWKV-6; RWKV-4 and 5.x are served only)")
+    if cfg.legacy_options:
+        raise SystemExit(f"training a model with {', '.join(cfg.legacy_options)} is not ported "
+                         "yet")
+    if cfg.dropout > 0:
+        raise SystemExit(f"training with dropout {cfg.dropout} is not ported yet: the port's "
+                         "forward has no dropout")
+    return model, cfg
+
+
 def _full_model(args):
     """(device, model, cfg) for a command that trains every parameter: fp32
     master weights, cast to the compute dtype at each use."""
     device = torch.device(args.platform)
-    model, cfg = load_rwkv_checkpoint(args.model, device=device, param_dtype="float32")
+    model, cfg = _load_checkpoint(args.model, device=device, param_dtype="float32")
     return device, model, cfg
 
 
@@ -365,7 +387,7 @@ def _lora_model(args):
     """(device, model, cfg, lc) with a fresh LoRA adapter (seed --seed)
     applied; only the adapter trains."""
     device = torch.device(args.platform)
-    model, cfg = load_rwkv_checkpoint(args.model, device=device)
+    model, cfg = _load_checkpoint(args.model, device=device)
     lc = LoraConfig(r=args.lora_r, alpha=args.lora_alpha)
     apply_lora(model, lc, init_lora_params(model, lc, torch.Generator(device).manual_seed(args.seed)))
     apply_trainable_mask(model, trainable_mask(model, "lora"))
@@ -382,14 +404,14 @@ def _lora_sft(args, device, lc):
     if lc.pissa:
         # the SVD of the checkpoint's values, the fp32 residual kept as JAX
         # keeps it, cast at every use
-        model, _ = load_rwkv_checkpoint(args.model, device=device, param_dtype="float32")
+        model, _ = _load_checkpoint(args.model, device=device, param_dtype="float32")
         adapter, _ = pissa_init(model, lc, gen)
         os.makedirs(args.output_dir, exist_ok=True)
         torch.save(adapter_state_dict(adapter), os.path.join(args.output_dir, "init_pissa.pth"))
         if quant:
             quantize_model(model, quant)
     else:
-        model, _ = load_rwkv_checkpoint(args.model, device=device, quant=quant)
+        model, _ = _load_checkpoint(args.model, device=device, quant=quant)
         adapter = init_lora_params(model, lc, gen)
     if args.peft_checkpoint:
         loaded = torch.load(args.peft_checkpoint, map_location=device, weights_only=True)
@@ -424,7 +446,7 @@ def cmd_sft(args) -> None:
     out = args.output_dir
     if args.train_type == "full":
         # every parameter over fp32 masters; TBPTT when --chunk-ctx
-        model, cfg = load_rwkv_checkpoint(args.model, device=device, param_dtype="float32")
+        model, cfg = _load_checkpoint(args.model, device=device, param_dtype="float32")
         apply_trainable_mask(model, trainable_mask(model, "full"))
         step_fn = make_train_step(model, tc)
         if args.lisa_k > 0:
@@ -447,7 +469,7 @@ def cmd_sft(args) -> None:
         # rows of the stacks (adapters.slot_lora)
         lc = LoraConfig(r=args.lora_r, alpha=args.lora_alpha)
         quant = None if args.quant == "none" else args.quant
-        model, _ = load_rwkv_checkpoint(args.model, device=device, quant=quant)
+        model, _ = _load_checkpoint(args.model, device=device, quant=quant)
         stacks, name_to_id = init_slot_stacks(model, lc, task_names,
                                               torch.Generator(device).manual_seed(args.seed))
         apply_slot_stacks(model, stacks, torch.zeros(1, dtype=torch.int64, device=device), lc)
@@ -460,7 +482,7 @@ def cmd_sft(args) -> None:
             for name, adapter in split_slot_stacks(slot_stacks(model), name_to_id).items():
                 torch.save(adapter_state_dict(adapter), os.path.join(out, f"lora-{name}-step{step}.pth"))
     else:   # state / states: only the per-layer initial WKV states train
-        model, _ = load_rwkv_checkpoint(args.model, device=device)
+        model, _ = _load_checkpoint(args.model, device=device)
         model.add_state_params()
         loss_fn = functools.partial(sft_loss_fn, remat=remat, use_state_params=True)
 

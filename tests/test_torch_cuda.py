@@ -41,6 +41,15 @@ gradient limit (TBPTT also against the full sequence's loss without
 L2Wrap); the selective remat policies give remat on's gradients bit for
 bit; a 4-bit model's decode blocks capture and equal the eager ones.
 
+RWKV-5.x and RWKV-4: B.14 (wkv4) against wkv4_plain at ragged C, T = 1 to
+130, a fresh state (pp = -1e38) and a carried one, k up to +60, fp32 and bf16
+inputs (y <= 1e-4 / 1e-2 x max|plain|, the state <= 1e-4), in place as well;
+K1 and B.9 on v5's constant decays (per channel and per head, in [-6, 1],
+with a gate and with ones); 2-layer v5.0 / v5.2 / v4 models, kernel route
+against plain route with the launches of a forward and of a step; their
+decode blocks as graph replays bit-equal to the eager blocks (generate and
+the batcher).
+
 B.5 and B.8 have two bodies each since their redesign (tensor cores or
 chunked for bf16, CUDA cores or sequential for fp32 and the shapes the new
 ones do not take): both are held to their plain versions and to each other
@@ -108,6 +117,7 @@ from rwkv_lm_ext_tpu_torch.ops.wkv import (
     wkv_chunked_plain,
     wkv_plain,
 )
+from rwkv_lm_ext_tpu_torch.ops.wkv4 import wkv4, wkv4_plain
 from rwkv_lm_ext_tpu_torch.ops.wkv_decode import (
     b13_grid,
     transpose_state,
@@ -143,7 +153,7 @@ NO_LAUNCH = {"layer_norm": 0, "tmix_prologue": 0, "wkv6_fused_output": 0, "wkv6_
              "quantize_rows": 0, "tmix_prologue_bwd": 0, "wkv6_bwd_forward_pass": 0,
              "wkv6_bwd_reverse_pass": 0, "wkv": 0, "wkv_bwd_state_pass": 0,
              "att_prep_fused": 0, "ffn_prep_fused": 0, "ffn_block_fused": 0,
-             "wkv6_decode_step_transposed": 0}
+             "wkv6_decode_step_transposed": 0, "wkv4": 0}
 
 
 @pytest.fixture
@@ -1795,3 +1805,201 @@ def test_4bit_model_decodes_in_graph_blocks(dev, mode):
     with mock.patch.object(engine_module._Decoder, "_replay", engine_module._Decoder._block):
         eager = GenerationEngine(model, None).generate(prompt, max_tokens=20, sampling=greedy)
     assert len(graphs) == 20 and graphs == eager
+
+
+# -- RWKV-5.x and RWKV-4: B.14, and K1 / B.9 on v5's decays --------------------
+
+def _wkv4_inputs(dev, dtype, B, T, C, seed, carried):
+    rng = np.random.default_rng(seed)
+    k = torch.from_numpy(rng.uniform(-3.0, 60.0, size=(B, T, C)).astype(np.float32)).to(dev, dtype)
+    v = _on(dev, dtype, rng, B, T, C)
+    w = -torch.exp(_on(dev, torch.float32, rng, C))
+    u = _on(dev, torch.float32, rng, C)
+    state = None
+    if carried:
+        state = (_on(dev, torch.float32, rng, B, C), torch.exp(_on(dev, torch.float32, rng, B, C)),
+                 _on(dev, torch.float32, rng, B, C, scale=5.0))
+    return k, v, w, u, state
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,T", [(1, 1), (3, 17), (2, 130)])
+@pytest.mark.parametrize("carried", [False, True])
+def test_wkv4_matches_plain(dev, dtype, B, T, carried):
+    """B.14 at C = 200 (a ragged block of channels), from a fresh state
+    (pp = -1e38) or a carried one, k up to +60."""
+    k, v, w, u, state = _wkv4_inputs(dev, dtype, B, T, 200, seed=T + B, carried=carried)
+    y, st = _counted("wkv4", lambda: wkv4(k, v, w, u, state))
+    y_p, st_p = wkv4_plain(k, v, w, u, state)
+    assert y.dtype == torch.float32 and torch.isfinite(y).all()
+    _close(y, y_p, REL[dtype], "y")
+    for name, a, b in zip(("aa", "bb", "pp"), st, st_p):
+        _close(a, b, 1e-4, name)
+
+
+def test_wkv4_in_place_and_refusals(dev):
+    """out_state=state updates the state in place, bit-equal to a fresh
+    output; two calls are bit-equal; an input that requires grad is refused."""
+    k, v, w, u, state = _wkv4_inputs(dev, torch.bfloat16, 4, 33, 256, seed=1, carried=True)
+    y, fresh = wkv4(k, v, w, u, state)
+    y2, _ = wkv4(k, v, w, u, state)
+    inplace = tuple(s.clone() for s in state)
+    y3, out = wkv4(k, v, w, u, inplace, out_state=inplace)
+    assert all(o is i for o, i in zip(out, inplace))
+    assert torch.equal(y, y2) and torch.equal(y, y3)
+    assert all(torch.equal(a, b) for a, b in zip(out, fresh))
+    with pytest.raises(RuntimeError, match="backward"):
+        wkv4(k.float().requires_grad_(), v, w, u, state)
+
+
+def _v5_decay(dev, rng, H, N, per_head):
+    shape = (H, 1) if per_head else (H, N)
+    return torch.from_numpy(rng.uniform(-6.0, 1.0, size=shape).astype(np.float32)).to(dev).expand(H, N)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("per_head", [False, True])
+@pytest.mark.parametrize("gate", [True, False])
+def test_k1_on_v5_decays_matches_plain(dev, dtype, per_head, gate):
+    """K1 with v5's constant decay broadcast over (B, T) (an expanded w, as
+    TimeMixV5 passes it) and a silu gate or ones (v5.0)."""
+    rng = np.random.default_rng(7)
+    B, T, H, N = 2, 67, 4, 64
+    r, k, v = (_on(dev, dtype, rng, B, T, H, N, scale=0.5) for _ in range(3))
+    w = _v5_decay(dev, rng, H, N, per_head).reshape(1, 1, H, N).expand(B, T, H, N)
+    g = torch.nn.functional.silu(_on(dev, dtype, rng, B, T, H, N)) if gate else torch.ones_like(r)
+    u = _on(dev, torch.float32, rng, H, N, scale=0.5)
+    ln_w, ln_b = _on(dev, torch.float32, rng, H * N, loc=1.0, scale=0.1), _on(dev, torch.float32, rng, H * N, scale=0.1)
+    s0 = _on(dev, torch.float32, rng, B, H, N, N, scale=0.1)
+    out, sT = _counted("wkv6_fused_output", lambda: wkv6_fused_output(
+        r, k, v, w, u, g, ln_w, ln_b, s0, eps=64e-5))
+    out_p, sT_p = wkv6_fused_output_plain(*[t.float() for t in (r, k, v)], w, u, g.float(),
+                                          ln_w, ln_b, s0, eps=64e-5)
+    _close(out, out_p, REL[dtype], "out")
+    _close(sT, sT_p, 1e-4, "state")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("per_head", [False, True])
+@pytest.mark.parametrize("gate", [True, False])
+def test_b9_on_v5_decays_matches_plain(dev, dtype, per_head, gate):
+    """B.9 with v5's decay broadcast to (B, C), a gate or ones, in place."""
+    rng = np.random.default_rng(8)
+    B, H, N = 3, 4, 64
+    C = H * N
+    r, k, v = (_on(dev, dtype, rng, B, C, scale=0.5) for _ in range(3))
+    w = _v5_decay(dev, rng, H, N, per_head).reshape(1, C).expand(B, C).contiguous()
+    g = torch.nn.functional.silu(_on(dev, dtype, rng, B, C)) if gate else torch.ones_like(r)
+    u = _on(dev, torch.float32, rng, H, N, scale=0.5)
+    ln_w, ln_b = _on(dev, torch.float32, rng, C, loc=1.0, scale=0.1), _on(dev, torch.float32, rng, C, scale=0.1)
+    state = _on(dev, torch.float32, rng, B, H, N, N, scale=0.1)
+    out_p, s_p = wkv6_decode_step_plain(*[t.float() for t in (r, k, v)], w, g.float(), u,
+                                        ln_w, ln_b, state.clone(), eps=64e-5)
+    out, s = _counted("wkv6_decode_step", lambda: wkv6_decode_step(
+        r, k, v, w, g, u, ln_w, ln_b, state, eps=64e-5, out_state=state))
+    assert s is state
+    _close(out, out_p, REL[dtype], "out")
+    _close(s, s_p, 1e-4, "state")
+
+
+def _family_model(dev, seed, version, dtype="float32"):
+    """A 2-layer RWKV-5.x or RWKV-4 model (C=256; v5 heads of 64) with the
+    zero-initialised projections filled; v5.0 without a gate."""
+    cfg = ModelConfig(n_layer=2, n_embd=256, vocab_size=1000, version=version, dtype=dtype,
+                      head_size=256 if version < 5 else 64)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sd = init_rwkv_params(cfg, generator=gen, device=dev)
+    for key in [k for k in sd if k.endswith(("att.output.weight", "ffn.value.weight",
+                                              "ffn.receptance.weight"))]:
+        sd[key] = torch.randn(sd[key].shape, generator=gen, device=dev) * 0.5 / sd[key].shape[1] ** 0.5
+    if version == 5.0:
+        sd = {k: v for k, v in sd.items() if not k.endswith(("att.gate.weight", "att.time_mix_g"))}
+    return load_state_dict_into(RWKV(cfg, device=dev), sd), gen
+
+
+FAMILY_WKV = {5.0: "wkv6_fused_output", 5.2: "wkv6_fused_output", 4.0: "wkv4"}
+FAMILY_STEP = {5.0: "wkv6_decode_step", 5.2: "wkv6_decode_step", 4.0: "wkv4"}
+
+
+@pytest.mark.parametrize("version", [5.0, 5.2, 4.0])
+def test_family_model_kernel_route_matches_plain_route(dev, version):
+    """Logits and state of a forward and of an in-place decode step, kernel
+    route against plain route (fp32, 1e-4 x max|plain|), with the launches
+    of each: K3 for ln0, ln1, ln2 and ln_out (6 at 2 layers) and one WKV
+    kernel a layer (K1 / B.9 for v5, B.14 for v4)."""
+    model, gen = _family_model(dev, 50, version)
+    tokens = torch.randint(4, 1000, (3, 45), generator=gen, device=dev)
+    with torch.inference_mode():
+        before = launch_counts()
+        got, got_state = model(tokens)
+        mid = launch_counts()
+        want, want_state = model(tokens, reference=True)
+        assert launch_counts() == mid
+        _close(got, want, 1e-4, "logits")
+        for key in want_state:
+            _close(got_state[key], want_state[key], 1e-4, key)
+        step_tok = tokens[:, 0]
+        p_logits, p_state = rwkv_decode_step(model, step_tok, want_state, reference=True)
+        mid = launch_counts()
+        k_logits, k_state = rwkv_decode_step(model, step_tok, got_state, out=got_state)
+        after = launch_counts()
+    assert {k: mid[k] - before[k] for k in mid} == dict(
+        NO_LAUNCH, layer_norm=6, **{FAMILY_WKV[version]: 2})
+    assert {k: after[k] - mid[k] for k in after} == dict(
+        NO_LAUNCH, layer_norm=6, **{FAMILY_STEP[version]: 2})
+    _close(k_logits, p_logits, 1e-4, "step logits")
+    for key in p_state:
+        _close(k_state[key], p_state[key], 1e-4, key)
+
+
+@pytest.mark.parametrize("version", [5.0, 5.2, 4.0])
+@pytest.mark.parametrize("k", [1, 16])
+def test_family_generate_graph_blocks_are_bit_equal_to_eager(dev, version, k, monkeypatch):
+    """generate on a bf16 v5 / v4 model: graph replays (the aa, bb and pp
+    buffers updated in place at every replay for v4) and eager blocks give
+    the same tokens and final state, greedy and sampled."""
+    from rwkv_lm_ext_tpu_torch.infer.engine import GenerationEngine
+    from rwkv_lm_ext_tpu_torch.infer.sampling import SamplingParams
+
+    model, _ = _family_model(dev, 51, version, dtype="bfloat16")
+    eng = GenerationEngine(model)
+    prompt, n = [5, 9, 23, 411, 7], 2 * k + 3
+    cases = [SamplingParams(**GRAPH_GREEDY, token_stop=()),
+             SamplingParams(temperature=1.0, top_p=0.9, token_stop=())]
+    graph = [eng.generate(prompt, max_tokens=n, sampling=sp, block_size=k, seed=3,
+                          return_state=True) for sp in cases]
+    assert all(d.graphs for d in eng._decoders.values())
+    _eager_blocks(monkeypatch)
+    for sp, (toks, state) in zip(cases, graph):
+        e_toks, e_state = eng.generate(prompt, max_tokens=n, sampling=sp, block_size=k, seed=3,
+                                       return_state=True)
+        assert toks == e_toks and _states_equal(state, e_state), sp
+
+
+@pytest.mark.parametrize("version", [5.2, 4.0])
+def test_family_batcher_graph_blocks_are_bit_equal_to_eager(dev, version, monkeypatch):
+    """The batcher on a bf16 v5.2 / v4 model, 6 requests over 4 slots (rows
+    re-admitted: the state scatter on aa, bb and pp for v4): graph replays
+    and eager blocks, the same outputs and final pool state."""
+    from rwkv_lm_ext_tpu_torch.infer.continuous import ContinuousBatcher
+    from rwkv_lm_ext_tpu_torch.infer.engine import GenerationEngine
+    from rwkv_lm_ext_tpu_torch.infer.sampling import SamplingParams
+
+    model, _ = _family_model(dev, 52, version, dtype="bfloat16")
+    eng = GenerationEngine(model)
+    greedy = SamplingParams(**GRAPH_GREEDY, token_stop=())
+    reqs = [([5, 9, 23], 9), ([77, 3], 7), ([14, 60, 2, 8], 12), ([99], 5), ([31, 8, 120], 10),
+            ([6], 6)]
+
+    def run():
+        batcher = ContinuousBatcher(eng, n_slots=4, sampling=greedy, block_size=4, seed=5)
+        rids = [batcher.submit(p, max_tokens=m) for p, m in reqs]
+        out = batcher.run()
+        return [out[r] for r in rids], {key: v.clone() for key, v in batcher._state.items()}, batcher
+
+    toks, state, batcher = run()
+    assert batcher._graphs
+    _eager_blocks(monkeypatch)
+    e_toks, e_state, _ = run()
+    assert toks == e_toks and _states_equal(state, e_state)
+    assert [len(t) for t in toks] == [m for _, m in reqs]

@@ -218,7 +218,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             'infer.continuous', 'infer.beam', 'adapters.slot_lora', 'serve.webui',\n"
         "             'infer.encoders', 'models.heads', 'train.losses', 'train.loop',\n"
         "             'train.callbacks', 'data.collators', 'data.nli', 'eval.sts',\n"
-        "             'adapters.registry', 'checkpoint.convert'):\n"
+        "             'adapters.registry', 'checkpoint.convert', 'models.rwkv4', 'ops.wkv4',\n"
+        "             'data.tokenizer_json'):\n"
         "    assert p.__name__ + '.' + name in sys.modules, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0].startswith('jax')\n"
         "             or m.split('.')[0] == 'rwkv_lm_ext_tpu')\n"
