@@ -55,14 +55,17 @@ def _batches(ids: List[List[int]], batch_size: int):
 class BiEncoder:
     """Append emb_id to each text, run the model, pool at the first emb_id
     (weightedmean by default), apply the optional dense+tanh ``head`` and
-    L2-normalise."""
+    L2-normalise. ``reference=True`` runs the kernels' plain versions, the
+    counterpart of the JAX ``BiEncoder(wkv_backend="reference")`` that
+    ``eval.cli parity`` builds for its fp32 side."""
 
     def __init__(self, model, tokenizer, *, head: Optional[DenseHead] = None,
-                 pooling_type: str = "weightedmean"):
+                 pooling_type: str = "weightedmean", reference: bool = False):
         self.model = model
         self.tokenizer = tokenizer
         self.head = head
         self.pooling_type = pooling_type
+        self.reference = reference
         self.device = model.emb.weight.device
 
     def token_batches(self, texts: Sequence[str], *, batch_size: int = 32):
@@ -75,7 +78,7 @@ class BiEncoder:
             for arr in self.token_batches(texts, batch_size=batch_size):
                 emb = embed_sequences(
                     self.model, torch.from_numpy(arr).to(self.device), head=self.head,
-                    pooling_type=self.pooling_type, normalize=True,
+                    pooling_type=self.pooling_type, normalize=True, reference=self.reference,
                 )
                 chunks.append(emb.cpu().numpy())
         return np.concatenate(chunks, axis=0)

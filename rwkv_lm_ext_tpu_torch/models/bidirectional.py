@@ -45,7 +45,7 @@ from torch import nn
 from rwkv_lm_ext_tpu_torch.config import EMB_ID, PAD_ID
 from rwkv_lm_ext_tpu_torch.models.heads import first_token_position
 from rwkv_lm_ext_tpu_torch.models.init import init_block_params, init_head
-from rwkv_lm_ext_tpu_torch.models.rwkv import RWKV, Block, ChannelMix, Linear, Norm, TimeMix
+from rwkv_lm_ext_tpu_torch.models.rwkv import RWKV, Block, ChannelMix, Linear, Norm, TimeMix, _last
 from rwkv_lm_ext_tpu_torch.ops.ln import layer_norm, layer_norm_plain
 from rwkv_lm_ext_tpu_torch.ops.wkv import (
     _flip_valid_prefix,
@@ -315,7 +315,7 @@ def bi_streaming_time_mix(
                            wkv_state_rev)
     out = att.gn_output(y_fwd.to(x.dtype), g)
     out_rev = att.gn_output(y_rev.to(x.dtype), g)
-    return out + _chunk_reverse(out_rev, is_last_chunk), x[:, -1].float(), s_new, s_rev_new
+    return out + _chunk_reverse(out_rev, is_last_chunk), _last(x), s_new, s_rev_new
 
 
 def bi_streaming_forward(

@@ -260,7 +260,7 @@ class TimeMix(nn.Module):
             self.time_faaaa, g.view(heads), self.ln_x.weight, self.ln_x.bias,
             wkv_state, eps=self.cfg.ln_x_eps,
         )
-        return self.output(gated, ops), xln[:, -1].float(), new_wkv
+        return self.output(gated, ops), _last(xln), new_wkv
 
     def step(
         self, x: torch.Tensor, ln1: Norm, att_shift: torch.Tensor,
@@ -333,7 +333,7 @@ class ChannelMix(nn.Module):
         xk = x + xx * self.time_maa_k.to(x.dtype)
         xr = x + xx * self.time_maa_r.to(x.dtype)
         kv = self.value(torch.relu(self.key(xk, ops)) ** 2, ops)
-        return torch.sigmoid(self.receptance(xr, ops)) * kv, x[:, -1].float()
+        return torch.sigmoid(self.receptance(xr, ops)) * kv, _last(x)
 
     def step_fused(
         self, x: torch.Tensor, ln2: Norm, ffn_shift: torch.Tensor, ops: Ops
@@ -354,6 +354,13 @@ class ChannelMix(nn.Module):
         xk, xr, xn = ops.ffn_prep(x, *vectors, 1e-5)
         kv = self.value(torch.relu(self.key(xk, ops)) ** 2, ops)
         return x + torch.sigmoid(self.receptance(xr, ops)) * kv, xn
+
+
+def _last(x: torch.Tensor) -> torch.Tensor:
+    """x[:, -1] in fp32, always a copy: the new shift state. A view of an
+    fp32 x would hold every layer's whole (B, T, C) activation until the
+    forward returns."""
+    return x[:, -1].to(torch.float32, copy=True)
 
 
 def _prev(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
@@ -420,7 +427,7 @@ class TimeMixV5(nn.Module):
             r.view(heads), k.view(heads), v.view(heads), w, self.time_faaaa, g.view(heads),
             self.ln_x.weight, self.ln_x.bias, wkv_state, eps=self.cfg.ln_x_eps,
         )
-        return self.output(gated, ops), x[:, -1].float(), new_wkv
+        return self.output(gated, ops), _last(x), new_wkv
 
     def step(
         self, x: torch.Tensor, att_shift: torch.Tensor, wkv_state: torch.Tensor,
@@ -460,7 +467,7 @@ class ChannelMixLegacy(nn.Module):
         prev = _prev(x, ffn_shift)
         kv = self.value(torch.relu(self.key(_lerp(x, prev, self.time_mix_k), ops)) ** 2, ops)
         r = torch.sigmoid(self.receptance(_lerp(x, prev, self.time_mix_r), ops))
-        return r * kv, x[:, -1].float()
+        return r * kv, _last(x)
 
 
 class MishGLU(nn.Module):
@@ -482,7 +489,7 @@ class MishGLU(nn.Module):
         prev = _prev(x, ffn_shift)
         a = self.aa(_lerp(x, prev, self.time_mix_k), ops)
         b = self.bb(_lerp(x, prev, self.time_mix_r), ops)
-        return self.value(a * (b * torch.tanh(F.softplus(b))), ops), x[:, -1].float()
+        return self.value(a * (b * torch.tanh(F.softplus(b))), ops), _last(x)
 
 
 def tiny_attention(block, x: torch.Tensor, x_emb: torch.Tensor, ops: Ops) -> torch.Tensor:

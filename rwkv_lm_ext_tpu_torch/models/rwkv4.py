@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from rwkv_lm_ext_tpu_torch.models.rwkv import Linear, Ops, _lerp, _param, _prev
+from rwkv_lm_ext_tpu_torch.models.rwkv import Linear, Ops, _last, _lerp, _param, _prev
 from rwkv_lm_ext_tpu_torch.models.state import V4_STATE_KEYS, ModelState, init_model_state
 
 WKV4_KEYS = ("aa", "bb", "pp")
@@ -56,7 +56,7 @@ class TimeMixV4(nn.Module):
         v = self.value(_lerp(x, prev, self.time_mix_v), ops)
         w = -torch.exp(self.time_decay.float())
         y, new = ops.wkv4(k, v, w, self.time_first.float(), wkv_state, out_state=out_state)
-        return self.output(r * y.to(dt), ops), x[:, -1].float(), new
+        return self.output(r * y.to(dt), ops), _last(x), new
 
 
 def _layer(state: ModelState, i: int) -> tuple:

@@ -79,6 +79,7 @@ from rwkv_lm_ext_tpu_torch.infer.engine import GenerationEngine, refuse_chunk_de
 from rwkv_lm_ext_tpu_torch.infer.state_cache import PrefixStateCache
 from rwkv_lm_ext_tpu_torch.infer.states_registry import StatesRegistry
 from rwkv_lm_ext_tpu_torch.serve.api import ServingService, serve_http
+from rwkv_lm_ext_tpu_torch.utils.device import resolve_device
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -133,12 +134,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def build_service(args: argparse.Namespace) -> ServingService:
     """Load the checkpoint and assemble the service (no port is bound)."""
-    if args.platform == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--platform cuda: no CUDA device (use --platform cpu for a CPU run)")
+    device = resolve_device(args.platform)
     if not (args.model or args.encoder):
         raise SystemExit("need --model and/or --encoder")
     overrides = {"dtype": args.dtype} if args.dtype else {}
-    device = torch.device(args.platform)
     tok = JsonTokenizer(args.tokenizer_json) if args.tokenizer_json else WorldTokenizer(args.vocab)
     engine = encoder = batcher = states = bi = cross = None
     if (args.bi_adapter or args.cross_adapter) and not args.model:

@@ -219,7 +219,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             'infer.encoders', 'models.heads', 'train.losses', 'train.loop',\n"
         "             'train.callbacks', 'data.collators', 'data.nli', 'eval.sts',\n"
         "             'adapters.registry', 'checkpoint.convert', 'models.rwkv4', 'ops.wkv4',\n"
-        "             'data.tokenizer_json'):\n"
+        "             'data.tokenizer_json', 'data.binidx', 'data.pretrain', 'data.preprocess',\n"
+        "             'data.converters', 'data.tokenizer_glm', 'eval.cli', 'eval.tasks',\n"
+        "             'eval.mteb_adapter', 'apps.kg', 'apps.rag', 'utils.profiling'):\n"
         "    assert p.__name__ + '.' + name in sys.modules, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0].startswith('jax')\n"
         "             or m.split('.')[0] == 'rwkv_lm_ext_tpu')\n"
@@ -230,3 +232,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.split()[0]) >= 15   # every port module was imported
+
+
+def test_fp32_shift_states_are_copies():
+    """Each block's new shift states are (B, C) tensors of their own: a view
+    of an fp32 (B, T, C) activation would hold it until the forward returns."""
+    jcfg = _jax_cfg()
+    model = _port_model(_jax_params(jcfg), jcfg)
+    shifts = []
+    for blk in model.blocks:
+        for mod in (blk.att, blk.ffn):
+            mod.register_forward_hook(lambda m, args, out: shifts.append(out[1]))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(4, 1000, size=(2, 16)))
+    with torch.inference_mode():
+        model(tokens, reference=True)
+    assert len(shifts) == 2 * jcfg.n_layer
+    for s in shifts:
+        assert s.shape == (2, jcfg.n_embd) and s.dtype == torch.float32
+        assert s.untyped_storage().nbytes() == s.numel() * s.element_size()

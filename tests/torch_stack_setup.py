@@ -35,11 +35,12 @@ GREEDY = dict(temperature=0.0, top_p=1.0, alpha_presence=0.0, alpha_frequency=0.
               token_stop=())
 
 
-def jax_params(seed: int = 0, *, n_layer: int = 2, n_embd: int = 128, vocab_size: int = 1000):
+def jax_params(seed: int = 0, *, n_layer: int = 2, n_embd: int = 128, vocab_size: int = 1000,
+               head_size: int = 64):
     """(params, cfg) of a JAX model whose zero-initialised projections get
     seeded values (else every block is a no-op)."""
-    cfg = JaxModelConfig(n_layer=n_layer, n_embd=n_embd, vocab_size=vocab_size, head_size=64,
-                         dtype="float32", param_dtype="float32")
+    cfg = JaxModelConfig(n_layer=n_layer, n_embd=n_embd, vocab_size=vocab_size,
+                         head_size=head_size, dtype="float32", param_dtype="float32")
     params = jax_init_rwkv_params(jax.random.PRNGKey(seed), cfg)
     rng = np.random.default_rng(seed)
     for bp in params["blocks"]:
