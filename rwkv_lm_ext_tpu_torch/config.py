@@ -26,8 +26,9 @@ class ModelConfig:
     5.1, 5.2 or 6.0. ``dropout`` and the legacy RWKV-LM options below
     (``tiny_att_dim``/``tiny_att_layer``, ``head_qk``, ``pre_ffn``,
     ``my_pos_emb``, ``ffn_type="mishglu"``) are the JAX fields of the same
-    names and defaults (rwkv_lm_ext_tpu/config.py:36-43); the forward runs
-    no dropout (training refuses ``dropout > 0`` so far)."""
+    names and defaults (rwkv_lm_ext_tpu/config.py:36-43). As in JAX the
+    forward drops only when it is handed a ``models.rwkv.Dropout``, which
+    ``simcse --dropout-noise`` alone does."""
 
     n_layer: int
     n_embd: int

@@ -42,7 +42,7 @@
 // walk takes `reverse` and `lengths` as pass 1 of B.8's backward does. One
 // block of 2N threads per (b, h).
 //
-// Sequential body (fp32, and N = 16), wkv6_kernel: the first version, K1's
+// Sequential body (fp32, and N of 16 or 128), wkv6_kernel: the first version, K1's
 // first recurrence without the GroupNorm: one block of N threads per (b, h),
 // thread j keeps column S[:, j] in registers for the whole sequence, one
 // barrier a step (the stage of r, k, exp(-exp(w)), u*k is double buffered).
@@ -194,9 +194,11 @@ extern "C" int rwkv_wkv6(const void* r, const void* k, const void* v, const void
   if (dtype == kFloat32 && N == 16) RWKV_WKV_CASE(float, 16);
   if (dtype == kFloat32 && N == 32) RWKV_WKV_CASE(float, 32);
   if (dtype == kFloat32 && N == 64) RWKV_WKV_CASE(float, 64);
+  if (dtype == kFloat32 && N == 128) RWKV_WKV_CASE(float, 128);
   if (dtype == kBFloat16 && N == 16) RWKV_WKV_CASE(__nv_bfloat16, 16);
   if (dtype == kBFloat16 && N == 32) RWKV_WKV_CASE(__nv_bfloat16, 32);
   if (dtype == kBFloat16 && N == 64) RWKV_WKV_CASE(__nv_bfloat16, 64);
+  if (dtype == kBFloat16 && N == 128) RWKV_WKV_CASE(__nv_bfloat16, 128);
 #undef RWKV_WKV_CASE
   return cudaErrorInvalidValue;
 }

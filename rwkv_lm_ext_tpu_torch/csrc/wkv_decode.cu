@@ -366,6 +366,23 @@ static cudaError_t launch_decode(const void* r, const void* k, const void* v,
   RWKV_DECODE_SIZES(CASE, __nv_bfloat16, float, kBFloat16, kFloat32);           \
   RWKV_DECODE_SIZES(CASE, __nv_bfloat16, __nv_bfloat16, kBFloat16, kBFloat16)
 
+// B.9 alone, at a head size B.13 is not built for (N = 128: 512 threads a
+// block, a thread's eight float4 rows of the state in registers).
+template <typename T, typename P, int N>
+static cudaError_t launch_decode_b9(const void* r, const void* k, const void* v, const void* w,
+                                    const void* u, const void* g, const void* scale,
+                                    const void* bias, const void* state, void* out,
+                                    void* out_state, int B, int H, float eps,
+                                    cudaStream_t stream) {
+  rwkv::wkv6_decode_kernel<T, P, N><<<B * H, 4 * N, 0, stream>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(w), static_cast<const T*>(g), static_cast<const P*>(u),
+      static_cast<const P*>(scale), static_cast<const P*>(bias),
+      static_cast<const float*>(state), static_cast<T*>(out), static_cast<float*>(out_state),
+      H, eps);
+  return cudaGetLastError();
+}
+
 // grid 0: B.9; grid > 0: B.13 on `grid` blocks
 static int decode_dispatch(const void* r, const void* k, const void* v, const void* w,
                            const void* u, const void* g, const void* scale,
@@ -375,6 +392,19 @@ static int decode_dispatch(const void* r, const void* k, const void* v, const vo
   using namespace rwkv;
   if (B <= 0 || H <= 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
+  if (N == 128) {
+    if (grid > 0) return cudaErrorInvalidValue;   // B.13 takes N of 16, 32 and 64
+#define RWKV_DECODE128_CASE(TYPE, PTYPE, DT, PDT)                                           \
+  if (dtype == DT && pdtype == PDT)                                                         \
+    return launch_decode_b9<TYPE, PTYPE, 128>(r, k, v, w, u, g, scale, bias, state, out,    \
+                                              out_state, B, H, eps, s)
+    RWKV_DECODE128_CASE(float, float, kFloat32, kFloat32);
+    RWKV_DECODE128_CASE(float, __nv_bfloat16, kFloat32, kBFloat16);
+    RWKV_DECODE128_CASE(__nv_bfloat16, float, kBFloat16, kFloat32);
+    RWKV_DECODE128_CASE(__nv_bfloat16, __nv_bfloat16, kBFloat16, kBFloat16);
+#undef RWKV_DECODE128_CASE
+    return cudaErrorInvalidValue;
+  }
 #define RWKV_DECODE_CASE(TYPE, PTYPE, NN)                                                \
   return launch_decode<TYPE, PTYPE, NN>(r, k, v, w, u, g, scale, bias, state, out,       \
                                         out_state, B, H, eps, grid, s)

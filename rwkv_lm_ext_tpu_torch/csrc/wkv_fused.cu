@@ -56,8 +56,11 @@
 //
 // Sequential body (fp32), wkv6_sequential_kernel: the first version, the
 // plain recurrence on fp32 FMAs, one thread per state column. It keeps the
-// fp32 instantiation within 1e-4 of the plain version; no served model runs
-// it. Neither body needs the JAX package's exact/rescale dispatch.
+// fp32 instantiation within 1e-4 of the plain version, and it is the body of
+// the head sizes the chunked one does not take (16 and 128, in either
+// dtype): at N = 128 a thread's column is 128 floats of registers under
+// __launch_bounds__(128). Neither body needs the JAX package's exact/rescale
+// dispatch.
 #include "wkv_chunk.cuh"
 
 namespace rwkv {
@@ -249,9 +252,11 @@ extern "C" int rwkv_wkv6_fused(const void* r, const void* k, const void* v,
   if (dtype == kFloat32 && N == 16) RWKV_WKV6_CASE(float, 16);
   if (dtype == kFloat32 && N == 32) RWKV_WKV6_CASE(float, 32);
   if (dtype == kFloat32 && N == 64) RWKV_WKV6_CASE(float, 64);
+  if (dtype == kFloat32 && N == 128) RWKV_WKV6_CASE(float, 128);
   if (dtype == kBFloat16 && N == 16) RWKV_WKV6_CASE(__nv_bfloat16, 16);
   if (dtype == kBFloat16 && N == 32) RWKV_WKV6_CASE(__nv_bfloat16, 32);
   if (dtype == kBFloat16 && N == 64) RWKV_WKV6_CASE(__nv_bfloat16, 64);
+  if (dtype == kBFloat16 && N == 128) RWKV_WKV6_CASE(__nv_bfloat16, 128);
 #undef RWKV_WKV6_CASE
   return cudaErrorInvalidValue;
 }

@@ -65,7 +65,7 @@
 // gradients (on an H100 the worst sits at 0.18 of that limit, the rounding
 // of the bf16 outputs) and 1e-3 for the fp32 ones (dw at w in [2.5, 3.2]
 // 3.2e-5; chip_smoke.py phase 2 prints each gradient's error).
-// Sequential body (fp32, and N = 16): the first version below. The two
+// Sequential body (fp32, and N of 16 or 128): the first version below. The two
 // passes are sequential recurrences inside one block per (b, h), exact at
 // any decay, and no per-step state is stored:
 //   pass 1: K1's forward again, thread j holding column S[:, j] in
@@ -81,8 +81,9 @@
 // Its running c_m holds only if S and dS obey their recurrences to the last
 // bit that survives the cancellation, so S (pass 1), dS (pass 2), the
 // products that feed them, dr', dk', c_T and c_m are all fp64: N doubles of
-// registers a thread and an fp64 shared tile in pass 1 (N = 128 would need
-// 132 KB of it, more than static shared memory holds).
+// registers a thread and an fp64 shared tile in pass 1. Both tiles live in
+// dynamic shared memory (seq_tile), so the body also takes N = 128, where the
+// fp64 tile is 132 KB and a thread's 128 doubles spill to local memory.
 // Cross-(b, h) sums (du, dscale, dbias) are per-(b, h) partials in both
 // bodies; the wrapper reduces them with rwkv_sum_partials in a fixed order.
 // No atomics: two calls on the same inputs give bit-identical gradients.
@@ -108,6 +109,27 @@
 
 namespace rwkv {
 
+// The sequential bodies' padded (N, N + 1) tile, in dynamic shared memory:
+// its fp64 form is 132 KB at N = 128, above the 48 KB a static array may
+// hold, so the launch sizes it (seq_tile_bytes) and opts the kernel in
+// (allow_smem). The chunked kernels' `smem` is the same array.
+template <typename E, int N>
+__device__ __forceinline__ E (*seq_tile())[N + 1] {
+  extern __shared__ __align__(16) unsigned char smem[];
+  return reinterpret_cast<E (*)[N + 1]>(smem);
+}
+
+template <typename E>
+constexpr size_t seq_tile_bytes(int N) { return sizeof(E) * N * (N + 1); }
+
+// Opt a kernel in to `bytes` of dynamic shared memory when that is above the
+// 48 KB every kernel may use.
+template <typename K>
+static cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 // element (b, t, h, n) of a (B, T, H, N) tensor
 __device__ __forceinline__ size_t bthn(int b, int t, int h, int n, int T_len, int H, int N) {
   return (((size_t)b * T_len + t) * H + h) * N + n;
@@ -128,7 +150,7 @@ __global__ void __launch_bounds__(N) wkv6_bwd_forward_kernel(
   __shared__ __align__(16) float ew_s[N];
   __shared__ __align__(16) float uk_s[N];
   __shared__ float red[4][(N + 31) / 32];
-  __shared__ double tile[N][N + 1];
+  double (*tile)[N + 1] = seq_tile<double, N>();
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int j = threadIdx.x;
@@ -224,7 +246,7 @@ __global__ void __launch_bounds__(N) wkv6_bwd_state_kernel(
     double* __restrict__ drp_out, double* __restrict__ cT, int T_len, int H, int reverse) {
   __shared__ float k_s[N];
   __shared__ float ew_s[N];
-  __shared__ double tile[N][N + 1];
+  double (*tile)[N + 1] = seq_tile<double, N>();
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int j = threadIdx.x;
@@ -281,7 +303,7 @@ __global__ void __launch_bounds__(N) wkv6_bwd_reverse_kernel(
   __shared__ __align__(16) float v_s[N];
   __shared__ __align__(16) float dy_s[N];
   __shared__ __align__(16) float ruk_s[N];
-  __shared__ float tile[N][N + 1];
+  float (*tile)[N + 1] = seq_tile<float, N>();
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int i = threadIdx.x;   // row i of dS; also column j = i of the tile sums
@@ -876,7 +898,10 @@ extern "C" int rwkv_wkv6_bwd_forward(const void* r, const void* k, const void* v
   auto s = static_cast<cudaStream_t>(stream);
 #define RWKV_BWD1_CASE(TYPE, NN)                                                            \
   do {                                                                                      \
-    wkv6_bwd_forward_kernel<TYPE, NN><<<B * H, NN, 0, s>>>(                                  \
+    const size_t smem_bytes = seq_tile_bytes<double>(NN);                                \
+    cudaError_t e = allow_smem(wkv6_bwd_forward_kernel<TYPE, NN>, smem_bytes);            \
+    if (e != cudaSuccess) return e;                                                         \
+    wkv6_bwd_forward_kernel<TYPE, NN><<<B * H, NN, smem_bytes, s>>>(                                  \
         static_cast<const TYPE*>(r), static_cast<const TYPE*>(k),                           \
         static_cast<const TYPE*>(v), static_cast<const float*>(w),                          \
         static_cast<const float*>(u), static_cast<const TYPE*>(g),                          \
@@ -890,9 +915,11 @@ extern "C" int rwkv_wkv6_bwd_forward(const void* r, const void* k, const void* v
   if (dtype == kFloat32 && N == 16) RWKV_BWD1_CASE(float, 16);
   if (dtype == kFloat32 && N == 32) RWKV_BWD1_CASE(float, 32);
   if (dtype == kFloat32 && N == 64) RWKV_BWD1_CASE(float, 64);
+  if (dtype == kFloat32 && N == 128) RWKV_BWD1_CASE(float, 128);
   if (dtype == kBFloat16 && N == 16) RWKV_BWD1_CASE(__nv_bfloat16, 16);
   if (dtype == kBFloat16 && N == 32) RWKV_BWD1_CASE(__nv_bfloat16, 32);
   if (dtype == kBFloat16 && N == 64) RWKV_BWD1_CASE(__nv_bfloat16, 64);
+  if (dtype == kBFloat16 && N == 128) RWKV_BWD1_CASE(__nv_bfloat16, 128);
 #undef RWKV_BWD1_CASE
   return cudaErrorInvalidValue;
 }
@@ -907,7 +934,10 @@ extern "C" int rwkv_wkv6_bwd_state(const void* k, const void* v, const void* w,
   auto s = static_cast<cudaStream_t>(stream);
 #define RWKV_BWD1S_CASE(TYPE, NN)                                                           \
   do {                                                                                      \
-    wkv6_bwd_state_kernel<TYPE, NN><<<B * H, NN, 0, s>>>(                                    \
+    const size_t smem_bytes = seq_tile_bytes<double>(NN);                                \
+    cudaError_t e = allow_smem(wkv6_bwd_state_kernel<TYPE, NN>, smem_bytes);              \
+    if (e != cudaSuccess) return e;                                                         \
+    wkv6_bwd_state_kernel<TYPE, NN><<<B * H, NN, smem_bytes, s>>>(                                    \
         static_cast<const TYPE*>(k), static_cast<const TYPE*>(v),                           \
         static_cast<const float*>(w), static_cast<const float*>(s0),                        \
         static_cast<const float*>(dy), static_cast<const float*>(dsT),                      \
@@ -918,9 +948,11 @@ extern "C" int rwkv_wkv6_bwd_state(const void* k, const void* v, const void* w,
   if (dtype == kFloat32 && N == 16) RWKV_BWD1S_CASE(float, 16);
   if (dtype == kFloat32 && N == 32) RWKV_BWD1S_CASE(float, 32);
   if (dtype == kFloat32 && N == 64) RWKV_BWD1S_CASE(float, 64);
+  if (dtype == kFloat32 && N == 128) RWKV_BWD1S_CASE(float, 128);
   if (dtype == kBFloat16 && N == 16) RWKV_BWD1S_CASE(__nv_bfloat16, 16);
   if (dtype == kBFloat16 && N == 32) RWKV_BWD1S_CASE(__nv_bfloat16, 32);
   if (dtype == kBFloat16 && N == 64) RWKV_BWD1S_CASE(__nv_bfloat16, 64);
+  if (dtype == kBFloat16 && N == 128) RWKV_BWD1S_CASE(__nv_bfloat16, 128);
 #undef RWKV_BWD1S_CASE
   return cudaErrorInvalidValue;
 }
@@ -937,7 +969,10 @@ extern "C" int rwkv_wkv6_bwd_reverse(const void* r, const void* k, const void* v
   auto s = static_cast<cudaStream_t>(stream);
 #define RWKV_BWD2_CASE(TYPE, NN)                                                            \
   do {                                                                                      \
-    wkv6_bwd_reverse_kernel<TYPE, NN><<<B * H, NN, 0, s>>>(                                  \
+    const size_t smem_bytes = seq_tile_bytes<float>(NN);                                 \
+    cudaError_t e = allow_smem(wkv6_bwd_reverse_kernel<TYPE, NN>, smem_bytes);            \
+    if (e != cudaSuccess) return e;                                                         \
+    wkv6_bwd_reverse_kernel<TYPE, NN><<<B * H, NN, smem_bytes, s>>>(                                  \
         static_cast<const TYPE*>(r), static_cast<const TYPE*>(k),                           \
         static_cast<const TYPE*>(v), static_cast<const float*>(w),                          \
         static_cast<const float*>(u), static_cast<const float*>(dy),                        \
@@ -951,9 +986,11 @@ extern "C" int rwkv_wkv6_bwd_reverse(const void* r, const void* k, const void* v
   if (dtype == kFloat32 && N == 16) RWKV_BWD2_CASE(float, 16);
   if (dtype == kFloat32 && N == 32) RWKV_BWD2_CASE(float, 32);
   if (dtype == kFloat32 && N == 64) RWKV_BWD2_CASE(float, 64);
+  if (dtype == kFloat32 && N == 128) RWKV_BWD2_CASE(float, 128);
   if (dtype == kBFloat16 && N == 16) RWKV_BWD2_CASE(__nv_bfloat16, 16);
   if (dtype == kBFloat16 && N == 32) RWKV_BWD2_CASE(__nv_bfloat16, 32);
   if (dtype == kBFloat16 && N == 64) RWKV_BWD2_CASE(__nv_bfloat16, 64);
+  if (dtype == kBFloat16 && N == 128) RWKV_BWD2_CASE(__nv_bfloat16, 128);
 #undef RWKV_BWD2_CASE
   return cudaErrorInvalidValue;
 }

@@ -118,9 +118,10 @@ def pool_hidden(
     raise ValueError(f"unknown pooling_type {pooling_type!r}")
 
 
-def _hidden(model, tokens, state=None, *, remat: bool = False, reference: bool = False):
+def _hidden(model, tokens, state=None, *, remat: bool = False, reference: bool = False,
+            dropout=None):
     return model(tokens, state, return_hidden=True, return_logits=False, remat=remat,
-                 reference=reference)
+                 reference=reference, dropout=dropout)
 
 
 def _dense_tanh(emb: torch.Tensor, head: Optional[DenseHead]) -> torch.Tensor:
@@ -137,12 +138,14 @@ def embed_sequences(
     normalize: bool = False,
     remat: bool = False,
     reference: bool = False,
+    dropout=None,
 ) -> torch.Tensor:
     """(B, T) token ids (emb_id-terminated, pad-padded) -> (B, C) fp32
     embeddings, or (B, out) through the dense+tanh ``head``; L2-normalised
     when `normalize`. `reference` is passed to the model (plain versions of
-    the kernels), `remat` too (per-block recompute under grad)."""
-    hidden, _ = _hidden(model, tokens, remat=remat, reference=reference)
+    the kernels), `remat` too (per-block recompute under grad), and
+    `dropout` (a models.rwkv.Dropout: the model drops at JAX's sites)."""
+    hidden, _ = _hidden(model, tokens, remat=remat, reference=reference, dropout=dropout)
     emb = pool_hidden(hidden, first_token_position(tokens, embedding_id), pooling_type)
     emb = _dense_tanh(emb, head)
     if normalize:

@@ -65,11 +65,20 @@ utils/remat.py), and ``remat="dots"`` or ``"dots_nobatch"`` keeps the
 matrix products' outputs and recomputes the rest; ``use_state_params=True`` feeds each layer's learnable
 ``att.time_state`` (H, N, N) fp32, added by ``add_state_params``, as the WKV
 initial state of every sequence (state tuning,
-rwkv_lm_ext_tpu/models/rwkv.py:471-476).
+rwkv_lm_ext_tpu/models/rwkv.py:471-476; an RWKV-6 feature, as JAX's
+``block_forward`` passes the override to the v6 time mix alone). Dropout
+(``_dropout``, :630) is a ``Dropout`` handed to the forward, at JAX's three
+sites: the embeddings (:807-809), and each block's attention and channel-mix
+outputs before they join the residual (:671-672, :705, :716). Its masks come
+from an explicit ``torch.Generator`` on the model's device through
+``Dropout.keep``, which a caller may replace (``mask_fn``) with masks of its
+own; a block's masks are drawn before the block runs, so a rematerialized
+block recomputes with the same ones. RWKV-4's forward takes none, as JAX's
+``rwkv4_forward`` takes none.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -127,6 +136,41 @@ LayerState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 def _param(*shape, device, dtype) -> nn.Parameter:
     # values come from models.init or a checkpoint
     return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype))
+
+
+class Dropout:
+    """JAX's ``_dropout`` (rwkv_lm_ext_tpu/models/rwkv.py:630-632) at rate
+    ``rate``: ``where(keep, x / (1 - rate), 0)`` in x's dtype, keep drawn
+    with probability 1 - rate. ``keep(site, layer, shape, device)`` makes the
+    mask of one site ("emb"; "att" or "ffn" of layer ``layer``) from
+    ``generator`` (on the model's device), or asks ``mask_fn(site, layer,
+    shape)`` for it when given (a test hands in JAX's masks that way)."""
+
+    def __init__(self, rate: float, generator: Optional[torch.Generator] = None,
+                 mask_fn: Optional[Callable] = None):
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"dropout rate {rate} is not in [0, 1)")
+        if generator is None and mask_fn is None:
+            raise ValueError("Dropout needs a generator or a mask_fn")
+        self.rate, self.generator, self.mask_fn = rate, generator, mask_fn
+
+    def keep(self, site: str, layer: Optional[int], shape, device) -> torch.Tensor:
+        if self.mask_fn is not None:
+            return torch.as_tensor(self.mask_fn(site, layer, tuple(shape)), device=device)
+        return torch.rand(shape, generator=self.generator, device=device) < (1.0 - self.rate)
+
+    def block_masks(self, layer: int, shape, device) -> Optional[tuple]:
+        """(rate, attention keep, channel-mix keep) for layer ``layer``, or
+        None at rate 0."""
+        if self.rate == 0:
+            return None
+        return (self.rate, self.keep("att", layer, shape, device),
+                self.keep("ffn", layer, shape, device))
+
+
+def drop(x: torch.Tensor, rate: float, keep: torch.Tensor) -> torch.Tensor:
+    """``_dropout`` with the mask given."""
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
 class Linear(nn.Module):
@@ -544,8 +588,10 @@ class Block(nn.Module):
     def forward(
         self, x: torch.Tensor, layer_state: LayerState, ops: Ops,
         use_state_params: bool = False, x_emb: Optional[torch.Tensor] = None,
+        masks: Optional[tuple] = None,
     ) -> Tuple[torch.Tensor, LayerState]:
-        """x_emb: the call's embeddings, which tiny attention reads."""
+        """x_emb: the call's embeddings, which tiny attention reads; masks:
+        ``Dropout.block_masks`` of this layer, or None."""
         att_shift, wkv_state, ffn_shift = layer_state
         if self.ln0 is not None:
             x = ops.layer_norm(x, self.ln0.weight, self.ln0.bias)
@@ -561,10 +607,14 @@ class Block(nn.Module):
         else:
             att_out, att_shift, wkv_state = self.att(
                 x, self.ln1, att_shift, wkv_state, ops, use_state_params)
+        if masks is not None:
+            att_out = drop(att_out, masks[0], masks[1])
         x = x + att_out
         ffn_out, ffn_shift = self.ffn(
             ops.layer_norm(x, self.ln2.weight, self.ln2.bias), ffn_shift, ops
         )
+        if masks is not None:
+            ffn_out = drop(ffn_out, masks[0], masks[2])
         x = x + ffn_out
         if hasattr(self, "tiny_q") and x_emb is not None:
             x = x + tiny_attention(self, x, x_emb, ops)
@@ -661,6 +711,7 @@ class RWKV(nn.Module):
         t1_step: bool = True,
         remat=False,
         use_state_params: bool = False,
+        dropout: Optional[Dropout] = None,
     ):
         """tokens: (B, T) int. state: a models.state dict, or None for zeros.
 
@@ -673,32 +724,43 @@ class RWKV(nn.Module):
         as it was. ``remat`` (a utils.remat spec: off, on or a policy name)
         checkpoints each block while grad mode is on;
         ``use_state_params`` (see the module docstring) replaces the WKV part
-        of ``state``. An RWKV-4 model (models.rwkv4) returns fp32 logits and
-        takes neither ``return_hidden`` nor ``use_state_params``, as the JAX
-        package asserts (rwkv.py:764)."""
+        of ``state`` (RWKV-6 only: an RWKV-5 model refuses it, as JAX's v5
+        time mix takes no override). ``dropout`` (a ``Dropout``, or None)
+        drops at the embeddings and after each block's two mixes. An RWKV-4
+        model (models.rwkv4) returns fp32 logits and takes neither
+        ``return_hidden``, ``use_state_params`` nor ``dropout``, as the JAX
+        package asserts (rwkv.py:764) and its ``rwkv4_forward`` takes no
+        dropout."""
         from rwkv_lm_ext_tpu_torch.models.decode import decode_supported, rwkv_decode_step
 
         if (t1_step and tokens.shape[1] == 1 and return_logits and not return_hidden
-                and not use_state_params and decode_supported(self.cfg)):
+                and not use_state_params and dropout is None and decode_supported(self.cfg)):
             logits, new_state = rwkv_decode_step(self, tokens[:, 0], state, reference=reference)
             return logits[:, None], new_state
         ops = PLAIN_OPS if reference else KERNEL_OPS
         if self.cfg.version < 5:
             from rwkv_lm_ext_tpu_torch.models.rwkv4 import rwkv4_forward
 
-            if return_hidden or not return_logits or use_state_params:
-                raise ValueError("an RWKV-4 model returns logits only: return_hidden and "
-                                 "use_state_params are RWKV-5/6 features")
-            return rwkv4_forward(self, tokens, state, ops)
+            if return_hidden or not return_logits or use_state_params or dropout is not None:
+                raise ValueError("an RWKV-4 model returns logits only: return_hidden, "
+                                 "use_state_params and dropout are RWKV-5/6 features")
+            return rwkv4_forward(self, tokens, state, ops, remat=remat)
+        if use_state_params and self.cfg.version < 6:
+            raise ValueError(f"use_state_params is an RWKV-6 feature: the RWKV-{self.cfg.version:g} "
+                             "time mix takes no learnable initial state (as in the JAX package)")
         B = tokens.shape[0]
         if state is None:
             state = init_model_state(self.cfg, B, device=tokens.device)
         x = self.embed(tokens)
+        # tiny attention reads the embeddings before dropout, as in JAX (:806-809)
         x_emb = x if self.cfg.tiny_att_dim > 0 else None
+        if dropout is not None and dropout.rate > 0:
+            x = drop(x, dropout.rate, dropout.keep("emb", None, x.shape, x.device))
         new_state = {key: [] for key in ("att_shift", "wkv", "ffn_shift")}
         for i, block in enumerate(self.blocks):
             ls = (state["att_shift"][i], state["wkv"][i], state["ffn_shift"][i])
-            x, ls = remat_call(block, x, ls, ops, use_state_params, x_emb, remat=remat)
+            masks = None if dropout is None else dropout.block_masks(i, x.shape, x.device)
+            x, ls = remat_call(block, x, ls, ops, use_state_params, x_emb, masks, remat=remat)
             for key, value in zip(new_state, ls):
                 new_state[key].append(value)
         new_state = {key: torch.stack(vs) for key, vs in new_state.items()}

@@ -8,6 +8,13 @@ mix and hands its forward to ``rwkv4_forward``; ``models.decode`` hands its
 T=1 step to ``rwkv4_step``. ln0, ln1, ln2 and ln_out run in K3, the WKV in
 B.14 (ops/wkv4.py).
 
+Training: under grad B.14 runs as its autograd Function (ops/wkv4.py) with
+its backward kernel, and the forward returns the new state as a result of the
+graph, so TBPTT (train/loop.py ``tbptt_loss_fn``) carries it from chunk to
+chunk with its gradient, as the JAX scan does. ``remat`` checkpoints each
+block as the RWKV-5/6 forward does; JAX's ``rwkv4_forward`` keeps every
+activation, and the gradients are the same either way.
+
 The time mix: static lerps (``time_mix_k/v/r``), sigmoid receptance, the
 decay ``w = -exp(time_decay)`` in fp32, the bonus ``u = time_first``, then
 ``output(r * y)`` with y cast to the compute dtype; no GroupNorm, no gate.
@@ -23,6 +30,7 @@ from torch import nn
 
 from rwkv_lm_ext_tpu_torch.models.rwkv import Linear, Ops, _last, _lerp, _param, _prev
 from rwkv_lm_ext_tpu_torch.models.state import V4_STATE_KEYS, ModelState, init_model_state
+from rwkv_lm_ext_tpu_torch.utils.remat import remat_call
 
 WKV4_KEYS = ("aa", "bb", "pp")
 
@@ -60,33 +68,36 @@ class TimeMixV4(nn.Module):
 
 
 def _layer(state: ModelState, i: int) -> tuple:
-    return tuple(state[key][i] for key in WKV4_KEYS)
+    return tuple(state[key][i] for key in V4_STATE_KEYS)
 
 
-def _block(block, x: torch.Tensor, state: ModelState, i: int, ops: Ops, out_wkv=None):
-    """Layer i: ln0 (layer 0), the time mix on ln1's output, the channel mix
-    on ln2's. The WKV state goes into ``out_wkv`` when given. Returns (x,
-    (att_shift, aa, bb, pp, ffn_shift))."""
+def _block(block, x: torch.Tensor, layer: tuple, ops: Ops, out_wkv=None):
+    """One layer: ln0 (layer 0), the time mix on ln1's output, the channel
+    mix on ln2's; layer is (att_shift, aa, bb, pp, ffn_shift). The WKV state
+    goes into ``out_wkv`` when given. Returns (x, the layer's new state)."""
+    att_shift, aa, bb, pp, ffn_shift = layer
     if block.ln0 is not None:
         x = ops.layer_norm(x, block.ln0.weight, block.ln0.bias)
     att_out, att_shift, wkv = block.att(
-        ops.layer_norm(x, block.ln1.weight, block.ln1.bias), state["att_shift"][i],
-        _layer(state, i), ops, out_state=out_wkv)
+        ops.layer_norm(x, block.ln1.weight, block.ln1.bias), att_shift, (aa, bb, pp), ops,
+        out_state=out_wkv)
     x = x + att_out
     ffn_out, ffn_shift = block.ffn(
-        ops.layer_norm(x, block.ln2.weight, block.ln2.bias), state["ffn_shift"][i], ops)
+        ops.layer_norm(x, block.ln2.weight, block.ln2.bias), ffn_shift, ops)
     return x + ffn_out, (att_shift, *wkv, ffn_shift)
 
 
-def rwkv4_forward(model, tokens: torch.Tensor, state: Optional[ModelState], ops: Ops):
+def rwkv4_forward(model, tokens: torch.Tensor, state: Optional[ModelState], ops: Ops,
+                  *, remat=False):
     """(B, T) tokens -> (logits (B, T, V) fp32, new state), the state threaded
-    as in ``rwkv4_forward``: None is a fresh state, and chunked prefill chains."""
+    as in ``rwkv4_forward``: None is a fresh state, and chunked prefill chains.
+    ``remat`` (a utils.remat spec) checkpoints each block under grad."""
     if state is None:
         state = init_model_state(model.cfg, tokens.shape[0], device=tokens.device)
     x = model.embed(tokens)
     new = {key: [] for key in V4_STATE_KEYS}
     for i, block in enumerate(model.blocks):
-        x, layer = _block(block, x, state, i, ops)
+        x, layer = remat_call(_block, block, x, _layer(state, i), ops, remat=remat)
         for key, value in zip(V4_STATE_KEYS, layer):
             new[key].append(value)
     x = ops.layer_norm(x, model.ln_out.weight, model.ln_out.bias)
@@ -100,7 +111,8 @@ def rwkv4_step(model, tokens: torch.Tensor, state: ModelState, out: ModelState, 
     they are written). Returns (logits (B, V) fp32, out)."""
     x = model.embed(tokens[:, None])
     for i, block in enumerate(model.blocks):
-        x, (att_shift, *_, ffn_shift) = _block(block, x, state, i, ops, out_wkv=_layer(out, i))
+        out_wkv = tuple(out[key][i] for key in WKV4_KEYS)
+        x, (att_shift, *_, ffn_shift) = _block(block, x, _layer(state, i), ops, out_wkv=out_wkv)
         out["att_shift"][i].copy_(att_shift)
         out["ffn_shift"][i].copy_(ffn_shift)
     x = ops.layer_norm(x, model.ln_out.weight, model.ln_out.bias)

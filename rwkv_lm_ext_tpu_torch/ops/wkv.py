@@ -13,7 +13,7 @@ encoders (models/bidirectional.py) are its callers. B.8 has two bodies
 (csrc/wkv.cu), and ``wkv_body`` picks one by K1's rule, from dtype and head
 size alone: bf16 at N of 32 or 64 runs K1's chunk factoring on the tensor
 cores (``chunk_walk`` in its raw mode; ``wkv_chunked_plain`` is that
-factoring in plain PyTorch), fp32 and N = 16 the sequential recurrence. Both
+factoring in plain PyTorch), fp32 and N of 16 or 128 the sequential recurrence. Both
 are exact at any decay, so ``wkv`` has no ``backend``, ``chunk_size``,
 ``exact`` or ``remat`` arguments (see ops/wkv_fused.py); ``body=`` forces one
 for the card checks. Its backward runs the body of ``wkv_bwd_body``

@@ -41,7 +41,9 @@ import torch
 
 from rwkv_lm_ext_tpu_torch.ops import _lib
 
-HEAD_SIZES = (16, 32, 64)
+HEAD_SIZES = (16, 32, 64, 128)
+# B.13's head sizes: its ring of three whole state tiles is built for these
+STREAM_HEAD_SIZES = (16, 32, 64)
 STREAM_STAGES = 3      # stages of B.13's ring (kStreamStages)
 
 
@@ -251,7 +253,12 @@ def wkv6_decode_step_transposed(
     ones; everything else as there, ``out_state=state_t`` included. CPU
     tensors take the plain version; CUDA tensors launch B.13, which needs r,
     k, v, w, g and the states 16-byte aligned (it raises by name if one is
-    not)."""
+    not). N = 128 is refused by name on either device: B.13's ring of three
+    whole state tiles is built for N of 16, 32 and 64 (B.9 takes 128)."""
+    N = u.shape[-1]
+    if N not in STREAM_HEAD_SIZES:
+        raise ValueError(f"head size {N} not supported by B.13 (wkv6_decode_step_transposed, "
+                         f"one of {STREAM_HEAD_SIZES}); B.9 (wkv6_decode_step) takes it")
     return _step("rwkv_wkv6_decode_transposed", wkv6_decode_step_transposed,
                  wkv6_decode_step_transposed_plain,
                  r, k, v, w, g, u, ln_scale, ln_bias, state_t, eps, out_state)

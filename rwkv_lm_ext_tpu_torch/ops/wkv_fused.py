@@ -9,8 +9,9 @@ version, ``_fused_ref`` (:823): the sequential ``wkv_reference`` followed by
 the per-head GroupNorm, scale/bias and gate.
 
 K1 has two bodies (csrc/wkv_fused.cu), and ``k1_body`` picks one from the
-dtype alone: bf16 runs chunks of 16 steps with the products on the tensor
-cores, fp32 the sequential recurrence on fp32 FMAs. The chunked body scales
+dtype and head size: bf16 at N of 32 or 64 runs chunks of 16 steps with the
+products on the tensor cores, fp32 (and N of 16 or 128) the sequential
+recurrence on fp32 FMAs. The chunked body scales
 r and k inside a chunk only by ``exp`` of sums of ``-exp(w)``, never of a
 positive number, so like the recurrence it is exact at any decay
 (``wkv6_fused_output_chunked_plain`` is its factoring in plain PyTorch). The
@@ -22,8 +23,8 @@ has nothing for that dispatch to select, so it has none.
 The backward (B.6 then B.7, csrc/wkv_fused_bwd.cu) has two bodies too, and
 ``wkv_bwd_body`` picks one by K1's rule: bf16 at N of 32 or 64 runs K1's
 chunk factoring on the tensor cores (pass 1 keeps the state at every chunk's
-entry, pass 2 walks the chunks in reverse), fp32 and N = 16 the sequential
-fp64 recurrences. ``wkv6_fused_output_bwd_chunked_plain`` is the chunked
+entry, pass 2 walks the chunks in reverse), fp32 and N of 16 or 128 the
+sequential fp64 recurrences. ``wkv6_fused_output_bwd_chunked_plain`` is the chunked
 body's factoring in plain PyTorch. The passes hand each other a
 ``BwdCarry``; each pass is one launch, and ``body=`` on pass 1 (and on
 ``wkv6_fused_output_bwd``) forces a body for the card checks.
@@ -43,9 +44,9 @@ import torch
 from rwkv_lm_ext_tpu_torch.ops import _lib
 from rwkv_lm_ext_tpu_torch.ops.wkv_reference import wkv_reference
 
-HEAD_SIZES = (16, 32, 64)
-# the head sizes of the chunked bodies (K1, B.6, B.7); the others run the
-# sequential ones
+HEAD_SIZES = (16, 32, 64, 128)
+# the head sizes of the chunked bodies (K1, B.6, B.7); the others (16 and
+# 128) run the sequential ones
 CHUNKED_HEAD_SIZES = (32, 64)
 # K1's bodies, by the codes of csrc/wkv_fused.cu
 K1_BODIES = {"sequential": 0, "chunked": 1}
@@ -67,14 +68,9 @@ def wkv_bwd_body(dtype: torch.dtype, N: int) -> str:
 
 
 def check_head_size(N: int, what: str) -> None:
-    """Raise for a head size the WKV kernels do not take. N = 128 by name:
-    the sequential backward keeps an fp64 (N, N + 1) tile in static shared
-    memory, 132 KB there, above the 48 KB a static array may hold; the JAX
-    package's own backward leaves N = 128 to XLA (ops/wkv_pallas.py:591)."""
-    if N == 128:
-        raise ValueError(f"head size 128 not supported by {what}: the sequential backward's "
-                         "fp64 (N, N + 1) tile (132 KB) cannot be static shared memory, and "
-                         "the JAX package leaves N = 128 to XLA")
+    """Raise for a head size the WKV kernels do not take. N = 128 runs the
+    sequential bodies, whose backward keeps its (N, N + 1) tile in dynamic
+    shared memory (132 KB in fp64 at N = 128)."""
     if N not in HEAD_SIZES:
         raise ValueError(f"head size {N} not supported by {what} (one of {HEAD_SIZES})")
 

@@ -42,13 +42,27 @@ Refused, by argparse (exit 2), and why:
   the JAX ``bi-encoder`` and ``cross-encoder`` accept it and never read it
   (ROADMAP C.19), and the encoders have no QLoRA;
 - ``--chunk-ctx`` under any command but ``sft``;
-- ``simcse --dropout-noise`` (by name: the model has no dropout yet,
-  ROADMAP A.11).
 
-Refused at load (exit 1, by name), until the next training slice holds them
-against the JAX package (ROADMAP A.11): an RWKV-4 or RWKV-5.x checkpoint, a
-model with a legacy option (tiny attention, head_qk, pre_ffn, my_pos_emb,
-MishGLU) and dropout above 0.
+Every command trains RWKV-6, RWKV-5.x (5.0, 5.1, 5.2) and RWKV-4 models and
+the legacy RWKV-LM options where the JAX command trains them. Refused at load
+(exit 1, by name), each where the JAX command fails or trains nothing
+(ROADMAP C.26-C.29, each pinned by a test):
+- an RWKV-4 model under the commands that embed through the hidden states
+  (``bi-encoder``, ``cross-encoder``, ``nli``, ``simcse``, ``instructor``):
+  JAX's ``rwkv_forward`` asserts that a v4 model returns logits only;
+- ``sft --train-type state`` / ``states`` on RWKV-4 (JAX asserts on
+  ``use_state_params``) and on RWKV-5.x (JAX's v5 time mix takes no state
+  override, so the states get a zero gradient and train nothing);
+- the encoder trainers (``mlm``, ``mae``, ``encoder-biencoder``,
+  ``encoder-crossencoder``) on RWKV-4 and RWKV-5.x (JAX's bidirectional
+  encoder runs the RWKV-6 time mix only), and on a model with a legacy option
+  (its encoder runs the plain v6 block and ignores or trips on the option).
+
+A checkpoint's ``dropout`` is not applied by any command but ``simcse
+--dropout-noise``, as in JAX, whose trainers pass no dropout key elsewhere;
+``simcse --dropout-noise`` drops at the model's rate, 0.1 where it has none
+(JAX's wiki1m recipe), with masks from a ``torch.Generator`` seeded by
+``--seed``.
 
 Usage:
   python -m rwkv_lm_ext_tpu_torch.train.cli sft --model base.pth \\
@@ -130,6 +144,7 @@ from rwkv_lm_ext_tpu_torch.data.sft import load_sft_jsonl
 from rwkv_lm_ext_tpu_torch.data.tokenizer import WorldTokenizer
 from rwkv_lm_ext_tpu_torch.eval.sts import SimilarityEvaluator
 from rwkv_lm_ext_tpu_torch.models.bidirectional import init_one_layer_decoder
+from rwkv_lm_ext_tpu_torch.models.rwkv import Dropout
 from rwkv_lm_ext_tpu_torch.models.heads import (
     embed_sequences,
     init_classification_head,
@@ -157,6 +172,7 @@ from rwkv_lm_ext_tpu_torch.train.loop import (
     simcse_loss_fn,
 )
 from rwkv_lm_ext_tpu_torch.train.optim import apply_trainable_mask, make_schedule, trainable_mask
+from rwkv_lm_ext_tpu_torch.utils.device import resolve_device
 from rwkv_lm_ext_tpu_torch.utils.remat import normalize_remat
 
 
@@ -347,28 +363,46 @@ def _train_config(args, batches) -> TrainConfig:
     )
 
 
-def _load_checkpoint(path: str, **kw):
-    """``load_rwkv_checkpoint``, refusing by name what the trainers have not
-    been held against the JAX package on yet: RWKV-4 and RWKV-5.x models, the
-    legacy options and dropout (the next training slice, ROADMAP A.11)."""
+# the commands that embed through the hidden states of the causal model
+HIDDEN_COMMANDS = ("bi-encoder", "cross-encoder", "nli", "simcse", "instructor")
+ENCODER_COMMANDS = ("mlm", "mae", "encoder-biencoder", "encoder-crossencoder")
+
+
+def _refusal(cfg, command: str, train_type: str = ""):
+    """Why ``command`` cannot train this model, or None: the cases where the
+    JAX command fails or trains nothing (the module docstring)."""
+    family = f"RWKV-{cfg.version:g}"
+    if cfg.version < 5 and command in HIDDEN_COMMANDS:
+        return (f"{command} embeds through the hidden states, which an {family} model does not "
+                "return (the JAX package asserts the same, models/rwkv.py:764)")
+    if command == "sft" and train_type in ("state", "states") and cfg.version < 6:
+        why = ("asserts on use_state_params" if cfg.version < 5 else
+               "gives the v5 time mix no state override, so the states get no gradient")
+        return f"sft --train-type {train_type} needs an RWKV-6 model: on {family} the JAX trainer {why}"
+    if command in ENCODER_COMMANDS and cfg.version < 6:
+        return (f"{command} trains the bidirectional encoder, which runs the RWKV-6 time mix only "
+                f"(as JAX's models/bidirectional.py): not an {family} model")
+    if command in ENCODER_COMMANDS and cfg.legacy_options:
+        return (f"{command} trains the bidirectional encoder, whose blocks are the plain RWKV-6 "
+                f"ones: a model with {', '.join(cfg.legacy_options)} is not one")
+    return None
+
+
+def _load_checkpoint(path: str, command: str, train_type: str = "", **kw):
+    """``load_rwkv_checkpoint``, refusing by name (``_refusal``) what the JAX
+    command cannot train."""
     model, cfg = load_rwkv_checkpoint(path, **kw)
-    if cfg.version < 6:
-        raise SystemExit(f"training an RWKV-{cfg.version:g} model is not ported yet (the "
-                         "trainers run RWKV-6; RWKV-4 and 5.x are served only)")
-    if cfg.legacy_options:
-        raise SystemExit(f"training a model with {', '.join(cfg.legacy_options)} is not ported "
-                         "yet")
-    if cfg.dropout > 0:
-        raise SystemExit(f"training with dropout {cfg.dropout} is not ported yet: the port's "
-                         "forward has no dropout")
+    why = _refusal(cfg, command, train_type)
+    if why:
+        raise SystemExit(why)
     return model, cfg
 
 
 def _full_model(args):
     """(device, model, cfg) for a command that trains every parameter: fp32
     master weights, cast to the compute dtype at each use."""
-    device = torch.device(args.platform)
-    model, cfg = _load_checkpoint(args.model, device=device, param_dtype="float32")
+    device = resolve_device(args.platform)
+    model, cfg = _load_checkpoint(args.model, args.command, device=device, param_dtype="float32")
     return device, model, cfg
 
 
@@ -386,8 +420,8 @@ def _train_full(args, model, tc, loss_fn, batches, device, prefix: str, eval_fn=
 def _lora_model(args):
     """(device, model, cfg, lc) with a fresh LoRA adapter (seed --seed)
     applied; only the adapter trains."""
-    device = torch.device(args.platform)
-    model, cfg = _load_checkpoint(args.model, device=device)
+    device = resolve_device(args.platform)
+    model, cfg = _load_checkpoint(args.model, args.command, device=device)
     lc = LoraConfig(r=args.lora_r, alpha=args.lora_alpha)
     apply_lora(model, lc, init_lora_params(model, lc, torch.Generator(device).manual_seed(args.seed)))
     apply_trainable_mask(model, trainable_mask(model, "lora"))
@@ -404,14 +438,14 @@ def _lora_sft(args, device, lc):
     if lc.pissa:
         # the SVD of the checkpoint's values, the fp32 residual kept as JAX
         # keeps it, cast at every use
-        model, _ = _load_checkpoint(args.model, device=device, param_dtype="float32")
+        model, _ = _load_checkpoint(args.model, "sft", device=device, param_dtype="float32")
         adapter, _ = pissa_init(model, lc, gen)
         os.makedirs(args.output_dir, exist_ok=True)
         torch.save(adapter_state_dict(adapter), os.path.join(args.output_dir, "init_pissa.pth"))
         if quant:
             quantize_model(model, quant)
     else:
-        model, _ = _load_checkpoint(args.model, device=device, quant=quant)
+        model, _ = _load_checkpoint(args.model, "sft", device=device, quant=quant)
         adapter = init_lora_params(model, lc, gen)
     if args.peft_checkpoint:
         loaded = torch.load(args.peft_checkpoint, map_location=device, weights_only=True)
@@ -438,7 +472,7 @@ def _lisa_step(step_fn, model, args):
 
 
 def cmd_sft(args) -> None:
-    device = torch.device(args.platform)
+    device = resolve_device(args.platform)
     tokenizer = WorldTokenizer(args.vocab)
     batches, task_names = _sft_batches(args, tokenizer, want_tasks=args.train_type == "slot-lora")
     tc = _train_config(args, batches)
@@ -446,7 +480,7 @@ def cmd_sft(args) -> None:
     out = args.output_dir
     if args.train_type == "full":
         # every parameter over fp32 masters; TBPTT when --chunk-ctx
-        model, cfg = _load_checkpoint(args.model, device=device, param_dtype="float32")
+        model, cfg = _load_checkpoint(args.model, "sft", device=device, param_dtype="float32")
         apply_trainable_mask(model, trainable_mask(model, "full"))
         step_fn = make_train_step(model, tc)
         if args.lisa_k > 0:
@@ -469,7 +503,7 @@ def cmd_sft(args) -> None:
         # rows of the stacks (adapters.slot_lora)
         lc = LoraConfig(r=args.lora_r, alpha=args.lora_alpha)
         quant = None if args.quant == "none" else args.quant
-        model, _ = _load_checkpoint(args.model, device=device, quant=quant)
+        model, _ = _load_checkpoint(args.model, "sft", device=device, quant=quant)
         stacks, name_to_id = init_slot_stacks(model, lc, task_names,
                                               torch.Generator(device).manual_seed(args.seed))
         apply_slot_stacks(model, stacks, torch.zeros(1, dtype=torch.int64, device=device), lc)
@@ -482,7 +516,7 @@ def cmd_sft(args) -> None:
             for name, adapter in split_slot_stacks(slot_stacks(model), name_to_id).items():
                 torch.save(adapter_state_dict(adapter), os.path.join(out, f"lora-{name}-step{step}.pth"))
     else:   # state / states: only the per-layer initial WKV states train
-        model, _ = _load_checkpoint(args.model, device=device)
+        model, _ = _load_checkpoint(args.model, "sft", args.train_type, device=device)
         model.add_state_params()
         loss_fn = functools.partial(sft_loss_fn, remat=remat, use_state_params=True)
 
@@ -644,15 +678,18 @@ def _simcse_batches(args, tokenizer) -> Callable[[int], Iterator]:
     return _bucketed(args, ds, _sizes(args, ds, 2), collate)
 
 
-def cmd_simcse(args, parser) -> None:
-    if args.dropout_noise:
-        parser.error("--dropout-noise needs dropout in the model, which the port does not have "
-                     "yet; train on sentence pairs")
+def cmd_simcse(args) -> None:
     device, model, cfg = _full_model(args)
     batches = _simcse_batches(args, WorldTokenizer(args.vocab))
     tc = _train_config(args, batches)
+    dropout = None
+    if args.dropout_noise:
+        # two dropout-noised views (the wiki1m recipe's p = 0.1 where the
+        # model has no rate of its own, as the JAX command sets it)
+        dropout = Dropout(cfg.dropout or 0.1, torch.Generator(device).manual_seed(args.seed))
     loss_fn = functools.partial(simcse_loss_fn, pooling=args.pooling,
-                                temperature=args.temperature, remat=tc.grad_checkpoint)
+                                temperature=args.temperature, remat=tc.grad_checkpoint,
+                                dropout=dropout)
     _train_full(args, model, tc, loss_fn, batches, device, "simcse")
 
 
@@ -797,8 +834,9 @@ def main(argv=None) -> None:
     p.add_argument("--temperature", type=float, default=0.05)
     p.add_argument("--pooling", default="weightedmean")
     p.add_argument("--dropout-noise", action="store_true",
-                   help="refused: the model has no dropout yet")
-    p.set_defaults(fn=functools.partial(cmd_simcse, parser=p))
+                   help="two dropout-noised views of each text (p = 0.1 unless the model has "
+                        "a dropout rate)")
+    p.set_defaults(fn=cmd_simcse)
 
     p = sub.add_parser("instructor")
     _common_args(p)

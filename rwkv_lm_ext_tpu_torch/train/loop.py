@@ -11,7 +11,8 @@ the Adam moments run over every parameter.
 
 ``tbptt_loss_fn`` (TBPTT, the reference's infctx training) cuts each
 sequence into ``chunk_ctx`` chunks and carries the whole model state (the
-token shifts and the WKV state) from chunk to chunk *with its gradient*, as
+token shifts and the WKV state; RWKV-4's aa, bb and pp through B.14's
+backward kernel) from chunk to chunk *with its gradient*, as
 the JAX scan does (the wkv6infctx "gs path"): K1 takes the carried state as
 an input that requires grad and B.6/B.7 give it its gradient (``ds0``), K2
 and B.5 the same for the token shift (``dshift``). So the loss and the
@@ -28,7 +29,8 @@ train/cli.py, one function each: ``contrastive_loss_fn`` (``cmd_bi_encoder``
 :665 and ``cmd_nli`` :714: pooled embeddings of query / positive / negative,
 in-batch InfoNCE or CoSENT), ``cross_encoder_loss_fn`` (``cmd_cross_encoder``
 :945: the score head at the cls position, MSE on 0/1 labels),
-``simcse_loss_fn`` (``cmd_simcse`` :1089, the sentence-pair variant),
+``simcse_loss_fn`` (``cmd_simcse`` :1089, sentence pairs or, with
+dropout, two noised views of one text),
 ``instructor_loss_fn`` (``cmd_instructor`` :1178: dense + LayerNorm head,
 symmetric InfoNCE), ``encoder_biencoder_loss_fn`` (:823: bidirectional
 sentence embeddings, symmetric InfoNCE) and ``encoder_crossencoder_loss_fn``
@@ -159,13 +161,14 @@ def cross_encoder_loss_fn(model, batch, *, remat: bool = True,
 
 
 def simcse_loss_fn(model, batch, *, pooling: str = "weightedmean", temperature: float = 0.05,
-                   remat: bool = True, reference: bool = False) -> torch.Tensor:
-    """``simcse`` over sentence pairs: pooled embeddings of a and b, in-batch
-    cross entropy at the temperature."""
+                   remat: bool = True, reference: bool = False, dropout=None) -> torch.Tensor:
+    """``simcse``: pooled embeddings of a and b, in-batch cross entropy at the
+    temperature. With ``dropout`` (a models.rwkv.Dropout: ``--dropout-noise``)
+    each side is a view of its own, its masks drawn after the other's, as the
+    JAX closure draws them from two split keys."""
     def embed(tokens):
-        hidden, _ = model(tokens, return_hidden=True, return_logits=False, remat=remat,
-                          reference=reference)
-        return pool_hidden(hidden, first_token_position(tokens, 1), pooling)
+        return embed_sequences(model, tokens, pooling_type=pooling, embedding_id=1, remat=remat,
+                               reference=reference, dropout=dropout)
 
     return simcse_loss(embed(batch["a"]), embed(batch["b"]), temperature=temperature)
 

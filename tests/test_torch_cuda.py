@@ -48,7 +48,12 @@ K1 and B.9 on v5's constant decays (per channel and per head, in [-6, 1],
 with a gate and with ones); 2-layer v5.0 / v5.2 / v4 models, kernel route
 against plain route with the launches of a forward and of a step; their
 decode blocks as graph replays bit-equal to the eager blocks (generate and
-the batcher).
+the batcher). Their training: B.14's backward kernel against autograd
+through wkv4_plain (fp32 1e-4, bf16 2e-2 of max|plain|, the initial state's
+gradient included, two calls bit-equal), and the 2-layer v5.2 / v4 models'
+gradients, plain sequence and TBPTT, within the model gradient limit. Head
+size 128: K1 with B.6 / B.7, B.8 with its backward and B.9 against their
+plain versions.
 
 B.5 and B.8 have two bodies each since their redesign (tensor cores or
 chunked for bf16, CUDA cores or sequential for fp32 and the shapes the new
@@ -140,6 +145,7 @@ from rwkv_lm_ext_tpu_torch.train.loop import (
     cross_encoder_loss_fn,
     instructor_loss_fn,
     mlm_loss_fn,
+    sft_loss_fn,
     simcse_loss_fn,
     tbptt_loss_fn,
 )
@@ -153,7 +159,7 @@ NO_LAUNCH = {"layer_norm": 0, "tmix_prologue": 0, "wkv6_fused_output": 0, "wkv6_
              "quantize_rows": 0, "tmix_prologue_bwd": 0, "wkv6_bwd_forward_pass": 0,
              "wkv6_bwd_reverse_pass": 0, "wkv": 0, "wkv_bwd_state_pass": 0,
              "att_prep_fused": 0, "ffn_prep_fused": 0, "ffn_block_fused": 0,
-             "wkv6_decode_step_transposed": 0, "wkv4": 0}
+             "wkv6_decode_step_transposed": 0, "wkv4": 0, "wkv4_bwd": 0}
 
 
 @pytest.fixture
@@ -1839,7 +1845,8 @@ def test_wkv4_matches_plain(dev, dtype, B, T, carried):
 
 def test_wkv4_in_place_and_refusals(dev):
     """out_state=state updates the state in place, bit-equal to a fresh
-    output; two calls are bit-equal; an input that requires grad is refused."""
+    output; two calls are bit-equal; under grad an out_state is refused (the
+    new state is a result of the graph there)."""
     k, v, w, u, state = _wkv4_inputs(dev, torch.bfloat16, 4, 33, 256, seed=1, carried=True)
     y, fresh = wkv4(k, v, w, u, state)
     y2, _ = wkv4(k, v, w, u, state)
@@ -1848,8 +1855,43 @@ def test_wkv4_in_place_and_refusals(dev):
     assert all(o is i for o, i in zip(out, inplace))
     assert torch.equal(y, y2) and torch.equal(y, y3)
     assert all(torch.equal(a, b) for a, b in zip(out, fresh))
-    with pytest.raises(RuntimeError, match="backward"):
-        wkv4(k.float().requires_grad_(), v, w, u, state)
+    with pytest.raises(ValueError, match="out_state is for inference"):
+        wkv4(k.float().requires_grad_(), v.float(), w, u, state, out_state=inplace)
+
+
+def _wkv4_grads(fn, k, v, w, u, state, gy, gs):
+    leaves = [t.detach().clone().requires_grad_() for t in (k, v, w, u, *state)]
+    y, fs = fn(*leaves[:4], tuple(leaves[4:]))
+    ((y * gy).sum() + sum((a * b).sum() for a, b in zip(fs, gs))).backward()
+    return [y.detach()] + [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,T", [(1, 1), (3, 17), (2, 130)])
+@pytest.mark.parametrize("carried", [False, True])
+def test_wkv4_backward_matches_autograd_through_plain(dev, dtype, B, T, carried):
+    """B.14's backward kernel against autograd through wkv4_plain: dk, dv,
+    dw, du and the initial state's gradient under gradients of y and of the
+    final state (fp32 within 1e-4, bf16 within 2e-2 of max|plain|); two
+    calls bit-equal; one forward and one backward launch a call."""
+    k, v, w, u, state = _wkv4_inputs(dev, dtype, B, T, 200, seed=T + B, carried=carried)
+    if state is None:
+        state = tuple(s.to(dev) for s in (torch.zeros(B, 200), torch.zeros(B, 200),
+                                          torch.full((B, 200), -1e38)))
+    rng = np.random.default_rng(3)
+    gy = _on(dev, torch.float32, rng, B, T, 200)
+    gs = [_on(dev, torch.float32, rng, B, 200) for _ in range(3)]
+    before = launch_counts()
+    got = _wkv4_grads(wkv4, k, v, w, u, state, gy, gs)
+    after = launch_counts()
+    assert after["wkv4"] - before["wkv4"] == 1 and after["wkv4_bwd"] - before["wkv4_bwd"] == 1
+    again = _wkv4_grads(wkv4, k, v, w, u, state, gy, gs)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = _wkv4_grads(wkv4_plain, k, v, w, u, state, gy, gs)
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, a, b in zip(("y", "dk", "dv", "dw", "du", "daa", "dbb", "dpp"), got, want):
+        assert torch.isfinite(a).all(), name
+        _close(a, b, rel, name, scale=max(b.float().abs().max().item(), 1e-30))
 
 
 def _v5_decay(dev, rng, H, N, per_head):
@@ -1902,6 +1944,46 @@ def test_b9_on_v5_decays_matches_plain(dev, dtype, per_head, gate):
     _close(s, s_p, 1e-4, "state")
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_head_size_128_kernels_match_plain(dev, dtype):
+    """K1 with B.6 / B.7 under grad, B.8 with its backward, and B.9 at N = 128
+    (the sequential bodies; the backward's fp64 tile in 132 KB of dynamic
+    shared memory) against their plain versions: fp32 outputs within 1e-4 and
+    gradients 1e-3, bf16 2e-2, of max|plain|."""
+    rng = np.random.default_rng(11)
+    B, T, H, N = 2, 37, 2, 128
+    r, k, v, g = (_on(dev, dtype, rng, B, T, H, N, scale=0.5) for _ in range(4))
+    w = torch.from_numpy(rng.uniform(-3.0, 1.0, size=(B, T, H, N)).astype(np.float32)).to(dev)
+    u = _on(dev, torch.float32, rng, H, N)
+    ln_w, ln_b = _on(dev, torch.float32, rng, H * N, loc=1.0, scale=0.1), _on(dev, torch.float32, rng, H * N, scale=0.1)
+    s0 = _on(dev, torch.float32, rng, B, H, N, N, scale=0.1)
+    dout = _on(dev, dtype, rng, B, T, H * N)
+    dsT = _on(dev, torch.float32, rng, B, H, N, N, scale=0.1)
+    rel_out, rel_grad = (1e-4, 1e-3) if dtype == torch.float32 else (2e-2, 2e-2)
+    for fn, plain, cot in ((wkv6_fused_output, wkv6_fused_output_plain, dout.float()),
+                           (wkv, wkv_plain, dout.float().view(B, T, H, N))):
+        res = []
+        for f in (fn, plain):
+            args = (r, k, v, w, u, g, ln_w, ln_b, s0) if f in (wkv6_fused_output,
+                                                                 wkv6_fused_output_plain) \
+                else (r, k, v, w, u, s0)
+            leaves = [t.detach().clone().requires_grad_() for t in args]
+            out, sT = f(*leaves, eps=64e-5) if len(args) == 9 else f(*leaves)
+            ((out.float() * cot).sum() + (sT * dsT).sum()).backward()
+            res.append([out.detach(), sT.detach()] + [t.grad for t in leaves])
+        for i, (a, b) in enumerate(zip(*res)):
+            _close(a, b, rel_out if i < 2 else rel_grad, f"{fn.__name__} {i}")
+    rd, kd, vd, gd = (_on(dev, dtype, rng, 3, H * N, scale=0.5) for _ in range(4))
+    wd = _on(dev, torch.float32, rng, 3, H * N)
+    state = _on(dev, torch.float32, rng, 3, H, N, N, scale=0.1)
+    out_p, s_p = wkv6_decode_step_plain(rd, kd, vd, wd, gd, u, ln_w, ln_b, state.clone(),
+                                        eps=64e-5)
+    out, s = _counted("wkv6_decode_step", lambda: wkv6_decode_step(
+        rd, kd, vd, wd, gd, u, ln_w, ln_b, state, eps=64e-5, out_state=state))
+    _close(out, out_p, REL[dtype], "B.9 out")
+    _close(s, s_p, 1e-4, "B.9 state")
+
+
 def _family_model(dev, seed, version, dtype="float32"):
     """A 2-layer RWKV-5.x or RWKV-4 model (C=256; v5 heads of 64) with the
     zero-initialised projections filled; v5.0 without a gate."""
@@ -1915,6 +1997,38 @@ def _family_model(dev, seed, version, dtype="float32"):
     if version == 5.0:
         sd = {k: v for k, v in sd.items() if not k.endswith(("att.gate.weight", "att.time_mix_g"))}
     return load_state_dict_into(RWKV(cfg, device=dev), sd), gen
+
+
+@pytest.mark.parametrize("version", [5.2, 4.0])
+@pytest.mark.parametrize("chunk", [0, 16])
+def test_family_training_gradients_kernel_route_match_plain(dev, version, chunk):
+    """Every parameter's gradient of the SFT loss (chunk 0) or of TBPTT over
+    chunks of 16 (the state carried with its gradient), kernel route against
+    plain route, fp32, within 1e-3 of each gradient's largest value; the v4
+    step launches B.14's forward and backward once a layer and chunk."""
+    model, gen = _family_model(dev, 53, version)
+    tokens = torch.randint(4, 1000, (2, 48), generator=gen, device=dev)
+    batch = {"input_ids": tokens, "labels": tokens}
+    grads = []
+    for reference in (False, True):
+        model.zero_grad()
+        before = launch_counts()
+        if chunk:
+            loss = tbptt_loss_fn(model, batch, chunk_ctx=chunk, remat=True, reference=reference)
+        else:
+            loss = sft_loss_fn(model, batch, remat=True, reference=reference)
+        loss.backward()
+        after = launch_counts()
+        if version == 4.0 and not reference:
+            n = 2 * (48 // chunk if chunk else 1)
+            assert after["wkv4_bwd"] - before["wkv4_bwd"] == n
+            assert after["wkv4"] - before["wkv4"] == 2 * n       # remat runs it again
+        grads.append({n_: p.grad.clone() for n_, p in model.named_parameters()
+                      if p.grad is not None})
+    assert grads[0].keys() == grads[1].keys()
+    for name in grads[1]:
+        _close(grads[0][name], grads[1][name], 1e-3, name,
+               scale=max(grads[1][name].abs().max().item(), 1e-30))
 
 
 FAMILY_WKV = {5.0: "wkv6_fused_output", 5.2: "wkv6_fused_output", 4.0: "wkv4"}

@@ -31,7 +31,7 @@ from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
 )
 from rwkv_lm_ext_tpu_torch.ops import _lib
 from rwkv_lm_ext_tpu_torch.ops.wkv_decode import (
-    HEAD_SIZES,
+    STREAM_HEAD_SIZES,
     b13_grid,
     b13_walk,
     transpose_state,
@@ -86,7 +86,7 @@ def _jax_reference(B, N):
 
 
 @pytest.mark.parametrize("in_place", [False, True])
-@pytest.mark.parametrize("N", HEAD_SIZES)
+@pytest.mark.parametrize("N", STREAM_HEAD_SIZES)
 @pytest.mark.parametrize("B", [1, 3, 8])
 def test_streamed_decode_step_matches_jax(B, N, in_place):
     """B.13's order on 1 block, 5 blocks and one block a head,
@@ -138,7 +138,7 @@ def test_stream_grid_is_at_most_one_block_a_head():
     assert b13_grid(32, 3, 132) == 32 and b13_grid(2048, 4, 132) == 528
 
 
-@pytest.mark.parametrize("N", HEAD_SIZES)
+@pytest.mark.parametrize("N", STREAM_HEAD_SIZES)
 def test_transposed_step_on_the_cpu_is_the_plain_version(N):
     """On CPU tensors B.13's wrapper runs its plain version and launches
     nothing: the streamed order's bits in the state, in place and not, and

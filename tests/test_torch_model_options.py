@@ -8,8 +8,11 @@ that the option does work, carried over from the JAX parameter tree by
 Also pinned: ROADMAP C.21 (JAX's head_qk, tiny attention and my_pos_emb see
 only one call's tokens, so a chunked prefill answers otherwise than one call;
 the port's serving entry points refuse them), C.22 (JAX's flat dict cannot
-carry the options' weights) and the trainers' refusals of what the next
-training slice brings (RWKV-4/5, the options, dropout).
+carry the options' weights) and what the trainers still refuse: state tuning
+on RWKV-4/5 and the encoder trainers on a model with an option (where the JAX
+commands fail or train nothing; tests/test_torch_family_train.py pins the
+JAX side), while ``sft`` trains a checkpoint with dropout as JAX's does,
+without it.
 
 Tolerance (fp32): logits and states within 1e-4 of their largest value.
 """
@@ -215,28 +218,32 @@ def _sft_files(tmp_path, cfg):
     return path, str(data)
 
 
-def _sft(path, data, tmp_path, train_type="lora"):
-    train_cli.main(["sft", "--model", path, "--train-data", data, "--output-dir",
-                    str(tmp_path / "out"), "--train-type", train_type, "--platform", "cpu",
-                    "--max-steps", "1"])
+def _sft(path, data, tmp_path, train_type="lora", command="sft"):
+    argv = [command, "--model", path, "--train-data", data, "--output-dir", str(tmp_path / "out"),
+            "--platform", "cpu", "--max-steps", "1", "--log-every", "1", "--micro-bsz", "1"]
+    train_cli.main(argv + (["--train-type", train_type] if command == "sft" else []))
 
 
-@pytest.mark.parametrize("version,train_type", [(5.2, "lora"), (4.0, "full")])
+@pytest.mark.parametrize("version,train_type", [(5.2, "state"), (4.0, "states")])
 def test_trainers_refuse_rwkv4_and_rwkv5(tmp_path, version, train_type):
+    """State tuning needs RWKV-6 (the JAX trainer asserts on v4 and gives v5's
+    states no gradient); every other sft train type takes both families."""
     head = 64 if version < 5 else 16
     cfg = ModelConfig(n_layer=2, n_embd=64, vocab_size=65536, head_size=head, version=version,
                       dtype="float32")
     path, data = _sft_files(tmp_path, cfg)
-    with pytest.raises(SystemExit, match=f"RWKV-{version:g}"):
+    with pytest.raises(SystemExit, match=f"needs an RWKV-6 model: on RWKV-{version:g}"):
         _sft(path, data, tmp_path, train_type)
 
 
 @pytest.mark.parametrize("field,value", [("head_qk", 8), ("ffn_type", "mishglu"),
                                          ("dropout", 0.1)])
-def test_trainers_refuse_legacy_options_and_dropout(tmp_path, field, value):
+def test_trainers_refuse_legacy_options_and_dropout(tmp_path, field, value, capsys):
     """No checkpoint carries these (the sniffer cannot see them), so the
-    loader is made to return a config with one set: the trainer exits by
-    name before it builds anything."""
+    loader is made to return a config with one set. The encoder trainers
+    exit by name on an option before they build anything; ``sft`` trains a
+    model with dropout without it, as the JAX trainer does (its first loss
+    is the one without dropout, bit for bit)."""
     cfg = ModelConfig(n_layer=2, n_embd=64, vocab_size=65536, head_size=16, dtype="float32")
     path, data = _sft_files(tmp_path, cfg)
     real = train_cli.load_rwkv_checkpoint
@@ -245,6 +252,17 @@ def test_trainers_refuse_legacy_options_and_dropout(tmp_path, field, value):
         model, c = real(p, **kw)
         return model, dataclasses.replace(c, **{field: value})
 
-    with mock.patch.object(train_cli, "load_rwkv_checkpoint", load):
-        with pytest.raises(SystemExit, match=field.split("_")[0]):
+    if field != "dropout":
+        with mock.patch.object(train_cli, "load_rwkv_checkpoint", load):
+            with pytest.raises(SystemExit, match=field.split("_")[0]):
+                _sft(path, data, tmp_path, command="mlm")
+        return
+    losses = []
+    for loader in (real, load):
+        capsys.readouterr()
+        with mock.patch.object(train_cli, "load_rwkv_checkpoint", loader):
             _sft(path, data, tmp_path)
+        losses += [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("step 0")]
+    assert len(losses) == 2
+    assert json.loads(losses[0].split(": ", 1)[1])["loss"] == \
+        json.loads(losses[1].split(": ", 1)[1])["loss"]

@@ -25,8 +25,11 @@ from rwkv_lm_ext_tpu.adapters import pissa_init as jax_pissa_init
 from rwkv_lm_ext_tpu_torch.adapters.lora import LoraLinear, lora_modules
 from rwkv_lm_ext_tpu_torch.adapters.quant import quantize_linear, quantize_model
 from rwkv_lm_ext_tpu_torch.adapters.slot_lora import SlotLoraLinear
-from rwkv_lm_ext_tpu_torch.checkpoint.convert import load_state_dict_into, one_layer_decoder_from_jax
-from rwkv_lm_ext_tpu_torch.checkpoint.pth import sniff_model_config
+from rwkv_lm_ext_tpu_torch.checkpoint.convert import (
+    checkpoint_config,
+    load_state_dict_into,
+    one_layer_decoder_from_jax,
+)
 from rwkv_lm_ext_tpu_torch.models.rwkv import RWKV
 from rwkv_lm_ext_tpu_torch.train import cli as pcli
 
@@ -51,9 +54,10 @@ def jax_params(seed: int = 0, *, n_layer: int = 2, n_embd: int = 128, vocab_size
 
 
 def torch_model(params, cfg):
-    """The port's model on the same weights, fp32, on the CPU."""
+    """The port's model on the same weights, fp32, on the CPU (any family:
+    ``checkpoint_config`` tells v5.0 from its missing gate)."""
     sd = jax_params_to_state_dict(params, cfg)
-    return load_state_dict_into(RWKV(sniff_model_config(sd, dtype="float32"), device="cpu"), sd)
+    return load_state_dict_into(RWKV(checkpoint_config(sd, dtype="float32"), device="cpu"), sd)
 
 
 # ---------------------------------------------------------------------------
@@ -287,18 +291,19 @@ def _tokenizer(cls):
     return make
 
 
-def check_trainer_against_jax(data, tmp_path, command, fmt, extra):
+def check_trainer_against_jax(data, tmp_path, command, fmt, extra, params=None):
     """Run `command` of both trainer CLIs on data[fmt] and hold them
-    together (TRAINER_DOC)."""
+    together (TRAINER_DOC); ``params`` ((JAX params, JAX cfg)) replaces the
+    RWKV-6 fixture's weights."""
     jtok = importlib.import_module("rwkv_lm_ext_tpu.data.tokenizer")
     with mock.patch.object(jwkv, "_resolve_backend", _reference_wkv), \
             mock.patch.object(jtok, "WorldTokenizer", _tokenizer(jtok.WorldTokenizer)), \
             mock.patch.object(pcli, "WorldTokenizer", _tokenizer(pcli.WorldTokenizer)):
-        _check_trainer(data, tmp_path, command, fmt, extra)
+        _check_trainer(data, tmp_path, command, fmt, extra, params)
 
 
-def _check_trainer(data, tmp_path, command, fmt, extra):
-    params, jcfg = _params(len(command) + len(extra))
+def _check_trainer(data, tmp_path, command, fmt, extra, given=None):
+    params, jcfg = given or _params(len(command) + len(extra))
     argv = [command, *extra, "--model", "unused.pth", "--train-data", data[fmt], "--output-dir",
             str(tmp_path), "--micro-bsz", "2", "--ctx-len", "64", "--lr-init", str(LR),
             "--warmup-steps", "0", "--weight-decay", "2.0", "--seed", "3",
@@ -420,9 +425,11 @@ def ste_int8_mm():
 
 
 def check_sft_against_jax(data_path, tmp_path, extra, *, ste=False, steps=3, seed=0,
-                          rtol=(1e-5, 1e-4), compare_params=True):
+                          rtol=(1e-5, 1e-4), compare_params=True, params=None):
     """Run ``sft`` `extra` of both CLIs on `data_path` and hold them
-    together (SFT_DOC). Returns the port model after the steps."""
+    together (SFT_DOC). ``params`` ((JAX params, JAX cfg)) replaces the
+    RWKV-6 fixture's weights (another family's). Returns the port model
+    after the steps."""
     jtok = importlib.import_module("rwkv_lm_ext_tpu.data.tokenizer")
     with contextlib.ExitStack() as stack:
         stack.enter_context(mock.patch.object(jwkv, "_resolve_backend", _reference_wkv))
@@ -432,15 +439,15 @@ def check_sft_against_jax(data_path, tmp_path, extra, *, ste=False, steps=3, see
                                               _tokenizer(pcli.WorldTokenizer)))
         if ste:
             stack.enter_context(mock.patch.object(jquant, "_int8_mm", ste_int8_mm()))
-        return _check_sft(data_path, tmp_path, extra, steps, seed, rtol, compare_params)
+        return _check_sft(data_path, tmp_path, extra, steps, seed, rtol, compare_params, params)
 
 
 def _opt(extra, flag, default=None):
     return extra[extra.index(flag) + 1] if flag in extra else default
 
 
-def _check_sft(data_path, tmp_path, extra, steps, seed, rtol, compare_params):
-    params, jcfg = _params(seed)
+def _check_sft(data_path, tmp_path, extra, steps, seed, rtol, compare_params, given=None):
+    params, jcfg = given or _params(seed)
     train_type = _opt(extra, "--train-type", "lora")
     quant = _opt(extra, "--quant", "none")
     # `extra` last: its --grad-checkpoint, where it has one, wins
