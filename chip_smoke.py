@@ -43,7 +43,9 @@ Phases, each printing its own lines:
      inputs, rotated through copies, as a decode step finds them), B.12 by
      its busy time (its launches overlap), and the transposed-state decode
      step B.13 against B.9 (state bit-equal), the two timed in turns, hot in
-     place and cold.
+     place and cold; the collecting WKV B.15 of the speculative verify pass
+     at T in {1, 5, 9, 17, 33}, B in {1, 4}, N in {64, 128}, fp32 and bf16
+     and on v5's constant decay, timed at B=1, T=9.
      Beside every time stands the kernel's bound on this card
      (bytes over 3.35 TB/s against operations over the peak of their type)
      and, for LayerNorm, the time of `F.layer_norm`;
@@ -66,9 +68,9 @@ Phases, each printing its own lines:
   6. serving readings (not benchmark cells): embedded seq/s at B=64, T=512
      (a data chain with a canary: its last result must come back from its
      last input and move when that input changes), decode tok/s of
-     generate_batch at B=64 and single-stream tok/s of generate, each with
-     CUDA-graph blocks and with eager blocks in turns (the same tokens), a
-     generate with other knobs and length (no new capture), and the wall
+     generate_batch at B=64 and single-stream tok/s of generate on CUDA-graph
+     blocks, twice in turns, generate_batch once on eager blocks (the same
+     tokens), a generate with other knobs and length (no new capture), and the wall
      time of one 16-step graph block alone beside its device operations and
      busy time, bf16 (int8c: the embedding reading);
   7. training gradients of a 2-layer full-width model at B=8, T=512, kernel
@@ -121,7 +123,8 @@ Phases, each printing its own lines:
      final states bit-equal, and each route's launches by kernel in one
      replay (profiler); then `python -m rwkv_lm_ext_tpu_torch.serve.cli`
      with the batcher, the prefix cache, two slot-LoRA adapters and a named
-     state (a subprocess): 32 concurrent /generate requests, 200 through the
+     state (a subprocess, started as the graph-block checks before it begin,
+     as phase 5's server is): 32 concurrent /generate requests, 200 through the
      batcher, /process_text, GET /, /stats; the greedy answers again through
      a batcher in this process, each token the argmax of its route's
      teacher-forced logits under its adapter, held to the fp32 plain route
@@ -147,9 +150,8 @@ Phases, each printing its own lines:
      the ranking where no deviation could swap neighbours), 400 on malformed
      payloads, unit-norm embeddings, 404 with no cross-encoder, and the
      launches of the reranker in this process; (d) readings: reranked pairs/s
-     (64 pairs, bucket 512), a cross-encoder LoRA step and an `nli` step at
-     B=8, T=512 (ms, Kt/s, busy and idle) and B.5's full form in the `nli`
-     step (launches and device ms);
+     (64 pairs, bucket 512), an `nli` step at B=8, T=512 (ms, Kt/s, busy and
+     idle) and B.5's full form in the `nli` step (launches and device ms);
  17. the rest of PEFT training: (a) gradients of a 2-layer full-width model
      at B=8, T=512, kernel route against plain route, in fp32 (1e-3 of max)
      and in bf16 (the cosine margin to the fp32 plain route): QLoRA over
@@ -168,7 +170,7 @@ Phases, each printing its own lines:
      the PiSSA adapter and the same 4 layers:
      a greedy /generate whose tokens are the argmax of the served model's
      teacher-forced logits; (c) readings at 24 layers, B=8, T=512: the
-     int8c QLoRA step, the LoRA step under `dots` and the `full` step (ms
+     int8c QLoRA step and the `full` step (ms
      over chained steps with a canary, Kt/s, busy time, idle share, peak
      memory), B.4's launches in an int8c QLoRA step (192 remat off, 384 on;
      on the device too).
@@ -228,7 +230,7 @@ Phases, each printing its own lines:
      RWKV-4-World-1.5B models at full width: LoRA gradients kernel route
      against plain route in fp32 (1e-3) and bf16 (C24_BOUND), and TBPTT
      over every parameter (fp32); (d) 24-layer LoRA and `full` steps of both
-     and a v4 TBPTT step at chunk 128, B=8, T=512: their launches (exact, and
+     at B=8, T=512: their launches (exact, and
      on the device: K1 / B.6 / B.7, B.14 and its backward), ms over chained
      steps with the canary, busy time, idle share and peak memory; (e)
      `train.cli simcse --dropout-noise`, 3 steps at 2 layers and full width,
@@ -238,6 +240,21 @@ Phases, each printing its own lines:
      recorded inputs and output gradients, the kernel's error from the fp32
      op against the bf16 plain op's: the first op where they part beyond
      C24_BOUND is named, and none may.
+ 21. speculative decoding on the 24-layer bf16 1B6 model (run after phase
+     14c): `python -m rwkv_lm_ext_tpu_torch.serve.cli --draft-layers 4
+     --gamma 8` and `--draft` on a seeded RWKV-6 draft of 12 layers, C=768,
+     saved as a .pth (two subprocesses, started together, serving while the
+     in-process checks run): greedy and sampled /generate answered by
+     "speculative", a penalized one by "engine", /stats' acceptance; in this
+     process the collect forward against the forward and states[j] against
+     a prefix forward (drift and state bounds), greedy and sampled rounds as
+     graph replays bit-equal to eager rounds, B.15's launches (24 a replayed
+     round, on the device), the fp32 greedy identity with the engine at 4
+     layers (a first divergence allowed only inside the routes' logit
+     deviation), RWKV-5.2 (1B5 widths, 4 layers) through the collect forward
+     and RWKV-4 (4 layers, fp32) through the re-prefill rollback; readings:
+     the verify pass's ms (CUDA events), single-stream tok/s against the
+     engine's generate in turns, acceptance and tokens a target pass.
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no result. Without a CUDA device it exits non-zero
@@ -245,6 +262,7 @@ before doing anything.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import copy
@@ -307,10 +325,17 @@ from rwkv_lm_ext_tpu_torch.infer import engine as engine_module
 from rwkv_lm_ext_tpu_torch.infer.continuous import ContinuousBatcher
 from rwkv_lm_ext_tpu_torch.infer.encoders import BiEncoder, CrossEncoder, pair_ids
 from rwkv_lm_ext_tpu_torch.infer.engine import GenerationEngine
+speculative = importlib.import_module("rwkv_lm_ext_tpu_torch.infer.speculative")   # the module
+from rwkv_lm_ext_tpu_torch.infer.speculative import SpeculativeEngine, truncated_draft
 from rwkv_lm_ext_tpu_torch.infer.sampling import SamplingParams
 from rwkv_lm_ext_tpu_torch.infer.state_cache import PrefixStateCache
 from rwkv_lm_ext_tpu_torch.infer.states_registry import StatesRegistry
 from rwkv_lm_ext_tpu_torch.models.bidirectional import encoder_forward, sequence_lengths
+from rwkv_lm_ext_tpu_torch.models.collect import (
+    collect_supported,
+    rwkv_forward_collect,
+    select_state,
+)
 from rwkv_lm_ext_tpu_torch.models.decode import rwkv_decode_step
 from rwkv_lm_ext_tpu_torch.models.heads import (
     embed_sequences,
@@ -363,6 +388,7 @@ from rwkv_lm_ext_tpu_torch.ops.wkv import (
     wkv_plain,
 )
 wkv4_ops = importlib.import_module("rwkv_lm_ext_tpu_torch.ops.wkv4")   # the module
+from rwkv_lm_ext_tpu_torch.ops.wkv_collect import wkv6_collect, wkv6_collect_plain
 from rwkv_lm_ext_tpu_torch.ops.wkv4 import init_wkv4_state, wkv4, wkv4_bwd, wkv4_plain
 from rwkv_lm_ext_tpu_torch.ops.wkv_decode import (
     transpose_state,
@@ -444,6 +470,10 @@ KERNELS = {
     # its backward: XLA's autodiff of that scan in the JAX package
     "wkv4_bwd": dict(source="rwkv_lm_ext_tpu_torch/csrc/wkv4.cu",
                      replaces="rwkv_lm_ext_tpu/ops/wkv4.py:23"),
+    # the speculative verify pass's WKV keeping every state: wkv_collect, an
+    # XLA lax.scan in the JAX package, not a Pallas kernel
+    "wkv6_collect": dict(source="rwkv_lm_ext_tpu_torch/csrc/wkv_collect.cu",
+                         replaces="rwkv_lm_ext_tpu/ops/wkv_reference.py:80"),
 }
 NO_BACKWARD = {"tmix_prologue_bwd": 0, "wkv6_bwd_forward_pass": 0, "wkv6_bwd_reverse_pass": 0,
                "wkv_bwd_state_pass": 0, "wkv4_bwd": 0}
@@ -455,11 +485,11 @@ NO_FUSED = {"att_prep_fused": 0, "ffn_prep_fused": 0, "ffn_block_fused": 0,
 # prologue and one WKV per layer; a decode step swaps K1 for the decode
 # kernel; int8c adds 8 row quantizations a layer (5 att + 3 ffn projections)
 PER_FORWARD = {"layer_norm": 26, "tmix_prologue": 24, "wkv6_fused_output": 24,
-               "wkv6_decode_step": 0, "quantize_rows": 0, "wkv": 0, "wkv4": 0, **NO_BACKWARD,
-               **NO_FUSED}
+               "wkv6_decode_step": 0, "quantize_rows": 0, "wkv": 0, "wkv4": 0, "wkv6_collect": 0,
+               **NO_BACKWARD, **NO_FUSED}
 PER_STEP = {"layer_norm": 26, "tmix_prologue": 24, "wkv6_fused_output": 0,
-            "wkv6_decode_step": 24, "quantize_rows": 0, "wkv": 0, "wkv4": 0, **NO_BACKWARD,
-            **NO_FUSED}
+            "wkv6_decode_step": 24, "quantize_rows": 0, "wkv": 0, "wkv4": 0, "wkv6_collect": 0,
+            **NO_BACKWARD, **NO_FUSED}
 # one forward of the bidirectional encoder, either mode: ln0 + 24 x (ln1, ln2)
 # + ln_out through K3 (the plain projections take ln1's output), and the
 # unfused WKV twice a layer
@@ -504,11 +534,21 @@ MIXED = "Embeddings 向量 🚀 for retrieval and reranking."
 
 
 T_START = time.perf_counter()
+PHASE_STARTS = []      # (phase, seconds since T_START)
 
 
 def phase(title: str) -> None:
     """A phase's header, with the script's time so far."""
-    print(f"{title} [{time.perf_counter() - T_START:.0f} s]", flush=True)
+    now = time.perf_counter() - T_START
+    PHASE_STARTS.append((title.split(":")[0], now))
+    print(f"{title} [{now:.0f} s]", flush=True)
+
+
+def phase_seconds() -> str:
+    """Each phase's wall seconds, from its header to the next one's (the
+    last to now), in the order they ran."""
+    ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter() - T_START]
+    return ", ".join(f"{name} {end - t:.1f}" for (name, t), end in zip(PHASE_STARTS, ends))
 
 
 def check(ok: bool, what: str) -> None:
@@ -524,15 +564,16 @@ def device_ops(fn, reps: int) -> list:
     on an H100 was seen to return no record at all (50 launches of a 10 us
     kernel) and to lose records (19 of 20, and 8 of 10, three traces in a
     row each, and once a third trace with no record after two that lost
-    two in ten). One record in ten may be missing (one, from 4 calls on); a
-    trace that lost more is taken again, four times at most, each time
+    two in ten, and once four traces that lost two in ten and a fifth with
+    no record). One record in ten may be missing (one, from 4 calls on); a
+    trace that lost more is taken again, six times at most, each time
     waiting longer between the last launch's end and the profiler's stop.
-    The fifth trace is taken as it is if it holds the operation for half
+    The seventh trace is taken as it is if it holds the operation for half
     the calls or more (per_call_us works from the records that remain); if
     it holds fewer, the timed calls did not run and the script fails."""
     fn()
     allowed = 0 if reps < 4 else max(1, reps // 10)
-    pauses = (0.0, 0.05, 0.25, 0.5, 1.0)
+    pauses = (0.0, 0.05, 0.25, 0.5, 1.0, 2.0, 2.0)
     for attempt, pause in enumerate(pauses):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -549,7 +590,8 @@ def device_ops(fn, reps: int) -> list:
               f"times, for {reps} calls; {'taken as it is' if last else 'taken again'})")
         if last and most > 0 and 2 * most >= reps:
             return ops
-    raise AssertionError(f"five profiler traces in a row held their most frequent device operation "
+    raise AssertionError(f"{len(pauses)} profiler traces in a row held their most frequent device "
+                         f"operation "
                          f"for fewer than half of {reps} calls: the timed calls did not run, or "
                          "were not recorded")
 
@@ -1332,19 +1374,31 @@ class CliServer:
         self.timeout = timeout
 
     def __enter__(self) -> str:
+        if not hasattr(self, "proc"):
+            self.start()
+        return self.url()
+
+    def start(self) -> None:
+        """Start the server; url() waits until it serves (a caller may
+        start it ahead of its ``with`` block, to load while other work runs;
+        then a failure before that block stops it at exit)."""
+        self.started = time.perf_counter()
         self.proc = subprocess.Popen(self.cmd, cwd=ROOT, stdout=subprocess.PIPE, text=True)
-        lines: "queue.SimpleQueue" = queue.SimpleQueue()
+        atexit.register(self.stop)
+        self.lines: "queue.SimpleQueue" = queue.SimpleQueue()
 
         def pump():
             for line in self.proc.stdout:
-                lines.put(line)
-            lines.put(None)
+                self.lines.put(line)
+            self.lines.put(None)
 
         threading.Thread(target=pump, daemon=True).start()
-        deadline = time.monotonic() + self.timeout
+        self.deadline = time.monotonic() + self.timeout
+
+    def url(self) -> str:
         while True:
             try:
-                line = lines.get(timeout=max(deadline - time.monotonic(), 0.1))
+                line = self.lines.get(timeout=max(self.deadline - time.monotonic(), 0.1))
             except queue.Empty:
                 line = None
             if line is None:
@@ -1354,6 +1408,11 @@ class CliServer:
                 return line.split()[-1]
 
     def __exit__(self, *exc):
+        self.stop()
+
+    def stop(self) -> None:
+        if self.proc.poll() is not None:
+            return
         self.proc.terminate()
         try:
             self.proc.wait(timeout=30)
@@ -1403,20 +1462,27 @@ def device_launches(fn) -> tuple:
     return out, collections.Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
-def phase_int8c_cli(path: str) -> tuple:
+def int8c_cli_args(path: str) -> list:
+    return ["--model", path, "--quant", "int8c", "--platform", DEV, "--port", "0"]
+
+
+def phase_int8c_cli(path: str, server: "CliServer | None" = None) -> tuple:
     """Serve the saved model with --quant int8c through the CLI: as a
-    subprocess, then built by the same CLI code in this process (where the
+    subprocess (``server``, maybe started already), then built by the same
+    CLI code in this process (where the
     launch counts can be reset). The wrappers' counts run from before the
     server's warm-up (which captures the engine's decode graphs) to after
     the /generate requests; then one more blocking /generate under the
     profiler, whose decode blocks are graph replays, gives B.9's and B.4's
     launches on the device, held against steps x layers. Returns (int8c
     model, those device launches by counter name)."""
-    args = ["--model", path, "--quant", "int8c", "--platform", DEV, "--port", "0"]
+    args = int8c_cli_args(path)
+    server = server or CliServer(args)
     t0 = time.perf_counter()
-    with CliServer(args) as base:
+    with server as base:
         print(f"  python -m rwkv_lm_ext_tpu_torch.serve.cli {' '.join(args)}: serving on {base} "
-              f"after {time.perf_counter() - t0:.1f} s")
+              f"after {time.perf_counter() - server.started:.1f} s "
+              f"({time.perf_counter() - t0:.1f} s of it waited for)")
         generate_requests(base)
 
     service = cli.build_service(cli.parse_args(args))
@@ -1434,7 +1500,8 @@ def phase_int8c_cli(path: str) -> tuple:
           "in-process int8c /generate")
     print(f"  in-process CLI build, warm-up + /generate blocking + SSE: wrapper launches {counts}")
     check(all(n > 0 for k, n in counts.items()
-              if k not in NO_BACKWARD and k not in NO_FUSED and k not in ("wkv", "wkv4")),
+              if k not in NO_BACKWARD and k not in NO_FUSED
+              and k not in ("wkv", "wkv4", "wkv6_collect")),
           f"a kernel's wrapper did not run in /generate: {counts}")
     pieces = len(engine_module._chunk_plan(len(WorldTokenizer().encode(SHORT)),
                                            service.engine.chunk_len))
@@ -1598,10 +1665,14 @@ def timed_s(fn) -> tuple:
 def phase_decode_readings(model, label: str, smi: str) -> None:
     """Decode tok/s: generate_batch at B=64 (16-token prompts, 128 new
     tokens, default sampling without stops) and single-stream generate
-    (B=1, 128 tokens, block_size=16), as CUDA-graph blocks twice and as
-    eager blocks once, in turns (host clock around synchronised work; both
-    sides give the same tokens); a generate with other knobs and a length
-    that is no multiple of 16 (no new capture); then one 16-step block of
+    (B=1, 128 tokens, block_size=16), as CUDA-graph blocks twice, in turns
+    (host clock around synchronised work), and generate_batch once as eager
+    blocks, which must give the graph blocks' tokens (the 64-row decoder's
+    graph against its eager blocks; the eager generate's reading is left out
+    for the script's time limit: PERF.md §5 has it, and phase 15a holds the
+    one-row graph blocks bit-equal to the eager ones); a generate with other
+    knobs and a length that is no multiple of 16 (no new capture); then one
+    16-step block of
     each alone: its wall time (replay and fetch, synchronised, a mean of
     BLOCK_REPS), and under the profiler its device operations and busy
     time."""
@@ -1620,14 +1691,14 @@ def phase_decode_readings(model, label: str, smi: str) -> None:
     outs, secs = {}, collections.defaultdict(list)
     for fn in runs.values():                     # warm-up: the captures
         fn()
-    for mode in ("graph", "eager", "graph"):
-        with eager_blocks() if mode == "eager" else contextlib.nullcontext():
-            for name, fn in runs.items():
-                outs[name, mode], t = timed_s(fn)
-                secs[name, mode].append(t)
-    for name in runs:
-        check(outs[name, "graph"] == outs[name, "eager"],
-              f"{name} {label}: graph blocks and eager blocks gave different tokens")
+    for _ in range(2):
+        for name, fn in runs.items():
+            outs[name, "graph"], t = timed_s(fn)
+            secs[name, "graph"].append(t)
+    with eager_blocks():
+        eager, t_eager = timed_s(runs["generate_batch"])
+    check(eager == outs["generate_batch", "graph"],
+          f"generate_batch {label}: graph blocks and eager blocks gave different tokens")
     check(all(len(r) == 128 for r in outs["generate_batch", "graph"])
           and len(outs["generate", "graph"]) == 128, "decode readings: not 128 tokens a row")
     other = SamplingParams(temperature=0.7, top_p=0.5, alpha_presence=0.1, repetition_penalty=1.2,
@@ -1641,15 +1712,17 @@ def phase_decode_readings(model, label: str, smi: str) -> None:
           f"new tokens on the warm engine ({label}): {t_varied * 1e3:.1f} ms, "
           f"{100 / t_varied:.1f} tok/s, no new capture, on {smi}")
     for name, b in rows.items():
-        rates = {m: [b * 128 / t for t in secs[name, m]] for m in ("graph", "eager")}
+        rates = [b * 128 / t for t in secs[name, "graph"]]
         dec = decoders[name]
         with torch.inference_mode():
             _, wall = timed_s(lambda: [dec.run(16, engine._gen).tolist() for _ in range(BLOCK_REPS)])
             ops = device_ops(lambda: dec.run(16, engine._gen), 1)
         busy, wall = busy_us(ops) / 1e3, wall / BLOCK_REPS * 1e3
-        graph = " / ".join(f"{r:.1f}" for r in rates["graph"])
-        print(f"  reading: {name} (B={b}, 128 new tokens, {label}): graph blocks {graph} tok/s, "
-              f"eager blocks {rates['eager'][0]:.1f} tok/s (in turns: graph, eager, graph); one "
+        graph = " / ".join(f"{r:.1f}" for r in rates)
+        eager_rate = (f", eager blocks {b * 128 / t_eager:.1f} tok/s (once, after)"
+                      if name == "generate_batch" else "")
+        print(f"  reading: {name} (B={b}, 128 new tokens, {label}): graph blocks {graph} tok/s "
+              f"(two runs in turns with the other reading){eager_rate}; one "
               f"16-step graph block alone: {wall:.3f} ms wall (replay and fetch, mean of "
               f"{BLOCK_REPS}), {len(ops)} device ops, busy {busy:.3f} ms "
               f"({100 * busy / wall:.1f} % of its wall) on {smi}")
@@ -1830,7 +1903,18 @@ def plain_teacher_forced(model, prompts: list, outs: list, idx=None) -> torch.Te
     return logits[:, prompt.shape[1] - 1:].float()
 
 
-def phase_serving_stack(path: str, files: dict, model, label: str, plain, unquantized=None) -> dict:
+def serving_stack_server(path: str, files: dict, quantized: bool) -> CliServer:
+    """phase_serving_stack's server, not started yet."""
+    return CliServer(["--model", path, "--platform", DEV, "--port", "0",
+                      "--batcher-slots", str(SERVE_SLOTS), "--batcher-block", str(SERVE_BLOCK),
+                      "--prefix-cache", "8", "--slot-adapter", f"a={files['a']}",
+                      "--slot-adapter", f"b={files['b']}", "--lora-r", "8", "--lora-alpha", "16",
+                      "--states-config", str(files["states"])]
+                     + (["--quant", "int8c"] if quantized else []))
+
+
+def phase_serving_stack(path: str, files: dict, model, label: str, plain, unquantized=None,
+                        server: "CliServer | None" = None) -> dict:
     """`python -m rwkv_lm_ext_tpu_torch.serve.cli` with the batcher (16 slots,
     16-step graph blocks), the prefix cache, two slot adapters and a named
     state: SERVE_REQUESTS concurrent /generate requests (prompts of
@@ -1841,8 +1925,9 @@ def phase_serving_stack(path: str, files: dict, model, label: str, plain, unquan
     token is the argmax of the route's teacher-forced logits under its own
     adapter; those logits hold cosine >= 0.999 to the fp32 plain route (bf16),
     or (int8c) lie no farther from the int8c plain route than int8c plain
-    lies from the unquantized plain route, as phase 5 holds int8c. Returns
-    the readings."""
+    lies from the unquantized plain route, as phase 5 holds int8c. ``server``
+    is serving_stack_server's, maybe started already (main starts it while
+    the phase before runs). Returns the readings."""
     quantized = isinstance(model.blocks[0].ffn.key, QuantLinear)
     tok = WorldTokenizer()
     prompts = serving_prompts(tok)
@@ -1850,15 +1935,11 @@ def phase_serving_stack(path: str, files: dict, model, label: str, plain, unquan
     greedy = {"temperature": 0.0, "top_p": 1.0, "alpha_presence": 0.0, "alpha_frequency": 0.0,
               "token_stop": []}
     sampled = {"temperature": 0.8, "top_p": 0.9, "alpha_presence": 0.3, "token_stop": []}
-    args = ["--model", path, "--platform", DEV, "--port", "0",
-            "--batcher-slots", str(SERVE_SLOTS), "--batcher-block", str(SERVE_BLOCK),
-            "--prefix-cache", "8", "--slot-adapter", f"a={files['a']}",
-            "--slot-adapter", f"b={files['b']}", "--lora-r", "8", "--lora-alpha", "16",
-            "--states-config", str(files["states"])] + (["--quant", "int8c"] if quantized else [])
+    server = server or serving_stack_server(path, files, quantized)
     answers = [None] * SERVE_REQUESTS
     t0 = time.perf_counter()
-    with CliServer(args) as base:
-        up = time.perf_counter() - t0
+    with server as base:
+        up, waited = time.perf_counter() - server.started, time.perf_counter() - t0
 
         def ask(i):
             payload = {"prompt": prompts[i], "max_tokens": SERVE_NEW,
@@ -1888,8 +1969,8 @@ def phase_serving_stack(path: str, files: dict, model, label: str, plain, unquan
           and stats["generate_latency_ms"]["batcher"]["count"] == SERVE_REQUESTS
           and stats["adapters"] == ["a", "b", "base"], f"/stats: {stats}")
     tok_s = SERVE_REQUESTS * SERVE_NEW / wall
-    print(f"  python -m rwkv_lm_ext_tpu_torch.serve.cli {' '.join(args[2:])}: serving after "
-          f"{up:.1f} s; {SERVE_REQUESTS} concurrent /generate answered 200 through the batcher in "
+    print(f"  python -m rwkv_lm_ext_tpu_torch.serve.cli {' '.join(server.cmd[5:])}: serving "
+          f"after {up:.1f} s ({waited:.1f} s of it waited for); {SERVE_REQUESTS} concurrent /generate answered 200 through the batcher in "
           f"{wall:.2f} s; /process_text 200, GET / the web UI, /stats {stats['batcher']}, latency "
           f"{stats['generate_latency_ms']['batcher']}, prefix cache {stats['prefix_cache']}")
 
@@ -3941,10 +4022,13 @@ def rerank_pairs(tok, n: int = RERANK_PAIRS) -> list:
 def phase_contrastive_readings(path: str, reranker, smi: str) -> None:
     """Readings, not benchmark cells: reranked pairs a second (64 pairs in
     the 512 bucket, bf16, CrossEncoder.score_pairs, host clock over 3 calls
-    after a warm-up, busy time of one call); a cross-encoder LoRA step and
-    an nli (CoSENT, every parameter over fp32 masters) step at B=8, T=512:
-    ms (CUDA events over chained steps with a canary), Kt/s, busy and idle
-    share; B.5's full form in the nli step, device ms and launches."""
+    after a warm-up, busy time of one call); an nli (CoSENT, every parameter
+    over fp32 masters) step at B=8, T=512: ms (CUDA events over chained
+    steps with a canary), Kt/s, busy and idle share; B.5's full form in the
+    nli step, device ms and launches. The cross-encoder LoRA step's reading
+    is left out for the script's time limit (PERF.md §5 has its numbers):
+    16a holds its gradients to the plain route, 16b trains it through the
+    CLI, and the nli step's profile holds the same kernel bodies."""
     tok = WorldTokenizer()
     pairs = rerank_pairs(tok)
     reranker.score_pairs(pairs, batch_size=RERANK_PAIRS)        # warm-up
@@ -3961,26 +4045,6 @@ def phase_contrastive_readings(path: str, reranker, smi: str) -> None:
     torch.cuda.empty_cache()
 
     gen = torch.Generator(device=DEV).manual_seed(31)
-    model, cfg = load_rwkv_checkpoint(path, device=DEV)
-    apply_lora(model, LORA, init_lora_params(model, LORA, gen))
-    model.score = init_classification_head(cfg, generator=gen)
-    loss_fn = functools.partial(cross_encoder_loss_fn, remat=True)
-    step = make_train_step(model, TrainConfig(lr_init=1e-4, warmup_steps=0, total_steps=100), loss_fn)
-    batch = pair_rows(gen, cfg.vocab_size)
-    step(batch)      # warm-up
-    torch.cuda.synchronize()
-    trainable = [p for p in model.parameters() if p.requires_grad]
-    ms, losses, before_last = chained_steps(step, batch, 3, trainable)
-    check(bool(torch.isfinite(losses).all()), f"non-finite cross-encoder losses {losses}")
-    train_canary(model, loss_fn, trainable, before_last, batch, pair_rows(gen, cfg.vocab_size),
-                 losses[-1], "cross-encoder train steps")
-    del before_last
-    print(f"  reading: cross-encoder train step (LoRA r=8 + score head) {ms:.2f} ms, "
-          f"{TB * T / ms:.2f} Kt/s (B={TB}, T={T}, bf16, remat on) on {smi}")
-    step_profile(step, batch, ms, what="one cross-encoder step", kernels=LORA_STEP_KERNELS)
-    del model, step
-    torch.cuda.empty_cache()
-
     model, cfg = load_rwkv_checkpoint(path, device=DEV, param_dtype="float32")
     apply_trainable_mask(model, trainable_mask(model, "full"))
     loss_fn = functools.partial(contrastive_loss_fn, loss="cosent", pooling="lasttoken", remat=True)
@@ -4372,18 +4436,9 @@ def phase_peft_readings(path: str, smi: str) -> None:
         del model, step, ops
         torch.cuda.empty_cache()
 
-    model, cfg = load_rwkv_checkpoint(path, device=DEV)
-    apply_lora(model, LORA, init_lora_params(model, LORA, gen))
-    # dots_nobatch is left out for time: its step read within 0.1 ms of
-    # dots' busy time in earlier runs (17a holds it bit-equal to remat on)
-    for policy in ("dots",):
-        step = make_train_step(model, TrainConfig(lr_init=1e-4, warmup_steps=0, total_steps=100,
-                                                  grad_checkpoint=policy))
-        read_train_step(model, step, functools.partial(sft_loss_fn, remat=policy), batch, other,
-                        f"LoRA step under {policy}", smi)
-        del step
-    del model
-    torch.cuda.empty_cache()
+    # the LoRA steps under dots and dots_nobatch are left out for the
+    # script's time limit (PERF.md §5 has dots' reading): 17a holds both
+    # policies' gradients bit-equal to remat on's
 
     model, cfg = load_rwkv_checkpoint(path, device=DEV, param_dtype="float32")
     apply_trainable_mask(model, trainable_mask(model, "full"))
@@ -4995,39 +5050,36 @@ def phase_family_readings(smi: str) -> int:
     and a `full` step (fp32 masters), remat on, each with its launches (exact
     on the counters, and on the device from the profile: B.14 and its
     backward, K1, B.6, B.7), time (CUDA events over chained steps with the
-    canary), busy time, idle share and peak memory; and a v4 TBPTT step at
-    chunk TBPTT_CHUNK (128). Returns the backward kernel's launches in the v4
-    LoRA step."""
+    canary), busy time, idle share and peak memory. Returns the backward
+    kernel's launches in the v4 LoRA step."""
     gen = torch.Generator(device=DEV).manual_seed(34)
     bwd_launches = 0
     for name, cfg_fn, seed in (("v5.2", rwkv5_1b5, 35), ("v4", rwkv4_1b5, 36)):
         cfg = cfg_fn()
         sd = synthetic_1b6(cfg, seed)
         batch, other = train_batch(gen, cfg.vocab_size), train_batch(gen, cfg.vocab_size)
-        runs = (("LoRA", "bfloat16", "lora", 0), ("full", "float32", "full", 0))
-        if cfg.version < 5:
-            runs += ((f"TBPTT (chunk_ctx {TBPTT_CHUNK})", "float32", "full", TBPTT_CHUNK),)
-        for what, param_dtype, train_type, chunk in runs:
+        # the v4 TBPTT step's reading is left out for the script's time limit
+        # (PERF.md §5 has it): 20c holds a 2-layer v4 TBPTT step's gradients,
+        # 17b trains --chunk-ctx through the CLI
+        for what, param_dtype, train_type in (("LoRA", "bfloat16", "lora"),
+                                              ("full", "float32", "full")):
             model = load_state_dict_into(RWKV(cfg_fn(param_dtype=param_dtype), device=DEV), sd)
             if train_type == "lora":
                 apply_lora(model, LORA, init_lora_params(model, LORA, gen))
             apply_trainable_mask(model, trainable_mask(model, train_type))
-            tc = TrainConfig(lr_init=1e-5, warmup_steps=0, total_steps=100, chunk_ctx=chunk)
-            step = make_train_step(model, tc)
+            step = make_train_step(model, TrainConfig(lr_init=1e-5, warmup_steps=0, total_steps=100))
             reset_launch_counts()
             step(batch)
             torch.cuda.synchronize()
             counts = launch_counts()
-            want = family_step_counts(cfg.version, cfg.n_layer, True, T // chunk if chunk else 1)
+            want = family_step_counts(cfg.version, cfg.n_layer, True)
             check(counts == want, f"{name} {what} step counts {counts} != {want}")
             if cfg.version < 5 and train_type == "lora":
                 bwd_launches = counts["wkv4_bwd"]
-            loss_fn = (functools.partial(tbptt_loss_fn, chunk_ctx=chunk, remat=True) if chunk
-                       else functools.partial(sft_loss_fn, remat=True))
-            ops = read_train_step(model, step, loss_fn, batch, other, f"{name} {what} step", smi)
-            chunks = T // chunk if chunk else 1
+            ops = read_train_step(model, step, functools.partial(sft_loss_fn, remat=True), batch,
+                                  other, f"{name} {what} step", smi)
             want_dev = {k: (2 if "backward" not in k and k not in ("B.6", "B.7") else 1)
-                        * chunks * cfg.n_layer for k in FAMILY_STEP_KERNELS[round(cfg.version, 1)]}
+                        * cfg.n_layer for k in FAMILY_STEP_KERNELS[round(cfg.version, 1)]}
             on_device = {k: kernel_launches(ops, n)
                          for k, n in FAMILY_STEP_KERNELS[round(cfg.version, 1)].items()}
             print(f"  launches in one {name} {what} step: {', '.join(f'{k} {counts[k]}' for k in counts if counts[k])}; "
@@ -5734,6 +5786,318 @@ def eval_in_process(path: str, files: dict, data: dict, tok, clis: list, smi: st
     return {key: counts[key] + ppl_counts[key] for key in counts}
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: speculative decoding
+# ---------------------------------------------------------------------------
+
+COLLECT_REL = {torch.float32: 1e-4, BF16: 1e-2}   # B.15's gated output, x max|plain|
+SPEC_GAMMA = 8
+SPEC_DRAFT_LAYERS = 4
+SPEC_NEW = 32                # tokens of the in-process checks
+SPEC_READ_NEW = 64           # tokens of the single-stream readings
+SPEC_SMALL_LAYERS = 4        # depth of the fp32 identity and the RWKV-5.2 / RWKV-4 targets
+
+
+def phase_collect_kernel() -> dict:
+    """B.15 against its plain version (wkv_collect + K1's GroupNorm-gate
+    epilogue) at T in {1, 5, 9, 17, 33}, B in {1, 4}, N in {64, 128} (H =
+    C / N), fp32 and bf16, and on v5's constant decay: the gated output within
+    COLLECT_REL and every state within 1e-4 of max|plain|; then timed at the
+    verify pass's shape (B=1, T = gamma + 1 = 9, H=32, N=64, bf16) beside its
+    bound (each input once, the output and the whole state stack once)."""
+    rng = Inputs(21)
+
+    def args_of(b, t, n, dtype, v5=False):
+        h = C // n
+        r, k, v = (rng.normal(b, t, h, n, scale=0.5, dtype=dtype) for _ in range(3))
+        g = torch.nn.functional.silu(rng.normal(b, t, h, n, dtype=dtype))
+        if v5:
+            w = rng.uniform(h, n, lo=-6.0, hi=1.0, dtype=torch.float32).expand(b, t, h, n)
+        else:
+            w = rng.uniform(b, t, h, n, lo=-6.0, hi=1.0, dtype=torch.float32)
+        return (r, k, v, w, rng.normal(h, n, scale=0.5, dtype=torch.float32), g,
+                rng.normal(h * n, scale=0.1, dtype=torch.float32) + 1,
+                rng.normal(h * n, scale=0.1, dtype=torch.float32),
+                rng.normal(b, h, n, n, scale=0.1, dtype=torch.float32))
+
+    worst = {torch.float32: 0.0, BF16: 0.0}
+    for dtype in (torch.float32, BF16):
+        for n in (64, 128):
+            for b in (1, 4):
+                for t in (1, 5, 9, 17, 33):
+                    args = args_of(b, t, n, dtype)
+                    out, states = wkv6_collect(*args, eps=LN_X_EPS)
+                    out_p, states_p = wkv6_collect_plain(*f32(*args), eps=LN_X_EPS)
+                    for got, want, rel, what in ((out, out_p, COLLECT_REL[dtype], "out"),
+                                                 (states, states_p, 1e-4, "states")):
+                        err = (got.float() - want).abs().max().item()
+                        limit = rel * want.abs().max().item()
+                        check(err <= limit, f"wkv6_collect {dtype} N={n} B={b} T={t} {what}: error "
+                              f"{err} above {limit}")
+                        if what == "out":
+                            worst[dtype] = max(worst[dtype], err)
+        for b in (1, 4):
+            args = args_of(b, 9, 64, dtype, v5=True)
+            out, states = wkv6_collect(*args, eps=LN_X_EPS)
+            out_p, states_p = wkv6_collect_plain(*f32(*args), eps=LN_X_EPS)
+            err_line(f"wkv6_collect {dtype} v5 decay B={b} T=9 out", out, out_p, COLLECT_REL[dtype])
+            err_line(f"wkv6_collect {dtype} v5 decay B={b} T=9 states", states, states_p, 1e-4)
+    print(f"  wkv6_collect against its plain version at T in (1, 5, 9, 17, 33), B in (1, 4), N in "
+          f"(64, 128), fp32 and bf16: out within {COLLECT_REL[torch.float32]:g} / "
+          f"{COLLECT_REL[BF16]:g} x max|plain| (largest error {worst[torch.float32]:.3e} / "
+          f"{worst[BF16]:.3e}), every state within 1e-4 x max|plain|")
+    args = args_of(1, SPEC_GAMMA + 1, N, BF16)
+    stack = torch.empty(SPEC_GAMMA + 1, 1, H, N, N, device=DEV)
+    out, _ = wkv6_collect(*args, eps=LN_X_EPS, out_states=stack)
+    ms = device_ms(lambda: wkv6_collect(*args, eps=LN_X_EPS, out_states=stack), 50)
+    plain_ms = device_ms(lambda: wkv6_collect_plain(*args, eps=LN_X_EPS), 5)
+    b, t = 1, SPEC_GAMMA + 1
+    row = dict(
+        max_abs_err=worst[BF16], ms=ms, plain_ms=plain_ms,
+        # every input once, the gated output and the state after every step;
+        # per step and head the two products of the recurrence and the decay
+        # of the state (~5 N^2) and the GroupNorm (~10 N) on fp32 FMAs
+        **roofline(nbytes(*args) + nbytes(out, stack), {"fp32": b * t * H * (5 * N * N + 10 * N)}),
+    )
+    print(f"  wkv6_collect at the verify pass's shape (B=1, T={t}, H={H}, N={N}, bf16): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}), {100 * row['bound_ms'] / ms:.1f} % of bound")
+    return {"wkv6_collect": row}
+
+
+def eager_rounds():
+    """Within it, the speculative engine's rounds and rollbacks run their
+    eager bodies on the card in place of the graph replays."""
+    return mock.patch.object(speculative._Rounds, "_replay",
+                             lambda self, name, body, warmup, gen: body())
+
+
+def spec_run(spec, prompt, n, sampling=None):
+    """(tokens, stats, the final static target and draft states)."""
+    out, stats = spec.generate(prompt, max_tokens=n, token_stop=(), sampling=sampling, seed=4,
+                               return_stats=True)
+    rounds = spec._rounds_for(sampling if sampling is not None and sampling.temperature > 0
+                              else None)
+    return out, stats, clone_state(rounds.t_state), clone_state(rounds.d_state)
+
+
+SPEC_SAMPLED = SamplingParams(temperature=1.0, top_p=0.9, alpha_presence=0.0, alpha_frequency=0.0,
+                              token_stop=())
+
+
+def replay_equals_eager(model, draft, prompt, label: str) -> None:
+    """Greedy and sampled speculative generation as graph replays and as
+    eager rounds: the same tokens, stats and final states, bit for bit."""
+    for sp in (None, SPEC_SAMPLED):
+        graph = spec_run(SpeculativeEngine(model, draft, gamma=SPEC_GAMMA), prompt, SPEC_NEW, sp)
+        with eager_rounds():
+            eager = spec_run(SpeculativeEngine(model, draft, gamma=SPEC_GAMMA), prompt, SPEC_NEW,
+                             sp)
+        check(graph[0] == eager[0] and graph[1] == eager[1] and states_equal(graph[2], eager[2])
+              and states_equal(graph[3], eager[3]) and len(graph[0]) == SPEC_NEW,
+              f"{label}: replayed speculative rounds differ from eager rounds ({sp})")
+        print(f"  {label}, {'greedy' if sp is None else 'sampled'}: {SPEC_NEW} tokens as graph "
+              f"replays bit-equal to eager rounds (tokens, stats, final target and draft states); "
+              f"acceptance {graph[1].acceptance:.3f}, {graph[1].tokens_per_target_pass:.2f} tokens "
+              f"a target pass")
+
+
+def collect_against_prefix(model, label: str) -> None:
+    """The collect forward over 9 tokens after a 16-token prefill (B=1)
+    against the forward: logits cosine >= 0.999 (the drift bound) and
+    states[j] against the state of a prefix forward, row cosines >=
+    STATE_COS (j = 0, 4, 8)."""
+    gen = torch.Generator(device=DEV).manual_seed(61)
+    tokens = torch.randint(4, model.cfg.vocab_size, (1, 25), device=DEV, generator=gen)
+    with torch.inference_mode():
+        _, st = model(tokens[:, :16])
+        logits, states = rwkv_forward_collect(model, tokens[:, 16:], st)
+        full, _ = model(tokens[:, 16:], st, t1_step=False)
+        worst = 1.0
+        for j in (0, 4, 8):
+            _, want = model(tokens[:, 16:17 + j], st, t1_step=False)
+            got = select_state(states, torch.tensor([j], device=DEV))
+            for key in want:
+                rows = [t.flatten(0, -3).flatten(1) if key == "wkv" else t.flatten(0, -2)
+                        for t in (got[key], want[key])]
+                worst = min(worst, min_cosine(*rows))
+    cos = min_cosine(logits[0], full[0])
+    print(f"  {label}: collect forward vs forward over 9 tokens after 16: min logits cosine "
+          f"{cos:.6f} (limit 0.999); states[j] vs the prefix forward's (j = 0, 4, 8): min row "
+          f"cosine {worst:.6f} (limit {STATE_COS[False]})")
+    check(cos >= 0.999 and worst >= STATE_COS[False],
+          f"{label}: collect forward vs prefix forward: logits {cos}, states {worst}")
+
+
+def greedy_identity(model, draft, label: str) -> None:
+    """fp32: the speculative greedy tokens equal the engine's penalty-free
+    greedy tokens; the one exception allowed is a first divergence where the
+    engine's top-2 logit gap is within twice the measured deviation of the
+    two routes' logits there (phase 16c's rule: no deviation could swap
+    them)."""
+    gen = torch.Generator(device=DEV).manual_seed(62)
+    prompt = torch.randint(4, model.cfg.vocab_size, (16,), device=DEV, generator=gen)
+    want = GenerationEngine(model).generate(prompt.tolist(), max_tokens=SPEC_NEW, sampling=GREEDY)
+    got, stats = SpeculativeEngine(model, draft, gamma=SPEC_GAMMA).generate(
+        prompt.tolist(), max_tokens=SPEC_NEW, token_stop=(), return_stats=True)
+    toks = torch.tensor(want, device=DEV)
+    engine_logits = teacher_forced(model, prompt, toks, reference=False)
+    with torch.inference_mode():
+        first, st = model(prompt[None])
+        if collect_supported(model.cfg):
+            rest, _ = rwkv_forward_collect(model, toks[None, :-1], st)
+        else:
+            rest, _ = model(toks[None, :-1], st)
+    verify_logits = torch.cat([first[0, -1:], rest[0]]).float()
+    dev = (verify_logits - engine_logits).abs().max().item()
+    same = got == want
+    i = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    gap = None
+    if not same and i is not None:
+        top2 = engine_logits[i].topk(2).values
+        gap = (top2[0] - top2[1]).item()
+    print(f"  {label}: speculative greedy ({SPEC_NEW} tokens, acceptance {stats.acceptance:.3f}) "
+          f"{'equals' if same else f'departs at token {i} from'} the engine's penalty-free greedy; "
+          f"the routes' logits differ by {dev:.3e} at most"
+          + ("" if same else f", the engine's top-2 gap there {gap:.3e}"))
+    check(same or (i is not None and got[:i] == want[:i] and gap <= 2 * dev),
+          f"{label}: speculative greedy tokens depart from the engine's beyond the routes' deviation")
+
+
+def spec_requests(base: str, label: str) -> dict:
+    """A greedy and a sampled /generate on a speculative server, a penalized
+    one (the engine's), /stats."""
+    greedy = {"max_tokens": 32, "temperature": 0.0, "top_p": 1.0, "alpha_presence": 0.0,
+              "alpha_frequency": 0.0, "token_stop": []}
+    code, a = post(base + "/generate", {"prompt": SHORT, **greedy})
+    check(code == 200 and a["backend"] == "speculative", f"{label}: greedy /generate {code} {a}")
+    code, b = post(base + "/generate", {"prompt": CJK, **greedy, "temperature": 0.8, "top_p": 0.9})
+    check(code == 200 and b["backend"] == "speculative", f"{label}: sampled /generate {code} {b}")
+    code, c = post(base + "/generate", {"prompt": SHORT, "max_tokens": 8})
+    check(code == 200 and c["backend"] == "engine", f"{label}: penalized /generate {code} {c}")
+    code, stats = post(base + "/stats", {})
+    spec = stats.get("speculative", {})
+    check(code == 200 and spec.get("rounds", 0) > 0 and 0.0 <= spec["acceptance"] <= 1.0,
+          f"{label}: /stats {stats}")
+    print(f"  python -m rwkv_lm_ext_tpu_torch.serve.cli {label}: greedy and sampled /generate "
+          f"answered 200 by \"speculative\", a penalized one by \"engine\"; /stats speculative "
+          f"{spec}")
+    return a
+
+
+def phase_speculative(model, path: str, tmp: Path, smi: str) -> int:
+    """Phase 21 (the module docstring). Returns B.15's launches in one
+    speculative /generate on a fresh engine (its counters from 0)."""
+    tok = WorldTokenizer()
+    d_cfg = rwkv6_1b6(n_layer=12, n_embd=768)
+    draft_path = str(tmp / "rwkv6_draft_12x768.pth")
+    draft_model = load_state_dict_into(RWKV(d_cfg, device=DEV), synthetic_1b6(d_cfg, seed=70))
+    save_rwkv_checkpoint(draft_model, draft_path)
+    servers = {
+        f"--draft-layers {SPEC_DRAFT_LAYERS} --gamma {SPEC_GAMMA}":
+            CliServer(["--model", path, "--platform", DEV, "--port", "0", "--draft-layers",
+                       str(SPEC_DRAFT_LAYERS), "--gamma", str(SPEC_GAMMA)]),
+        "--draft (12 layers, C=768)":
+            CliServer(["--model", path, "--platform", DEV, "--port", "0", "--draft", draft_path]),
+    }
+    with contextlib.ExitStack() as stack:
+        # the two servers start while the in-process checks run
+        for server in servers.values():
+            server.start()
+            stack.callback(server.__exit__)
+        draft = truncated_draft(model, SPEC_DRAFT_LAYERS)
+        collect_against_prefix(model, f"1B6 bf16, {model.cfg.n_layer} layers")
+        gen = torch.Generator(device=DEV).manual_seed(63)
+        prompt = torch.randint(4, model.cfg.vocab_size, (16,), device=DEV, generator=gen).tolist()
+        replay_equals_eager(model, draft, prompt, f"1B6 bf16, draft of {SPEC_DRAFT_LAYERS} layers")
+        # the main path's launches: a fresh engine, counters from 0
+        spec = SpeculativeEngine(model, draft, tok, gamma=SPEC_GAMMA)
+        reset_launch_counts()
+        spec.generate(SHORT, max_tokens=32, token_stop=())
+        launches = launch_counts()["wkv6_collect"]
+        rounds = spec._rounds_for(None)
+        with torch.inference_mode():
+            ops = device_ops(lambda: rounds.run(spec._gen), 4)
+            _, wall = timed_s(lambda: [rounds.run(spec._gen) for _ in range(10)])
+        per_round = kernel_launches(ops, "wkv6_collect_kernel") / 4
+        L = model.cfg.n_layer
+        print(f"  B.15 launches: {launches} in one /generate's capture and warm-up (counters from "
+              f"0), {per_round:g} a replayed round on the device ({L} a verify pass); a greedy "
+              f"round's replay and fetch {wall / 10 * 1e3:.3f} ms wall (mean of 10), "
+              f"{len(ops) / 4:.0f} device ops and {busy_us(ops) / 4 / 1e3:.3f} ms busy a round "
+              f"(gamma {SPEC_GAMMA} draft steps of {SPEC_DRAFT_LAYERS} layers and the verify "
+              f"pass) on {smi}")
+        check(launches > 0 and 0.9 * L <= per_round <= L,
+              f"B.15 launched {launches} times, {per_round} a replayed round")
+        del spec, rounds
+
+        # fp32 at reduced depth: the greedy identity with the engine
+        small = two_layer_sd(path, SPEC_SMALL_LAYERS)
+        m32 = load_state_dict_into(RWKV(rwkv6_1b6(n_layer=SPEC_SMALL_LAYERS, dtype="float32"),
+                                        device=DEV), small)
+        greedy_identity(m32, truncated_draft(m32, 1), f"1B6 fp32, {SPEC_SMALL_LAYERS} layers")
+        del m32, small
+        # RWKV-5.2 through the collect forward, RWKV-4 through the re-prefill rollback
+        v5_cfg = rwkv5_1b5(n_layer=SPEC_SMALL_LAYERS)
+        v5 = load_state_dict_into(RWKV(v5_cfg, device=DEV), synthetic_1b6(v5_cfg, 64))
+        collect_against_prefix(v5, f"RWKV-5.2 1B5 widths bf16, {SPEC_SMALL_LAYERS} layers")
+        replay_equals_eager(v5, truncated_draft(v5, 1), prompt, f"RWKV-5.2 bf16, {SPEC_SMALL_LAYERS} "
+                            "layers, draft of 1")
+        del v5
+        v4_cfg = rwkv4_1b5(n_layer=SPEC_SMALL_LAYERS, dtype="float32")
+        v4 = load_state_dict_into(RWKV(v4_cfg, device=DEV), synthetic_1b6(v4_cfg, 65))
+        check(not SpeculativeEngine(v4, v4).collect, "an RWKV-4 target took the collect forward")
+        greedy_identity(v4, truncated_draft(v4, 1), f"RWKV-4 1.5B widths fp32, {SPEC_SMALL_LAYERS} "
+                        "layers, the re-prefill rollback")
+        del v4
+        torch.cuda.empty_cache()
+
+        for label, server in servers.items():
+            spec_requests(server.url(), label)
+    del draft_model
+
+    # readings, the servers stopped: the verify pass alone (CUDA events) and
+    # single-stream generation against the engine's, in turns
+    spec = SpeculativeEngine(model, draft, gamma=SPEC_GAMMA)
+    engine = GenerationEngine(model)
+    with torch.inference_mode():
+        _, st = model(torch.tensor([prompt], device=DEV))
+        feed = torch.tensor([prompt[:SPEC_GAMMA + 1]], device=DEV)
+        rwkv_forward_collect(model, feed, st)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            rwkv_forward_collect(model, feed, st)
+        end.record()
+        torch.cuda.synchronize()
+    verify_ms = start.elapsed_time(end) / 10
+    runs = {"speculative": lambda: spec.generate(prompt, max_tokens=SPEC_READ_NEW, token_stop=(),
+                                                 return_stats=True),
+            "engine": lambda: (engine.generate(prompt, max_tokens=SPEC_READ_NEW, sampling=GREEDY),
+                               None)}
+    for fn in runs.values():
+        fn()
+    secs = collections.defaultdict(list)
+    for name in ("engine", "speculative", "speculative", "engine"):
+        (out, stats), t = timed_s(runs[name])
+        check(len(out) == SPEC_READ_NEW, f"{name}: {len(out)} tokens")
+        secs[name].append(t)
+        if stats is not None:
+            spec_stats = stats
+    rate = {n: " / ".join(f"{SPEC_READ_NEW / t:.1f}" for t in ts) for n, ts in secs.items()}
+    print(f"  reading: the verify pass ({model.cfg.n_layer} layers, T={SPEC_GAMMA + 1}, B=1, bf16, eager) "
+          f"{verify_ms:.3f} ms (CUDA events, mean of 10) on {smi}")
+    print(f"  reading: single-stream greedy, {SPEC_READ_NEW} tokens (B=1, bf16, draft of "
+          f"{SPEC_DRAFT_LAYERS} layers, gamma {SPEC_GAMMA}): speculative {rate['speculative']} tok/s, "
+          f"the engine's generate {rate['engine']} tok/s (in turns: engine, speculative, "
+          f"speculative, engine); acceptance {spec_stats.acceptance:.3f}, "
+          f"{spec_stats.tokens_per_target_pass:.2f} tokens a target pass, {spec_stats.rounds} rounds "
+          f"on {smi}")
+    del spec, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     """With no arguments the whole check; with --merge-calibration only the
     readings behind the merged-adapter budgets (merge_calibration)."""
@@ -5763,6 +6127,7 @@ def main() -> None:
     kernels.update(phase_backward_kernels())
     kernels.update(phase_wkv_kernels())
     kernels.update(phase_fused_kernels())
+    kernels.update(phase_collect_kernel())
 
     phase("phase 3: synthetic RWKV-6-World-1B6, bf16, embeddings served over HTTP")
     cfg = rwkv6_1b6()
@@ -5795,24 +6160,35 @@ def main() -> None:
         print(f"  saved the bf16 model ({Path(path).stat().st_size / 2**30:.2f} GiB) "
               f"in {time.perf_counter() - t0:.1f} s")
         files = write_serving_files(tmp, model)
+        # the CLI servers of 15b, 5 and 15d load while in-process phases
+        # before their own run (15a, 15c: launch counts and bit-equality, no
+        # reading)
+        server = serving_stack_server(path, files, quantized=False)
+        server.start()
+        server_q = CliServer(int8c_cli_args(path))
+        server_q.start()
         phase("phase 15a: CUDA-graph decode blocks against eager blocks, bf16")
         phase_graph_blocks(model, "bf16")
         phase("phase 15b: the serving stack through the CLI (batcher, slot adapters, prefix "
               "cache, named states), bf16")
-        serving = {"bf16": phase_serving_stack(path, files, model, "bf16", reference)}
+        serving = {"bf16": phase_serving_stack(path, files, model, "bf16", reference,
+                                               server=server)}
 
         phase("phase 5: int8c through the serving CLI")
-        model_q, generate_counts = phase_int8c_cli(path)
+        model_q, generate_counts = phase_int8c_cli(path, server_q)
         prompt_q = phase_int8c_checks(model_q, reference, weights=model.state_dict())
         phase_int8c_embeddings(model_q, reference, unquantized)
 
         phase(f"phase 14b: fused decode, 24 layers, int8c, B={B}")
         fused_counts_q = phase_fused_decode(model_q, reference, prompt_q, "int8c", seed=19)
+        server = serving_stack_server(path, files, quantized=True)
+        server.start()
         phase("phase 15c: CUDA-graph decode blocks against eager blocks, int8c")
         phase_graph_blocks(model_q, "int8c")
         phase("phase 15d: the serving stack through the CLI, int8c")
         full = load_state_dict_into(RWKV(rwkv6_1b6(dtype="float32"), device=DEV), model.state_dict())
-        serving["int8c"] = phase_serving_stack(path, files, model_q, "int8c", reference, full)
+        serving["int8c"] = phase_serving_stack(path, files, model_q, "int8c", reference, full,
+                                               server=server)
         del reference, full
         for label, r in serving.items():
             print(f"  reading: the batcher through the CLI ({label}, {SERVE_SLOTS} slots, "
@@ -5828,6 +6204,10 @@ def main() -> None:
         # keep the script inside its time limit (PERF.md §5 has their
         # readings): call phase_decode_ablation(model, "bf16", smi) for all four
         phase_decode_ablation(model, "bf16", smi, variants=("step", "step_fused"))
+        phase(f"phase 21: speculative decoding, 24 layers, bf16: python -m "
+              f"rwkv_lm_ext_tpu_torch.serve.cli --draft-layers {SPEC_DRAFT_LAYERS} | --draft, "
+              f"SpeculativeEngine, the collect forward (B.15)")
+        collect_launches = phase_speculative(model, path, tmp, smi)
         del model
         # int8c's generate readings and its decode-step ablation (phase 14d)
         # are left out to keep the script inside its time limit (PERF.md §5
@@ -5933,13 +6313,14 @@ def main() -> None:
     launches.update({k: fused_counts[k] for k in ("att_prep_fused", "ffn_block_fused")})
     launches.update(ffn_prep_fused=fused_counts_q["ffn_prep_fused"],
                     wkv6_decode_step_transposed=bench_counts["wkv6_decode_step_transposed"],
-                    wkv4=v4_launches, wkv4_bwd=v4_bwd_launches)
+                    wkv4=v4_launches, wkv4_bwd=v4_bwd_launches, wkv6_collect=collect_launches)
     check(all(n > 0 for n in launches.values()) and mlm_counts["wkv"] > 0
           and mlm_counts["wkv6_bwd_reverse_pass"] > 0 and fill_mask_counts["layer_norm"] > 0
           and train_counts["tmix_prologue_bwd"] > 0
           and all(rerank["counts"][k] > 0 and eval_counts[k] > 0
                   for k in ("layer_norm", "tmix_prologue", "wkv6_fused_output")),
           f"a kernel was launched no time on its main path: {launches}")
+    print(f"seconds a phase: {phase_seconds()}")
     print(f"whole script: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", **KERNELS[k], launches=launches[k], **kernels[k])

@@ -97,6 +97,7 @@ from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
 from rwkv_lm_ext_tpu_torch.ops.ln import layer_norm, layer_norm_plain
 from rwkv_lm_ext_tpu_torch.ops.quant import quantize_rows, quantize_rows_plain
 from rwkv_lm_ext_tpu_torch.ops.wkv4 import wkv4, wkv4_plain
+from rwkv_lm_ext_tpu_torch.ops.wkv_collect import wkv6_collect, wkv6_collect_plain
 from rwkv_lm_ext_tpu_torch.ops.wkv_decode import (
     wkv6_decode_step,
     wkv6_decode_step_plain,
@@ -118,16 +119,17 @@ class Ops(NamedTuple):
     ffn_prep: object
     ffn_block: object
     wkv4: object
+    wkv6_collect: object
 
 
 KERNEL_OPS = Ops(
     layer_norm, tmix_prologue, wkv6_fused_output, wkv6_decode_step, quantize_rows,
-    att_prep_fused, ffn_prep_fused, ffn_block_fused, wkv4,
+    att_prep_fused, ffn_prep_fused, ffn_block_fused, wkv4, wkv6_collect,
 )
 PLAIN_OPS = Ops(
     layer_norm_plain, tmix_prologue_plain, wkv6_fused_output_plain,
     wkv6_decode_step_plain, quantize_rows_plain,
-    att_prep_plain, ffn_prep_plain, ffn_block_plain, wkv4_plain,
+    att_prep_plain, ffn_prep_plain, ffn_block_plain, wkv4_plain, wkv6_collect_plain,
 )
 
 LayerState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -286,24 +288,22 @@ class TimeMix(nn.Module):
     def forward(
         self, x: torch.Tensor, ln1: Norm, att_shift: torch.Tensor,
         wkv_state: torch.Tensor, ops: Ops, use_state_params: bool = False,
+        collect: Optional[dict] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """x: (B, T, C) raw residual stream; att_shift: (B, C) fp32, the
         previous token's ln1 output; wkv_state: (B, H, N, N) fp32, replaced
-        by ``time_state`` (shared by every sequence) with use_state_params.
-        Returns (out (B, T, C), new att_shift, new wkv_state)."""
+        by ``time_state`` (shared by every sequence) with use_state_params;
+        ``collect``: see ``_wkv_output``. Returns (out (B, T, C), new
+        att_shift, new wkv_state)."""
         B, T, _ = x.shape
         H, N = self.cfg.n_head, self.cfg.head_size
         r, k, v, g, w, xln = self._mix(x, ln1, att_shift, ops)
-        heads = (B, T, H, N)
         if use_state_params:
             if self.time_state is None:
                 raise ValueError("use_state_params needs RWKV.add_state_params() first")
             wkv_state = self.time_state
-        gated, new_wkv = ops.wkv6_fused_output(
-            r.view(heads), k.view(heads), v.view(heads), w.view(heads),
-            self.time_faaaa, g.view(heads), self.ln_x.weight, self.ln_x.bias,
-            wkv_state, eps=self.cfg.ln_x_eps,
-        )
+        gated, new_wkv = _wkv_output(self, ops, r, k, v, w.view(B, T, H, N), g, wkv_state, xln,
+                                     collect)
         return self.output(gated, ops), _last(xln), new_wkv
 
     def step(
@@ -400,6 +400,24 @@ class ChannelMix(nn.Module):
         return x + torch.sigmoid(self.receptance(xr, ops)) * kv, xn
 
 
+def _wkv_output(att, ops: Ops, r, k, v, w, g, wkv_state, xln, collect: Optional[dict]):
+    """The WKV, GroupNorm(ln_x) and gate of an RWKV-5/6 time mix: r, k, v, g
+    (B, T, A), w (B, T, H, N). K1, or with ``collect`` (models.collect: this
+    layer's slices {att_shift: (T, B, C), wkv: (T, B, H, N, N)} of the
+    verify pass's fp32 stacks) B.15, which writes the WKV state after every
+    position into collect["wkv"]; ln1's output ``xln`` is then the att
+    shift after every position. Returns (gated (B, T, A), new wkv_state)."""
+    B, T, _ = r.shape
+    heads = (B, T, att.cfg.n_head, att.cfg.head_size)
+    args = (r.view(heads), k.view(heads), v.view(heads), w, att.time_faaaa, g.view(heads),
+            att.ln_x.weight, att.ln_x.bias, wkv_state)
+    if collect is None:
+        return ops.wkv6_fused_output(*args, eps=att.cfg.ln_x_eps)
+    collect["att_shift"].copy_(xln.transpose(0, 1))
+    gated, states = ops.wkv6_collect(*args, eps=att.cfg.ln_x_eps, out_states=collect["wkv"])
+    return gated, states[-1]
+
+
 def _last(x: torch.Tensor) -> torch.Tensor:
     """x[:, -1] in fp32, always a copy: the new shift state. A view of an
     fp32 x would hold every layer's whole (B, T, C) activation until the
@@ -456,21 +474,19 @@ class TimeMixV5(nn.Module):
 
     def forward(
         self, x: torch.Tensor, att_shift: torch.Tensor, wkv_state: torch.Tensor, ops: Ops,
+        collect: Optional[dict] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """x: (B, T, C), ln1's output; att_shift (B, C) fp32; wkv_state (B, H,
-        N, N) fp32. K1 runs with the decay broadcast to (B, T, H, N) and
-        ``cfg.ln_x_eps`` on the raw y: GroupNorm(y / d, 1e-5) is GroupNorm(y,
-        d^2 1e-5), the identity the JAX package's Pallas branch relies on
-        (rwkv.py:535-536). Returns (out, new att_shift, new wkv_state)."""
+        N, N) fp32; ``collect``: see ``_wkv_output``. K1 runs with the decay
+        broadcast to (B, T, H, N) and ``cfg.ln_x_eps`` on the raw y:
+        GroupNorm(y / d, 1e-5) is GroupNorm(y, d^2 1e-5), the identity the JAX
+        package's Pallas branch relies on (rwkv.py:535-536). Returns (out,
+        new att_shift, new wkv_state)."""
         B, T, _ = x.shape
         H, N = self.cfg.n_head, self.cfg.head_size
-        heads = (B, T, H, N)
         r, k, v, g = self._mix(x, att_shift, ops)
-        w = self.time_decay.float().reshape(1, 1, H, N).expand(heads)
-        gated, new_wkv = ops.wkv6_fused_output(
-            r.view(heads), k.view(heads), v.view(heads), w, self.time_faaaa, g.view(heads),
-            self.ln_x.weight, self.ln_x.bias, wkv_state, eps=self.cfg.ln_x_eps,
-        )
+        w = self.time_decay.float().reshape(1, 1, H, N).expand(B, T, H, N)
+        gated, new_wkv = _wkv_output(self, ops, r, k, v, w, g, wkv_state, x, collect)
         return self.output(gated, ops), _last(x), new_wkv
 
     def step(
@@ -588,10 +604,13 @@ class Block(nn.Module):
     def forward(
         self, x: torch.Tensor, layer_state: LayerState, ops: Ops,
         use_state_params: bool = False, x_emb: Optional[torch.Tensor] = None,
-        masks: Optional[tuple] = None,
+        masks: Optional[tuple] = None, collect: Optional[dict] = None,
     ) -> Tuple[torch.Tensor, LayerState]:
         """x_emb: the call's embeddings, which tiny attention reads; masks:
-        ``Dropout.block_masks`` of this layer, or None."""
+        ``Dropout.block_masks`` of this layer, or None; collect: this layer's
+        (T, ...) slices of models.collect's state stacks, filled with the
+        state after every position (the time mix's ``_wkv_output`` writes
+        the att shift and WKV parts, ln2's output is the ffn shift)."""
         att_shift, wkv_state, ffn_shift = layer_state
         if self.ln0 is not None:
             x = ops.layer_norm(x, self.ln0.weight, self.ln0.bias)
@@ -603,16 +622,18 @@ class Block(nn.Module):
                 ops.layer_norm(x, self.ln1.weight, self.ln1.bias), att_shift, ops)
         elif isinstance(self.att, TimeMixV5):
             att_out, att_shift, wkv_state = self.att(
-                ops.layer_norm(x, self.ln1.weight, self.ln1.bias), att_shift, wkv_state, ops)
+                ops.layer_norm(x, self.ln1.weight, self.ln1.bias), att_shift, wkv_state, ops,
+                collect)
         else:
             att_out, att_shift, wkv_state = self.att(
-                x, self.ln1, att_shift, wkv_state, ops, use_state_params)
+                x, self.ln1, att_shift, wkv_state, ops, use_state_params, collect)
         if masks is not None:
             att_out = drop(att_out, masks[0], masks[1])
         x = x + att_out
-        ffn_out, ffn_shift = self.ffn(
-            ops.layer_norm(x, self.ln2.weight, self.ln2.bias), ffn_shift, ops
-        )
+        xln2 = ops.layer_norm(x, self.ln2.weight, self.ln2.bias)
+        if collect is not None:
+            collect["ffn_shift"].copy_(xln2.transpose(0, 1))
+        ffn_out, ffn_shift = self.ffn(xln2, ffn_shift, ops)
         if masks is not None:
             ffn_out = drop(ffn_out, masks[0], masks[2])
         x = x + ffn_out

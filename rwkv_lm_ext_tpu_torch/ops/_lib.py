@@ -89,6 +89,9 @@ _SIGNATURES = {
     # x, shift, ln_scale, ln_bias, maa_k, maa_r, wk, wv, wr, out, xn, and the
     # scratch xk, xr, k, partials, B, C, F, eps, dtype, param dtype, stream
     "rwkv_ffn_block": [_P] * 15 + [_I] * 3 + [_F, _I, _I, _P],
+    # r, k, v, w, u, g, scale, bias, s0, out, states, t_stride, B, T, H, N, eps,
+    # dtype, stream
+    "rwkv_wkv6_collect": [_P] * 11 + [_L] + [_I] * 4 + [_F, _I, _P],
     # k, v, w, u, aa, bb, pp, y, aa_out, bb_out, pp_out, ck, B, T, C, dtype, stream
     "rwkv_wkv4": [_P] * 12 + [_I] * 4 + [_P],
     # k, v, w, u, ck, gy, gaa_T, gbb_T, gpp_T, gk, gv, gw_p, gu_p, gaa0, gbb0, gpp0,

@@ -1,8 +1,9 @@
 """Embedding, reranking, generation and fill-mask service over JSON HTTP.
 
-Counterpart of rwkv_lm_ext_tpu/serve/api.py:40-495 and 554-590 with a
+Counterpart of rwkv_lm_ext_tpu/serve/api.py:40-495 and 554-609 with a
 bi-encoder, a cross-encoder, a generation engine (alone or behind a
-continuous batcher), a states registry and a bidirectional encoder:
+continuous batcher or beside a speculative engine), a states registry and a
+bidirectional encoder:
 
 - POST /embed {"texts": [...]}, POST /similarity {"texts_a", "texts_b"};
 - POST /rerank {"query", "documents": [...]}: {"scores": one a document,
@@ -18,16 +19,22 @@ continuous batcher), a states registry and a bidirectional encoder:
   {"token": piece}`` event per UTF-8-safe piece and a final ``data: {"done":
   true, "output": ..., "backend": ...}``; a client that disconnects cancels
   the generation. With a batcher the request joins its pool through a
-  BatcherDriver (``"backend": "batcher"``), else the engine runs it under
-  the service's lock (``"backend": "engine"``); the per-request knobs mean
-  the same on both. ``adapter`` names a slot-LoRA adapter (400 for an
-  unknown one);
+  BatcherDriver (``"backend": "batcher"``); else, with a speculative engine,
+  a request without an adapter and without occurrence or repetition
+  penalties runs on it (``"backend": "speculative"``, JAX serve/api.py:232-258);
+  else the engine runs it under the service's lock (``"backend": "engine"``);
+  the per-request knobs mean the same on all three. ``adapter`` names a
+  slot-LoRA adapter (400 for an unknown one);
 - POST /process_text {"text", "action"}: generation from the named
   state-tuned state ``action`` of the states registry, on its template;
 - POST /stats (and GET /stats): request counts per route, per-backend
-  ``generate_latency_ms`` percentiles, the batcher's occupancy, the prefix
-  cache's counts and the adapters served;
+  ``generate_latency_ms`` percentiles, the batcher's occupancy, the
+  speculative engine's rounds, proposed and accepted tokens and acceptance,
+  the prefix cache's counts and the adapters served;
 - GET /: the browser chat page (serve/webui.py).
+
+``make_fastapi_app`` (JAX :591-609) wraps the same routes in FastAPI, which is
+imported only there and is not a dependency.
 
 A route whose backend is not configured answers 404, like an unknown one,
 and neither is counted. A malformed payload answers 400. Transport: the
@@ -101,18 +108,48 @@ def _sse(obj: Dict) -> bytes:
     return b"data: " + json.dumps(obj).encode() + b"\n\n"
 
 
+def _token_pieces(tok, stream_cb, cancel_event=None):
+    """(callback, finish) that turn emitted token ids into UTF-8-safe text
+    pieces for ``stream_cb``, or (None, None) without one. ``callback``
+    raises _ClientDisconnected once ``cancel_event`` is set (the speculative
+    loop runs in the request's thread; the batcher's cancels by its event)."""
+    if stream_cb is None:
+        return None, None
+    decoder = tok.streaming_decoder()
+
+    def callback(t: int) -> None:
+        if cancel_event is not None and cancel_event.is_set():
+            raise _ClientDisconnected()
+        piece = decoder.push(t)
+        if piece:
+            stream_cb(piece)
+
+    def finish() -> None:
+        tail = decoder.flush()
+        if tail:
+            stream_cb(tail)
+
+    return callback, finish
+
+
 class ServingService:
     def __init__(self, *, engine=None, bi_encoder=None, cross_encoder=None, encoder=None,
-                 tokenizer=None, mask_id: int = MASK_ID, batcher=None, states_registry=None):
+                 tokenizer=None, mask_id: int = MASK_ID, batcher=None, states_registry=None,
+                 spec_engine=None):
         """``cross_encoder`` (infer.encoders.CrossEncoder) serves /rerank.
         ``encoder`` is an RWKV module served as the bidirectional encoder
         behind /fill_mask; it needs ``tokenizer``. ``batcher`` (a
         ContinuousBatcher over ``engine``) serves /generate once ``warmup``
-        has started its driver; ``states_registry`` serves /process_text."""
+        has started its driver; ``states_registry`` serves /process_text;
+        ``spec_engine`` (infer.speculative.SpeculativeEngine over the
+        engine's model) serves the penalty-free /generate requests without an
+        adapter when there is no batcher."""
         if encoder is not None and tokenizer is None:
             raise ValueError("an encoder needs a tokenizer")
-        if (batcher is not None or states_registry is not None) and engine is None:
-            raise ValueError("a batcher or a states registry needs the engine")
+        if (batcher is not None or states_registry is not None
+                or spec_engine is not None) and engine is None:
+            raise ValueError("a batcher, a states registry or a speculative engine needs the "
+                             "engine")
         self.engine = engine
         self.bi = bi_encoder
         self.cross = cross_encoder
@@ -121,12 +158,14 @@ class ServingService:
         self.mask_id = mask_id
         self.batcher = batcher
         self.states = states_registry
+        self.spec = spec_engine
         self._driver = None
         self._lock = threading.Lock()          # one model call at a time
         self._stats_lock = threading.Lock()
         self._counts: Dict[str, int] = {}
         # /generate latencies in seconds per backend, the last 512
         self._latencies: Dict[str, deque] = {}
+        self._spec_totals = {"rounds": 0, "proposed": 0, "accepted": 0}
         self.routes = {"/stats"}
         if bi_encoder is not None:
             self.routes |= {"/embed", "/similarity"}
@@ -151,6 +190,9 @@ class ServingService:
         if self.engine is not None:
             for block in (BLOCKING_BLOCK_SIZE, 1):     # blocking, streaming
                 self.engine.generate("warmup", max_tokens=2, block_size=block)
+        if self.spec is not None and self.batcher is None:
+            # a greedy round and its rollback: captures both graphs
+            self.spec.generate([0], max_tokens=2, token_stop=())
         if self.encoder is not None:
             self.fill_mask(f"warm {MASK_TOKEN} up")
         if self.batcher is not None and self._driver is None:
@@ -263,6 +305,9 @@ class ServingService:
         if self._driver is not None:
             result = self._generate_batched(prompt, max_tokens, knobs, adapter, stream_cb,
                                             cancel_event)
+        elif self._speculative(knobs, adapter):
+            result = self._generate_speculative(prompt, max_tokens, knobs, stream_cb,
+                                                cancel_event)
         else:
             result = self._generate_engine(prompt, max_tokens, knobs, adapter, stream_cb,
                                            cancel_event)
@@ -276,19 +321,7 @@ class ServingService:
         different adapters, share its batched decode."""
         sampling = dataclasses.replace(self.batcher.sampling, **knobs) if knobs else None
         tok = self.engine.tokenizer
-        callback = finish = None
-        if stream_cb is not None:
-            decoder = tok.streaming_decoder()
-
-            def callback(t: int) -> None:
-                piece = decoder.push(t)
-                if piece:
-                    stream_cb(piece)
-
-            def finish() -> None:
-                tail = decoder.flush()
-                if tail:
-                    stream_cb(tail)
+        callback, finish = _token_pieces(tok, stream_cb)
         try:
             ids = self._driver.submit_and_wait(prompt, max_tokens=max_tokens, sampling=sampling,
                                                callback=callback, adapter=adapter,
@@ -300,6 +333,40 @@ class ServingService:
         result = {"output": tok.decode(ids), "backend": "batcher"}
         if cancel_event is not None and cancel_event.is_set():
             result["cancelled"] = True
+        return result
+
+    def _speculative(self, knobs, adapter) -> bool:
+        """Whether a request goes to the speculative engine: there is one, the
+        request names no adapter, sets no occurrence or repetition penalty
+        (the defaults carry the presence and frequency penalties) and is not
+        a greedy one with a ``token_ban`` (greedy rounds verify by the raw
+        argmax, so the engine serves that)."""
+        if self.spec is None or adapter is not None:
+            return False
+        sp = SamplingParams(**knobs)
+        return (sp.alpha_presence == 0.0 and sp.alpha_frequency == 0.0
+                and sp.repetition_penalty == 1.0
+                and not (sp.temperature == 0.0 and sp.token_ban))
+
+    def _generate_speculative(self, prompt, max_tokens, knobs, stream_cb, cancel_event):
+        """On the speculative engine under the service's lock, streaming
+        UTF-8-safe pieces of the emitted ids."""
+        sp = SamplingParams(**knobs)
+        callback, finish = _token_pieces(self.spec.tokenizer, stream_cb, cancel_event)
+        result = {"backend": "speculative"}
+        try:
+            with self._lock:
+                result["output"], st = self.spec.generate(
+                    prompt, max_tokens=max_tokens, sampling=sp, return_stats=True,
+                    callback=callback)
+        except _ClientDisconnected:
+            result.update(output=None, cancelled=True)
+            return result
+        if finish is not None:
+            finish()
+        with self._stats_lock:
+            for key in self._spec_totals:
+                self._spec_totals[key] += getattr(st, key)
         return result
 
     def _generate_engine(self, prompt, max_tokens, knobs, adapter, stream_cb, cancel_event):
@@ -387,6 +454,11 @@ class ServingService:
             }
         if self.batcher is not None:
             out["batcher"] = self.batcher.stats()
+        if self.spec is not None:
+            with self._stats_lock:
+                t = dict(self._spec_totals)
+            out["speculative"] = dict(
+                t, acceptance=t["accepted"] / t["proposed"] if t["proposed"] else 0.0)
         if self.engine is not None and self.engine.state_cache is not None:
             out["prefix_cache"] = self.engine.state_cache.stats()
         if self.engine is not None and self.engine.adapter_ids:
@@ -504,3 +576,33 @@ def serve_http(
             pass  # errors still reach stderr through log_error
 
     return ThreadingHTTPServer((host, port), Handler)
+
+
+def make_fastapi_app(service: ServingService):
+    """The service's routes as a FastAPI app (JAX serve/api.py:591-609): POST
+    to any route, a streaming /generate as server-sent events; an unknown
+    route answers 404 and a malformed payload 400, as over ``serve_http``.
+    FastAPI is imported here only; without it this raises ImportError."""
+    try:
+        from fastapi import FastAPI, Request
+        from fastapi.responses import JSONResponse, StreamingResponse
+    except ImportError as e:
+        raise ImportError("make_fastapi_app needs the fastapi package, which is not installed; "
+                          "serve_http serves the same routes without it") from e
+
+    app = FastAPI(title="rwkv_lm_ext_tpu_torch")
+
+    @app.post("/{route:path}")
+    async def dispatch(route: str, request: Request):
+        try:
+            payload = await request.json()
+            if route == "generate" and isinstance(payload, dict) and payload.get("stream"):
+                return StreamingResponse(service.generate_sse(payload),
+                                         media_type="text/event-stream")
+            return service.handle("/" + route, payload)
+        except UnknownRoute:
+            return JSONResponse({"error": "unknown route"}, status_code=404)
+        except (BadRequest, ValueError) as e:
+            return JSONResponse({"error": str(e)}, status_code=400)
+
+    return app

@@ -1,15 +1,16 @@
 """Serving CLI: one command from a checkpoint to an HTTP server.
 
-Counterpart of rwkv_lm_ext_tpu/serve/cli.py:38-131, 134-227, 268-285 and
-286-325 with the generation engine, its LoRA adapters (merged and per
-request), named states, the continuous batcher, the prefix cache, the bi-
-and cross-encoders and the bidirectional encoder:
+Counterpart of rwkv_lm_ext_tpu/serve/cli.py:38-131, 134-285 and 286-325
+with the generation engine, its LoRA adapters (merged and per request), named
+states, the continuous batcher, speculative decoding, the prefix cache, the
+bi- and cross-encoders and the bidirectional encoder:
 
   python -m rwkv_lm_ext_tpu_torch.serve.cli --model m.pth [--quant int8c|nf4] \
       [--chat-adapter chat.pth [--pissa-init init_pissa.pth]] \
       [--slot-adapter a=a.pth --slot-adapter b=b.pth] \
       [--lora-r 8 --lora-alpha 32] [--states-config states.json] \
       [--batcher-slots 16 --batcher-block 16] [--prefix-cache 8] \
+      [--draft d.pth | --draft-layers K] [--gamma 8] \
       [--bi-adapter bi.pth [--bi-pooling weightedmean]] \
       [--cross-adapter cross.pth [--cross-head score.pth]]
   python -m rwkv_lm_ext_tpu_torch.serve.cli --encoder enc.pth
@@ -37,8 +38,12 @@ says (as the JAX CLI merges them into its base before quantizing the
 generation weights); the reranker's ``score.weight`` comes from the adapter
 file or from ``--cross-head``, and without one the command refuses to
 start. ``--platform`` is the torch device: ``cuda`` by default, ``cpu`` only
-when asked. ``--draft`` (speculative decoding), ``--tp`` and multi-host
-serving wait for later slices.
+when asked. ``--draft`` (a smaller checkpoint of the same vocabulary, loaded
+unquantized in the served dtype) or ``--draft-layers K`` (the served model's
+own first K layers) puts a speculative engine with ``--gamma`` drafted tokens
+a round beside the engine: penalty-free /generate requests without an adapter
+run on it; ``--batcher-slots`` takes precedence and leaves them out, as in
+the JAX CLI. ``--tp`` and multi-host serving wait for later slices.
 
 ``--model`` takes RWKV-6, RWKV-5.x (5.0, 5.1, 5.2) and RWKV-4 checkpoints.
 ``--tokenizer-json`` reads an HF tokenizer.json in place of the world
@@ -76,6 +81,7 @@ from rwkv_lm_ext_tpu_torch.data.tokenizer_json import JsonTokenizer
 from rwkv_lm_ext_tpu_torch.infer.continuous import ContinuousBatcher
 from rwkv_lm_ext_tpu_torch.infer.encoders import BiEncoder, CrossEncoder
 from rwkv_lm_ext_tpu_torch.infer.engine import GenerationEngine, refuse_chunk_dependent
+from rwkv_lm_ext_tpu_torch.infer.speculative import SpeculativeEngine, truncated_draft
 from rwkv_lm_ext_tpu_torch.infer.state_cache import PrefixStateCache
 from rwkv_lm_ext_tpu_torch.infer.states_registry import StatesRegistry
 from rwkv_lm_ext_tpu_torch.serve.api import ServingService, serve_http
@@ -125,6 +131,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="shorten the block (powers of two >= 8) when a slot nears its budget")
     p.add_argument("--prefix-cache", type=int, default=0, metavar="N",
                    help="LRU prompt-prefix state cache with N entries")
+    p.add_argument("--draft", default=None,
+                   help="smaller RWKV .pth: speculative decoding for penalty-free /generate "
+                        "(single-stream latency; ignored when --batcher-slots is set)")
+    p.add_argument("--draft-layers", type=int, default=0,
+                   help="early-exit self-draft from the target's first K layers instead of a "
+                        "separate --draft ckpt")
+    p.add_argument("--gamma", type=int, default=8, help="speculative lookahead length")
     p.add_argument("--platform", default="cuda", choices=("cuda", "cpu"),
                    help="torch device to serve on")
     p.add_argument("--host", default="127.0.0.1")
@@ -139,7 +152,7 @@ def build_service(args: argparse.Namespace) -> ServingService:
         raise SystemExit("need --model and/or --encoder")
     overrides = {"dtype": args.dtype} if args.dtype else {}
     tok = JsonTokenizer(args.tokenizer_json) if args.tokenizer_json else WorldTokenizer(args.vocab)
-    engine = encoder = batcher = states = bi = cross = None
+    engine = encoder = batcher = states = bi = cross = spec = None
     if (args.bi_adapter or args.cross_adapter) and not args.model:
         raise SystemExit("--bi-adapter and --cross-adapter need --model")
     if args.model:
@@ -207,10 +220,20 @@ def build_service(args: argparse.Namespace) -> ServingService:
             batcher = ContinuousBatcher(engine, n_slots=args.batcher_slots,
                                         block_size=args.batcher_block,
                                         adaptive_block=args.batcher_adaptive)
+        elif args.draft or args.draft_layers:
+            try:
+                draft = (load_rwkv_checkpoint(args.draft, device=device, **overrides)[0]
+                         if args.draft else truncated_draft(model, args.draft_layers))
+                spec = SpeculativeEngine(model, draft, tok, gamma=args.gamma)
+            except ValueError as e:
+                raise SystemExit(f"speculative decoding: {e}") from None
+    elif args.draft or args.draft_layers:
+        raise SystemExit("--draft and --draft-layers need --model")
     if args.encoder:
         encoder, _ = load_rwkv_checkpoint(args.encoder, device=device, **overrides)
     return ServingService(engine=engine, bi_encoder=bi, cross_encoder=cross, encoder=encoder,
-                          tokenizer=tok, batcher=batcher, states_registry=states)
+                          tokenizer=tok, batcher=batcher, states_registry=states,
+                          spec_engine=spec)
 
 
 def _config(path: str, overrides: dict):

@@ -55,6 +55,16 @@ gradients, plain sequence and TBPTT, within the model gradient limit. Head
 size 128: K1 with B.6 / B.7, B.8 with its backward and B.9 against their
 plain versions.
 
+Speculative decoding: B.15 (wkv6_collect, K1's function keeping the state
+after every step) against its plain version at T = 1 to 33, B of 1 and 4,
+head sizes 64 and 128, v5's constant decays and a strided state stack (out
+<= REL[dtype] x max|plain|, states <= 1e-4); the 2-layer collect forward
+kernel route against the plain route with its launches, and its selected
+states against a prefix forward; speculative rounds as graph replays
+bit-equal to the eager rounds (greedy and sampled, RWKV-6, 5.2 and an
+RWKV-4 target on the re-prefill rollback), and fp32 greedy output equal to
+the engine's.
+
 B.5 and B.8 have two bodies each since their redesign (tensor cores or
 chunked for bf16, CUDA cores or sequential for fp32 and the shapes the new
 ones do not take): both are held to their plain versions and to each other
@@ -123,6 +133,7 @@ from rwkv_lm_ext_tpu_torch.ops.wkv import (
     wkv_plain,
 )
 from rwkv_lm_ext_tpu_torch.ops.wkv4 import wkv4, wkv4_plain
+from rwkv_lm_ext_tpu_torch.ops.wkv_collect import wkv6_collect, wkv6_collect_plain
 from rwkv_lm_ext_tpu_torch.ops.wkv_decode import (
     b13_grid,
     transpose_state,
@@ -159,7 +170,7 @@ NO_LAUNCH = {"layer_norm": 0, "tmix_prologue": 0, "wkv6_fused_output": 0, "wkv6_
              "quantize_rows": 0, "tmix_prologue_bwd": 0, "wkv6_bwd_forward_pass": 0,
              "wkv6_bwd_reverse_pass": 0, "wkv": 0, "wkv_bwd_state_pass": 0,
              "att_prep_fused": 0, "ffn_prep_fused": 0, "ffn_block_fused": 0,
-             "wkv6_decode_step_transposed": 0, "wkv4": 0, "wkv4_bwd": 0}
+             "wkv6_decode_step_transposed": 0, "wkv4": 0, "wkv4_bwd": 0, "wkv6_collect": 0}
 
 
 @pytest.fixture
@@ -2117,3 +2128,160 @@ def test_family_batcher_graph_blocks_are_bit_equal_to_eager(dev, version, monkey
     e_toks, e_state, _ = run()
     assert toks == e_toks and _states_equal(state, e_state)
     assert [len(t) for t in toks] == [m for _, m in reqs]
+
+
+# ---------------------------------------------------------------------------
+# B.15 and speculative decoding
+# ---------------------------------------------------------------------------
+
+
+def _collect_args(dev, dtype, rng, B, T, H, N, v5=False, gate=True):
+    r, k, v = (_on(dev, dtype, rng, B, T, H, N, scale=0.5) for _ in range(3))
+    if v5:
+        w = _v5_decay(dev, rng, H, N, per_head=False).reshape(1, 1, H, N).expand(B, T, H, N)
+    else:
+        w = torch.from_numpy(rng.uniform(-6.0, 1.0, size=(B, T, H, N)).astype(np.float32)).to(dev)
+    g = torch.nn.functional.silu(_on(dev, dtype, rng, B, T, H, N)) if gate else torch.ones_like(r)
+    u = _on(dev, torch.float32, rng, H, N, scale=0.5)
+    ln_w = _on(dev, torch.float32, rng, H * N, loc=1.0, scale=0.1)
+    ln_b = _on(dev, torch.float32, rng, H * N, scale=0.1)
+    s0 = _on(dev, torch.float32, rng, B, H, N, N, scale=0.1)
+    return r, k, v, w, u, g, ln_w, ln_b, s0
+
+
+def _collect_plain(args, eps):
+    r, k, v, w, u, g, *rest = args
+    return wkv6_collect_plain(r.float(), k.float(), v.float(), w, u, g.float(), *rest, eps=eps)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N", [64, 128])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("T", [1, 5, 9, 17, 33])
+def test_wkv_collect_kernel_matches_plain(dev, dtype, N, B, T):
+    """B.15 against wkv_collect + K1's GroupNorm-gate epilogue: the gated
+    output within REL[dtype] and every state within 1e-4 of max|plain|; two
+    calls bit-equal."""
+    rng = np.random.default_rng(1000 + 10 * T + B + N)
+    args = _collect_args(dev, dtype, rng, B, T, 4 if N == 64 else 2, N)
+    out, states = _counted("wkv6_collect", lambda: wkv6_collect(*args, eps=64e-5))
+    assert out.dtype == dtype and states.shape == (T, B, args[0].shape[2], N, N)
+    out_p, states_p = _collect_plain(args, 64e-5)
+    _close(out, out_p, REL[dtype], "out")
+    _close(states, states_p, 1e-4, "states")
+    out2, states2 = wkv6_collect(*args, eps=64e-5)
+    assert torch.equal(out, out2) and torch.equal(states, states2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("gate", [True, False])
+def test_wkv_collect_kernel_on_v5_decays_into_a_stack(dev, dtype, gate):
+    """B.15 on v5's constant decay (expanded over B and T) with a gate or
+    ones, writing layer 1 of a (T, L, B, H, N, N) stack in place; K1's output
+    and final state on the same inputs."""
+    rng = np.random.default_rng(77)
+    B, T, H, N = 2, 9, 4, 64
+    args = _collect_args(dev, dtype, rng, B, T, H, N, v5=True, gate=gate)
+    stack = torch.zeros(T, 3, B, H, N, N, device=dev)
+    out, states = wkv6_collect(*args, eps=64e-5, out_states=stack[:, 1])
+    assert states.data_ptr() == stack[:, 1].data_ptr()
+    assert stack[:, 0].abs().max() == 0 and stack[:, 2].abs().max() == 0
+    out_p, states_p = _collect_plain(args, 64e-5)
+    _close(out, out_p, REL[dtype], "out")
+    _close(stack[:, 1], states_p, 1e-4, "states")
+    k1_out, k1_state = wkv6_fused_output(*args, eps=64e-5)
+    _close(out, k1_out, 2 * REL[dtype], "out vs K1")
+    _close(states[-1], k1_state, 1e-4, "last state vs K1")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("version", [6.0, 5.2])
+def test_collect_forward_kernel_route_matches_plain(dev, dtype, version):
+    """The 2-layer collect forward on the kernel route against the plain
+    route (logits within REL, states within 1e-4 of max|plain| in fp32), its
+    launches (K3 x 4 (RWKV-5: 6), K2 x 2 on RWKV-6, B.15 x 2, no K1), and its
+    selected state against the kernel route's prefix forward."""
+    from rwkv_lm_ext_tpu_torch.models.collect import rwkv_forward_collect, select_state
+
+    model, gen = (_decode_model(dev, 61, dtype=dtype) if version == 6.0
+                  else _family_model(dev, 61, 5.2, dtype=dtype))
+    tokens = torch.randint(0, 1000, (2, 9), generator=gen, device=dev)
+    with torch.inference_mode():
+        before = launch_counts()
+        logits, states = rwkv_forward_collect(model, tokens)
+        after = launch_counts()
+        want = dict(NO_LAUNCH, layer_norm=4 if version == 6.0 else 6, wkv6_collect=2,
+                    tmix_prologue=2 if version == 6.0 else 0)
+        assert {k: after[k] - before[k] for k in after} == want
+        p_logits, p_states = rwkv_forward_collect(model, tokens, reference=True)
+        assert launch_counts() == after
+        rel = REL[getattr(torch, dtype)]
+        _close(logits, p_logits, 10 * rel, "logits")
+        for key in states:
+            _close(states[key], p_states[key], 1e-4 if dtype == "float32" else 2e-2, key)
+        if dtype == "float32":
+            _, prefix = model(tokens[:, :5], t1_step=False)
+            got = select_state(states, torch.tensor([4], device=dev))
+            for key in got:
+                _close(got[key], prefix[key], 1e-4, key)
+
+
+def _eager_rounds(monkeypatch):
+    from rwkv_lm_ext_tpu_torch.infer import speculative
+
+    monkeypatch.setattr(speculative._Rounds, "_replay",
+                        lambda self, name, body, warmup, gen: body())
+
+
+@pytest.mark.parametrize("version", [6.0, 5.2, 4.0])
+def test_speculative_rounds_replay_bit_equal_to_eager(dev, version, monkeypatch):
+    """Greedy (self-draft and truncated draft) and sampled speculative
+    generation on a bf16 2-layer model as graph replays and as eager rounds:
+    the same tokens, the same stats and the same final static state."""
+    from rwkv_lm_ext_tpu_torch.infer.sampling import SamplingParams
+    from rwkv_lm_ext_tpu_torch.infer.speculative import SpeculativeEngine, truncated_draft
+
+    model, _ = (_decode_model(dev, 62, dtype="bfloat16") if version == 6.0
+                else _family_model(dev, 62, version, dtype="bfloat16"))
+    cases = [(truncated_draft(model, 1), None), (model, None),
+             (truncated_draft(model, 1),
+              SamplingParams(temperature=1.0, top_p=0.9, alpha_presence=0.0, alpha_frequency=0.0,
+                             token_stop=()))]
+
+    def run():
+        outs = []
+        for draft, sp in cases:
+            spec = SpeculativeEngine(model, draft, gamma=4)
+            out, st = spec.generate([5, 9, 23, 411, 7], max_tokens=17, token_stop=(), sampling=sp,
+                                    seed=3, return_stats=True)
+            rounds = next(iter(spec._rounds.values()))
+            outs.append((out, st, {k: v.clone() for k, v in rounds.t_state.items()},
+                         {k: v.clone() for k, v in rounds.d_state.items()}, rounds.graphs))
+        return outs
+
+    graph = run()
+    assert all(set(g[4]) == {"round", "rollback"} for g in graph)
+    _eager_rounds(monkeypatch)
+    for (toks, st, ts, ds, _), (e_toks, e_st, e_ts, e_ds, graphs) in zip(graph, run()):
+        assert not graphs and toks == e_toks and st == e_st
+        assert _states_equal(ts, e_ts) and _states_equal(ds, e_ds)
+        assert len(toks) == 17
+
+
+def test_speculative_greedy_fp32_equals_the_engine(dev):
+    """On the kernel route in fp32 the speculative greedy output is the
+    engine's penalty-free greedy output, for an unrelated draft and for a
+    truncated self-draft."""
+    from rwkv_lm_ext_tpu_torch.infer.engine import GenerationEngine
+    from rwkv_lm_ext_tpu_torch.infer.sampling import SamplingParams
+    from rwkv_lm_ext_tpu_torch.infer.speculative import SpeculativeEngine, truncated_draft
+
+    model, _ = _model(dev, 63)
+    other, _ = _model(dev, 64, n_embd=128)
+    prompt = [5, 9, 23, 411, 7]
+    want = GenerationEngine(model).generate(prompt, max_tokens=24,
+                                            sampling=SamplingParams(**GRAPH_GREEDY, token_stop=()))
+    for draft in (other, truncated_draft(model, 1)):
+        out = SpeculativeEngine(model, draft, gamma=5).generate(prompt, max_tokens=24,
+                                                               token_stop=())
+        assert out == want
