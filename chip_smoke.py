@@ -229,7 +229,7 @@ Phases, each printing its own lines:
      and timed beside their bounds; (c) 2-layer RWKV-5-World-1B5 (v5.2) and
      RWKV-4-World-1.5B models at full width: LoRA gradients kernel route
      against plain route in fp32 (1e-3) and bf16 (C24_BOUND), and TBPTT
-     over every parameter (fp32); (d) 24-layer LoRA and `full` steps of both
+     over every parameter (fp32); (d) 12-layer LoRA and `full` steps of both
      at B=8, T=512: their launches (exact, and
      on the device: K1 / B.6 / B.7, B.14 and its backward), ms over chained
      steps with the canary, busy time, idle share and peak memory; (e)
@@ -255,6 +255,26 @@ Phases, each printing its own lines:
      and RWKV-4 (4 layers, fp32) through the re-prefill rollback; readings:
      the verify pass's ms (CUDA events), single-stream tok/s against the
      engine's generate in turns, acceptance and tokens a target pass.
+ 22. tensor-parallel serving (run after phase 2): two ranks (processes of
+     this script, ``tp_rank``) over gloo where they share the card, NCCL where
+     each has one, the seeded 24-layer 1B6 cut into 16 heads a rank: fp32
+     logits at B=4, T=512 no further from the single-process kernel route
+     than its fp32 plain route is (the same run's rounding gap, x max) and
+     32 greedy tokens equal to the single-process engine's; bf16
+     logits at a mean cosine >= 0.999 to the fp32 plain route, the worst
+     position no more than twice as far as the single-process bf16 route's,
+     and greedy tokens that are the argmax of the same route's
+     teacher-forced logits on each rank;
+     int8c: B.4's codes and scales on each rank's slice (its given-scale
+     entry), the row-parallel product and the logits bit-equal to
+     single-process int8c; K1, K2, K3, B.9 (and B.4's two entries under
+     int8c) counted on each rank; then `python -m
+     rwkv_lm_ext_tpu_torch.serve.cli --tp 2 --batcher-slots 4` (fp32, the
+     model cut to 4 layers at full width, with a bi-encoder adapter) loading
+     while the ranks run: 8 concurrent greedy /generate answers equal to the
+     single-process CLI's (built in this process meanwhile), unit-norm
+     /embed, /stats' route, a 200 KB request answered 400 and the next one
+     200; readings: the route, tp=2 decode tok/s and each rank's busy ms.
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no result. Without a CUDA device it exits non-zero
@@ -273,6 +293,7 @@ import json
 import math
 import os
 import queue
+import signal
 import subprocess
 import sys
 import tempfile
@@ -291,6 +312,7 @@ from rwkv_lm_ext_tpu_torch.adapters.lora import (
     LoraConfig,
     apply_lora,
     init_lora_params,
+    lora_state_dict,
     lora_state_dict_to_tree,
     merge_lora,
     merge_pissa,
@@ -374,7 +396,12 @@ from rwkv_lm_ext_tpu_torch.ops.ddlerp import (
     tmix_prologue_plain,
 )
 from rwkv_lm_ext_tpu_torch.ops.ln import layer_norm, layer_norm_plain
-from rwkv_lm_ext_tpu_torch.ops.quant import quantize_rows, quantize_rows_plain
+from rwkv_lm_ext_tpu_torch.ops.quant import (
+    quantize_rows,
+    quantize_rows_given,
+    quantize_rows_given_plain,
+    quantize_rows_plain,
+)
 wkv_ops = importlib.import_module("rwkv_lm_ext_tpu_torch.ops.wkv")   # the module, not the function
 from rwkv_lm_ext_tpu_torch.ops.wkv import (
     WKV_BODIES,
@@ -408,6 +435,9 @@ from rwkv_lm_ext_tpu_torch.ops.wkv_fused import (
     wkv6_fused_output_plain,
     wkv_bwd_body,
 )
+from rwkv_lm_ext_tpu_torch.parallel.distributed import init_distributed, rank_device, shutdown
+from rwkv_lm_ext_tpu_torch.parallel.mesh import make_mesh
+from rwkv_lm_ext_tpu_torch.parallel.tp import row_parallel_int8c
 from rwkv_lm_ext_tpu_torch.serve import cli
 from rwkv_lm_ext_tpu_torch.serve.api import ServingService, serve_http
 from rwkv_lm_ext_tpu_torch.train import cli as train_cli
@@ -442,6 +472,9 @@ KERNELS = {
                              replaces="rwkv_lm_ext_tpu/ops/wkv_decode.py:68"),
     "quantize_rows": dict(source="rwkv_lm_ext_tpu_torch/csrc/quant.cu",
                           replaces="rwkv_lm_ext_tpu/ops/quant_pallas.py:29"),
+    # B.4's given-scale entry: the tensor-parallel int8c row-parallel projections
+    "quantize_rows_given": dict(source="rwkv_lm_ext_tpu_torch/csrc/quant.cu",
+                                replaces="rwkv_lm_ext_tpu/ops/quant_pallas.py:29"),
     "tmix_prologue_bwd": dict(source="rwkv_lm_ext_tpu_torch/csrc/ddlerp_bwd.cu",
                               replaces="rwkv_lm_ext_tpu/ops/ddlerp_pallas.py:166"),
     "wkv6_bwd_forward_pass": dict(source="rwkv_lm_ext_tpu_torch/csrc/wkv_fused_bwd.cu",
@@ -486,10 +519,10 @@ NO_FUSED = {"att_prep_fused": 0, "ffn_prep_fused": 0, "ffn_block_fused": 0,
 # kernel; int8c adds 8 row quantizations a layer (5 att + 3 ffn projections)
 PER_FORWARD = {"layer_norm": 26, "tmix_prologue": 24, "wkv6_fused_output": 24,
                "wkv6_decode_step": 0, "quantize_rows": 0, "wkv": 0, "wkv4": 0, "wkv6_collect": 0,
-               **NO_BACKWARD, **NO_FUSED}
+               "quantize_rows_given": 0, **NO_BACKWARD, **NO_FUSED}
 PER_STEP = {"layer_norm": 26, "tmix_prologue": 24, "wkv6_fused_output": 0,
             "wkv6_decode_step": 24, "quantize_rows": 0, "wkv": 0, "wkv4": 0, "wkv6_collect": 0,
-            **NO_BACKWARD, **NO_FUSED}
+            "quantize_rows_given": 0, **NO_BACKWARD, **NO_FUSED}
 # one forward of the bidirectional encoder, either mode: ln0 + 24 x (ln1, ln2)
 # + ln_out through K3 (the plain projections take ln1's output), and the
 # unfused WKV twice a layer
@@ -886,6 +919,27 @@ def phase_kernels() -> dict:
     )
     print(f"  quantize_rows ({B * T}, {F}): kernel {device_ms(lambda: quantize_rows(xf), 20):.4f} ms, "
           f"plain {device_ms(lambda: quantize_rows_plain(xf), 20):.4f} ms")
+    # B.4's given-scale entry at the tp=2 row-parallel shapes (a rank's half
+    # of att.output's and ffn.value's inputs, prefill and decode rows): at
+    # the whole rows' scales, then at larger ones (another rank's slice)
+    for shape in ((B * T, C // 2), (TP_B * TP_T, F // 2), (37, 2050), (TP_B, C // 2)):
+        xg = rng.normal(*shape, scale=3.0)
+        q, sx = quantize_rows(xg)
+        same = all(torch.equal(quantize_rows_given(xg, s_), quantize_rows_given_plain(xg, s_))
+                   for s_ in (sx, sx * 1.37))
+        same = same and torch.equal(quantize_rows_given(xg, sx), q)
+        print(f"  quantize_rows_given {shape}: q {'bit-identical' if same else 'DIFFERS'} to plain "
+              f"and to quantize_rows at its scales")
+        check(same, f"quantize_rows_given {shape} is not bit-identical to its plain version")
+    xg = rng.normal(B * T, C // 2, scale=3.0)
+    _, sg = quantize_rows(xg)
+    out["quantize_rows_given"] = dict(
+        max_abs_err=0.0,
+        ms=device_ms(lambda: quantize_rows_given(xg, sg), 20),
+        plain_ms=device_ms(lambda: quantize_rows_given_plain(xg, sg), 20),
+        # x and a scale a row in, int8 out; one division and a rounding an element
+        **roofline(nbytes(xg, sg) + xg.numel(), {"fp32": 2 * xg.numel()}),
+    )
 
     # B.9 at B=64 and B=1: against plain, in place, and against K1 at T=1
     def decode_args(b):
@@ -1383,7 +1437,10 @@ class CliServer:
         start it ahead of its ``with`` block, to load while other work runs;
         then a failure before that block stops it at exit)."""
         self.started = time.perf_counter()
-        self.proc = subprocess.Popen(self.cmd, cwd=ROOT, stdout=subprocess.PIPE, text=True)
+        # a session of its own: stop() can end whatever the server started
+        # (the ranks of --tp) even if the server itself dies first
+        self.proc = subprocess.Popen(self.cmd, cwd=ROOT, stdout=subprocess.PIPE, text=True,
+                                     start_new_session=True)
         atexit.register(self.stop)
         self.lines: "queue.SimpleQueue" = queue.SimpleQueue()
 
@@ -1411,14 +1468,15 @@ class CliServer:
         self.stop()
 
     def stop(self) -> None:
-        if self.proc.poll() is not None:
-            return
-        self.proc.terminate()
-        try:
-            self.proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            self.proc.kill()
-            self.proc.wait(timeout=30)
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(self.proc.pid, signal.SIGKILL)    # anything the server left
 
 
 def generate_requests(base: str) -> None:
@@ -1501,7 +1559,7 @@ def phase_int8c_cli(path: str, server: "CliServer | None" = None) -> tuple:
     print(f"  in-process CLI build, warm-up + /generate blocking + SSE: wrapper launches {counts}")
     check(all(n > 0 for k, n in counts.items()
               if k not in NO_BACKWARD and k not in NO_FUSED
-              and k not in ("wkv", "wkv4", "wkv6_collect")),
+              and k not in ("wkv", "wkv4", "wkv6_collect", "quantize_rows_given")),
           f"a kernel's wrapper did not run in /generate: {counts}")
     pieces = len(engine_module._chunk_plan(len(WorldTokenizer().encode(SHORT)),
                                            service.engine.chunk_len))
@@ -5045,8 +5103,11 @@ def phase_family_grads() -> None:
         torch.cuda.empty_cache()
 
 
+FAMILY_READ_LAYERS = 12      # phase 20d's depth
+
+
 def phase_family_readings(smi: str) -> int:
-    """Phase 20d: 24-layer v5.2 and v4 models, B=8, T=512, bf16: a LoRA step
+    """Phase 20d: 12-layer v5.2 and v4 models, B=8, T=512, bf16: a LoRA step
     and a `full` step (fp32 masters), remat on, each with its launches (exact
     on the counters, and on the device from the profile: B.14 and its
     backward, K1, B.6, B.7), time (CUDA events over chained steps with the
@@ -5055,6 +5116,8 @@ def phase_family_readings(smi: str) -> int:
     gen = torch.Generator(device=DEV).manual_seed(34)
     bwd_launches = 0
     for name, cfg_fn, seed in (("v5.2", rwkv5_1b5, 35), ("v4", rwkv4_1b5, 36)):
+        # half depth since phase 22 went in (the script's time limit)
+        cfg_fn = functools.partial(cfg_fn, n_layer=FAMILY_READ_LAYERS)
         cfg = cfg_fn()
         sd = synthetic_1b6(cfg, seed)
         batch, other = train_batch(gen, cfg.vocab_size), train_batch(gen, cfg.vocab_size)
@@ -6098,6 +6161,313 @@ def phase_speculative(model, path: str, tmp: Path, smi: str) -> int:
     return launches
 
 
+TP = 2                       # phase 22's ranks
+TP_B, TP_T = 4, 512          # its prefill
+TP_NEW = 32                  # fp32 greedy tokens against the single-process engine
+TP_NEW_Q = 16                # bf16 and int8c greedy tokens (each rank decodes at ~6 tok/s)
+TP_BUSY_NEW = 8              # tokens of the traced generate (each rank's busy ms)
+# fp32 tp logits are held to the single-process kernel route within the
+# single-process fp32 plain route's own distance from it: the same run's
+# rounding gap, which 24 layers of seeded weights grow to ~1e-3 x max (PERF.md)
+# bf16 tp logits against the fp32 plain route, per position: the mean cosine
+# at least this (BASELINE.md's drift rule), the worst position no more than
+# twice as far as the single-process bf16 route's worst (a row-parallel sum
+# rounds each rank's partial to bf16, then the sum: one more rounding)
+TP_BF16_MEAN_COS = 0.999
+TP_CLI_LAYERS = 4            # depth of the CLI's checkpoint (full width)
+TP_CLI_SLOTS = 4
+TP_RANK_TIMEOUT_S = 420
+TP_KERNELS = ("layer_norm", "tmix_prologue", "wkv6_fused_output", "wkv6_decode_step")
+TP_PROMPTS = (SHORT, CJK, MIXED, "Paris is the capital of France.", "数据 1 2 3",
+              "The quick brown fox", "RWKV-6 World", "Tensor parallelism splits the heads.")
+
+
+def rank_busy_ms(timed) -> tuple:
+    """(this rank's device busy ms over timed(), its wall seconds under the
+    trace): ``timed`` returns (result, seconds). Every rank runs it in
+    lockstep; each traces only its own process's card work."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, seconds = timed()
+        torch.cuda.synchronize()
+    return busy_us([e for e in prof.events() if e.device_type == DeviceType.CUDA]) / 1e3, seconds
+
+
+def tp_rank(rank: int, rendezvous: str, out_dir: str) -> None:
+    """One rank of phase 22, a process of its own (``python3 -c "import
+    chip_smoke; chip_smoke.tp_rank(...)"``): the seeded 24-layer 1B6 cut over
+    TP ranks (gloo where they share the card, NCCL where each has one) in
+    fp32, bf16 and int8c, each rank's kernel launches, and on rank 0 the
+    same calls on the whole model (the single-process route) to hold them
+    against. Every check raises; the results go to out_dir/tp-<rank>.json."""
+    global DEV
+    init_distributed(rendezvous, TP, rank, platform="cuda", timeout=TP_RANK_TIMEOUT_S)
+    try:
+        DEV = str(rank_device("cuda"))
+        torch.cuda.set_device(DEV)
+        res = _tp_rank_checks(make_mesh(dp=1, tp=TP), rank == 0)
+    finally:
+        shutdown()
+    Path(out_dir, f"tp-{rank}.json").write_text(json.dumps(res))
+
+
+def _tp_rank_checks(mesh, main: bool) -> dict:
+    res = {"seconds": {}}
+    start = time.perf_counter()
+
+    def lap(name):
+        res["seconds"][name] = round(time.perf_counter() - start - sum(res["seconds"].values()), 1)
+
+    cfg32 = rwkv6_1b6(dtype="float32")
+    sd = synthetic_1b6(cfg32, seed=0)
+    gen = torch.Generator(device=DEV).manual_seed(22)
+    tokens = torch.randint(4, cfg32.vocab_size, (TP_B, TP_T), device=DEV, generator=gen)
+    prompt = torch.randint(4, cfg32.vocab_size, (16,), device=DEV, generator=gen).tolist()
+
+    def tp_engine(cfg, quant=None):
+        model = load_state_dict_into(RWKV(cfg, device=DEV), sd)
+        return GenerationEngine(quantize_model(model, quant, weights=sd) if quant else model,
+                                mesh=mesh)
+
+    def single(cfg, quant=None):
+        model = load_state_dict_into(RWKV(cfg, device=DEV), sd)
+        return quantize_model(model, quant, weights=sd) if quant else model
+
+    def timed_generate(engine, n=TP_NEW):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.generate(prompt, max_tokens=n, sampling=GREEDY)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # fp32: logits and greedy tokens against the single-process kernel route
+    engine = tp_engine(cfg32)
+    res["route"] = engine.route()
+    reset_launch_counts()
+    with torch.inference_mode():
+        logits, state = engine.model(tokens)
+    out32, _ = timed_generate(engine)
+    res["counts_fp32"] = launch_counts()
+    check(all(res["counts_fp32"][k] > 0 for k in TP_KERNELS),
+          f"rank {mesh.rank}: a kernel of the tp path ran no time: {res['counts_fp32']}")
+    heads = (cfg32.n_layer, TP_B, cfg32.n_head // TP, cfg32.head_size, cfg32.head_size)
+    check(tuple(state["wkv"].shape) == heads,
+          f"rank {mesh.rank}'s state {tuple(state['wkv'].shape)} is not its heads' {heads}")
+    del engine, state
+    plain32 = None
+    if main:
+        whole = single(cfg32)
+        with torch.inference_mode():
+            want, _ = whole(tokens)
+            plain32, _ = whole(tokens, reference=True)
+        scale = want.abs().max()
+        res["fp32_err"] = float((logits - want).abs().max() / scale)
+        res["fp32_plain_gap"] = float((plain32 - want).abs().max() / scale)
+        res["fp32_single_tokens"] = GenerationEngine(whole).generate(
+            prompt, max_tokens=TP_NEW, sampling=GREEDY)
+        check(res["fp32_err"] <= res["fp32_plain_gap"], f"tp fp32 logits {res['fp32_err']:.3e} x "
+              f"max from the single-process kernel route, further than its fp32 plain route "
+              f"({res['fp32_plain_gap']:.3e})")
+        check(out32 == res["fp32_single_tokens"], "tp fp32 greedy tokens differ from the "
+              "single-process engine's")
+        del whole, want
+    res["fp32_tokens"] = out32
+    del logits
+    torch.cuda.empty_cache()
+    lap("fp32")
+
+    # bf16: logits against the fp32 plain route, greedy tokens by teacher
+    # forcing on the same (tp) route, readings
+    engine = tp_engine(rwkv6_1b6())
+    with torch.inference_mode():
+        logits16, _ = engine.model(tokens)
+    if main:
+        # the single-process bf16 kernel route on the same tokens is the
+        # yardstick: at T=512 a few early positions of seeded weights sit near
+        # cosine 0.98 for it too (PERF.md)
+        with torch.inference_mode():
+            want16, _ = single(rwkv6_1b6())(tokens)
+        cos_tp = position_cosines(logits16.float(), plain32)
+        cos_single = position_cosines(want16.float(), plain32)
+        res["bf16_cos"] = [float(cos_tp.min()), float(cos_tp.mean())]
+        res["bf16_single_cos"] = [float(cos_single.min()), float(cos_single.mean())]
+        del want16, cos_tp, cos_single
+        check(res["bf16_cos"][1] >= TP_BF16_MEAN_COS
+              and 1 - res["bf16_cos"][0] <= 2 * (1 - res["bf16_single_cos"][0]),
+              f"tp bf16 logits cosine (min, mean) {res['bf16_cos']} to the fp32 plain route: the "
+              f"mean under {TP_BF16_MEAN_COS} or the min more than twice as far as the "
+              f"single-process bf16 route's {res['bf16_single_cos']}")
+    del logits16, plain32
+    out16, res["decode_s"] = timed_generate(engine, TP_NEW_Q)
+    tf = teacher_forced(engine.model, torch.tensor(prompt, device=DEV),
+                        torch.tensor(out16, device=DEV), reference=False)
+    check(bool((tf.argmax(-1).cpu() == torch.tensor(out16)).all()), f"rank {mesh.rank}: tp bf16 "
+          "greedy tokens are not the argmax of the same route's teacher-forced logits")
+    res["bf16_tokens"] = out16
+    # each rank traces its own card work over the same short generate
+    res["busy_ms"], res["busy_wall_s"] = rank_busy_ms(lambda: timed_generate(engine, TP_BUSY_NEW))
+    del engine
+    torch.cuda.empty_cache()
+    lap("bf16")
+
+    # int8c: codes, scales, the row-parallel product and the logits bit for
+    # bit against the single-process int8c route
+    engine = tp_engine(rwkv6_1b6(), "int8c")
+    reset_launch_counts()
+    with torch.inference_mode():
+        logits_q, _ = engine.model(tokens)
+    outq, _ = timed_generate(engine, TP_NEW_Q)
+    res["counts_int8c"] = launch_counts()
+    check(all(res["counts_int8c"][k] > 0 for k in TP_KERNELS + ("quantize_rows",
+                                                                 "quantize_rows_given")),
+          f"rank {mesh.rank}: a kernel of the tp int8c path ran no time: {res['counts_int8c']}")
+    x = Inputs(23).normal(TP_B * TP_T, cfg32.n_embd)
+    lin = engine.model.blocks[0].att.output.inner
+    codes = {}
+    with torch.inference_mode():
+        y = row_parallel_int8c(x.chunk(mesh.tp, -1)[mesh.rank], lin.q, lin.scale, mesh,
+                               codes=codes)
+        q, sx = quantize_rows(x)
+    res["int8c_codes_equal"] = (torch.equal(codes["sx"], sx)
+                                and torch.equal(codes["q"], q.chunk(mesh.tp, -1)[mesh.rank]))
+    check(res["int8c_codes_equal"], f"rank {mesh.rank}: tp int8c codes or scales differ from B.4 "
+          "on the whole rows")
+    if main:
+        whole = single(rwkv6_1b6(), "int8c")
+        with torch.inference_mode():
+            want_q, _ = whole(tokens)
+            want_y = whole.blocks[0].att.output(x)
+        res["int8c_product_equal"] = torch.equal(y, want_y)
+        res["int8c_logits_equal"] = torch.equal(logits_q, want_q)
+        res["int8c_logits_err"] = float((logits_q.float() - want_q.float()).abs().max()
+                                        / want_q.float().abs().max())
+        res["int8c_single_tokens"] = GenerationEngine(whole).generate(
+            prompt, max_tokens=TP_NEW_Q, sampling=GREEDY)
+        check(res["int8c_product_equal"], "tp int8c att.output product differs from the "
+              "single-process one")
+        check(res["int8c_logits_equal"], f"tp int8c logits are not bit-equal to single-process "
+              f"int8c ({res['int8c_logits_err']:.3e} x max)")
+        check(outq == res["int8c_single_tokens"], "tp int8c greedy tokens differ")
+    lap("int8c")
+    return res
+
+
+def write_tp_cli_files(d: Path) -> list:
+    """A TP_CLI_LAYERS-layer fp32 checkpoint at full width and a seeded
+    bi-encoder LoRA for it; returns the CLI's arguments."""
+    cut = rwkv6_1b6(n_layer=TP_CLI_LAYERS, dtype="float32")
+    sd = synthetic_1b6(cut, seed=7)
+    model = load_state_dict_into(RWKV(cut, device=DEV), sd)
+    save_rwkv_checkpoint(model, str(d / "cut.pth"))
+    gen = torch.Generator(device=DEV).manual_seed(24)
+    adapter = init_lora_params(model, SERVE_LORA, gen)
+    for ab in adapter.values():
+        ab["B"] = torch.randn(ab["B"].shape, generator=gen, device=DEV) * 0.02
+    torch.save(lora_state_dict(apply_lora(model, SERVE_LORA, adapter)), d / "bi.pth")
+    return ["--model", str(d / "cut.pth"), "--bi-adapter", str(d / "bi.pth"),
+            "--lora-r", str(SERVE_LORA.r), "--lora-alpha", str(SERVE_LORA.alpha),
+            "--dtype", "float32", "--batcher-slots", str(TP_CLI_SLOTS), "--platform", DEV,
+            "--port", "0"]
+
+
+def phase_tp(tmp: Path, smi: str) -> dict:
+    """Phase 22: the tp ranks (tp_rank) and `serve.cli --tp 2` on a cut
+    checkpoint, beside the single-process CLI's answers made in this
+    process meanwhile. Returns rank 0's launches of the tp path's kernels."""
+    d = tmp / "tp"
+    d.mkdir()
+    args = write_tp_cli_files(d)
+    torch.cuda.empty_cache()
+    rendezvous = "file://" + str(d / "rendezvous")
+    logs = [open(d / f"rank{r}.log", "w") for r in range(TP)]
+    ranks = [subprocess.Popen([sys.executable, "-c", f"import chip_smoke; chip_smoke.tp_rank("
+                               f"{r}, {rendezvous!r}, {str(d)!r})"],
+                              cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(TP)]
+    server = CliServer([*args, "--tp", str(TP)])
+    server.start()
+    try:
+        service = cli.build_service(cli.parse_args(args))
+        service.warmup()
+        greedy = {"max_tokens": TP_NEW, "temperature": 0.0, "token_stop": []}
+        want = [service.handle("/generate", {"prompt": p, **greedy})["output"] for p in TP_PROMPTS]
+        want_emb = np.asarray(service.handle("/embed", {"texts": list(TP_PROMPTS[:3])})["embeddings"])
+        service.close()
+        del service
+        torch.cuda.empty_cache()
+        deadline = time.monotonic() + TP_RANK_TIMEOUT_S
+        for proc in ranks:
+            proc.wait(timeout=max(deadline - time.monotonic(), 1))
+    except BaseException:
+        for proc in ranks:
+            proc.kill()
+        server.stop()
+        raise
+    finally:
+        for f in logs:
+            f.close()
+    for r, proc in enumerate(ranks):
+        if proc.returncode != 0:
+            server.stop()
+            tail = (d / f"rank{r}.log").read_text()[-4000:]
+            raise AssertionError(f"tp rank {r} exited {proc.returncode}:\n{tail}")
+    res = [json.loads((d / f"tp-{r}.json").read_text()) for r in range(TP)]
+    r0 = res[0]
+    print(f"  route: {json.dumps(r0['route'])}")
+    print(f"  fp32, B={TP_B}, T={TP_T}: tp logits {r0['fp32_err']:.3e} x max from the "
+          f"single-process kernel route (limit: its fp32 plain route's {r0['fp32_plain_gap']:.3e}); "
+          f"{TP_NEW} greedy tokens equal the single-process engine's on both ranks")
+    check(all(r["fp32_tokens"] == r0["fp32_tokens"] for r in res), "the ranks' tokens differ")
+    print(f"  bf16: logits cosine to the fp32 plain route min {r0['bf16_cos'][0]:.6f}, mean "
+          f"{r0['bf16_cos'][1]:.6f} (the single-process bf16 route's {r0['bf16_single_cos'][0]:.6f}, "
+          f"{r0['bf16_single_cos'][1]:.6f}); greedy tokens the argmax of the tp route's "
+          f"teacher-forced logits on each rank")
+    print(f"  int8c: B.4 codes and scales bit-equal on each rank, att.output product bit-equal, "
+          f"logits bit-equal {r0['int8c_logits_equal']}, greedy tokens equal")
+    for r, rr in enumerate(res):
+        print(f"  rank {r} launches: fp32 prefill + {TP_NEW} steps "
+              f"{ {k: rr['counts_fp32'][k] for k in TP_KERNELS} }; int8c "
+              f"{ {k: rr['counts_int8c'][k] for k in TP_KERNELS + ('quantize_rows', 'quantize_rows_given')} }")
+    print(f"  each rank's seconds by part: {[rr['seconds'] for rr in res]}")
+    print(f"  reading: tp={TP} bf16 greedy decode {TP_NEW_Q / r0['decode_s']:.1f} tok/s at B=1 "
+          f"({r0['route']['blocks']}, {r0['route']['backend']}); busy ms over one "
+          f"{TP_BUSY_NEW}-token generate: "
+          f"{', '.join(f'rank {r} {rr['busy_ms']:.1f} of {rr['busy_wall_s'] * 1e3:.1f} wall' for r, rr in enumerate(res))} "
+          f"(traced), on {smi}")
+
+    with server as base:
+        results = [None] * len(TP_PROMPTS)
+
+        def one(i):
+            results[i] = post(base + "/generate", {"prompt": TP_PROMPTS[i], **greedy})
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(TP_PROMPTS))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        check(all(r is not None and r[0] == 200 and r[1]["backend"] == "batcher" for r in results),
+              f"tp CLI /generate answered {[r and r[0] for r in results]}")
+        same = [r[1]["output"] == w for r, w in zip(results, want)]
+        code, emb = post(base + "/embed", {"texts": list(TP_PROMPTS[:3])})
+        emb = np.asarray(emb["embeddings"])
+        code_stats, stats = post(base + "/stats", {})
+        code_big, big = post(base + "/embed", {"texts": ["x" * 200_000]})
+        code_after, after = post(base + "/similarity", {"texts_a": [SHORT], "texts_b": [SHORT]})
+    print(f"  serve.cli --tp {TP} --batcher-slots {TP_CLI_SLOTS} (fp32, {TP_CLI_LAYERS} layers): "
+          f"{sum(same)} of {len(same)} concurrent greedy answers equal the single-process CLI's; "
+          f"/embed norms {np.linalg.norm(emb, axis=-1).round(6).tolist()}, max |tp - single| "
+          f"{np.abs(emb - want_emb).max():.2e}; /stats route {stats.get('route')}; a 200 KB /embed "
+          f"{code_big} ({big.get('error', '')[:60]}), then /similarity {code_after}")
+    check(all(same), "tp CLI greedy answers differ from the single-process CLI's")
+    check(code == 200 and np.allclose(np.linalg.norm(emb, axis=-1), 1.0, atol=1e-4)
+          and np.abs(emb - want_emb).max() <= 1e-4, "tp CLI /embed")
+    check(code_stats == 200 and stats["route"]["tp"] == TP, f"tp CLI /stats: {stats}")
+    check(code_big == 400 and code_after == 200 and abs(after["similarity"][0][0] - 1) < 1e-4,
+          "an oversized request did not fail alone")
+    return {k: r0["counts_int8c"][k] for k in ("quantize_rows_given",)}
+
+
 def main() -> None:
     """With no arguments the whole check; with --merge-calibration only the
     readings behind the merged-adapter budgets (merge_calibration)."""
@@ -6128,6 +6498,14 @@ def main() -> None:
     kernels.update(phase_wkv_kernels())
     kernels.update(phase_fused_kernels())
     kernels.update(phase_collect_kernel())
+    torch.cuda.empty_cache()
+
+    phase(f"phase 22: tensor-parallel serving, tp={TP} ranks on this host's card(s): the "
+          f"24-layer 1B6 in fp32 / bf16 / int8c, python -m rwkv_lm_ext_tpu_torch.serve.cli "
+          f"--tp {TP}")
+    with tempfile.TemporaryDirectory() as tp_tmp:
+        tp_launches = phase_tp(Path(tp_tmp), smi)
+    torch.cuda.empty_cache()
 
     phase("phase 3: synthetic RWKV-6-World-1B6, bf16, embeddings served over HTTP")
     cfg = rwkv6_1b6()
@@ -6289,8 +6667,8 @@ def main() -> None:
         phase(f"phase 20c: RWKV-5.2 and RWKV-4 training gradients, kernel route vs plain route (2 "
               f"layers, full width, B={TB}, T={T})")
         phase_family_grads()
-        phase(f"phase 20d: RWKV-5.2 and RWKV-4 LoRA, full and TBPTT steps (24 layers, B={TB}, "
-              f"T={T}, bf16)")
+        phase(f"phase 20d: RWKV-5.2 and RWKV-4 LoRA and full steps ({FAMILY_READ_LAYERS} layers, "
+              f"B={TB}, T={T}, bf16)")
         v4_bwd_launches = phase_family_readings(smi)
         phase("phase 20e: python -m rwkv_lm_ext_tpu_torch.train.cli simcse --dropout-noise")
         phase_simcse_dropout(path, tmp)
@@ -6299,7 +6677,8 @@ def main() -> None:
         phase_c24_probe(path)
 
     # each kernel's launches on a main path that runs it (B.14's backward: a
-    # 24-layer v4 LoRA step, phase 20d): embedding serving,
+    # 12-layer v4 LoRA step, phase 20d; B.4's given-scale entry: rank 0 of
+    # phase 22's int8c tp engine): embedding serving,
     # int8c generation (on the device: its decode blocks are graph replays),
     # LoRA training, the nli trainer (B.5's full form), /fill_mask, the mlm
     # trainer, and the fused decode route on the bf16 model (B.10, B.12) and
@@ -6313,7 +6692,8 @@ def main() -> None:
     launches.update({k: fused_counts[k] for k in ("att_prep_fused", "ffn_block_fused")})
     launches.update(ffn_prep_fused=fused_counts_q["ffn_prep_fused"],
                     wkv6_decode_step_transposed=bench_counts["wkv6_decode_step_transposed"],
-                    wkv4=v4_launches, wkv4_bwd=v4_bwd_launches, wkv6_collect=collect_launches)
+                    wkv4=v4_launches, wkv4_bwd=v4_bwd_launches, wkv6_collect=collect_launches,
+                    **tp_launches)
     check(all(n > 0 for n in launches.values()) and mlm_counts["wkv"] > 0
           and mlm_counts["wkv6_bwd_reverse_pass"] > 0 and fill_mask_counts["layer_norm"] > 0
           and train_counts["tmix_prologue_bwd"] > 0

@@ -19,6 +19,17 @@
 //   - no clip, as in the reference; |x / sx| <= 127 by construction.
 // The library is built without fast-math (ops/_lib.py).
 //
+// A second entry, rwkv_quantize_rows_given, takes the row scales sx as an
+// input and writes q only: the quantizing sweep of the same kernel with the
+// absmax pass left out. A tensor-parallel row-parallel projection
+// (parallel/tp.py) splits the contraction axis, so a rank holds a slice of
+// each row; it takes every slice's scale (the first entry), the largest of
+// them over the ranks (an all-reduce), and quantizes its slice with that
+// scale here. Since fl(a * c) and the 1e-12 floor are monotone in a, the
+// largest slice scale is the whole row's, so the slices' codes are the
+// whole row's codes, bit for bit. Same bound (bytes: one read of x and sx,
+// one int8 write) and the same one-block-a-row design.
+//
 // Bound on the card: bytes. One read of x and one int8 write: at
 // (32768, 2048) bf16 that is 134 MB + 67 MB, about 0.06 ms at 3.35 TB/s.
 // Design: one block of 256 threads per row. When the row is 16-byte
@@ -76,7 +87,9 @@ __device__ __forceinline__ signed char quant_one(float x, float sx) {
 }
 
 // C % kN == 0 and 16-byte aligned rows; thread t holds vectors t, t + 256, ...
-template <typename T, int NV>
+// GIVEN: sx is read from s (the given-scale entry) instead of computed and
+// written.
+template <typename T, int NV, bool GIVEN>
 __global__ void __launch_bounds__(kQuantThreads) quant_rows_vec_kernel(
     const T* __restrict__ x, signed char* __restrict__ q,
     float* __restrict__ s, int C) {
@@ -97,8 +110,13 @@ __global__ void __launch_bounds__(kQuantThreads) quant_rows_vec_kernel(
       for (int e = 0; e < K; ++e) ax = fmaxf(ax, fabsf(v[n][e]));
     }
   }
-  const float sx = row_scale(block_max(ax, red));
-  if (threadIdx.x == 0) s[row] = sx;
+  float sx;
+  if constexpr (GIVEN) {
+    sx = s[row];
+  } else {
+    sx = row_scale(block_max(ax, red));
+    if (threadIdx.x == 0) s[row] = sx;
+  }
 #pragma unroll
   for (int n = 0; n < NV; ++n) {
     const int vi = threadIdx.x + n * kQuantThreads;
@@ -111,8 +129,8 @@ __global__ void __launch_bounds__(kQuantThreads) quant_rows_vec_kernel(
   }
 }
 
-// any C and alignment: scalar loads, the row read twice
-template <typename T>
+// any C and alignment: scalar loads, the row read twice (once with GIVEN)
+template <typename T, bool GIVEN>
 __global__ void __launch_bounds__(kQuantThreads) quant_rows_generic_kernel(
     const T* __restrict__ x, signed char* __restrict__ q,
     float* __restrict__ s, int C) {
@@ -120,14 +138,19 @@ __global__ void __launch_bounds__(kQuantThreads) quant_rows_generic_kernel(
   const size_t row = blockIdx.x;
   const T* xr = x + row * C;
   signed char* qr = q + row * C;
-  float ax = 0.f;
-  for (int c = threadIdx.x; c < C; c += kQuantThreads) ax = fmaxf(ax, fabsf(to_f(xr[c])));
-  const float sx = row_scale(block_max(ax, red));
-  if (threadIdx.x == 0) s[row] = sx;
+  float sx;
+  if constexpr (GIVEN) {
+    sx = s[row];
+  } else {
+    float ax = 0.f;
+    for (int c = threadIdx.x; c < C; c += kQuantThreads) ax = fmaxf(ax, fabsf(to_f(xr[c])));
+    sx = row_scale(block_max(ax, red));
+    if (threadIdx.x == 0) s[row] = sx;
+  }
   for (int c = threadIdx.x; c < C; c += kQuantThreads) qr[c] = quant_one(to_f(xr[c]), sx);
 }
 
-template <typename T>
+template <typename T, bool GIVEN>
 static cudaError_t launch_quant(const void* x, void* q, void* s, long long M,
                                 int C, cudaStream_t stream) {
   constexpr int K = Vec<T>::kN;
@@ -139,29 +162,40 @@ static cudaError_t launch_quant(const void* x, void* q, void* s, long long M,
   const int per_thread = (C / K + kQuantThreads - 1) / kQuantThreads;
   const unsigned grid = (unsigned)M;
   if (aligned && per_thread <= 1)
-    quant_rows_vec_kernel<T, 1><<<grid, kQuantThreads, 0, stream>>>(xp, qp, sp, C);
+    quant_rows_vec_kernel<T, 1, GIVEN><<<grid, kQuantThreads, 0, stream>>>(xp, qp, sp, C);
   else if (aligned && per_thread <= 2)
-    quant_rows_vec_kernel<T, 2><<<grid, kQuantThreads, 0, stream>>>(xp, qp, sp, C);
+    quant_rows_vec_kernel<T, 2, GIVEN><<<grid, kQuantThreads, 0, stream>>>(xp, qp, sp, C);
   else if (aligned && per_thread <= 4)
-    quant_rows_vec_kernel<T, 4><<<grid, kQuantThreads, 0, stream>>>(xp, qp, sp, C);
+    quant_rows_vec_kernel<T, 4, GIVEN><<<grid, kQuantThreads, 0, stream>>>(xp, qp, sp, C);
   else if (aligned && per_thread <= 8)
-    quant_rows_vec_kernel<T, 8><<<grid, kQuantThreads, 0, stream>>>(xp, qp, sp, C);
+    quant_rows_vec_kernel<T, 8, GIVEN><<<grid, kQuantThreads, 0, stream>>>(xp, qp, sp, C);
   else
-    quant_rows_generic_kernel<T><<<grid, kQuantThreads, 0, stream>>>(xp, qp, sp, C);
+    quant_rows_generic_kernel<T, GIVEN><<<grid, kQuantThreads, 0, stream>>>(xp, qp, sp, C);
   return cudaGetLastError();
+}
+
+template <bool GIVEN>
+static int quantize_entry(const void* x, void* q, void* s, long long M, int C, int dtype,
+                          void* stream) {
+  if (M <= 0 || C <= 0) return cudaSuccess;
+  if (M > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32: return launch_quant<float, GIVEN>(x, q, s, M, C, st);
+    case kBFloat16: return launch_quant<__nv_bfloat16, GIVEN>(x, q, s, M, C, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace rwkv
 
 extern "C" int rwkv_quantize_rows(const void* x, void* q, void* s, long long M,
                                   int C, int dtype, void* stream) {
-  using namespace rwkv;
-  if (M <= 0 || C <= 0) return cudaSuccess;
-  if (M > 0x7fffffffLL) return cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32: return launch_quant<float>(x, q, s, M, C, st);
-    case kBFloat16: return launch_quant<__nv_bfloat16>(x, q, s, M, C, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return rwkv::quantize_entry<false>(x, q, s, M, C, dtype, stream);
+}
+
+// s (M,) fp32 holds the given row scales; writes q only
+extern "C" int rwkv_quantize_rows_given(const void* x, void* q, const void* s,
+                                        long long M, int C, int dtype, void* stream) {
+  return rwkv::quantize_entry<true>(x, q, const_cast<void*>(s), M, C, dtype, stream);
 }

@@ -1,7 +1,9 @@
 """Continuous batching for streaming decode serving.
 
 Counterpart of rwkv_lm_ext_tpu/infer/continuous.py:59-757
-(ContinuousBatcher) and :761-887 (BatcherDriver). A fixed pool of decode
+(ContinuousBatcher), :761-887 (BatcherDriver) and :888-1193
+(``_sampling_to_wire`` / ``_sampling_from_wire``, LockstepBatcherDriver). A
+fixed pool of decode
 SLOTS shares one batched decode+sample step; requests wait in a queue, a
 free slot admits one by prefilling its prompt and writing the state into
 its row of the batched state, and finished rows retire and reopen while the
@@ -38,11 +40,19 @@ Two faults of the JAX batcher are left behind: ``_pick_block_size`` counts a
 slot re-admitted since the in-flight block's dispatch with its full budget
 (the JAX code skips it, :464), and ``_step_block`` keeps the block length
 apart from its loop index (the JAX code shadows ``k``, :532).
-``LockstepBatcherDriver`` (multi-host serving) waits for parallelism.
+
+``LockstepBatcherDriver`` serves a batcher whose engine is one rank of a
+tensor-parallel group (multi-process serving): process 0 turns the batcher's
+inputs into one op stream and every process replays it (see the class). It
+leaves behind ADVICE r5's fault of the JAX driver, whose whole loop died on a
+payload over broadcast_obj's 64 KB buffer: each ticket and call is measured
+where it is submitted and one over ``MAX_REQUEST_BYTES`` fails alone
+(``PayloadTooLarge``, a 400 at the server); broadcast_obj itself has no cap.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import threading
 import time
 from collections import deque
@@ -276,15 +286,16 @@ class ContinuousBatcher:
         self._budget.copy_(budget)
 
     def _run(self, key: int) -> None:
-        """The tick (key 0) or a block of ``key`` steps: eagerly on the CPU,
-        one graph replay on a card."""
+        """The tick (key 0) or a block of ``key`` steps: one graph replay
+        where the engine's blocks are graphs (a card, and no gloo group),
+        else eagerly."""
         if self._slot_lora:
             set_slot_idx(self.engine.model, self._slot_idx)
         if key != _TICK and key not in self._packed:
             self._packed[key] = torch.zeros(2 * key + 1, self.n_slots, dtype=torch.int64,
                                             device=self._tokens.device)
         body = self._tick if key == _TICK else (lambda: self._block(key))
-        if self._tokens.device.type == "cuda":
+        if self.engine.graph_blocks:
             self._replay(key, body)
         else:
             body()
@@ -665,3 +676,305 @@ class BatcherDriver:
             self._stop = True
             self._cv.notify_all()
         self._thread.join(timeout=5)
+
+
+# bytes of one ticket or call on the lockstep op stream (its JSON): larger
+# ones are refused where they are submitted
+MAX_REQUEST_BYTES = 1 << 17
+
+
+class PayloadTooLarge(ValueError):
+    """A lockstep ticket or call over MAX_REQUEST_BYTES: refused alone."""
+
+
+def _sampling_to_wire(sp: Optional[SamplingParams]):
+    """SamplingParams -> a JSON value (broadcast_obj carries JSON)."""
+    if sp is None:
+        return None
+    d = dataclasses.asdict(sp)
+    d["token_ban"] = list(d["token_ban"])
+    d["token_stop"] = list(d["token_stop"])
+    return d
+
+
+def _sampling_from_wire(d) -> Optional[SamplingParams]:
+    if d is None:
+        return None
+    d = dict(d)
+    d["token_ban"] = tuple(d["token_ban"])
+    d["token_stop"] = tuple(d["token_stop"])
+    return SamplingParams(**d)
+
+
+def _measured(message: dict) -> dict:
+    n = len(json.dumps(message).encode())
+    if n > MAX_REQUEST_BYTES:
+        raise PayloadTooLarge(f"request of {n} bytes: the lockstep server carries at most "
+                              f"{MAX_REQUEST_BYTES} bytes a request to its other processes")
+    return message
+
+
+class LockstepBatcherDriver:
+    """Continuous batching across the processes of a tensor-parallel group
+    (JAX continuous.py:907-1193).
+
+    Every process holds an identical ContinuousBatcher over its rank of the
+    engine; the model's collectives make every rank issue the same calls in
+    the same order. Requests arrive on process 0 only, so process 0 turns
+    the batcher's inputs into an op stream: before every tick it broadcasts
+    {submits, cancels, calls} (``parallel.distributed.broadcast_obj``),
+    applies it and steps; the other processes replay the stream
+    (``worker_loop``). Request ids, admissions and blocks are then the same
+    everywhere, and so are the sampled tokens (the same logits on every
+    rank, the same seeded generator). ``calls`` carries the other endpoints
+    (/embed, /similarity, /rerank, /process_text, and every request of the
+    plain engine mode): process 0's HTTP threads enqueue (route, payload) and
+    the loop runs ``svc_handle`` inside the stream on every process. At most
+    ``_MAX_SUBMITS_PER_TICK`` submits join a tick. A per-request
+    ``initial_state`` is refused (tensors do not go on the stream).
+
+    With ``batcher=None`` the stream carries calls only: the plain engine
+    mode of the multi-process server. While process 0 is idle it broadcasts
+    an empty tick every ``HEARTBEAT_S``, so a worker's wait never reaches the
+    group's collective timeout while process 0 lives, and ends in an error
+    once it is gone.
+
+    Process 0: construct with ``svc_handle`` and serve; the others:
+    construct and call ``worker_loop()``, which returns at shutdown.
+    """
+
+    _MAX_SUBMITS_PER_TICK = 8
+    HEARTBEAT_S = 1.0
+
+    def __init__(self, batcher: Optional[ContinuousBatcher], svc_handle=None,
+                 poll: float = 0.01):
+        from rwkv_lm_ext_tpu_torch.parallel.distributed import is_main_process
+
+        self.batcher = batcher
+        self.svc_handle = svc_handle
+        self.poll = poll
+        self._cv = threading.Condition()
+        self._stop = False
+        self._error: Optional[BaseException] = None
+        self._is_main = is_main_process()
+        if self._is_main:
+            self._pending: List[dict] = []         # tickets awaiting a tick
+            self._pending_cancels: List[int] = []
+            self._pending_calls: List[dict] = []   # {"cid", "route", "payload"}
+            self._results: Dict[int, List[int]] = {}
+            self._call_results: Dict[int, object] = {}
+            self._abandoned: set = set()
+            self._next_cid = 0
+            self._thread = threading.Thread(target=self._main_loop, daemon=True)
+            self._thread.start()
+
+    @property
+    def _busy(self) -> bool:
+        return self.batcher is not None and self.batcher.busy
+
+    def _raise_if_dead(self) -> None:
+        if self._error is not None:
+            raise RuntimeError("lockstep serving loop died") from self._error
+
+    # -- process 0 (HTTP handler threads) ------------------------------
+
+    def submit_and_wait(
+        self, prompt, *, max_tokens: int = 128,
+        sampling: Optional[SamplingParams] = None,
+        timeout: Optional[float] = None,
+        callback: Optional[Callable[[int], None]] = None,
+        initial_state: Optional[ModelState] = None, adapter: Optional[str] = None,
+        cancel: Optional[threading.Event] = None,
+    ) -> List[int]:
+        """BatcherDriver.submit_and_wait through the op stream."""
+        if not self._is_main or self.batcher is None:
+            raise RuntimeError("submit on process 0 of a lockstep batcher only")
+        if initial_state is not None:
+            raise ValueError("a per-request initial_state is not supported in lockstep serving "
+                             "(named states go through /process_text)")
+        if isinstance(prompt, str):
+            prompt = self.batcher.engine.tokenizer.encode(prompt)
+        wire = _measured({"ids": [int(t) for t in prompt], "max_tokens": max_tokens,
+                          "sampling": _sampling_to_wire(sampling), "adapter": adapter})
+        ticket = {"wire": wire, "callback": callback, "rid": None, "error": None}
+        with self._cv:
+            self._raise_if_dead()
+            self._pending.append(ticket)
+            self._cv.notify_all()
+
+            def ready():
+                return (ticket["error"] is not None or self._stop
+                        or (ticket["rid"] is not None and ticket["rid"] in self._results))
+
+            if cancel is None:
+                ok = self._cv.wait_for(ready, timeout=timeout)
+            else:
+                deadline = None if timeout is None else time.monotonic() + timeout
+                while not ready() and not cancel.is_set():
+                    step = self.poll
+                    if deadline is not None:
+                        step = min(step, deadline - time.monotonic())
+                        if step <= 0:
+                            break
+                    self._cv.wait(timeout=step)
+                ok = ready()
+                if not ok and cancel.is_set():
+                    self._cancel_ticket(ticket)
+                    self._cv.wait_for(ready, timeout=10.0)
+                    if ticket["rid"] is not None:
+                        return self._results.pop(ticket["rid"], [])
+                    return []
+            if ticket["error"] is not None:
+                raise ticket["error"]
+            if not ok:
+                self._cancel_ticket(ticket)
+                if ticket["rid"] is not None:
+                    self._abandoned.add(ticket["rid"])
+                raise TimeoutError("lockstep request timed out")
+            if ticket["rid"] not in self._results:
+                self._raise_if_dead()
+            return self._results.pop(ticket["rid"], [])
+
+    def _cancel_ticket(self, ticket) -> None:
+        """Caller holds _cv. A ticket not yet on the stream is dropped here;
+        an admitted one is cancelled through the stream."""
+        if ticket in self._pending:
+            self._pending.remove(ticket)
+            ticket["error"] = TimeoutError("cancelled before admission")
+        elif ticket["rid"] is not None:
+            self._pending_cancels.append(ticket["rid"])
+
+    def call(self, route: str, payload):
+        """Run ``svc_handle(route, payload)`` inside the stream on every
+        process; returns process 0's answer (its exception re-raises
+        here)."""
+        if not self._is_main:
+            raise RuntimeError("call on process 0 only")
+        message = _measured({"route": route, "payload": payload})
+        with self._cv:
+            self._raise_if_dead()
+            cid = self._next_cid
+            self._next_cid += 1
+            self._pending_calls.append(dict(message, cid=cid))
+            self._cv.notify_all()
+            self._cv.wait_for(lambda: cid in self._call_results or self._stop)
+            res = self._call_results.pop(cid, None)
+            if res is None:
+                self._raise_if_dead()
+        if isinstance(res, BaseException):
+            raise res
+        return res
+
+    def cancel(self, rid: int) -> None:
+        with self._cv:
+            if self._results.pop(rid, None) is not None:
+                return
+            self._pending_cancels.append(rid)
+            self._abandoned.add(rid)
+            self._cv.notify_all()
+
+    # -- the loops -------------------------------------------------------
+
+    def _drain(self):
+        """Caller holds _cv: the pending work as one message, and the
+        tickets it carries."""
+        tickets = self._pending[: self._MAX_SUBMITS_PER_TICK]
+        self._pending = self._pending[self._MAX_SUBMITS_PER_TICK:]
+        cancels, self._pending_cancels = self._pending_cancels, []
+        calls, self._pending_calls = self._pending_calls, []
+        msg = {"submits": [t["wire"] for t in tickets], "cancels": cancels, "calls": calls,
+               "stop": False}
+        return msg, tickets
+
+    def _apply(self, msg, tickets=None) -> None:
+        """One message into the local batcher (every process). A submit's
+        error is the same on every process (same inputs, same batcher), so
+        each raises and drops the same ones."""
+        for i, s in enumerate(msg["submits"]):
+            try:
+                rid = self.batcher.submit(
+                    s["ids"], max_tokens=s["max_tokens"],
+                    sampling=_sampling_from_wire(s["sampling"]), adapter=s["adapter"],
+                    callback=tickets[i]["callback"] if tickets else None)
+                if tickets:
+                    tickets[i]["rid"] = rid
+            except Exception as e:  # noqa: BLE001 - the same on every process
+                if tickets:
+                    tickets[i]["error"] = e
+        for rid in msg["cancels"]:
+            self.batcher.cancel(rid)
+
+    def _main_loop(self) -> None:
+        from rwkv_lm_ext_tpu_torch.parallel.distributed import broadcast_obj
+
+        while True:
+            with self._cv:
+                idle_since = time.monotonic()
+                while (not self._pending and not self._pending_calls
+                       and not self._pending_cancels and not self._busy and not self._stop
+                       and time.monotonic() - idle_since < self.HEARTBEAT_S):
+                    self._cv.wait(timeout=self.poll)
+                stop = self._stop
+                if not stop:
+                    msg, tickets = self._drain()
+            try:
+                if stop:
+                    broadcast_obj({"stop": True})
+                    return
+                broadcast_obj(msg)
+                if msg["submits"] or msg["cancels"]:
+                    with self._cv:
+                        self._apply(msg, tickets)
+                        self._cv.notify_all()
+                for c in msg["calls"]:
+                    try:
+                        res = self.svc_handle(c["route"], c["payload"])
+                    except BaseException as e:  # noqa: BLE001 - to the caller
+                        res = e
+                    with self._cv:
+                        self._call_results[c["cid"]] = res
+                        self._cv.notify_all()
+                done = self.batcher.step() if self._busy else {}
+            except BaseException as e:  # noqa: BLE001 - surfaced to the waiters
+                with self._cv:
+                    self._error = e
+                    self._stop = True
+                    self._cv.notify_all()
+                return
+            if done:
+                with self._cv:
+                    self._results.update(done)
+                    for rid in self._abandoned & set(self._results):
+                        self._results.pop(rid)
+                        self._abandoned.discard(rid)
+                    self._cv.notify_all()
+
+    def worker_loop(self) -> None:
+        """The other processes: replay the stream until process 0 stops it.
+        A call's error is process 0's too, and is its to report."""
+        from rwkv_lm_ext_tpu_torch.parallel.distributed import broadcast_obj
+
+        if self._is_main:
+            raise RuntimeError("worker_loop is for the processes other than 0")
+        while True:
+            msg = broadcast_obj()
+            if msg.get("stop"):
+                return
+            if msg["submits"] or msg["cancels"]:
+                self._apply(msg)
+            for c in msg["calls"]:
+                try:
+                    self.svc_handle(c["route"], c["payload"])
+                except Exception:  # noqa: BLE001 - mirrors process 0
+                    pass
+            if self._busy:
+                self.batcher.step()
+
+    def close(self) -> None:
+        """Process 0: stop the stream (the workers' loops return)."""
+        if not self._is_main:
+            return
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        self._thread.join(timeout=30)

@@ -3,10 +3,22 @@
 Counterpart of rwkv_lm_ext_tpu/infer/engine.py:24-40 (_chunk_plan) and
 43-480 (GenerationEngine: init_state, prefill with ``state_cache`` and
 ``cache_salt`` :190-234, the K-step block ``_block_decode_fn`` :121-180,
-generate_batch, generate with ``adapter=`` :375-425, ``adapter_ids``).
-Left out: ``mesh`` (parallelism), ``wkv_backend`` (the port has one WKV
-route) and ``generate_on_device`` (a TPU dispatch workaround that the graph
-blocks cover).
+generate_batch, generate with ``adapter=`` :375-425, ``adapter_ids``) and
+its ``mesh`` (:57-77, 183-188). Left out: ``wkv_backend`` (the port has one
+WKV route) and ``generate_on_device`` (a TPU dispatch workaround that the
+graph blocks cover).
+
+``mesh`` (parallel.mesh.make_mesh) makes the engine one rank of a
+head-parallel tensor-parallel group: the model is cut into the rank's part
+(parallel.tp.shard_model) and the state holds the rank's heads, as JAX places
+the parameters and the state under its shardings. Every rank runs the same
+calls in the same order (the lockstep server, infer/continuous.py). Decode
+blocks are CUDA graphs only where the group's collectives can be captured
+(NCCL); under gloo, whose collectives are staged through host memory, the
+engine runs eager blocks on the card: an explicit route, ``route()``, which
+the serving CLI prints and /stats reports. ``fused_prep`` is refused under
+tp: B.10 writes the decay over all n_embd channels, and a rank's decay is
+its dim_att / tp slice.
 
 Decode runs in blocks of K decode+sample steps between host fetches. Within
 a block nothing is read back: the stop rule and the token budget run on the
@@ -159,9 +171,11 @@ class _Decoder:
     their graphs are freed when the engine is, never by a garbage collection
     that could fall in a capture."""
 
-    def __init__(self, model, fused_prep, sampling: SamplingParams, rows: int, stop_cap: int):
+    def __init__(self, model, fused_prep, sampling: SamplingParams, rows: int, stop_cap: int,
+                 use_graphs: bool):
         dev = model.emb.weight.device
         self.model, self.fused_prep, self.sampling, self.rows = model, fused_prep, sampling, rows
+        self.use_graphs = use_graphs
         self.token = torch.zeros(rows, dtype=torch.int64, device=dev)
         self.state = init_model_state(model.cfg, rows, device=dev)
         self.occ = torch.zeros(rows, model.cfg.vocab_size, device=dev)
@@ -232,13 +246,13 @@ class _Decoder:
         self.occ.copy_(occ)
 
     def run(self, k: int, gen: torch.Generator) -> torch.Tensor:
-        """One block of k steps: eagerly on the CPU, one graph replay on a
-        card. Returns packed[k] (overwritten by the next block of that
-        length)."""
+        """One block of k steps: one graph replay on a card (``use_graphs``),
+        else eagerly. Returns packed[k] (overwritten by the next block of
+        that length)."""
         if k not in self.packed:
             self.packed[k] = torch.zeros(2 * k + 1, self.rows, dtype=torch.int64,
                                          device=self.token.device)
-        if self.token.device.type == "cuda":
+        if self.use_graphs:
             self._replay(k, gen)
         else:
             self._block(k, gen)
@@ -264,12 +278,25 @@ class GenerationEngine:
     or with slot-LoRA projections) on its device; ``tokenizer`` turns str
     prompts into ids and ids into text. A model with ``head_qk``,
     ``tiny_att_dim`` or ``my_pos_emb`` is refused by name
-    (``refuse_chunk_dependent``)."""
+    (``refuse_chunk_dependent``). ``mesh`` (tp > 1) cuts the whole model
+    given into this rank's part, in place (module docstring)."""
 
     def __init__(self, model, tokenizer=None, *, chunk_len: int = 256,
                  fused_prep: Optional[bool] = None, state_cache=None,
-                 adapter_ids: Optional[Dict[str, int]] = None):
+                 adapter_ids: Optional[Dict[str, int]] = None, mesh=None):
         refuse_chunk_dependent(model.cfg, "GenerationEngine")
+        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        if self.mesh is not None:
+            from rwkv_lm_ext_tpu_torch.parallel.tp import shard_model
+
+            if fused_prep:
+                raise ValueError(
+                    "fused_prep is refused under tensor parallelism: B.10 writes the decay over "
+                    "all n_embd channels, a rank's decay is its dim_att / tp slice")
+            if has_slot_lora(model):
+                raise ValueError("slot-LoRA serving is not ported under tensor parallelism "
+                                 "(ROADMAP A.12)")
+            shard_model(model, self.mesh)
         self.model = model
         self.cfg = model.cfg
         self.tokenizer = tokenizer
@@ -283,6 +310,20 @@ class GenerationEngine:
         self._row_idx: Dict[int, torch.Tensor] = {}
         self._decoders: "OrderedDict[tuple, _Decoder]" = OrderedDict()
         self._gen = torch.Generator(device=self.device)
+        self.graph_blocks = self.device.type == "cuda" and (
+            self.mesh is None or self.mesh.graph_capture)
+
+    def route(self) -> Dict:
+        """How this engine runs: its device, its decode blocks ("graph" or
+        "eager") and, under tensor parallelism, the group (tp, rank,
+        backend)."""
+        blocks = "graph" if self.graph_blocks else "eager"
+        if self.device.type == "cuda" and not self.graph_blocks:
+            blocks = "eager (gloo collectives cannot be captured into a CUDA graph)"
+        out = {"device": str(self.device), "blocks": blocks}
+        if self.mesh is not None:
+            out.update(self.mesh.describe())
+        return out
 
     def init_state(self, batch_size: int = 1, wkv_init: Optional[torch.Tensor] = None) -> ModelState:
         return init_model_state(self.cfg, batch_size, device=self.device, wkv_init=wkv_init)
@@ -351,7 +392,7 @@ class GenerationEngine:
     def _decoder(self, sampling: SamplingParams, rows: int, stop_cap: int) -> _Decoder:
         key = (global_knobs(sampling), rows, stop_cap, bool(self.fused_prep))
         dec = self._decoders.pop(key, None) or _Decoder(self.model, self.fused_prep, sampling,
-                                                        rows, stop_cap)
+                                                        rows, stop_cap, self.graph_blocks)
         self._decoders[key] = dec
         while len(self._decoders) > MAX_DECODERS:
             self._decoders.popitem(last=False)

@@ -95,7 +95,12 @@ from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
     ffn_prep_plain,
 )
 from rwkv_lm_ext_tpu_torch.ops.ln import layer_norm, layer_norm_plain
-from rwkv_lm_ext_tpu_torch.ops.quant import quantize_rows, quantize_rows_plain
+from rwkv_lm_ext_tpu_torch.ops.quant import (
+    quantize_rows,
+    quantize_rows_given,
+    quantize_rows_given_plain,
+    quantize_rows_plain,
+)
 from rwkv_lm_ext_tpu_torch.ops.wkv4 import wkv4, wkv4_plain
 from rwkv_lm_ext_tpu_torch.ops.wkv_collect import wkv6_collect, wkv6_collect_plain
 from rwkv_lm_ext_tpu_torch.ops.wkv_decode import (
@@ -120,16 +125,18 @@ class Ops(NamedTuple):
     ffn_block: object
     wkv4: object
     wkv6_collect: object
+    quantize_rows_given: object
 
 
 KERNEL_OPS = Ops(
     layer_norm, tmix_prologue, wkv6_fused_output, wkv6_decode_step, quantize_rows,
-    att_prep_fused, ffn_prep_fused, ffn_block_fused, wkv4, wkv6_collect,
+    att_prep_fused, ffn_prep_fused, ffn_block_fused, wkv4, wkv6_collect, quantize_rows_given,
 )
 PLAIN_OPS = Ops(
     layer_norm_plain, tmix_prologue_plain, wkv6_fused_output_plain,
     wkv6_decode_step_plain, quantize_rows_plain,
     att_prep_plain, ffn_prep_plain, ffn_block_plain, wkv4_plain, wkv6_collect_plain,
+    quantize_rows_given_plain,
 )
 
 LayerState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]

@@ -8,7 +8,8 @@ steps (B.9, B.13) count their forward launch; their backward is a recompute
 through the plain version and launches nothing. RWKV-4's WKV (B.14) counts
 its forward launch and its backward kernel (``wkv4_bwd``) each of its own.
 The collecting WKV (B.15, the speculative verify pass) counts its forward
-launch; it has no backward.
+launch; it has no backward. B.4's given-scale entry (``quantize_rows_given``,
+the tensor-parallel int8c projections) counts its own launches.
 """
 from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
     att_prep_fused,
@@ -17,7 +18,7 @@ from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
 )
 from rwkv_lm_ext_tpu_torch.ops.ddlerp import tmix_prologue, tmix_prologue_bwd
 from rwkv_lm_ext_tpu_torch.ops.ln import layer_norm
-from rwkv_lm_ext_tpu_torch.ops.quant import quantize_rows
+from rwkv_lm_ext_tpu_torch.ops.quant import quantize_rows, quantize_rows_given
 from rwkv_lm_ext_tpu_torch.ops.wkv import wkv, wkv_bwd_state_pass
 from rwkv_lm_ext_tpu_torch.ops.wkv4 import wkv4, wkv4_bwd
 from rwkv_lm_ext_tpu_torch.ops.wkv_collect import wkv6_collect
@@ -36,7 +37,7 @@ KERNEL_WRAPPERS = (
     tmix_prologue_bwd, wkv6_bwd_forward_pass, wkv6_bwd_reverse_pass,
     wkv, wkv_bwd_state_pass,
     att_prep_fused, ffn_prep_fused, ffn_block_fused, wkv6_decode_step_transposed, wkv4,
-    wkv4_bwd, wkv6_collect,
+    wkv4_bwd, wkv6_collect, quantize_rows_given,
 )
 
 

@@ -49,6 +49,8 @@ _SIGNATURES = {
     "rwkv_wkv6_fused": [_P] * 11 + [_I] * 4 + [_F, _I, _I, _P],
     # x, q, s, M, C, dtype, stream
     "rwkv_quantize_rows": [_P] * 3 + [_L, _I, _I, _P],
+    # x, q, s (given), M, C, dtype, stream
+    "rwkv_quantize_rows_given": [_P] * 3 + [_L, _I, _I, _P],
     # r, k, v, w, u, g, scale, bias, state, out, out_state, B, H, N, eps, dtype,
     # param dtype, stream
     "rwkv_wkv6_decode": [_P] * 11 + [_I] * 3 + [_F, _I, _I, _P],

@@ -27,7 +27,9 @@ bidirectional encoder:
   slot-LoRA adapter (400 for an unknown one);
 - POST /process_text {"text", "action"}: generation from the named
   state-tuned state ``action`` of the states registry, on its template;
-- POST /stats (and GET /stats): request counts per route, per-backend
+- POST /stats (and GET /stats): request counts per route, the engine's
+  route (its device, graph or eager decode blocks and, under tensor
+  parallelism, tp, rank and backend), per-backend
   ``generate_latency_ms`` percentiles, the batcher's occupancy, the
   speculative engine's rounds, proposed and accepted tokens and acceptance,
   the prefix cache's counts and the adapters served;
@@ -135,7 +137,7 @@ def _token_pieces(tok, stream_cb, cancel_event=None):
 class ServingService:
     def __init__(self, *, engine=None, bi_encoder=None, cross_encoder=None, encoder=None,
                  tokenizer=None, mask_id: int = MASK_ID, batcher=None, states_registry=None,
-                 spec_engine=None):
+                 spec_engine=None, driver_factory=None):
         """``cross_encoder`` (infer.encoders.CrossEncoder) serves /rerank.
         ``encoder`` is an RWKV module served as the bidirectional encoder
         behind /fill_mask; it needs ``tokenizer``. ``batcher`` (a
@@ -143,7 +145,11 @@ class ServingService:
         has started its driver; ``states_registry`` serves /process_text;
         ``spec_engine`` (infer.speculative.SpeculativeEngine over the
         engine's model) serves the penalty-free /generate requests without an
-        adapter when there is no batcher."""
+        adapter when there is no batcher. ``driver_factory`` (batcher ->
+        driver, JAX serve/api.py:56) makes the batcher's driver at warm-up:
+        BatcherDriver by default; the multi-process server passes
+        infer.continuous.LockstepBatcherDriver on process 0 and a factory
+        of no driver on the others."""
         if encoder is not None and tokenizer is None:
             raise ValueError("an encoder needs a tokenizer")
         if (batcher is not None or states_registry is not None
@@ -159,6 +165,7 @@ class ServingService:
         self.batcher = batcher
         self.states = states_registry
         self.spec = spec_engine
+        self.driver_factory = driver_factory
         self._driver = None
         self._lock = threading.Lock()          # one model call at a time
         self._stats_lock = threading.Lock()
@@ -197,7 +204,7 @@ class ServingService:
             self.fill_mask(f"warm {MASK_TOKEN} up")
         if self.batcher is not None and self._driver is None:
             self.batcher.warmup()
-            self._driver = BatcherDriver(self.batcher)
+            self._driver = (self.driver_factory or BatcherDriver)(self.batcher)
 
     def close(self) -> None:
         """Stop the batcher's driver thread, if one runs."""
@@ -444,6 +451,8 @@ class ServingService:
         with self._stats_lock:
             out: Dict = {"requests": dict(self._counts)}
             lat = {k: list(v) for k, v in self._latencies.items()}
+        if self.engine is not None:
+            out["route"] = self.engine.route()
         if lat:
             out["generate_latency_ms"] = {
                 backend: {

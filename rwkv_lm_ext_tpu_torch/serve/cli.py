@@ -1,7 +1,7 @@
 """Serving CLI: one command from a checkpoint to an HTTP server.
 
-Counterpart of rwkv_lm_ext_tpu/serve/cli.py:38-131, 134-285 and 286-325
-with the generation engine, its LoRA adapters (merged and per request), named
+Counterpart of rwkv_lm_ext_tpu/serve/cli.py:38-131, 134-285, 286-325 and
+328-436 with the generation engine, its LoRA adapters (merged and per request), named
 states, the continuous batcher, speculative decoding, the prefix cache, the
 bi- and cross-encoders and the bidirectional encoder:
 
@@ -43,7 +43,31 @@ unquantized in the served dtype) or ``--draft-layers K`` (the served model's
 own first K layers) puts a speculative engine with ``--gamma`` drafted tokens
 a round beside the engine: penalty-free /generate requests without an adapter
 run on it; ``--batcher-slots`` takes precedence and leaves them out, as in
-the JAX CLI. ``--tp`` and multi-host serving wait for later slices.
+the JAX CLI.
+
+``--tp N`` serves one model cut over N ranks (head-parallel tensor
+parallelism, parallel/tp.py): torch.distributed has one rank a process, so on
+one host this process is rank 0, starts the N - 1 others itself (the same
+arguments with ``--coordinator file://…``, ``--num-processes N`` and
+``--process-id r``) and alone binds the HTTP port. Across hosts, run the
+command on every host with ``--coordinator host:port --num-processes N
+--process-id r`` (or RWKV_COORDINATOR / RWKV_NUM_PROCESSES / RWKV_PROCESS_ID
+with ``RWKV_DIST=1``); ``--tp`` is then the number of processes (serving
+takes dp = 1). The backend is NCCL where every rank has a card of its own,
+else gloo (ranks sharing a card, or the CPU), and decode blocks are CUDA
+graphs only under NCCL; the choice is printed at start-up and /stats reports
+it. Two modes, as in the JAX CLI: with ``--batcher-slots`` process 0 turns
+the batcher's inputs and every other endpoint's requests into one op stream
+that the others replay (infer.continuous.LockstepBatcherDriver; /generate
+streams too); without, each request goes on the stream and every process runs
+it on the engine (no streaming). A request over
+``infer.continuous.MAX_REQUEST_BYTES`` gets 400 and the server goes on. A
+process whose rank 0 is gone exits at its next collective. Under ``--tp`` the
+engine (any ``--quant``, a merged ``--chat-adapter``, ``--pissa-init``), the
+batcher, ``--bi-adapter`` and ``--cross-adapter`` run on RWKV-6 and RWKV-5.x
+models; ``--draft``/``--draft-layers`` (as in the JAX CLI), ``--slot-adapter``,
+``--states-config``, ``--prefix-cache``, ``--encoder`` and RWKV-4 models are
+refused by name (ROADMAP A.12).
 
 ``--model`` takes RWKV-6, RWKV-5.x (5.0, 5.1, 5.2) and RWKV-4 checkpoints.
 ``--tokenizer-json`` reads an HF tokenizer.json in place of the world
@@ -59,6 +83,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
+import signal
+import subprocess
+import sys
+import tempfile
+import threading
 
 import torch
 
@@ -78,14 +109,37 @@ from rwkv_lm_ext_tpu_torch.checkpoint.convert import (
 )
 from rwkv_lm_ext_tpu_torch.data.tokenizer import WorldTokenizer
 from rwkv_lm_ext_tpu_torch.data.tokenizer_json import JsonTokenizer
-from rwkv_lm_ext_tpu_torch.infer.continuous import ContinuousBatcher
+from rwkv_lm_ext_tpu_torch.infer.continuous import (
+    ContinuousBatcher,
+    LockstepBatcherDriver,
+    PayloadTooLarge,
+)
 from rwkv_lm_ext_tpu_torch.infer.encoders import BiEncoder, CrossEncoder
 from rwkv_lm_ext_tpu_torch.infer.engine import GenerationEngine, refuse_chunk_dependent
 from rwkv_lm_ext_tpu_torch.infer.speculative import SpeculativeEngine, truncated_draft
 from rwkv_lm_ext_tpu_torch.infer.state_cache import PrefixStateCache
 from rwkv_lm_ext_tpu_torch.infer.states_registry import StatesRegistry
-from rwkv_lm_ext_tpu_torch.serve.api import ServingService, serve_http
+from rwkv_lm_ext_tpu_torch.parallel.distributed import (
+    init_distributed,
+    is_main_process,
+    process_count,
+    rank_device,
+    shutdown,
+)
+from rwkv_lm_ext_tpu_torch.parallel.mesh import make_mesh
+from rwkv_lm_ext_tpu_torch.parallel.tp import shard_model
+from rwkv_lm_ext_tpu_torch.serve.api import BadRequest, ServingService, serve_http
 from rwkv_lm_ext_tpu_torch.utils.device import resolve_device
+
+# flags whose backends are not ported under --tp, refused by name
+TP_REFUSED = ("--draft", "--draft-layers", "--slot-adapter", "--states-config", "--prefix-cache",
+              "--encoder")
+# seconds rank 0 waits for the processes it started to leave at shutdown,
+# and seconds any rank gives leaving the process group before it exits
+# regardless (a peer gone mid-teardown can stall NCCL's); together under the
+# 30 s a supervisor such as chip_smoke.CliServer grants after SIGTERM
+WORKER_EXIT_S = 15.0
+TEARDOWN_S = 10.0
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -140,16 +194,41 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--gamma", type=int, default=8, help="speculative lookahead length")
     p.add_argument("--platform", default="cuda", choices=("cuda", "cpu"),
                    help="torch device to serve on")
+    p.add_argument("--tp", type=int, default=1,
+                   help="head-parallel tensor parallelism over this many processes (see above)")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port (or file://path) of the process group's rendezvous "
+                        "(multi-process runs)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     return p.parse_args(argv)
 
 
-def build_service(args: argparse.Namespace) -> ServingService:
-    """Load the checkpoint and assemble the service (no port is bound)."""
+def refuse_under_tp(args: argparse.Namespace) -> None:
+    """Exit, by name, on a flag whose backend is not ported under --tp."""
+    given = [flag for flag in TP_REFUSED if getattr(args, flag[2:].replace("-", "_"))]
+    if given:
+        raise SystemExit(f"multi-process (--tp) serving does not support {', '.join(given)} "
+                         "(ROADMAP A.12)")
+
+
+def build_service(args: argparse.Namespace, mesh=None) -> ServingService:
+    """Load the checkpoint and assemble the service (no port is bound).
+    With ``mesh`` (tp > 1) every model is cut into this rank's part on the
+    rank's device."""
     device = resolve_device(args.platform)
+    if mesh is not None:
+        device = rank_device(args.platform)
     if not (args.model or args.encoder):
         raise SystemExit("need --model and/or --encoder")
+
+    def shard(model):
+        try:
+            return model if mesh is None else shard_model(model, mesh)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     overrides = {"dtype": args.dtype} if args.dtype else {}
     tok = JsonTokenizer(args.tokenizer_json) if args.tokenizer_json else WorldTokenizer(args.vocab)
     engine = encoder = batcher = states = bi = cross = spec = None
@@ -175,7 +254,7 @@ def build_service(args: argparse.Namespace) -> ServingService:
             return merge_lora(apply_lora(model, lc, lora_state_dict_to_tree(sd))), sd
 
         if args.bi_adapter:
-            bi = BiEncoder(merged(args.bi_adapter)[0], tok, pooling_type=args.bi_pooling)
+            bi = BiEncoder(shard(merged(args.bi_adapter)[0]), tok, pooling_type=args.bi_pooling)
         if args.cross_adapter:
             cross_model, sd = merged(args.cross_adapter)
             head = score_head_from_state_dict(sd, device=device)
@@ -184,7 +263,7 @@ def build_service(args: argparse.Namespace) -> ServingService:
             if head is None:
                 raise SystemExit("--cross-adapter needs score.weight (in the adapter or via "
                                  "--cross-head)")
-            cross = CrossEncoder(cross_model, tok, head)
+            cross = CrossEncoder(shard(cross_model), tok, head)
         if args.pissa_init and not args.chat_adapter:
             raise SystemExit("--pissa-init needs --chat-adapter")
         if args.chat_adapter:
@@ -210,7 +289,11 @@ def build_service(args: argparse.Namespace) -> ServingService:
                 named[name] = _adapter(path)
             model, adapter_ids = build_slot_lora(model, named, lc)
         cache = PrefixStateCache(capacity=args.prefix_cache) if args.prefix_cache else None
-        engine = GenerationEngine(model, tok, state_cache=cache, adapter_ids=adapter_ids)
+        try:
+            engine = GenerationEngine(model, tok, state_cache=cache, adapter_ids=adapter_ids,
+                                      mesh=mesh)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
         if args.states_config:
             states = StatesRegistry(cfg, device=device)
             with open(args.states_config) as f:
@@ -256,7 +339,12 @@ def _adapter(path: str):
 
 
 def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
+    if (args.tp > 1 or args.coordinator or args.num_processes
+            or os.environ.get("RWKV_DIST") == "1"):
+        serve_multiprocess(args, argv)
+        return
     service = build_service(args)
     server = serve_http(service, host=args.host, port=args.port)
     print(f"serving on http://{args.host}:{server.server_address[1]}", flush=True)
@@ -265,6 +353,110 @@ def main(argv=None) -> None:
     finally:
         server.server_close()
         service.close()
+
+
+def _start_workers(args: argparse.Namespace, argv: list) -> tuple:
+    """On one host: the tp - 1 other ranks as processes of this command
+    with a file rendezvous in a fresh directory. Returns (processes,
+    directory)."""
+    tmp = tempfile.mkdtemp(prefix="rwkv_tp_")
+    args.coordinator = "file://" + os.path.join(tmp, "rendezvous")
+    args.num_processes, args.process_id = args.tp, 0
+    workers = [
+        subprocess.Popen([sys.executable, "-m", "rwkv_lm_ext_tpu_torch.serve.cli", *argv,
+                          "--coordinator", args.coordinator, "--num-processes", str(args.tp),
+                          "--process-id", str(rank)])
+        for rank in range(1, args.tp)]
+    return workers, tmp
+
+
+def serve_multiprocess(args: argparse.Namespace, argv: list) -> None:
+    """One rank of the tensor-parallel server (module docstring): rank 0
+    serves HTTP, the others replay its op stream. Rank 0 started by ``--tp``
+    alone starts the others and, at shutdown (also on SIGTERM), stops the
+    stream and waits for them (killing one that outstays WORKER_EXIT_S)."""
+    refuse_under_tp(args)
+    local = (args.tp > 1 and args.coordinator is None and args.num_processes is None
+             and not os.environ.get("RWKV_COORDINATOR"))
+    workers, tmp = _start_workers(args, argv) if local else ([], None)
+    signal.signal(signal.SIGTERM, _exit_on_signal)
+    try:
+        init_distributed(args.coordinator, args.num_processes, args.process_id,
+                         platform=args.platform)
+        if args.tp != process_count():
+            raise SystemExit(f"--tp {args.tp} must be the number of processes "
+                             f"({process_count()}): serving takes dp = 1")
+        mesh = make_mesh(dp=1, tp=args.tp)
+        service = build_service(args, mesh=mesh)
+        if is_main_process():
+            _serve_rank0(service, args)
+        else:
+            service.driver_factory = lambda batcher: None
+            service.warmup()
+            LockstepBatcherDriver(service.batcher, svc_handle=service.handle).worker_loop()
+    finally:
+        for w in workers:
+            try:
+                w.wait(timeout=WORKER_EXIT_S)
+            except subprocess.TimeoutExpired:
+                w.kill()
+                w.wait()
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+        _leave_group()
+
+
+def _leave_group() -> None:
+    """Leave the process group, or exit at once if that takes more than
+    TEARDOWN_S: no rank outlives its server."""
+    leaving = threading.Thread(target=shutdown, daemon=True)
+    leaving.start()
+    leaving.join(TEARDOWN_S)
+    if leaving.is_alive():
+        print(f"rank could not leave its process group in {TEARDOWN_S:g} s; exiting",
+              file=sys.stderr, flush=True)
+        os._exit(1)
+
+
+def _exit_on_signal(signum, frame):
+    raise SystemExit(128 + signum)
+
+
+def _serve_rank0(service: ServingService, args: argparse.Namespace) -> None:
+    """Warm up (every rank runs the same warm-up), start the op stream and
+    serve: /generate through the batcher's lockstep driver (or, without a
+    batcher, on the stream like every other endpoint), /stats and unknown
+    routes locally."""
+    inner = service.handle
+    if service.batcher is not None:
+        service.driver_factory = lambda batcher: LockstepBatcherDriver(batcher, svc_handle=inner)
+    server = serve_http(service, host=args.host, port=args.port)
+    driver = service._driver
+    if driver is None:
+        driver = LockstepBatcherDriver(None, svc_handle=inner)
+
+        def refuse_stream(payload):
+            raise BadRequest("streaming needs --batcher-slots in multi-process serving")
+
+        service.generate_sse = refuse_stream
+
+    def handle(route, payload):
+        if route == "/stats" or route not in service.routes or (
+                route == "/generate" and service.batcher is not None):
+            return inner(route, payload)
+        try:
+            return driver.call(route, payload)
+        except PayloadTooLarge as e:
+            raise BadRequest(str(e)) from None
+
+    service.handle = handle
+    print(f"route: {json.dumps(service.engine.route() if service.engine else {})}", flush=True)
+    print(f"serving on http://{args.host}:{server.server_address[1]}", flush=True)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+        driver.close()
 
 
 if __name__ == "__main__":

@@ -36,7 +36,10 @@ Refused, by argparse (exit 2), and why:
   scan-over-layers tree for XLA's compile time; a stored W^T for a transpose
   XLA materialized), with no counterpart in torch (ROADMAP "Not to port");
 - ``--dp``, ``--tp``, ``--pp``, ``--n-micro`` and ``--coordinator`` (and
-  ``--num-processes``, ``--process-id``): parallelism, ROADMAP A.12;
+  ``--num-processes``, ``--process-id``): multi-process training (dp with a
+  ZeRO-sharded optimizer, GPipe pp, sequence parallelism), the training part
+  of ROADMAP A.12; the serving part (rwkv_lm_ext_tpu_torch/parallel,
+  ``serve.cli --tp``) is ported;
 - ``--wandb-project``: it needs a network service;
 - ``--quant`` under ``mlm``, ``mae``, ``bi-encoder`` and ``cross-encoder``:
   the JAX ``bi-encoder`` and ``cross-encoder`` accept it and never read it

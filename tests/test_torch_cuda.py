@@ -119,7 +119,12 @@ from rwkv_lm_ext_tpu_torch.ops.ddlerp import (
     tmix_prologue_plain,
 )
 from rwkv_lm_ext_tpu_torch.ops.ln import layer_norm, layer_norm_plain
-from rwkv_lm_ext_tpu_torch.ops.quant import quantize_rows, quantize_rows_plain
+from rwkv_lm_ext_tpu_torch.ops.quant import (
+    quantize_rows,
+    quantize_rows_given,
+    quantize_rows_given_plain,
+    quantize_rows_plain,
+)
 from rwkv_lm_ext_tpu_torch.ops.wkv import (
     WKV_BODIES,
     wkv,
@@ -170,7 +175,8 @@ NO_LAUNCH = {"layer_norm": 0, "tmix_prologue": 0, "wkv6_fused_output": 0, "wkv6_
              "quantize_rows": 0, "tmix_prologue_bwd": 0, "wkv6_bwd_forward_pass": 0,
              "wkv6_bwd_reverse_pass": 0, "wkv": 0, "wkv_bwd_state_pass": 0,
              "att_prep_fused": 0, "ffn_prep_fused": 0, "ffn_block_fused": 0,
-             "wkv6_decode_step_transposed": 0, "wkv4": 0, "wkv4_bwd": 0, "wkv6_collect": 0}
+             "wkv6_decode_step_transposed": 0, "wkv4": 0, "wkv4_bwd": 0, "wkv6_collect": 0,
+             "quantize_rows_given": 0}
 
 
 @pytest.fixture
@@ -333,6 +339,24 @@ def test_quantize_rows_kernel_is_bit_equal(dev, dtype, shape):
     assert q.dtype == torch.int8 and s.shape == shape[:-1] + (1,)
     assert torch.equal(q, want_q) and torch.equal(s, want_s)
     assert q.view(-1, shape[-1])[0].abs().sum() == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(37, 2050), (1, 1024), (4, 3584), (2048, 1024), (3, 7)])
+def test_quantize_rows_given_kernel_is_bit_equal(dev, dtype, shape):
+    """B.4's given-scale entry against its plain version: at the whole
+    rows' scales (where it gives quantize_rows' codes), at larger scales
+    (another rank's slice set them), and on exact half-way ties (absmax 127
+    makes the scale 1.0)."""
+    rng = np.random.default_rng(shape[0])
+    x = _on(dev, dtype, rng, *shape, scale=3.0)
+    if shape[-1] >= 8:
+        x[0, :8] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5])
+    q, sx = quantize_rows(x)
+    for scale in (sx, sx * 1.37):
+        got = _counted("quantize_rows_given", lambda: quantize_rows_given(x, scale))
+        assert torch.equal(got, quantize_rows_given_plain(x, scale))
+    assert torch.equal(quantize_rows_given(x, sx), q)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
