@@ -3,7 +3,11 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (`python3 chip_smoke.py --merge-calibration` builds the kernels and prints
-only the readings behind phase 9's merged-adapter budgets.)
+only the readings behind phase 9's merged-adapter budgets;
+`python3 chip_smoke.py --readings` adds the reading phases 6, 8, 13, 14c,
+16d and 17c and the readings of phases 18b, 18c, 20d, 21 and 22, which hold
+nothing that a later phase uses and which the default run leaves out for its
+time limit.)
 
 Phases, each printing its own lines:
   1. the device (name and nvidia-smi's power limit) and the kernel build
@@ -65,18 +69,19 @@ Phases, each printing its own lines:
      are graph replays, which the wrappers' counters do not see), held
      against steps x layers; int8c embeddings against the int8c plain
      route;
-  6. serving readings (not benchmark cells): embedded seq/s at B=64, T=512
+  6. (with --readings) serving readings (not benchmark cells): embedded seq/s at B=64, T=512
      (a data chain with a canary: its last result must come back from its
      last input and move when that input changes), decode tok/s of
      generate_batch at B=64 and single-stream tok/s of generate on CUDA-graph
      blocks, twice in turns, generate_batch once on eager blocks (the same
      tokens), a generate with other knobs and length (no new capture), and the wall
      time of one 16-step graph block alone beside its device operations and
-     busy time, bf16 (int8c: the embedding reading);
+     busy time, bf16 (int8c: the embedding reading; its generate readings
+     with --readings);
   7. training gradients of a 2-layer full-width model at B=8, T=512, kernel
      route against plain route: LoRA A/B in fp32 and in bf16, remat on
      against off, and state tuning's time_state;
-  8. LoRA train steps of the 24-layer model at B=8, T=512: the launch
+  8. (with --readings) LoRA train steps of the 24-layer model at B=8, T=512: the launch
      counts of one step (remat on and off), step time and Kt/s readings
      over chained steps with a canary (the last loss must come back from
      the parameters before the last step and the last batch, and move on
@@ -102,7 +107,7 @@ Phases, each printing its own lines:
      --dup-mae` (2 steps) on the first 4 layers of the 24-layer model as
      concurrent subprocesses, the saved encoder, then `mlm` in this process
      for its launch counts;
- 13. encoder readings (not benchmark cells): sequences a second at B=64,
+ 13. (with --readings) encoder readings (not benchmark cells): sequences a second at B=64,
      T=512 in both modes with a profile of one forward (B.8's chunked body
      and not its sequential one), the `mlm` step time, Kt/s, peak memory and
      profile, each chain with its canary;
@@ -110,8 +115,9 @@ Phases, each printing its own lines:
      on the 24-layer bf16 model (B.10, B.9, B.12) and the int8c model (B.10,
      B.9, B.11, B.4): 16 teacher-forced steps at B=64 against the fp32 plain
      route and the unfused route, the state after them, the launch counts of
-     a step, greedy tokens against the unfused route; then readings: the
-     bf16 decode-step ablation (step and step_fused at B=64 and B=1; the spliced
+     a step, greedy tokens against the unfused route; then readings: (with
+     --readings, phase 14c) the bf16 decode-step ablation (step and
+     step_fused at B=64 and B=1; the spliced
      step_attprep and step_ffnblk only when phase_decode_ablation is called
      with its default variants: ms a step over a data chain with a canary, device operations and busy
      time of one step, whose profile must name B.10's cluster body and B.12's
@@ -149,7 +155,8 @@ Phases, each printing its own lines:
      plain route, plus 1e-2 of max|plain|; the cls states at cosine >= 0.999;
      the ranking where no deviation could swap neighbours), 400 on malformed
      payloads, unit-norm embeddings, 404 with no cross-encoder, and the
-     launches of the reranker in this process; (d) readings: reranked pairs/s
+     launches of the reranker in this process; (d, with --readings)
+     readings: reranked pairs/s
      (64 pairs, bucket 512), an `nli` step at B=8, T=512 (ms, Kt/s, busy and
      idle) and B.5's full form in the `nli` step (launches and device ms);
  17. the rest of PEFT training: (a) gradients of a 2-layer full-width model
@@ -169,7 +176,8 @@ Phases, each printing its own lines:
      JAX names; then `serve.cli --quant nf4 --chat-adapter --pissa-init` on
      the PiSSA adapter and the same 4 layers:
      a greedy /generate whose tokens are the argmax of the served model's
-     teacher-forced logits; (c) readings at 24 layers, B=8, T=512: the
+     teacher-forced logits; (c, with --readings) readings at 24 layers,
+     B=8, T=512: the
      int8c QLoRA step and the `full` step (ms
      over chained steps with a canary, Kt/s, busy time, idle share, peak
      memory), B.4's launches in an int8c QLoRA step (192 remat off, 384 on;
@@ -180,21 +188,22 @@ Phases, each printing its own lines:
      one with k up to +60, in place, and timed at B=64, T=512 beside its
      bound; K1 and B.9 on v5's constant decays (per channel and per head,
      with a gate and with ones) and the cost of K1's expanded decay; (b) a
-     synthetic RWKV-5-World-1B5 (v5.2, 24 layers, bf16): embeddings at B=64,
-     T=512 against the fp32 plain route and the launches of the forward (50
-     K3, 24 K1, no K2), prefill + decode against one forward and the
-     launches of a step (50 K3, 24 B.9), greedy generation in graph blocks
-     against eager blocks and against its teacher-forced argmax, readings
-     (seq/s embedded, generate_batch and generate tok/s), and `python -m
+     synthetic RWKV-5-World-1B5 (v5.2, 12 layers, bf16):
+     embeddings at B=64, T=512 against the fp32 plain route and the launches
+     of the forward (26 K3, 12 K1, no K2), prefill + decode against one
+     forward and the launches of a step (26 K3, 12 B.9), greedy generation in graph blocks
+     against eager blocks and against its teacher-forced argmax, (with
+     --readings) readings (seq/s embedded, generate_batch and generate
+     tok/s), and `python -m
      rwkv_lm_ext_tpu_torch.serve.cli --model` on its first 4 layers (a
      subprocess: one greedy /generate, the in-process engine's text); (c) a
-     synthetic RWKV-4-World-1.5B (24 layers, C=2048, F=8192, bf16): logits
-     at B=64, T=512 against the fp32 plain route and the launches of the
-     forward and of a step (50 K3, 24 B.14 each), greedy generation as in
+     synthetic RWKV-4-World-1.5B (12 layers, C=2048, F=8192,
+     bf16): logits at B=64, T=512 against the fp32 plain route and the
+     launches of the forward and of a step (26 K3, 12 B.14 each), greedy generation as in
      (b), the continuous batcher over 8 concurrent requests (each row the
-     argmax of its teacher-forced logits), and readings (prefill seq/s,
-     decode tok/s).
- 19. evaluation and the apps on the first 8 layers of the bf16 model that
+     argmax of its teacher-forced logits), and (with --readings) readings
+     (prefill seq/s, decode tok/s).
+ 19. evaluation and the apps on the first 4 layers of the bf16 model that
      phase 3 saved (depth cut for the script's time limit), over a
      seeded BEIR dump (64 queries, 512 documents of 20-400 tokens), 256 STS
      pairs, 64 rerank rows of 8 documents, a ppl corpus of 32 pieces and a
@@ -230,9 +239,9 @@ Phases, each printing its own lines:
      RWKV-4-World-1.5B models at full width: LoRA gradients kernel route
      against plain route in fp32 (1e-3) and bf16 (C24_BOUND), and TBPTT
      over every parameter (fp32); (d) 12-layer LoRA and `full` steps of both
-     at B=8, T=512: their launches (exact, and
-     on the device: K1 / B.6 / B.7, B.14 and its backward), ms over chained
-     steps with the canary, busy time, idle share and peak memory; (e)
+     at B=8, T=512: their launches (exact; with --readings also on the
+     device: K1 / B.6 / B.7, B.14 and its backward, and ms over chained
+     steps with the canary, busy time, idle share and peak memory); (e)
      `train.cli simcse --dropout-noise`, 3 steps at 2 layers and full width,
      the two views apart under its dropout and bit-equal at rate 0; (f) the
      C.24 probe: over nf4 QLoRA and `full` (2 layers, bf16), the gradients
@@ -252,15 +261,17 @@ Phases, each printing its own lines:
      round, on the device), the fp32 greedy identity with the engine at 4
      layers (a first divergence allowed only inside the routes' logit
      deviation), RWKV-5.2 (1B5 widths, 4 layers) through the collect forward
-     and RWKV-4 (4 layers, fp32) through the re-prefill rollback; readings:
-     the verify pass's ms (CUDA events), single-stream tok/s against the
-     engine's generate in turns, acceptance and tokens a target pass.
+     and RWKV-4 (4 layers, fp32) through the re-prefill rollback; (with
+     --readings) readings: the verify pass's ms (CUDA events), single-stream
+     tok/s against the engine's generate in turns, acceptance and tokens a
+     target pass.
  22. tensor-parallel serving (run after phase 2): two ranks (processes of
      this script, ``tp_rank``) over gloo where they share the card, NCCL where
-     each has one, the seeded 24-layer 1B6 cut into 16 heads a rank: fp32
+     each has one, the seeded 1B6 at 12 layers (TP_LAYERS; 24 before the
+     script's time limit needed it) cut into 16 heads a rank: fp32
      logits at B=4, T=512 no further from the single-process kernel route
      than its fp32 plain route is (the same run's rounding gap, x max) and
-     32 greedy tokens equal to the single-process engine's; bf16
+     16 greedy tokens equal to the single-process engine's; bf16
      logits at a mean cosine >= 0.999 to the fp32 plain route, the worst
      position no more than twice as far as the single-process bf16 route's,
      and greedy tokens that are the argmax of the same route's
@@ -274,7 +285,43 @@ Phases, each printing its own lines:
      while the ranks run: 8 concurrent greedy /generate answers equal to the
      single-process CLI's (built in this process meanwhile), unit-norm
      /embed, /stats' route, a 200 KB request answered 400 and the next one
-     200; readings: the route, tp=2 decode tok/s and each rank's busy ms.
+     200; readings: the route, tp=2 decode tok/s and (with --readings) each
+     rank's busy ms.
+ 23. multi-process training (run after phase 22): two ranks (processes of
+     this script, ``mp_rank``; gloo where they share the card, NCCL where each
+     has one) on the seeded 1B6 widths. dp=2 LoRA at 24 layers, bf16, B=8
+     global (4 rows a rank, token counts apart), T=512, two steps: the loss
+     within 1e-3 of the single-process kernel route's on the same 8 rows,
+     each of the first step's gradients no farther from the single-process
+     fp32 route than C24_BOUND times the single-process bf16 route (1 -
+     cosine, floor 1e-3; the comment above MP_FULL_REL says why not the
+     capped form) and the norms held as the comment above MP_NORM says.
+     dp=2 `full` over fp32 masters at 8 layers in fp32 with
+     the ZeRO AdamW: gradients within 1e-5 of max of the single-process
+     kernel route's sum over the same two halves of the rows (their and that
+     sum's distance from the whole batch's printed) and, against the whole
+     batch, as tp and pp are held below; each rank's Adam moment bytes at
+     most half the single-process optimizer's. tp=2 LoRA at 24 layers and
+     tp=2 `full` and pp=2 (n_micro=4, `full`) at 8 layers, fp32, on all 8
+     rows (dp, tp and pp `full` train the cross entropy without L2Wrap,
+     JAX's pipeline loss, against one single-process reference): each
+     gradient tensor within 1 - cosine 1e-2 of the single-process fp32
+     kernel route's (MP_FP32_COS says why no tighter), its norm within the
+     noise its cosine shows and the whole gradient's norm within 1e-2
+     (MP_NORM: a cosine ignores scale), the loss within 1e-5. K2, K3,
+     K1, B.5, B.6 and B.7 counted on each rank; readings with the card's
+     name and power limit: each rank's step wall and busy ms, collectives a
+     step, peak memory and Adam moment bytes. Beside the ranks' tp and pp
+     parts, `python -m rwkv_lm_ext_tpu_torch.train.cli sft --dtype float32`
+     on 2 layers at full width, 2 steps: `--dp 2` and `--tp 2` (LoRA) and
+     `--pp 2 --n-micro 4` (`full`) together, beside the single-process runs
+     in this process (the pp run's without L2Wrap): rank 0 alone logs, every
+     rank exits 0, the logged losses agree within 1e-5 and grad norms within
+     1e-3, and each tensor of the written file moved as the single-process
+     run's did (the updates within 1 - cosine 1e-2; MP_CLI_COS says why not
+     elementwise). ``dp_tp_run()``, which the script does not call, runs
+     dp=2 x tp=2 LoRA in fp32 on four ranks (NCCL on a
+     four-card host) against the single-process fp32 route the same way.
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no result. Without a CUDA device it exits non-zero
@@ -287,6 +334,7 @@ import collections
 import contextlib
 import copy
 import functools
+import gc
 import importlib
 import io
 import json
@@ -435,16 +483,25 @@ from rwkv_lm_ext_tpu_torch.ops.wkv_fused import (
     wkv6_fused_output_plain,
     wkv_bwd_body,
 )
-from rwkv_lm_ext_tpu_torch.parallel.distributed import init_distributed, rank_device, shutdown
+from rwkv_lm_ext_tpu_torch.parallel import distributed
+from rwkv_lm_ext_tpu_torch.parallel.distributed import (
+    init_distributed,
+    make_hybrid_mesh,
+    rank_device,
+    shutdown,
+)
 from rwkv_lm_ext_tpu_torch.parallel.mesh import make_mesh
-from rwkv_lm_ext_tpu_torch.parallel.tp import row_parallel_int8c
+from rwkv_lm_ext_tpu_torch.parallel.pipeline import make_pp_mesh
+from rwkv_lm_ext_tpu_torch.parallel.tp import row_parallel_int8c, shard_for_training
 from rwkv_lm_ext_tpu_torch.serve import cli
 from rwkv_lm_ext_tpu_torch.serve.api import ServingService, serve_http
 from rwkv_lm_ext_tpu_torch.train import cli as train_cli
+from rwkv_lm_ext_tpu_torch.train import loop as train_loop
 from rwkv_lm_ext_tpu_torch.train.loop import (
     contrastive_loss_fn,
     cross_encoder_loss_fn,
     encoder_crossencoder_loss_fn,
+    make_pp_train_step,
     make_train_step,
     mlm_loss_fn,
     sft_loss_fn,
@@ -568,6 +625,7 @@ MIXED = "Embeddings 向量 🚀 for retrieval and reranking."
 
 T_START = time.perf_counter()
 PHASE_STARTS = []      # (phase, seconds since T_START)
+READINGS = False       # set by main(): --readings adds the reading-only parts
 
 
 def phase(title: str) -> None:
@@ -589,7 +647,7 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def device_ops(fn, reps: int) -> list:
+def device_ops(fn, reps: int, patient: bool = True) -> list:
     """The device operations that `reps` calls of fn() launch, as
     torch.profiler records them, after one warm-up. The canary of every time
     read from such a trace: the operation that the record holds most often
@@ -603,10 +661,16 @@ def device_ops(fn, reps: int) -> list:
     waiting longer between the last launch's end and the profiler's stop.
     The seventh trace is taken as it is if it holds the operation for half
     the calls or more (per_call_us works from the records that remain); if
-    it holds fewer, the timed calls did not run and the script fails."""
+    it holds fewer, the timed calls did not run and the script fails. Not
+    `patient` (a time, which per_call_us reads from the records that remain,
+    not a count of launches): a trace that holds the operation for half the
+    calls or more is taken as the seventh would be as soon as two traces in
+    a row held it the same number of times, a loss that retakes were seen
+    to repeat (7 of 10 calls, seven traces in a row, in several phases)."""
     fn()
     allowed = 0 if reps < 4 else max(1, reps // 10)
     pauses = (0.0, 0.05, 0.25, 0.5, 1.0, 2.0, 2.0)
+    before = None
     for attempt, pause in enumerate(pauses):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -618,11 +682,13 @@ def device_ops(fn, reps: int) -> list:
         most = max(collections.Counter(e.name for e in ops).values(), default=0)
         if most >= reps - allowed:
             return ops
-        last = attempt == len(pauses) - 1
+        settled = attempt == len(pauses) - 1 or (not patient and most == before)
+        taken = settled and most > 0 and 2 * most >= reps
         print(f"  (a profiler trace held {len(ops)} device operations, the most frequent {most} "
-              f"times, for {reps} calls; {'taken as it is' if last else 'taken again'})")
-        if last and most > 0 and 2 * most >= reps:
+              f"times, for {reps} calls; {'taken as it is' if taken else 'taken again'})")
+        if taken:
             return ops
+        before = most
     raise AssertionError(f"{len(pauses)} profiler traces in a row held their most frequent device "
                          f"operation "
                          f"for fewer than half of {reps} calls: the timed calls did not run, or "
@@ -666,7 +732,7 @@ def device_ms(fn, reps: int) -> float:
     calls (device_ops, per_call_us). Host launch overhead and the
     gaps between launches do not count, so a kernel of a few microseconds is
     not read as the time its Python wrapper takes to launch it."""
-    return per_call_us(device_ops(fn, reps), reps) / 1e3
+    return per_call_us(device_ops(fn, reps, patient=False), reps) / 1e3
 
 
 def busy_us(ops: list) -> float:
@@ -689,13 +755,13 @@ def device_span_ms(fn, reps: int) -> float:
     """Device time of one fn() call as the device's busy time over `reps`
     calls (busy_us) divided by the calls: device_ms for calls whose kernels
     overlap."""
-    return busy_us(device_ops(fn, reps)) / reps / 1e3
+    return busy_us(device_ops(fn, reps, patient=False)) / reps / 1e3
 
 
 def device_ms_by_kernel(fn, reps: int, groups: dict) -> dict:
     """As device_ms, split by kernel name: {group: ms of one call} for the
     device operations whose name holds one of the group's substrings."""
-    ops = device_ops(fn, reps)
+    ops = device_ops(fn, reps, patient=False)
     out = {g: per_call_us([e for e in ops if any(k in e.name for k in keys)], reps) / 1e3
            for g, keys in groups.items()}
     check(all(v > 0 for v in out.values()), f"the profiler recorded no kernel of a group: {out}")
@@ -2579,7 +2645,7 @@ def phase_train_readings(path: str, smi: str) -> None:
         step_profile(step, batch, ms, what=f"one step (remat {'on' if remat else 'off'})",
                      kernels=LORA_STEP_KERNELS)
     del model, step
-    torch.cuda.empty_cache()
+    free()
 
 
 def sft_jsonl(path: Path, tok) -> None:
@@ -2592,28 +2658,49 @@ def sft_jsonl(path: Path, tok) -> None:
     print(f"  {path.name}: 64 identical rows of {n} tokens (bucket 512, batch 64 * 64 // 512 = 8)")
 
 
-def run_train_clis(runs: list) -> list:
-    """`python -m rwkv_lm_ext_tpu_torch.train.cli <command> ...` once a run
-    (args, command, falling), as concurrent subprocesses; returns each run's
-    logged losses, which must be finite and, with `falling`, end below where
-    they began. A failure stops the runs still going."""
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, "-m", "rwkv_lm_ext_tpu_torch.train.cli", command,
-                               *args], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for args, command, _ in runs]
+def stop_procs(procs: list) -> None:
+    """Kill whichever of `procs` still runs (at exit, or when a check
+    failed while they ran)."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def start_train_clis(runs: list, logs: Path) -> tuple:
+    """Start `python -m rwkv_lm_ext_tpu_torch.train.cli <command> ...` once a
+    run (args, command, falling), as concurrent subprocesses, each writing
+    its output to a file under `logs`; finish_train_clis waits for them, and
+    they are killed at exit if nothing did."""
+    logs.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for i, (args, command, _) in enumerate(runs):
+        with open(logs / f"{command}-{i}.log", "w") as f:     # the child keeps its own handle
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "rwkv_lm_ext_tpu_torch.train.cli", command, *args],
+                cwd=ROOT, stdout=f, stderr=subprocess.STDOUT))
+    atexit.register(stop_procs, procs)
+    return runs, procs, logs, time.perf_counter()
+
+
+def finish_train_clis(started: tuple) -> list:
+    """Wait for the runs of start_train_clis (600 s from their start at
+    most); returns each run's logged losses, which must be finite and, with
+    `falling`, end below where they began. A failure stops the runs still
+    going."""
+    runs, procs, logs, t0 = started
     try:
-        outs = [proc.communicate(timeout=600) for proc in procs]
-    finally:
         for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            proc.wait(timeout=max(600 - (time.perf_counter() - t0), 1))
+    finally:
+        stop_procs(procs)
     wall = time.perf_counter() - t0
     all_losses = []
-    for (args, command, falling), proc, (stdout, stderr) in zip(runs, procs, outs):
+    for i, ((args, command, falling), proc) in enumerate(zip(runs, procs)):
+        text = (logs / f"{command}-{i}.log").read_text()
         check(proc.returncode == 0, f"train.cli {command} {' '.join(args)} exited "
-              f"{proc.returncode}:\n{stderr[-3000:]}")
-        steps = [json.loads(ln.split(": ", 1)[1]) for ln in stdout.splitlines()
+              f"{proc.returncode}:\n{text[-3000:]}")
+        steps = [json.loads(ln.split(": ", 1)[1]) for ln in text.splitlines()
                  if ln.startswith("step ")]
         losses = [m["loss"] for m in steps]
         shown = " ".join(a for a, b in zip(args, args[1:] + [""])
@@ -2621,7 +2708,7 @@ def run_train_clis(runs: list) -> list:
         print(f"  python -m rwkv_lm_ext_tpu_torch.train.cli {command} {shown}: losses "
               f"{[round(x, 4) for x in losses]}, last logged Kt/s "
               f"{steps[-1].get('Kt/s', float('nan')) if steps else float('nan'):.2f} "
-              f"({len(runs)} runs together in {wall:.1f} s)")
+              f"({len(runs)} runs together, {wall:.1f} s from their start)")
         check(len(losses) >= 2 and all(np.isfinite(losses)), f"losses {losses}")
         check(not falling or losses[-1] < losses[0],
               f"the loss did not fall on repeated rows: {losses}")
@@ -2720,18 +2807,26 @@ def merge_calibration(adapters: int = 4, token_seeds=(10, 11, 12, 13)) -> None:
               f"mean margin {min(m_):+.3e} .. {max(m_):+.3e}")
 
 
-def phase_train_cli(path: str, tmp: Path) -> dict:
-    """The trainer's normal entry point on the saved 24-layer model: LoRA (8
-    steps) and state tuning (4 steps) as subprocesses, their files, the
-    merged adapter; then LoRA again in this process, where the launches of
-    the training path are counted. Returns those counts."""
+def start_sft_clis(path: str, tmp: Path) -> tuple:
+    """Phase 9's subprocesses on the saved 24-layer model, started: LoRA (8
+    steps) and state tuning (4 steps)."""
     data = tmp / "sft.jsonl"
     sft_jsonl(data, WorldTokenizer())
     common = sft_args(path, data)
+    return start_train_clis([(common + ["--output-dir", str(tmp / "lora"), *LORA_ARGS], "sft", True),
+                             (common + ["--output-dir", str(tmp / "states"), "--train-type",
+                                        "states", "--max-steps", "4"], "sft", True)],
+                            tmp / "sft_logs")
+
+
+def phase_train_cli(path: str, tmp: Path, started: tuple) -> dict:
+    """The trainer's normal entry point on the saved 24-layer model: the
+    LoRA and state-tuning subprocesses of start_sft_clis, their files, the
+    merged adapter; then LoRA again in this process, where the launches of
+    the training path are counted. Returns those counts."""
+    common = sft_args(path, tmp / "sft.jsonl")
     out = tmp / "lora"
-    run_train_clis([(common + ["--output-dir", str(out), *LORA_ARGS], "sft", True),
-                    (common + ["--output-dir", str(tmp / "states"), "--train-type", "states",
-                               "--max-steps", "4"], "sft", True)])
+    finish_train_clis(started)
     check((out / "train_log.txt").is_file(), "no train_log.txt")
     sd = torch.load(out / "lora-step8.pth", map_location=DEV, weights_only=True)
     model, cfg = load_rwkv_checkpoint(path, device=DEV)
@@ -3320,20 +3415,24 @@ def check_fill_mask(answer: dict, text: str, top_k: int, cutoff: float) -> None:
         check(sum(probs[:-1]) < cutoff, "a list goes on beyond the cutoff")
 
 
-def phase_fill_mask(path: str, n_layer: int) -> dict:
+def fill_mask_args(path: str) -> list:
+    return ["--encoder", path, "--platform", DEV, "--port", "0"]
+
+
+def phase_fill_mask(path: str, n_layer: int, server: CliServer) -> dict:
     """/fill_mask through the normal entry point: the saved encoder of
-    `n_layer` layers served by `serve.cli --encoder` in a subprocess; every
-    answer's candidates against the plain route's, computed by the same CLI
-    code in this process, where the launches of a request (ENCODER_FORWARD's
-    at that depth) are counted. Returns those counts."""
-    args = ["--encoder", path, "--platform", DEV, "--port", "0"]
+    `n_layer` layers served by `serve.cli --encoder` in a subprocess
+    (`server`, started with fill_mask_args(path)); every answer's
+    candidates against the plain route's, computed by the same CLI code in
+    this process, where the launches of a request (ENCODER_FORWARD's at that
+    depth) are counted. Returns those counts."""
+    args = fill_mask_args(path)
     service = cli.build_service(cli.parse_args(args))
     check(service.routes == {"/stats", "/fill_mask"}, f"routes {service.routes}")
     top_k, cutoff = 5, 0.5
-    t0 = time.perf_counter()
-    with CliServer(args) as base:
+    with server as base:
         print(f"  python -m rwkv_lm_ext_tpu_torch.serve.cli {' '.join(args)}: serving on {base} "
-              f"after {time.perf_counter() - t0:.1f} s")
+              f"after {time.perf_counter() - server.started:.1f} s")
         for text in FILL_MASK_TEXTS:
             payload = {"text": text, "top_k": top_k, "cumulative_prob": cutoff}
             code, answer = post(base + "/fill_mask", payload)
@@ -3464,24 +3563,37 @@ def text_jsonl(path: Path, tok) -> None:
     print(f"  {path.name}: 64 identical rows of {n} slots (bucket 512, batch 64 * 64 // 512 = 8)")
 
 
-def phase_mlm_cli(path: str, tmp: Path) -> dict:
-    """The encoder trainers' normal entry point on the first 4 layers of the
-    saved model (the 24-layer runs' loads and 6.4 GB saves cost the script's
-    time; phase 11 holds the 24-layer gradients and phase 13 reads its
-    steps), as concurrent subprocesses: `mlm` for 4 steps (fp32 master
-    weights, bf16 compute, B=8, T=512) and its saved encoder, `mae --dup-mae`
-    for 2 steps; then `mlm` in this process, whose launches are the training
-    path's. Returns those counts."""
-    data = tmp / "text.jsonl"
-    text_jsonl(data, WorldTokenizer())
+def mlm_args(tmp: Path) -> list:
+    """The arguments of phase 12's runs but the output directory and steps."""
+    return ["--model", str(tmp / "rwkv6_1b6_first_4_layers.pth"), "--train-data",
+            str(tmp / "text.jsonl"), "--micro-bsz", "64", "--ctx-len", str(T), "--warmup-steps",
+            "0", "--log-every", "1", "--platform", DEV]
+
+
+def start_mlm_clis(path: str, tmp: Path) -> tuple:
+    """Phase 12's subprocesses on the first 4 layers of the saved model (the
+    24-layer runs' loads and 6.4 GB saves cost the script's time; phase 11
+    holds the 24-layer gradients and phase 13 reads its steps), started:
+    `mlm` for 4 steps (fp32 master weights, bf16 compute, B=8, T=512) and
+    `mae --dup-mae` for 2 steps."""
+    text_jsonl(tmp / "text.jsonl", WorldTokenizer())
+    torch.save(two_layer_sd(path, 4), tmp / "rwkv6_1b6_first_4_layers.pth")
+    common = mlm_args(tmp)
+    return start_train_clis([(["--output-dir", str(tmp / "mlm"), "--max-steps", "4", *common],
+                              "mlm", True),
+                             (["--dup-mae", "--output-dir", str(tmp / "mae"), "--max-steps", "2",
+                               *common], "mae", False)], tmp / "mlm_logs")
+
+
+def phase_mlm_cli(path: str, tmp: Path, started: tuple) -> tuple:
+    """The encoder trainers' normal entry point: the subprocesses of
+    start_mlm_clis and the saved encoder, whose /fill_mask server (phase
+    10b) then starts; then `mlm` in this process, whose launches are the
+    training path's. Returns those counts and the started server."""
     cut = tmp / "rwkv6_1b6_first_4_layers.pth"
-    torch.save(two_layer_sd(path, 4), cut)
-    common = ["--model", str(cut), "--train-data", str(data), "--micro-bsz", "64", "--ctx-len",
-              str(T), "--warmup-steps", "0", "--log-every", "1", "--platform", DEV]
+    common = mlm_args(tmp)
     out = tmp / "mlm"
-    run_train_clis([(["--output-dir", str(out), "--max-steps", "4", *common], "mlm", True),
-                    (["--dup-mae", "--output-dir", str(tmp / "mae"), "--max-steps", "2", *common],
-                     "mae", False)])
+    finish_train_clis(started)
     check((out / "train_log.txt").is_file(), "no train_log.txt")
     base = torch.load(cut, map_location="cpu", weights_only=True, mmap=True)
     saved = torch.load(out / "encoder-step4.pth", map_location="cpu", weights_only=True, mmap=True)
@@ -3502,6 +3614,9 @@ def phase_mlm_cli(path: str, tmp: Path) -> dict:
           f"load_rwkv_checkpoint and encodes; max |change| of {key} {moved:.2e}")
     del model, hidden
     torch.cuda.empty_cache()
+    # phase 10b's server loads while the rest of this phase runs
+    server = CliServer(fill_mask_args(str(out / "encoder-step4.pth")))
+    server.start()
 
     out = tmp / "mae"
     saved = torch.load(out / "encoder-step2.pth", map_location="cpu", weights_only=True, mmap=True)
@@ -3519,7 +3634,7 @@ def phase_mlm_cli(path: str, tmp: Path) -> dict:
     check(counts == want, f"CLI mlm launch counts {counts} != {want}")
     cut.unlink()
     torch.cuda.empty_cache()
-    return counts
+    return counts, server
 
 
 MLM_STEP_GROUPS = {
@@ -3544,7 +3659,7 @@ def phase_encoder_readings(path: str, smi: str) -> None:
     T=512, remat on: step time, Kt/s, peak memory and a profile."""
     model, cfg = load_rwkv_checkpoint(path, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(15)
-    lo, hi, iters = 4, cfg.vocab_size - 4, 3
+    lo, hi, iters = 4, cfg.vocab_size - 4, 2
     for mode in ("average", "fused"):
         tokens = torch.randint(lo, hi, (B, T), device=DEV, generator=gen)
 
@@ -3604,7 +3719,7 @@ def phase_encoder_readings(path: str, smi: str) -> None:
           f"{peak:.1f} GiB, losses {losses[0].item():.4f} .. {losses[-1].item():.4f}) on {smi}")
     step_profile(step, batch, ms, MLM_STEP_GROUPS, kernels=MLM_STEP_KERNELS)
     del model, step
-    torch.cuda.empty_cache()
+    free()
 
 
 # ---------------------------------------------------------------------------
@@ -3852,30 +3967,29 @@ FULL_PARAMETER = {"simcse", "instructor", "encoder-biencoder", "encoder-crossenc
 CUT_LAYERS = 4
 
 
-def run_cli_jobs(jobs: list, out: Path, width: int = 4, full_width: int = 2) -> dict:
-    """`python -m rwkv_lm_ext_tpu_torch.train.cli` once a job (label, argv,
-    full-parameter?), `width` subprocesses at a time (`full_width`
-    full-parameter ones at most), each log under `out`; each must exit 0 and
-    log 2 finite losses. A failure stops the jobs still running. Returns
-    {label: losses}."""
-    pending, running, losses = list(jobs), [], {}
+def start_cli_jobs(jobs: list, out: Path) -> tuple:
+    """Start `python -m rwkv_lm_ext_tpu_torch.train.cli` once a job (label,
+    argv), all at once, each logging under `out`; wait_cli_jobs waits for
+    them, and they are killed at exit if nothing did."""
+    running = []
+    out.mkdir(parents=True, exist_ok=True)
+    for label, argv in jobs:
+        cmd = [sys.executable, "-m", "rwkv_lm_ext_tpu_torch.train.cli", *argv]
+        with open(out / f"{label}.log", "w") as f:     # the child keeps its own copy of the handle
+            proc = subprocess.Popen(cmd, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+        running.append(((label, argv), time.perf_counter(), proc))
+    atexit.register(stop_procs, [proc for _, _, proc in running])
+    return running, out
 
-    def full(job):
-        return job[2]
 
+def wait_cli_jobs(started: tuple) -> dict:
+    """Wait for the jobs of start_cli_jobs: each must exit 0 within 600 s of
+    its start and log 2 finite losses. A failure stops the jobs still
+    running. Returns {label: losses}."""
+    running, out = started
+    running, losses = list(running), {}
     try:
-        while pending or running:
-            for job in list(pending):
-                if len(running) < width and (not full(job)
-                                             or sum(full(j) for j, _, _ in running) < full_width):
-                    pending.remove(job)
-                    label, argv, _ = job
-                    cmd = [sys.executable, "-m", "rwkv_lm_ext_tpu_torch.train.cli", *argv]
-                    log = out / f"{label}.log"
-                    log.parent.mkdir(parents=True, exist_ok=True)
-                    with open(log, "w") as f:     # the child keeps its own copy of the handle
-                        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
-                    running.append((job, time.perf_counter(), proc))
+        while running:
             done = next((r for r in running if r[2].poll() is not None), None)
             if done is None:
                 for job, t0, proc in running:
@@ -3883,7 +3997,7 @@ def run_cli_jobs(jobs: list, out: Path, width: int = 4, full_width: int = 2) -> 
                 time.sleep(0.5)
                 continue
             running.remove(done)
-            (label, argv, _), t0, proc = done
+            (label, argv), t0, proc = done
             text = (out / f"{label}.log").read_text()
             check(proc.returncode == 0, f"train.cli {label} exited {proc.returncode}:\n{text[-3000:]}")
             steps = [json.loads(ln.split(": ", 1)[1]) for ln in text.splitlines()
@@ -3894,11 +4008,10 @@ def run_cli_jobs(jobs: list, out: Path, width: int = 4, full_width: int = 2) -> 
             shown = " ".join(a for a, b in zip(argv, argv[1:] + [""])
                              if not a.startswith("/") and not b.startswith("/"))
             print(f"  python -m rwkv_lm_ext_tpu_torch.train.cli {shown}: "
-                  f"{time.perf_counter() - t0:.1f} s, losses {[round(x, 4) for x in losses[label]]}")
+                  f"{time.perf_counter() - t0:.1f} s from its start, losses "
+                  f"{[round(x, 4) for x in losses[label]]}")
     finally:
-        for _, _, proc in running:
-            proc.kill()
-            proc.wait()
+        stop_procs([proc for _, _, proc in running])
     return losses
 
 
@@ -3906,7 +4019,7 @@ def run_trainers(models: dict, files: dict, out: Path) -> dict:
     """TRAINER_RUNS through `python -m rwkv_lm_ext_tpu_torch.train.cli` on
     models["full"] (the full-parameter ones, CUT_LAYERS layers: about 10 GB
     each) or models["lora"], all seven subprocesses at once (about 60 GB
-    together), 2 steps each (run_cli_jobs). Returns {command: losses}."""
+    together), 2 steps each. Returns {command: losses}."""
     common = ["--micro-bsz", "4", "--ctx-len", "128", "--max-steps", "2", "--log-every", "1",
               "--warmup-steps", "0", "--platform", DEV]
     jobs = []
@@ -3914,8 +4027,8 @@ def run_trainers(models: dict, files: dict, out: Path) -> dict:
         full = command in FULL_PARAMETER
         jobs.append((command, [command, *flags, "--model", models["full" if full else "lora"],
                                "--train-data", files[data], "--output-dir", str(out / command),
-                               *common], full))
-    return run_cli_jobs(jobs, out, width=len(jobs), full_width=len(jobs))
+                               *common]))
+    return wait_cli_jobs(start_cli_jobs(jobs, out))
 
 
 def phase_contrastive_cli(path: str, tmp: Path) -> dict:
@@ -3924,13 +4037,16 @@ def phase_contrastive_cli(path: str, tmp: Path) -> dict:
     seven through `python -m rwkv_lm_ext_tpu_torch.train.cli`
     (subprocesses), `nli` (with STS-b evaluation) through the same CLI in
     this process, whose launches are B.5's full-form main path; the files
-    each writes under the JAX names. Returns nli's launch counts and the
-    output directory."""
+    each writes under the JAX names. Returns nli's launch counts, the
+    output directory and phase 16c's server, started on the subprocesses'
+    adapters (it loads while nli runs)."""
     files = contrastive_files(tmp)
     out = tmp / "contrastive"
     cut = str(tmp / f"rwkv6_1b6_synthetic_{CUT_LAYERS}_layers.pth")
     torch.save(two_layer_sd(path, CUT_LAYERS), cut)
     run_trainers({"lora": path, "full": cut}, files, out)
+    server = CliServer(rerank_server_args(path, out))
+    server.start()
     bases = {p: torch.load(p, map_location="cpu", weights_only=True, mmap=True) for p in (path, cut)}
     for command, _, _, names in TRAINER_RUNS:
         base = bases[cut if command in FULL_PARAMETER else path]
@@ -3957,7 +4073,7 @@ def phase_contrastive_cli(path: str, tmp: Path) -> dict:
     print(f"  nli: similarity_evaluation_sts-dev_results.csv {rows[1]}")
     del bases
     torch.cuda.empty_cache()
-    return {"counts": counts, "out": out}
+    return {"counts": counts, "out": out, "server": server}
 
 
 def cls_states(model, batches: list, *, reference: bool) -> torch.Tensor:
@@ -3982,9 +4098,19 @@ def rerank_documents(tok) -> list:
     return docs
 
 
-def phase_rerank(path: str, out: Path) -> dict:
+def rerank_server_args(path: str, out: Path) -> list:
+    """serve.cli's arguments for phase 16c: the adapters that phase 16b
+    trained under `out`."""
+    cross, head = out / "cross-encoder" / "cross-encoder-step2.pth", out / "cross-encoder" / "score-step2.pth"
+    bi = out / "bi-encoder" / "bi-encoder-step2.pth"
+    return ["--model", path, "--bi-adapter", str(bi), "--cross-adapter", str(cross), "--cross-head",
+            str(head), "--platform", DEV, "--port", "0"]
+
+
+def phase_rerank(path: str, out: Path, server: CliServer) -> dict:
     """/rerank and /embed through `python -m rwkv_lm_ext_tpu_torch.serve.cli
-    --bi-adapter --cross-adapter --cross-head` (a subprocess, bf16) on the
+    --bi-adapter --cross-adapter --cross-head` (`server`, a subprocess with
+    rerank_server_args, bf16) on the
     adapters that phase 16b trained: scores against a fp32 plain-route
     CrossEncoder on the same merged weights, the ranking, 400 on malformed
     payloads; /embed rows unit-norm; 404 from a server with no
@@ -3993,13 +4119,9 @@ def phase_rerank(path: str, out: Path) -> dict:
     tok = WorldTokenizer()
     query, docs = "What is the capital of France?", rerank_documents(tok)
     cross, head = out / "cross-encoder" / "cross-encoder-step2.pth", out / "cross-encoder" / "score-step2.pth"
-    bi = out / "bi-encoder" / "bi-encoder-step2.pth"
-    args = ["--model", path, "--bi-adapter", str(bi), "--cross-adapter", str(cross), "--cross-head",
-            str(head), "--platform", DEV, "--port", "0"]
-    t0 = time.perf_counter()
-    with CliServer(args) as base:
+    with server as base:
         print(f"  python -m rwkv_lm_ext_tpu_torch.serve.cli --bi-adapter --cross-adapter "
-              f"--cross-head: serving on {base} after {time.perf_counter() - t0:.1f} s")
+              f"--cross-head: serving on {base} after {time.perf_counter() - server.started:.1f} s")
         code, served = post(base + "/rerank", {"query": query, "documents": docs})
         check(code == 200, f"/rerank answered {code}")
         bad = [post(base + "/rerank", p)[0] for p in
@@ -4129,7 +4251,7 @@ def phase_contrastive_readings(path: str, reranker, smi: str) -> None:
           f"a step, {split['B.5']:.3f} ms a step, {split['B.5'] / max(b5, 1):.4f} ms a launch on {smi}")
     check(b5 == 3 * cfg.n_layer, f"B.5 ran {b5} times a step, not {3 * cfg.n_layer}")
     del model, step
-    torch.cuda.empty_cache()
+    free()
 
 
 TBPTT_CHUNK = T // 4        # phase 17a's chunk_ctx: 4 chunks of 128
@@ -4359,10 +4481,9 @@ def sft_task_jsonl(path: Path, tok) -> None:
                             for i, r in enumerate(rows)))
 
 
-def phase_peft_cli(path: str, tmp: Path) -> None:
-    """Phase 17b (the module docstring). Each run's files are held to the
-    JAX names and layouts; the served PiSSA adapter's greedy tokens to its
-    teacher-forced argmax."""
+def start_peft_clis(path: str, tmp: Path) -> tuple:
+    """Phase 17b's six `train.cli sft` subprocesses on the first CUT_LAYERS
+    layers, started (all at once: about 40 GB of the card together)."""
     tok = WorldTokenizer()
     data, tasks = tmp / "sft.jsonl", tmp / "sft_tasks.jsonl"
     if not data.exists():
@@ -4375,20 +4496,28 @@ def phase_peft_cli(path: str, tmp: Path) -> None:
     common = ["--micro-bsz", "64", "--ctx-len", str(T), "--max-steps", "2", "--log-every", "1",
               "--warmup-steps", "0", "--lr-init", "1e-4", "--platform", DEV]
     jobs = [
-        ("pissa", ["sft", "--train-type", "pissa", "--model", str(cut), "--train-data", str(data)],
-         False),
-        ("int8c", ["sft", "--quant", "int8c", "--model", str(cut), "--train-data", str(data)], False),
-        ("nf4", ["sft", "--quant", "nf4", "--model", str(cut), "--train-data", str(data)], False),
+        ("pissa", ["sft", "--train-type", "pissa", "--model", str(cut), "--train-data", str(data)]),
+        ("int8c", ["sft", "--quant", "int8c", "--model", str(cut), "--train-data", str(data)]),
+        ("nf4", ["sft", "--quant", "nf4", "--model", str(cut), "--train-data", str(data)]),
         ("slot-lora", ["sft", "--train-type", "slot-lora", "--model", str(cut), "--train-data",
-                       str(tasks)], False),
+                       str(tasks)]),
         ("lisa", ["sft", "--train-type", "full", "--lisa-k", "2", "--model", str(cut),
-                  "--train-data", str(data)], True),
+                  "--train-data", str(data)]),
         ("tbptt", ["sft", "--train-type", "full", "--chunk-ctx", "128", "--model", str(cut),
-                   "--train-data", str(data)], True),
+                   "--train-data", str(data)]),
     ]
-    jobs = [(label, argv + ["--output-dir", str(out / label), *common], full)
-            for label, argv, full in jobs]
-    run_cli_jobs(jobs, out, width=6)
+    return start_cli_jobs([(label, argv + ["--output-dir", str(out / label), *common])
+                           for label, argv in jobs], out)
+
+
+def phase_peft_cli(path: str, tmp: Path, started: tuple) -> None:
+    """Phase 17b (the module docstring): the runs of start_peft_clis. Each
+    run's files are held to the JAX names and layouts; the served PiSSA
+    adapter's greedy tokens to its teacher-forced argmax."""
+    tok = WorldTokenizer()
+    cut = tmp / f"rwkv6_1b6_synthetic_{CUT_LAYERS}_layers.pth"
+    out = tmp / "peft"
+    wait_cli_jobs(started)
     cfg = rwkv6_1b6(n_layer=CUT_LAYERS)
     for name in ("pissa/init_pissa.pth", "pissa/lora-step2.pth", "int8c/lora-step2.pth",
                  "nf4/lora-step2.pth", "slot-lora/lora-chat-step2.pth",
@@ -4410,10 +4539,12 @@ def phase_peft_cli(path: str, tmp: Path) -> None:
     prompt = "The passage is about foxes."
     payload = {"prompt": prompt, "max_tokens": 16, "temperature": 0.0, "top_p": 1.0,
                "alpha_presence": 0.0, "alpha_frequency": 0.0, "token_stop": []}
-    with CliServer(args + ["--port", "0"]) as url:
+    server = CliServer(args + ["--port", "0"])
+    server.start()      # loads while this process builds the same service
+    service = cli.build_service(cli.parse_args(args))
+    with server as url:
         code, answer = post(url + "/generate", payload)
     check(code == 200 and isinstance(answer.get("output"), str), f"/generate answered {code}")
-    service = cli.build_service(cli.parse_args(args))
     model = service.engine.model
     check(model.blocks[0].att.key.mode == "nf4", "the served PiSSA model is not nf4")
     prompt_ids = tok.encode(prompt)
@@ -4524,9 +4655,14 @@ def phase_peft_readings(path: str, smi: str) -> None:
 # ---------------------------------------------------------------------------
 
 WKV4_REL = {torch.float32: 1e-4, BF16: 1e-2}    # B.14's y, x max|plain|; its state 1e-4
-V5_FORWARD = dict(NO_LAUNCH, layer_norm=50, wkv6_fused_output=24)
-V5_STEP = dict(NO_LAUNCH, layer_norm=50, wkv6_decode_step=24)
-V4_FORWARD = V4_STEP = dict(NO_LAUNCH, layer_norm=50, wkv4=24)
+# phase 18b / 18c's depth (24 before phase 23 needed the script's time)
+FAMILY_SERVE_LAYERS = 12
+V5_FORWARD = dict(NO_LAUNCH, layer_norm=2 * FAMILY_SERVE_LAYERS + 2,
+                  wkv6_fused_output=FAMILY_SERVE_LAYERS)
+V5_STEP = dict(NO_LAUNCH, layer_norm=2 * FAMILY_SERVE_LAYERS + 2,
+               wkv6_decode_step=FAMILY_SERVE_LAYERS)
+V4_FORWARD = V4_STEP = dict(NO_LAUNCH, layer_norm=2 * FAMILY_SERVE_LAYERS + 2,
+                            wkv4=FAMILY_SERVE_LAYERS)
 FAMILY_NEW = 48                                # greedy tokens of the engine checks
 
 
@@ -4771,12 +4907,23 @@ def chained_rate(step, tokens: torch.Tensor, iters: int = 3) -> tuple:
 
 
 def phase_v5_serving(smi: str, tmp: Path) -> None:
-    """Synthetic RWKV-5-World-1B5 (v5.2: 24 layers, C=2048, H=32, F=7168),
-    bf16: embeddings at B=64, T=512 against the fp32 plain route with the
+    """Synthetic RWKV-5-World-1B5 (v5.2: FAMILY_SERVE_LAYERS layers, C=2048,
+    H=32, F=7168), bf16: embeddings at B=64, T=512 against the fp32 plain route with the
     launches of the forward; prefill + decode against one forward; greedy
     generation (graph blocks against eager); the 4-layer .pth through
     `python -m rwkv_lm_ext_tpu_torch.serve.cli`; readings."""
-    model, reference = family_models(rwkv5_1b5, seed=20)
+    model, reference = family_models(functools.partial(rwkv5_1b5, n_layer=FAMILY_SERVE_LAYERS),
+                                      seed=20)
+    # the CLI's 4-layer checkpoint first: its server loads while the checks
+    # below run
+    cfg4 = rwkv5_1b5(n_layer=min(4, model.cfg.n_layer))
+    sd4 = {k: v for k, v in model.state_dict().items()
+           if not k.startswith("blocks.") or int(k.split(".")[1]) < cfg4.n_layer}
+    small = load_state_dict_into(RWKV(cfg4, device=DEV), sd4)
+    path = str(tmp / "rwkv5_first_layers.pth")
+    save_rwkv_checkpoint(small, path)
+    server = CliServer(["--model", path, "--port", "0"])
+    server.start()
     gen = torch.Generator(device=DEV).manual_seed(21)
     tokens = torch.randint(4, model.cfg.vocab_size, (B, T), device=DEV, generator=gen)
     tokens[:, -1] = EMB_ID
@@ -4792,7 +4939,24 @@ def phase_v5_serving(smi: str, tmp: Path) -> None:
     torch.cuda.empty_cache()
     prefill_decode_against_forward(model, "v5.2")
     family_generation(model, "v5.2")
+    if READINGS:
+        v5_readings(model, tokens, smi)
 
+    del model
+    greedy = {"prompt": SHORT, "max_tokens": 16, "temperature": 0.0, "token_stop": []}
+    with server as base:
+        code, r = post(base + "/generate", greedy)
+    want = GenerationEngine(small, WorldTokenizer()).generate(SHORT, max_tokens=16, sampling=GREEDY)
+    print(f"  serve.cli --model on a {cfg4.n_layer}-layer v5.2 .pth ({Path(path).stat().st_size / 2**30:.2f} "
+          f"GiB): /generate {code}, backend {r.get('backend')}, output {r.get('output')!r}")
+    check(code == 200 and r["backend"] == "engine" and r["output"] == want,
+          f"serve.cli v5 /generate answered {code}: {r} (in process: {want!r})")
+    Path(path).unlink()
+
+
+def v5_readings(model, tokens: torch.Tensor, smi: str) -> None:
+    """Phase 18b's readings: seq/s embedded over a data chain with its
+    canary, the device's busy time, and the decode readings."""
     n_feed = min(T, C)
 
     def step(tokens):
@@ -4813,31 +4977,16 @@ def phase_v5_serving(smi: str, tmp: Path) -> None:
           f"{seconds * 1e3:.1f} ms a batch, device busy {busy:.1f} ms of it) on {smi}")
     family_decode_readings(model, "v5.2 bf16", smi)
 
-    cfg4 = rwkv5_1b5(n_layer=min(4, model.cfg.n_layer))
-    sd4 = {k: v for k, v in model.state_dict().items()
-           if not k.startswith("blocks.") or int(k.split(".")[1]) < cfg4.n_layer}
-    small = load_state_dict_into(RWKV(cfg4, device=DEV), sd4)
-    del model
-    path = str(tmp / "rwkv5_first_layers.pth")
-    save_rwkv_checkpoint(small, path)
-    greedy = {"prompt": SHORT, "max_tokens": 16, "temperature": 0.0, "token_stop": []}
-    with CliServer(["--model", path, "--port", "0"]) as base:
-        code, r = post(base + "/generate", greedy)
-    want = GenerationEngine(small, WorldTokenizer()).generate(SHORT, max_tokens=16, sampling=GREEDY)
-    print(f"  serve.cli --model on a {cfg4.n_layer}-layer v5.2 .pth ({Path(path).stat().st_size / 2**30:.2f} "
-          f"GiB): /generate {code}, backend {r.get('backend')}, output {r.get('output')!r}")
-    check(code == 200 and r["backend"] == "engine" and r["output"] == want,
-          f"serve.cli v5 /generate answered {code}: {r} (in process: {want!r})")
-    Path(path).unlink()
-
 
 def phase_v4_serving(smi: str) -> int:
-    """Synthetic RWKV-4-World-1.5B (24 layers, C=2048, F=8192), bf16: logits
+    """Synthetic RWKV-4-World-1.5B (FAMILY_SERVE_LAYERS layers, C=2048, F=8192),
+    bf16: logits
     at B=64, T=512 against the fp32 plain route with the launches of the
     forward; prefill + decode against one forward; greedy generation (graph
     blocks against eager); the batcher over 8 requests; readings. Returns the
     launches of wkv4 in the forward."""
-    model, reference = family_models(rwkv4_1b5, seed=25)
+    model, reference = family_models(functools.partial(rwkv4_1b5, n_layer=FAMILY_SERVE_LAYERS),
+                                      seed=25)
     gen = torch.Generator(device=DEV).manual_seed(26)
     tokens = torch.randint(4, model.cfg.vocab_size, (B, T), device=DEV, generator=gen)
     with torch.inference_mode():
@@ -4853,7 +5002,14 @@ def phase_v4_serving(smi: str) -> int:
     prefill_decode_against_forward(model, "v4")
     family_generation(model, "v4")
     v4_batcher(model, "v4")
+    if READINGS:
+        v4_readings(model, tokens, smi)
+    return counts["wkv4"]
 
+
+def v4_readings(model, tokens: torch.Tensor, smi: str) -> None:
+    """Phase 18c's readings: prefill seq/s over a data chain with its
+    canary, and the decode readings."""
     def step(tokens):
         logits, _ = model(tokens)
         tokens = tokens.clone()
@@ -4867,7 +5023,6 @@ def phase_v4_serving(smi: str) -> int:
     print(f"  reading: v4 prefill {B / seconds:.2f} seq/s (B={B}, T={T}, bf16, logits of every "
           f"position, {seconds * 1e3:.1f} ms a batch) on {smi}")
     family_decode_readings(model, "v4 bf16", smi)
-    return counts["wkv4"]
 
 
 # ---------------------------------------------------------------------------
@@ -5108,11 +5263,11 @@ FAMILY_READ_LAYERS = 12      # phase 20d's depth
 
 def phase_family_readings(smi: str) -> int:
     """Phase 20d: 12-layer v5.2 and v4 models, B=8, T=512, bf16: a LoRA step
-    and a `full` step (fp32 masters), remat on, each with its launches (exact
-    on the counters, and on the device from the profile: B.14 and its
-    backward, K1, B.6, B.7), time (CUDA events over chained steps with the
-    canary), busy time, idle share and peak memory. Returns the backward
-    kernel's launches in the v4 LoRA step."""
+    and a `full` step (fp32 masters), remat on, each with its launches on
+    the counters (exact); with --readings also on the device from the
+    profile (B.14 and its backward, K1, B.6, B.7), time (CUDA events over
+    chained steps with the canary), busy time, idle share and peak memory.
+    Returns the backward kernel's launches in the v4 LoRA step."""
     gen = torch.Generator(device=DEV).manual_seed(34)
     bwd_launches = 0
     for name, cfg_fn, seed in (("v5.2", rwkv5_1b5, 35), ("v4", rwkv4_1b5, 36)):
@@ -5139,14 +5294,20 @@ def phase_family_readings(smi: str) -> int:
             check(counts == want, f"{name} {what} step counts {counts} != {want}")
             if cfg.version < 5 and train_type == "lora":
                 bwd_launches = counts["wkv4_bwd"]
+            print(f"  launches in one {name} {what} step: "
+                  f"{', '.join(f'{k} {counts[k]}' for k in counts if counts[k])}")
+            if not READINGS:
+                del model, step
+                torch.cuda.empty_cache()
+                continue
             ops = read_train_step(model, step, functools.partial(sft_loss_fn, remat=True), batch,
                                   other, f"{name} {what} step", smi)
             want_dev = {k: (2 if "backward" not in k and k not in ("B.6", "B.7") else 1)
                         * cfg.n_layer for k in FAMILY_STEP_KERNELS[round(cfg.version, 1)]}
             on_device = {k: kernel_launches(ops, n)
                          for k, n in FAMILY_STEP_KERNELS[round(cfg.version, 1)].items()}
-            print(f"  launches in one {name} {what} step: {', '.join(f'{k} {counts[k]}' for k in counts if counts[k])}; "
-                  f"on the device {on_device} (the profiler may lose one record in ten)")
+            print(f"  launches in one {name} {what} step on the device: {on_device} (the "
+                  f"profiler may lose one record in ten)")
             check(all(0.9 * want_dev[k] <= n <= want_dev[k] for k, n in on_device.items()),
                   f"{name} {what}: device launches {on_device}, not {want_dev}")
             del model, step, ops
@@ -5360,7 +5521,7 @@ RAG_NEW = 32
 # phase 19 runs on the first EVAL_LAYERS layers of the saved model: its fp32
 # plain route (parity's gold side and this process's) walks every layer
 # sequentially, the largest share of the phase at 24 layers
-EVAL_LAYERS = 8
+EVAL_LAYERS = 4              # 8 before phase 23 needed the script's time
 # the documents of 19b's dense check on the fp32 plain route: every relevant
 # one, then every 4th of the length-sorted corpus (its sequential WKV walks
 # each batch's bucket, so the whole corpus would cost as much again as
@@ -5856,8 +6017,8 @@ def eval_in_process(path: str, files: dict, data: dict, tok, clis: list, smi: st
 COLLECT_REL = {torch.float32: 1e-4, BF16: 1e-2}   # B.15's gated output, x max|plain|
 SPEC_GAMMA = 8
 SPEC_DRAFT_LAYERS = 4
-SPEC_NEW = 32                # tokens of the in-process checks
-SPEC_READ_NEW = 64           # tokens of the single-stream readings
+SPEC_NEW = 16                # tokens of the in-process checks (32 before phase 23)
+SPEC_READ_NEW = 32           # tokens of the single-stream readings (64 before phase 23)
 SPEC_SMALL_LAYERS = 4        # depth of the fp32 identity and the RWKV-5.2 / RWKV-4 targets
 
 
@@ -6118,9 +6279,14 @@ def phase_speculative(model, path: str, tmp: Path, smi: str) -> int:
         for label, server in servers.items():
             spec_requests(server.url(), label)
     del draft_model
+    if READINGS:
+        spec_readings(model, draft, prompt, smi)
+    return launches
 
-    # readings, the servers stopped: the verify pass alone (CUDA events) and
-    # single-stream generation against the engine's, in turns
+
+def spec_readings(model, draft, prompt: list, smi: str) -> None:
+    """Phase 21's readings, its servers stopped: the verify pass alone (CUDA
+    events) and single-stream generation against the engine's, in turns."""
     spec = SpeculativeEngine(model, draft, gamma=SPEC_GAMMA)
     engine = GenerationEngine(model)
     with torch.inference_mode():
@@ -6158,14 +6324,15 @@ def phase_speculative(model, path: str, tmp: Path, smi: str) -> int:
           f"on {smi}")
     del spec, engine
     torch.cuda.empty_cache()
-    return launches
 
 
 TP = 2                       # phase 22's ranks
+TP_LAYERS = 12               # its model's depth (24 before the script's time limit needed it)
 TP_B, TP_T = 4, 512          # its prefill
-TP_NEW = 32                  # fp32 greedy tokens against the single-process engine
-TP_NEW_Q = 16                # bf16 and int8c greedy tokens (each rank decodes at ~6 tok/s)
-TP_BUSY_NEW = 8              # tokens of the traced generate (each rank's busy ms)
+TP_NEW = 16                  # fp32 greedy tokens against the single-process engine
+TP_NEW_Q = 8                 # bf16 and int8c greedy tokens (each rank decodes at ~6 tok/s)
+# (32 and 16 before phase 23 needed the script's time)
+TP_BUSY_NEW = 4              # tokens of the traced generate (each rank's busy ms; 8 before)
 # fp32 tp logits are held to the single-process kernel route within the
 # single-process fp32 plain route's own distance from it: the same run's
 # rounding gap, which 24 layers of seeded weights grow to ~1e-3 x max (PERF.md)
@@ -6193,14 +6360,16 @@ def rank_busy_ms(timed) -> tuple:
     return busy_us([e for e in prof.events() if e.device_type == DeviceType.CUDA]) / 1e3, seconds
 
 
-def tp_rank(rank: int, rendezvous: str, out_dir: str) -> None:
+def tp_rank(rank: int, rendezvous: str, out_dir: str, readings: bool = False) -> None:
     """One rank of phase 22, a process of its own (``python3 -c "import
-    chip_smoke; chip_smoke.tp_rank(...)"``): the seeded 24-layer 1B6 cut over
-    TP ranks (gloo where they share the card, NCCL where each has one) in
-    fp32, bf16 and int8c, each rank's kernel launches, and on rank 0 the
-    same calls on the whole model (the single-process route) to hold them
-    against. Every check raises; the results go to out_dir/tp-<rank>.json."""
-    global DEV
+    chip_smoke; chip_smoke.tp_rank(...)"``): the seeded 1B6 at TP_LAYERS
+    layers cut over TP ranks (gloo where they share the card, NCCL where
+    each has one) in fp32, bf16 and int8c, each rank's kernel launches, and
+    on rank 0 the same calls on the whole model (the single-process route)
+    to hold them against; with `readings`, each rank's busy time. Every
+    check raises; the results go to out_dir/tp-<rank>.json."""
+    global DEV, READINGS
+    READINGS = readings
     init_distributed(rendezvous, TP, rank, platform="cuda", timeout=TP_RANK_TIMEOUT_S)
     try:
         DEV = str(rank_device("cuda"))
@@ -6218,7 +6387,8 @@ def _tp_rank_checks(mesh, main: bool) -> dict:
     def lap(name):
         res["seconds"][name] = round(time.perf_counter() - start - sum(res["seconds"].values()), 1)
 
-    cfg32 = rwkv6_1b6(dtype="float32")
+    cfg32 = rwkv6_1b6(n_layer=TP_LAYERS, dtype="float32")
+    cfg16 = rwkv6_1b6(n_layer=TP_LAYERS)
     sd = synthetic_1b6(cfg32, seed=0)
     gen = torch.Generator(device=DEV).manual_seed(22)
     tokens = torch.randint(4, cfg32.vocab_size, (TP_B, TP_T), device=DEV, generator=gen)
@@ -6278,7 +6448,7 @@ def _tp_rank_checks(mesh, main: bool) -> dict:
 
     # bf16: logits against the fp32 plain route, greedy tokens by teacher
     # forcing on the same (tp) route, readings
-    engine = tp_engine(rwkv6_1b6())
+    engine = tp_engine(cfg16)
     with torch.inference_mode():
         logits16, _ = engine.model(tokens)
     if main:
@@ -6286,7 +6456,7 @@ def _tp_rank_checks(mesh, main: bool) -> dict:
         # yardstick: at T=512 a few early positions of seeded weights sit near
         # cosine 0.98 for it too (PERF.md)
         with torch.inference_mode():
-            want16, _ = single(rwkv6_1b6())(tokens)
+            want16, _ = single(cfg16)(tokens)
         cos_tp = position_cosines(logits16.float(), plain32)
         cos_single = position_cosines(want16.float(), plain32)
         res["bf16_cos"] = [float(cos_tp.min()), float(cos_tp.mean())]
@@ -6304,15 +6474,17 @@ def _tp_rank_checks(mesh, main: bool) -> dict:
     check(bool((tf.argmax(-1).cpu() == torch.tensor(out16)).all()), f"rank {mesh.rank}: tp bf16 "
           "greedy tokens are not the argmax of the same route's teacher-forced logits")
     res["bf16_tokens"] = out16
-    # each rank traces its own card work over the same short generate
-    res["busy_ms"], res["busy_wall_s"] = rank_busy_ms(lambda: timed_generate(engine, TP_BUSY_NEW))
+    if READINGS:
+        # each rank traces its own card work over the same short generate
+        res["busy_ms"], res["busy_wall_s"] = rank_busy_ms(lambda: timed_generate(engine,
+                                                                                 TP_BUSY_NEW))
     del engine
     torch.cuda.empty_cache()
     lap("bf16")
 
     # int8c: codes, scales, the row-parallel product and the logits bit for
     # bit against the single-process int8c route
-    engine = tp_engine(rwkv6_1b6(), "int8c")
+    engine = tp_engine(cfg16, "int8c")
     reset_launch_counts()
     with torch.inference_mode():
         logits_q, _ = engine.model(tokens)
@@ -6333,7 +6505,7 @@ def _tp_rank_checks(mesh, main: bool) -> dict:
     check(res["int8c_codes_equal"], f"rank {mesh.rank}: tp int8c codes or scales differ from B.4 "
           "on the whole rows")
     if main:
-        whole = single(rwkv6_1b6(), "int8c")
+        whole = single(cfg16, "int8c")
         with torch.inference_mode():
             want_q, _ = whole(tokens)
             want_y = whole.blocks[0].att.output(x)
@@ -6381,7 +6553,7 @@ def phase_tp(tmp: Path, smi: str) -> dict:
     rendezvous = "file://" + str(d / "rendezvous")
     logs = [open(d / f"rank{r}.log", "w") for r in range(TP)]
     ranks = [subprocess.Popen([sys.executable, "-c", f"import chip_smoke; chip_smoke.tp_rank("
-                               f"{r}, {rendezvous!r}, {str(d)!r})"],
+                               f"{r}, {rendezvous!r}, {str(d)!r}, {READINGS})"],
                               cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
              for r in range(TP)]
     server = CliServer([*args, "--tp", str(TP)])
@@ -6429,11 +6601,11 @@ def phase_tp(tmp: Path, smi: str) -> dict:
               f"{ {k: rr['counts_fp32'][k] for k in TP_KERNELS} }; int8c "
               f"{ {k: rr['counts_int8c'][k] for k in TP_KERNELS + ('quantize_rows', 'quantize_rows_given')} }")
     print(f"  each rank's seconds by part: {[rr['seconds'] for rr in res]}")
+    busy = (f"; busy ms over one {TP_BUSY_NEW}-token generate: "
+            + ", ".join(f"rank {r} {rr['busy_ms']:.1f} of {rr['busy_wall_s'] * 1e3:.1f} wall"
+                        for r, rr in enumerate(res)) + " (traced)" if READINGS else "")
     print(f"  reading: tp={TP} bf16 greedy decode {TP_NEW_Q / r0['decode_s']:.1f} tok/s at B=1 "
-          f"({r0['route']['blocks']}, {r0['route']['backend']}); busy ms over one "
-          f"{TP_BUSY_NEW}-token generate: "
-          f"{', '.join(f'rank {r} {rr['busy_ms']:.1f} of {rr['busy_wall_s'] * 1e3:.1f} wall' for r, rr in enumerate(res))} "
-          f"(traced), on {smi}")
+          f"({r0['route']['blocks']}, {r0['route']['backend']}, {TP_LAYERS} layers){busy}, on {smi}")
 
     with server as base:
         results = [None] * len(TP_PROMPTS)
@@ -6468,12 +6640,724 @@ def phase_tp(tmp: Path, smi: str) -> dict:
     return {k: r0["counts_int8c"][k] for k in ("quantize_rows_given",)}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: multi-process training (dp with the ZeRO AdamW, tp, GPipe pp)
+# ---------------------------------------------------------------------------
+
+MP = 2                       # phase 23's ranks
+MP_B, MP_T = 8, 512          # the global batch
+MP_FULL_LAYERS = 8           # dp `full` over fp32 masters in fp32 (the ZeRO AdamW)
+MP_N_MICRO = 4
+MP_CLI_LAYERS = 2            # the CLIs' checkpoint (full width, fp32)
+MP_CLI_STEPS = 2
+MP_RANK_TIMEOUT_S = 420
+MP_LORA_STEPS = 2
+MP_TC = dict(lr_init=1e-3, warmup_steps=0, total_steps=8, lr_schedule="constant")
+MP_KERNELS = ("layer_norm", "tmix_prologue", "wkv6_fused_output", "tmix_prologue_bwd",
+              "wkv6_bwd_forward_pass", "wkv6_bwd_reverse_pass")
+# dp `full` in fp32: the ranks' gradients against the single-process kernel
+# route's sum over the same halves of the rows (each half's loss over the
+# global counts: the ranks' decomposition in one process) differ by the order
+# of the sums only, x max of each tensor. Against the whole batch's they
+# differ by more: GEMMs of another M round apart, and seeded layers amplify
+# that (3.2e-4 x max on time_faaaa at 8 layers, 3 x the fp32 plain route's
+# distance, read on an H100); the script prints both
+MP_FULL_REL = 1e-5
+# tp and pp in fp32 on the whole batch (tp LoRA at 24 layers; tp `full` and
+# pp at MP_FULL_LAYERS, beside dp `full` on the one single-process
+# reference): each gradient tensor within this 1 - cosine of the
+# single-process fp32 kernel route's. Seeded layers amplify rounding in
+# another order: on all 8 rows tp LoRA read 8.572e-05 at 24 layers, but tp
+# `full` 3.8e-2 at 24 layers (blocks.0's time_faaaa, where the plain route
+# sat ~2e-2 away: the bonus's gradient cancels; on the first 4 rows tp
+# `full` 9.310e-05, pp 2.367e-05; read on an H100). A lost partial sum, a tp
+# rank's missing share or a stage's missing gradient moves a tensor by 1e-1
+# or more, and a scale error fails MP_NORM. The CPU tests hold the same
+# paths at 1e-4 of max against JAX on a well-conditioned model. In bf16 the seeded 24-layer model's LoRA gradients are too noisy to
+# hold tp to: the single-process bf16 route sits 0.34 from fp32 on blocks.1's
+# att.key factor, tp's 1.07 (read on an H100)
+MP_FP32_COS = 1e-2
+# `train.cli sft --dp 2` against the single-process CLI, fp32 LoRA at 4
+# layers: the logged losses within 1e-5 and each adapter tensor's update
+# (trained - init) within this 1 - cosine. Not elementwise: the card's fp32
+# gradients of seeded full-width layers part by ~3e-4 x max between the two
+# row splits (dp full above), which flips Adam's sign step on the elements
+# whose gradient is that close to zero (a flip moves one by 2 lr: 34 x the
+# elementwise bound, read on an H100). The CPU test holds the
+# files elementwise on a well-conditioned model (tests/test_torch_dp.py)
+MP_CLI_COS = 1e-2
+# cosine ignores scale: the whole gradient's norm within this share of the
+# reference's too (| |g| / |ref| - 1 |), and each tensor's within the noise
+# its cosine shows (rounding noise of |d| / |g| = r leaves 1 - cosine ~ r^2 /
+# 2: twice sqrt(2 (1 - cos)), floor this; tp LoRA's noisiest tensor read a
+# norm gap of 7.8e-3 at 1 - cos below 6e-5, read on an H100), so that a gradient
+# summed twice, a lost rank's share or a wrong global count (x 2 or x 1/2)
+# fails. bf16
+# against fp32 (dp LoRA): each tensor within the rounding noise its cosine
+# bound admits, the whole gradient's norm within C24_BOUND x the
+# single-process bf16 route's gap from fp32 (floor MP_NORM) and within
+# MP_BF16_NORM of that route's. The CLIs' logged grad_norm within
+# MP_CLI_NORM of the single-process run's (Adam's update hides a gradient's
+# scale)
+MP_NORM = 1e-2
+MP_CLI_NORM = 1e-3
+# the bf16 routes' whole gradient sits ~46 % from fp32's in norm (seeded
+# LoRA factors: rounding noise inflates it), the dp ranks' 3.1 % from the
+# single-process bf16 route's (read on an H100): held within this
+MP_BF16_NORM = 0.1
+# bf16 (dp LoRA; the module docstring): each tensor's gradient no farther
+# from the single-process fp32 route, as 1 - cosine, than C24_BOUND times the
+# single-process bf16 route is (floor 1e-3). Not C.24's capped form between
+# two bf16 routes: a rank's bf16 rounding is not the single-process route's,
+# so their mutual distance is about the sum of their distances from fp32,
+# and the single-process bf16 route sits 0.15-0.31 from fp32 on LoRA factors
+# of layers 3 and 18 (read on an H100), far beyond C24_CAP
+
+
+def mp_batch(vocab: int) -> dict:
+    """The global batch, the same on every rank: the first half of the rows
+    (dp rank 0's) with fewer unmasked labels than the second."""
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    batch = train_batch(gen, vocab, MP_B, MP_T)
+    batch["labels"][: MP_B // 2, : MP_T // 3] = -100
+    return batch
+
+
+def mp_model(sd: dict, cfg, train_type: str):
+    """A model of cfg on sd with train_type's trainables (LoRA seeded, its B
+    filled so that every gradient is non-zero)."""
+    model = load_state_dict_into(RWKV(cfg, device=DEV), sd)
+    if train_type == "lora":
+        gen = torch.Generator(device=DEV).manual_seed(24)
+        adapter = init_lora_params(model, LORA, gen)
+        for ab in adapter.values():
+            ab["B"] = torch.randn(ab["B"].shape, generator=gen, device=DEV) * 0.02
+        apply_lora(model, LORA, adapter)
+    apply_trainable_mask(model, trainable_mask(model, train_type))
+    return model
+
+
+def first_grads(step) -> dict:
+    """Have `step` keep its first call's gradients, as the optimizer sees
+    them (the ZeRO optimizer's after its collectives; a tp slice as it
+    is), in the dict returned."""
+    opt = step.optimizer
+    seen = {}
+    if hasattr(opt, "reduce"):
+        reduce = opt.reduce
+
+        def keep():
+            reduce()
+            if not seen:
+                seen.update({n: g.detach().clone() for n, g in opt.named_grads().items()})
+
+        opt.reduce = keep
+    else:
+        inner = opt.step
+
+        def keep(keep=None):
+            if not seen:
+                seen.update({n: p.grad.detach().clone() for n, p in zip(opt.names, opt.params)})
+            return inner(keep)
+
+        opt.step = keep
+    return seen
+
+
+def free() -> None:
+    """Give the card back what dropped objects held: first_grads' closures
+    make reference cycles through the optimizer (its flat buffers), which
+    only the collector frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def whole_grads_on_rank0(grads: dict, model, mesh, main: bool):
+    """The tp ranks' gradient slices joined on rank 0 (the other ranks of
+    dp index 0 send theirs in name order); None elsewhere."""
+    if mesh.dp_rank != 0:       # another dp replica of the same gradients
+        return None
+    named = dict(model.named_parameters())
+    cut = sorted(n for n in grads if getattr(named[n], "tp_axis", None) is not None)
+    if not main:
+        sends = [distributed.isend(grads[n], 0) for n in cut]
+        for work in sends:
+            work.wait()
+        return None
+    for n in cut:
+        parts = [grads[n]] + [distributed.recv(torch.empty_like(grads[n]), r)
+                              for r in range(1, mesh.tp)]
+        grads[n] = torch.cat(parts, named[n].tp_axis)
+    return grads
+
+
+def mp_timed_step(step, batch) -> dict:
+    """One step's loss, norm, wall ms, this rank's busy ms (traced) and the
+    collectives it issued."""
+    calls, nbytes = distributed.STATS["calls"], distributed.STATS["bytes"]
+    out = {}
+
+    def timed():
+        t0 = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        out.update(loss=float(m["loss"]), norm=float(m["grad_norm"]))
+        return m, time.perf_counter() - t0
+
+    out["busy_ms"], wall = rank_busy_ms(timed)
+    out.update(wall_ms=wall * 1e3, calls=distributed.STATS["calls"] - calls,
+               mbytes=(distributed.STATS["bytes"] - nbytes) / 2**20)
+    return out
+
+
+def mp_rank(rank: int, rendezvous: str, out_dir: str, world: int = MP) -> None:
+    """One rank of phase 23, a process of its own (``python3 -c "import
+    chip_smoke; chip_smoke.mp_rank(...)"``): gloo where the ranks share the
+    card, NCCL where each has one. Every check raises; the results go to
+    out_dir/mp-<rank>.json."""
+    global DEV
+    init_distributed(rendezvous, world, rank, platform="cuda", timeout=MP_RANK_TIMEOUT_S)
+    try:
+        DEV = str(rank_device("cuda"))
+        torch.cuda.set_device(DEV)
+        res = _mp_rank_checks(rank, world)
+    finally:
+        shutdown()
+    Path(out_dir, f"mp-{rank}.json").write_text(json.dumps(res))
+
+
+def norm_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """| |a| / |b| - 1 |: what a cosine does not see (MP_NORM)."""
+    na, nb = a.double().norm().item(), b.double().norm().item()
+    return abs(na / nb - 1) if nb > 0 else (0.0 if na == 0 else math.inf)
+
+
+def _mp_rank_checks(rank: int, world: int) -> dict:
+    res = {"seconds": {}, "backend": distributed.backend()}
+    start = time.perf_counter()
+    main = rank == 0
+
+    def lap(name):
+        res["seconds"][name] = round(time.perf_counter() - start - sum(res["seconds"].values()), 1)
+        print(f"  rank {rank} seconds by part: {res['seconds']}", flush=True)
+
+    cfg16, cfg32 = rwkv6_1b6(), rwkv6_1b6(dtype="float32")
+    # the weights wait in host memory: two ranks' models, flat buffers and
+    # rank 0's references share the card
+    sd = {k: v.cpu() for k, v in synthetic_1b6(cfg32, seed=0).items()}
+    batch = mp_batch(cfg32.vocab_size)
+    tc = TrainConfig(grad_checkpoint=True, **MP_TC)
+    lora_loss = functools.partial(sft_loss_fn, remat=True)
+    # JAX's pipeline loss has no L2Wrap: dp and tp `full` train the same
+    # cross entropy, so that one single-process reference serves all three
+    ce_loss = functools.partial(sft_loss_fn, remat=True, l2_wrap=False)
+    refs = {}
+
+    def reference(key, cfg, train_type, loss_fn, moments=False, weights=None, split=False):
+        """The single-process kernel route's gradients and loss on the whole
+        batch (rank 0); with `moments`, one step of the single-process
+        optimizer, whose Adam moment bytes are read; with `split`, the sum
+        over the dp ranks' halves of the rows."""
+        if key not in refs:
+            model = mp_model(sd if weights is None else weights, cfg, train_type)
+            if moments:
+                step = make_train_step(model, tc, loss_fn)
+                grads = first_grads(step)
+                loss = float(step(batch)["loss"])
+                nbytes = sum(t.numel() * t.element_size()
+                             for st in step.optimizer.opt.state.values()
+                             for k, t in st.items() if k.startswith("exp_avg"))
+                del step
+            elif split:
+                # the dp ranks' decomposition in one process: each half's loss
+                # over the global batch's counts, the gradients summed
+                loss, nbytes = 0.0, None
+                counts = ((batch["labels"] != -100).sum().reshape(1), MP_B)
+                for half in range(MP):
+                    rows = {k: v.chunk(MP)[half] for k, v in batch.items()}
+                    value = loss_fn(model, rows, counts=counts)
+                    value.backward()
+                    loss += value.item()
+            else:
+                value = loss_fn(model, batch)
+                value.backward()
+                loss, nbytes = value.item(), None
+            if not moments:
+                grads = {n: p.grad for n, p in model.named_parameters() if p.requires_grad}
+            refs[key] = {"grads": grads, "losses": [loss], "moment_bytes": nbytes}
+            del model
+            torch.cuda.empty_cache()
+        return refs[key]
+
+    def against(what, got, key16, key32):
+        """This route's bf16 gradients no farther from the single-process fp32
+        route than the single-process bf16 route is: 1 - cosine per tensor
+        within C24_BOUND times its (floor 1e-3; the comment above
+        MP_FULL_REL), each tensor's norm gap within the rounding noise that
+        cosine bound admits (a noise of |d| / |g| = r leaves 1 - cosine ~
+        r^2 / 2, so r = sqrt(2 x the bound)), and the norm of the whole
+        gradient within C24_BOUND times the bf16 route's gap (floor MP_NORM)
+        and within MP_BF16_NORM of that route's: a scale error moves every
+        tensor alike."""
+        p16, p32 = refs[key16]["grads"], refs[key32]["grads"]
+        gap = {n: (1 - cosine(got[n], p32[n]), max(1e-3, C24_BOUND * (1 - cosine(p16[n], p32[n]))),
+                   1 - cosine(got[n], p16[n])) for n in p32}
+        size = {n: (norm_gap(got[n], p32[n]), math.sqrt(2 * gap[n][1])) for n in p32}
+
+        def total(grads):
+            return torch.stack([g.double().norm() for g in grads.values()]).norm()
+
+        whole = (norm_gap(total(got), total(p32)),
+                 max(MP_NORM, C24_BOUND * norm_gap(total(p16), total(p32))),
+                 norm_gap(total(got), total(p16)))
+        worst = max(gap, key=lambda n: gap[n][0] / gap[n][1])
+        far = max(gap, key=lambda n: gap[n][2])
+        big = max(size, key=lambda n: size[n][0] / size[n][1])
+        print(f"  {what}, {len(gap)} gradient tensors: 1 - cosine to the single-process fp32 route "
+              f"{gap[worst][0]:.3e} against C24_BOUND x the single-process bf16 route's "
+              f"{gap[worst][1]:.3e} ({worst}, the largest ratio; limit 1); a tensor's norm gap "
+              f"{size[big][0]:.3e} against {size[big][1]:.3e} ({big}, the largest ratio); the "
+              f"whole gradient's norm gap {whole[0]:.3e} against {whole[1]:.3e}, from the "
+              f"single-process bf16 route's {whole[2]:.3e} (limit {MP_BF16_NORM:g}); farthest from the "
+              f"single-process bf16 route: {far} {gap[far][2]:.3e} (its own distance from fp32 "
+              f"{gap[far][1] / C24_BOUND:.3e})", flush=True)
+        check(all(a <= b for a, b, _ in gap.values()),
+              f"{what}: the gradients depart from the fp32 route by more than C24_BOUND x the "
+              f"single-process bf16 route ({worst}: {gap[worst]})")
+        check(all(a <= b for a, b in size.values()) and whole[0] <= whole[1]
+              and whole[2] <= MP_BF16_NORM,
+              f"{what}: a gradient's norm departs from the fp32 route's ({big}: {size[big]}; the "
+              f"whole gradient's {whole})")
+
+    def close32(what, got, key, loss):
+        """fp32 gradients against the single-process fp32 kernel route's
+        (``key``): per tensor within 1 - cosine MP_FP32_COS and within the
+        norm gap its own cosine's noise admits (twice sqrt(2 (1 - cos)),
+        floor MP_NORM), the whole gradient's norm within MP_NORM, and the
+        loss within 1e-5."""
+        want = refs[key]["grads"]
+        gap = {n: 1 - cosine(got[n], want[n]) for n in want}
+        size = {n: norm_gap(got[n], want[n]) / max(MP_NORM, 2 * math.sqrt(2 * max(gap[n], 0.0)))
+                for n in want}
+        whole = norm_gap(torch.stack([got[n].double().norm() for n in want]).norm(),
+                         torch.stack([want[n].double().norm() for n in want]).norm())
+        rel = {n: float((got[n] - want[n]).abs().max() / want[n].abs().max()) for n in want}
+        top = sorted(gap, key=gap.get, reverse=True)[:3]
+        far, big = max(rel, key=rel.get), max(size, key=size.get)
+        loss_err = abs(loss - refs[key]["losses"][0]) / refs[key]["losses"][0]
+        print(f"  {what}, {len(want)} gradient tensors: 1 - cosine to the single-process fp32 "
+              f"kernel route at most (limit {MP_FP32_COS:g}): "
+              + "; ".join(f"{n} {gap[n]:.3e}" for n in top)
+              + f"; a tensor's norm gap at most {size[big]:.2e} of its limit ({big}); the whole "
+              f"gradient's {whole:.3e} (limit {MP_NORM:g}); max |a - b| / max|b| {rel[far]:.3e} "
+              f"({far}); loss {loss:.6f}, {loss_err:.2e} from it", flush=True)
+        check(gap[top[0]] <= MP_FP32_COS and size[big] <= 1 and whole <= MP_NORM
+              and loss_err <= 1e-5,
+              f"{what}: gradient {top[0]} at 1 - cosine {gap[top[0]]:.3e}, {big} at "
+              f"{size[big]:.3f} of its norm limit, the whole gradient's norm gap {whole:.3e}, "
+              f"loss off by {loss_err:.2e}")
+
+    if world == MP * MP:
+        res.update(_mp_dp_tp(rank, sd, cfg32, batch, tc, lora_loss))
+        if main:
+            reference("lora32", cfg32, "lora", lora_loss)
+            close32(f"dp={MP} x tp={MP} lora, 24 layers, fp32", res.pop("grads"), "lora32",
+                    res["losses"][0])
+        res.pop("grads", None)
+        lap("dp x tp")
+        return res
+
+    # dp=2 lora, 24 layers, bf16: two steps on the rank's half of the rows
+    mesh = make_mesh(dp=MP, tp=1)
+    model = mp_model(sd, cfg16, "lora")
+    step = make_train_step(model, tc, lora_loss, mesh=mesh)
+    grads = first_grads(step)
+    rows = {k: v.chunk(MP)[mesh.dp_rank] for k, v in batch.items()}
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    steps = [mp_timed_step(step, rows) for _ in range(MP_LORA_STEPS)]
+    res["dp_lora"] = {"steps": steps, "launches": launch_counts(),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "moment_bytes": step.optimizer.moment_elements() * 4,
+                      "flat_bytes": 2 * step.optimizer.flat.numel() * 4}
+    check(all(res["dp_lora"]["launches"][k] > 0 for k in MP_KERNELS),
+          f"rank {rank}: a kernel of the dp path ran no time: {res['dp_lora']['launches']}")
+    del model, step
+    free()
+    if main:
+        reference("lora16", cfg16, "lora", lora_loss)
+        reference("lora32", cfg32, "lora", lora_loss)
+        against(f"dp={MP} lora, 24 layers, bf16, B={MP_B}, T={MP_T}", grads, "lora16", "lora32")
+        res["dp_lora"]["single_loss"] = refs.pop("lora16")["losses"][0]
+        check(abs(steps[0]["loss"] - res["dp_lora"]["single_loss"])
+              <= 1e-3 * res["dp_lora"]["single_loss"],
+              f"dp lora loss {steps[0]['loss']} != single-process {res['dp_lora']['single_loss']}")
+    lap("dp lora")
+
+    # dp=2 full, 8 layers, the fp32 route, the ZeRO AdamW
+    cut = rwkv6_1b6(n_layer=MP_FULL_LAYERS, dtype="float32", param_dtype="float32")
+    sd8 = {k: v for k, v in sd.items()
+           if not k.startswith("blocks.") or int(k.split(".")[1]) < MP_FULL_LAYERS}
+    model = mp_model(sd8, cut, "full")
+    step = make_train_step(model, tc, ce_loss, mesh=mesh)
+    grads = first_grads(step)
+    torch.cuda.reset_peak_memory_stats()
+    res["dp_full"] = {"steps": [mp_timed_step(step, rows)],
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "moment_bytes": step.optimizer.moment_elements() * 4,
+                      "flat_bytes": 2 * step.optimizer.flat.numel() * 4}
+    del model, step
+    free()
+    if main:
+        ref = reference("full8", cut, "full", ce_loss, moments=True, weights=sd8)
+        halves = reference("full8_halves", cut, "full", ce_loss, weights=sd8, split=True)
+
+        def rel(a, b):
+            return max(float((a[n] - b[n]).abs().max() / b[n].abs().max()) for n in b)
+
+        res["dp_full"].update(err=rel(grads, halves["grads"]), whole=rel(grads, ref["grads"]),
+                              halves_whole=rel(halves["grads"], ref["grads"]),
+                              single_moment_bytes=ref["moment_bytes"])
+        check(res["dp_full"]["err"] <= MP_FULL_REL,
+              f"dp full fp32 gradients {res['dp_full']['err']:.3e} x max from the single-process "
+              f"sum over the same halves")
+        # and against the whole batch, as tp and pp are held
+        close32(f"dp={MP} full, {MP_FULL_LAYERS} layers, fp32, B={MP_B}, against the whole batch",
+                grads, "full8", res["dp_full"]["steps"][0]["loss"])
+        refs.pop("full8_halves")
+    del grads
+    lap("dp full")
+
+    # tp=2: lora at 24 layers, full at MP_FULL_LAYERS, fp32, the whole batch
+    mesh = make_mesh(dp=1, tp=MP)
+    for kind, loss_fn, cfg, weights, key in (("lora", lora_loss, cfg32, sd, "lora32"),
+                                             ("full", ce_loss, cut, sd8, "full8")):
+        model = mp_model(weights, cfg, kind)
+        shard_for_training(model, mesh)
+        step = make_train_step(model, tc, loss_fn, mesh=mesh)
+        grads = first_grads(step)
+        reset_launch_counts()
+        res[f"tp_{kind}"] = {"steps": [mp_timed_step(step, batch)], "launches": launch_counts()}
+        check(all(res[f"tp_{kind}"]["launches"][k] > 0 for k in MP_KERNELS),
+              f"rank {rank}: a kernel of the tp path ran no time")
+        grads = whole_grads_on_rank0(grads, model, mesh, main)
+        del model, step
+        free()
+        if main:
+            close32(f"tp={MP} {kind}, {cfg.n_layer} layers, fp32, B={MP_B}", grads, key,
+                    res[f"tp_{kind}"]["steps"][0]["loss"])
+        del grads
+        refs.pop("lora32", None)
+        free()
+        lap(f"tp {kind}")
+
+    # pp=2, n_micro=4, full, MP_FULL_LAYERS, fp32: the stages' gradients and the loss
+    pmesh = make_pp_mesh(dp=1, pp=MP)
+    model = mp_model(sd8, cut, "full")
+    step = make_pp_train_step(model, tc, pmesh, n_micro=MP_N_MICRO)
+    grads = first_grads(step)
+    reset_launch_counts()
+    res["pp"] = {"steps": [mp_timed_step(step, batch)], "launches": launch_counts(),
+                 "stage": pmesh.stage}
+    check(all(res["pp"]["launches"][k] > 0 for k in MP_KERNELS),
+          f"rank {rank}: a kernel of the pp path ran no time")
+    del model, step
+    free()
+    # the other stage's gradients to rank 0, tensor by tensor in name order
+    if not main:
+        sends = [distributed.isend(grads[n], 0) for n in sorted(grads)]
+        for work in sends:
+            work.wait()
+    if main:
+        got = dict(grads)
+        want = refs["full8"]["grads"]
+        for n in sorted(set(want) - set(grads)):
+            got[n] = distributed.recv(torch.empty_like(want[n]), 1)
+        close32(f"pp={MP}, n_micro={MP_N_MICRO}, full, {MP_FULL_LAYERS} layers, fp32, B={MP_B}",
+                got, "full8", res["pp"]["steps"][0]["loss"])
+        res["pp"]["single_loss"] = refs["full8"]["losses"][0]
+    lap("pp")
+    return res
+
+
+def _mp_dp_tp(rank, sd, cfg, batch, tc, loss_fn) -> dict:
+    """dp=2 x tp=2 lora (the four-card run): two steps, the first step's
+    whole gradients and the readings."""
+    mesh = make_hybrid_mesh(dp=MP, tp=MP)
+    model = mp_model(sd, cfg, "lora")
+    shard_for_training(model, mesh)
+    step = make_train_step(model, tc, loss_fn, mesh=mesh)
+    grads = first_grads(step)
+    rows = {k: v.chunk(MP)[mesh.dp_rank] for k, v in batch.items()}
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    steps = [mp_timed_step(step, rows) for _ in range(MP_LORA_STEPS)]
+    grads = whole_grads_on_rank0(grads, model, mesh, rank == 0)
+    out = {"steps": steps, "launches": launch_counts(), "losses": [s["loss"] for s in steps],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "moment_bytes": step.optimizer.moment_elements() * 4, "grads": grads}
+    check(all(out["launches"][k] > 0 for k in MP_KERNELS), f"rank {rank}: a kernel ran no time")
+    return out
+
+
+def mp_readings(label: str, rr: list) -> str:
+    return "; ".join(
+        f"rank {r}: step wall {', '.join(f'{s['wall_ms']:.0f}' for s in x['steps'])} ms, busy "
+        f"{', '.join(f'{s['busy_ms']:.0f}' for s in x['steps'])} ms, "
+        f"{x['steps'][0]['calls']} collectives ({x['steps'][0]['mbytes']:.0f} MiB) a step"
+        + (f", peak {x['peak_gib']:.1f} GiB" if "peak_gib" in x else "")
+        + (f", Adam moments {x['moment_bytes'] / 2**20:.1f} MiB" if "moment_bytes" in x else "")
+        for r, x in enumerate(rr))
+
+
+def mp_rank_command(r: int, rendezvous: str, d: Path, world: int) -> list:
+    return [sys.executable, "-c", f"import chip_smoke; chip_smoke.mp_rank({r}, {rendezvous!r}, "
+                                  f"{str(d)!r}, {world})"]
+
+
+def run_mp_ranks(d: Path, world: int, during=None) -> list:
+    """Start `world` ranks of phase 23, run `during(ranks)` in this process
+    while they work, and return its result and theirs; a rank that fails
+    stops the others."""
+    rendezvous = "file://" + str(d / "rendezvous")
+    logs = [open(d / f"rank{r}.log", "w") for r in range(world)]
+    ranks = [subprocess.Popen(mp_rank_command(r, rendezvous, d, world), cwd=ROOT,
+                              stdout=logs[r], stderr=subprocess.STDOUT, start_new_session=True)
+             for r in range(world)]
+    try:
+        out = during(ranks) if during is not None else None
+        deadline = time.monotonic() + MP_RANK_TIMEOUT_S
+        while any(p.poll() is None for p in ranks):
+            failed = [p for p in ranks if p.poll() not in (None, 0)]
+            check(not failed and time.monotonic() < deadline, f"a phase 23 rank failed or overran "
+                  f"(exit codes {[p.poll() for p in ranks]})")
+            time.sleep(0.5)
+    except BaseException:
+        for proc in ranks:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for r in range(world):
+            print(f"  rank {r} log: {(d / f'rank{r}.log').read_text()[-3000:]}")
+        raise
+    finally:
+        for f in logs:
+            f.close()
+    for r, proc in enumerate(ranks):
+        check(proc.returncode == 0, f"phase 23 rank {r} exited {proc.returncode} (ranks: "
+              f"{[p.returncode for p in ranks]}):\n"
+              f"{(d / f'rank{r}.log').read_text()[-4000:]}")
+    return out, [json.loads((d / f"mp-{r}.json").read_text()) for r in range(world)]
+
+
+def mp_cli_files(d: Path) -> list:
+    """A MP_CLI_LAYERS-layer full-width fp32 checkpoint and SFT rows; the
+    arguments of the CLI runs but the output directory."""
+    cut = rwkv6_1b6(n_layer=MP_CLI_LAYERS, dtype="float32")
+    model = load_state_dict_into(RWKV(cut, device=DEV), synthetic_1b6(cut, seed=7))
+    save_rwkv_checkpoint(model, str(d / "cut.pth"))
+    del model
+    data = d / "sft.jsonl"
+    sft_jsonl(data, WorldTokenizer())
+    return ["--model", str(d / "cut.pth"), "--train-data", str(data), "--micro-bsz", "64",
+            "--ctx-len", str(T), "--lr-init", "1e-3", "--lr-schedule", "constant",
+            "--warmup-steps", "0", "--log-every", "1", "--dtype", "float32", "--train-type",
+            "lora", "--lora-r", "8", "--lora-alpha", "32", "--max-steps", str(MP_CLI_STEPS),
+            "--platform", "cuda"]
+
+
+def start_train_cli(args: list, out: Path, log: Path) -> subprocess.Popen:
+    """`python -m rwkv_lm_ext_tpu_torch.train.cli sft <args>` into `out`, its
+    output to `log`, in a session of its own (its ranks with it)."""
+    with open(log, "w") as f:
+        return subprocess.Popen([sys.executable, "-m", "rwkv_lm_ext_tpu_torch.train.cli", "sft",
+                                 *args, "--output-dir", str(out)], cwd=ROOT, stdout=f,
+                                stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def train_cli_here(args: list, out: Path, no_l2wrap: bool = False) -> str:
+    """The single-process `train.cli sft <args>` in this process (what it
+    printed); `no_l2wrap`: the loss without L2Wrap, as JAX's pipeline has."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.ExitStack() as stack:
+        if no_l2wrap:
+            stack.enter_context(mock.patch.object(
+                train_loop, "sft_loss_fn", functools.partial(sft_loss_fn, l2_wrap=False)))
+        train_cli.main(["sft", *args, "--output-dir", str(out), "--dp", "1"])
+    return buf.getvalue()
+
+
+def wait_train_clis(procs: list) -> None:
+    """Wait for the CLI runs (MP_RANK_TIMEOUT_S in all); kill what is left."""
+    deadline = time.monotonic() + MP_RANK_TIMEOUT_S
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+
+
+def logged_steps(text: str) -> list:
+    return [json.loads(ln.split(": ", 1)[1]) for ln in text.splitlines() if ln.startswith("step ")]
+
+
+def cli_against_single(what: str, log: str, want_log: str, got_pth: Path, want_pth: Path,
+                       init: dict) -> None:
+    """A multi-process CLI run against the single-process one: rank 0 alone
+    logs, the logged losses within 1e-5 and grad norms within MP_CLI_NORM,
+    and each tensor of the file moved as the single-process run's did (the
+    updates from `init` within 1 - cosine MP_CLI_COS; MP_CLI_COS says why
+    not elementwise)."""
+    got_s, want_s = logged_steps(log), logged_steps(want_log)
+    check(log.count("step 0:") == 1 and len(got_s) == len(want_s) == MP_CLI_STEPS
+          and all(abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"])
+                  and abs(a["grad_norm"] - b["grad_norm"]) <= MP_CLI_NORM * b["grad_norm"]
+                  for a, b in zip(got_s, want_s)),
+          f"{what}: logged {got_s} against the single-process CLI's {want_s}:\n{log[-2000:]}")
+    got = torch.load(got_pth, map_location=DEV, weights_only=True)
+    want = torch.load(want_pth, map_location=DEV, weights_only=True)
+    check(sorted(got) == sorted(want), f"{what}: the file's keys differ")
+    init = {k: init[k].to(DEV).reshape(want[k].shape) for k in want}
+    gap = {k: 1 - cosine(got[k] - init[k], want[k] - init[k]) for k in want}
+    rel = {k: (got[k] - want[k]).abs().max().item() / want[k].abs().max().item() for k in want}
+    worst, far = max(gap, key=gap.get), max(rel, key=rel.get)
+    print(f"  {what}: both ranks exited 0; losses {[s['loss'] for s in got_s]} against "
+          f"{[s['loss'] for s in want_s]}, grad norms {[s['grad_norm'] for s in got_s]} against "
+          f"{[s['grad_norm'] for s in want_s]}; {got_pth.name}'s updates against the "
+          f"single-process CLI's: 1 - cosine at most {gap[worst]:.2e} ({worst}; limit "
+          f"{MP_CLI_COS:g}), max |a - b| / max|b| {rel[far]:.2e} ({far})")
+    check(gap[worst] <= MP_CLI_COS, f"{what}: the updates part from the single-process CLI's: "
+          f"{worst} {gap[worst]:.2e}")
+
+
+def phase_multiprocess(tmp: Path, smi: str) -> None:
+    """Phase 23 (the module docstring): the ranks (mp_rank) and, once they
+    are past their dp parts, `train.cli sft` with --dp 2 and --tp 2 (LoRA)
+    and --pp 2 (`full`) together, beside the single-process CLI runs made in
+    this process meanwhile."""
+    d = tmp / "mp"
+    d.mkdir()
+    cli = {}
+
+    def during(ranks):
+        """The CLIs, once the ranks are past their dp parts: beside those
+        (rank 0's references at B=8) the five processes outgrew the card's
+        memory."""
+        args = mp_cli_files(d)      # while the ranks start
+        torch.cuda.empty_cache()
+        cli["args"] = args
+        while "'dp full'" not in (d / "rank0.log").read_text():
+            check(all(p.poll() in (None, 0) for p in ranks), "a phase 23 rank failed")
+            time.sleep(1)
+        t0 = time.perf_counter()
+        full = [*args, "--train-type", "full"]      # the last --train-type wins
+        procs = {"dp": start_train_cli([*args, "--dp", str(MP)], d / "dp", d / "dp.log"),
+                 "tp": start_train_cli([*args, "--tp", str(MP)], d / "tp", d / "tp.log"),
+                 "pp": start_train_cli([*full, "--pp", str(MP), "--n-micro", str(MP_N_MICRO)],
+                                       d / "pp", d / "pp.log")}
+        try:
+            cli["single"] = train_cli_here(args, d / "single")
+            torch.cuda.empty_cache()
+            cli["single_full"] = train_cli_here(full, d / "single_full", no_l2wrap=True)
+            torch.cuda.empty_cache()
+        finally:
+            wait_train_clis(list(procs.values()))
+        cli.update((mode, proc.returncode) for mode, proc in procs.items())
+        return time.perf_counter() - t0
+
+    cli_wall, res = run_mp_ranks(d, MP, during)
+    for mode in ("dp", "tp", "pp"):
+        check(cli[mode] == 0, f"train.cli sft --{mode} {MP} exited {cli[mode]}:\n"
+              f"{(d / f'{mode}.log').read_text()[-3000:]}")
+    r0 = res[0]
+    # rank 0's gradient checks, as it printed them
+    print("\n".join(ln for ln in (d / "rank0.log").read_text().splitlines()
+                    if ln.startswith("  ")))
+    print(f"  backend {r0['backend']} ({'ranks share the card: each rank time-shares it, so '
+                                          'these are not dp speeds' if r0['backend'] == 'gloo'
+                                          else 'a card a rank'})")
+    print(f"  dp={MP} lora, 24 layers, bf16, B={MP_B} (rows {MP_B // MP} a rank, token counts "
+          f"apart), T={MP_T}: losses {[round(s['loss'], 5) for s in r0['dp_lora']['steps']]} "
+          f"(single-process {r0['dp_lora']['single_loss']:.5f}); launches a rank over "
+          f"{MP_LORA_STEPS} steps { {k: r0['dp_lora']['launches'][k] for k in MP_KERNELS} }")
+    print(f"  reading dp lora, {smi}: {mp_readings('dp lora', [r['dp_lora'] for r in res])}")
+    f = r0["dp_full"]
+    print(f"  dp={MP} full, {MP_FULL_LAYERS} layers, fp32, ZeRO AdamW: gradients {f['err']:.3e} x "
+          f"max from the single-process kernel route's sum over the same halves of the rows "
+          f"(limit {MP_FULL_REL:g}); from its whole-batch gradients {f['whole']:.3e} (the halves' "
+          f"sum itself {f['halves_whole']:.3e}: seeded layers amplify the GEMMs' other M); Adam "
+          f"moments a rank "
+          f"{[round(r['dp_full']['moment_bytes'] / 2**30, 3) for r in res]} GiB against "
+          f"{f['single_moment_bytes'] / 2**30:.3f} GiB single-process")
+    check(all(r["dp_full"]["moment_bytes"] <= -(-r0["dp_full"]["single_moment_bytes"] // MP)
+              for r in res), "a dp rank holds more than its share of the Adam moments")
+    print(f"  reading dp full, {smi}: {mp_readings('dp full', [r['dp_full'] for r in res])}")
+    for kind in ("lora", "full"):
+        print(f"  reading tp {kind}, {smi}: {mp_readings('tp', [r[f'tp_{kind}'] for r in res])}")
+    print(f"  pp={MP}, n_micro={MP_N_MICRO}: stage losses "
+          f"{[round(r['pp']['steps'][0]['loss'], 5) for r in res]} (single-process, no L2Wrap, "
+          f"{r0['pp']['single_loss']:.5f}); launches a stage "
+          f"{[{k: r['pp']['launches'][k] for k in MP_KERNELS} for r in res]}")
+    print(f"  reading pp, {smi}: {mp_readings('pp', [r['pp'] for r in res])}")
+    print(f"  each rank's seconds by part: {[r['seconds'] for r in res]}")
+
+    # the CLIs against the single-process CLI runs (their init: the LoRA
+    # adapter of --seed 0, the checkpoint's weights)
+    print(f"  python -m rwkv_lm_ext_tpu_torch.train.cli sft --dtype float32, {MP_CLI_LAYERS} layers "
+          f"at full width, {MP_CLI_STEPS} steps: --dp {MP} and --tp {MP} (lora) and --pp {MP} "
+          f"--n-micro {MP_N_MICRO} (full) together, beside the single-process runs in this "
+          f"process, {cli_wall:.1f} s in all (beside the ranks' tp and pp parts)")
+    model, _ = load_rwkv_checkpoint(str(d / "cut.pth"), device=DEV, dtype="float32")
+    init = lora_state_dict(apply_lora(model, LoraConfig(r=8, alpha=32.0), init_lora_params(
+        model, LoraConfig(r=8, alpha=32.0), torch.Generator(device=DEV).manual_seed(0))))
+    del model
+    lora_pth = f"lora-step{MP_CLI_STEPS}.pth"
+    for mode in ("dp", "tp"):
+        cli_against_single(f"--{mode} {MP} (lora)", (d / f"{mode}.log").read_text(), cli["single"],
+                           d / mode / lora_pth, d / "single" / lora_pth, init)
+    del init
+    init = torch.load(d / "cut.pth", map_location=DEV, weights_only=True)
+    full_pth = f"model-step{MP_CLI_STEPS}.pth"
+    cli_against_single(f"--pp {MP} --n-micro {MP_N_MICRO} (full, against the single-process run "
+                       f"without L2Wrap)", (d / "pp.log").read_text(), cli["single_full"],
+                       d / "pp" / full_pth, d / "single_full" / full_pth, init)
+    del init
+    torch.cuda.empty_cache()
+
+
+def dp_tp_run() -> None:
+    """dp=2 x tp=2 LoRA on four ranks (phase 23's checks, the module
+    docstring): ``python3 -c "import chip_smoke; chip_smoke.dp_tp_run()"`` on
+    a host of four cards (NCCL), or of fewer (gloo, ranks sharing card 0)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    print("\n".join(smi))
+    _lib.library()
+    with tempfile.TemporaryDirectory() as tmp:
+        _, res = run_mp_ranks(Path(tmp), MP * MP)
+        print("\n".join(ln for ln in (Path(tmp) / "rank0.log").read_text().splitlines()
+                        if ln.startswith("  ")))
+    r0 = res[0]
+    print(f"  dp={MP} x tp={MP} lora, 24 layers, fp32, B={MP_B}, T={MP_T}, backend "
+          f"{r0['backend']}: losses {[round(x, 5) for x in r0['losses']]}; launches a rank "
+          f"{[{k: r['launches'][k] for k in MP_KERNELS} for r in res]}")
+    print(f"  reading dp x tp lora, {smi[0]}: {mp_readings('dp x tp', res)}")
+    print(f"  each rank's seconds: {[r['seconds'] for r in res]}")
+
+
 def main() -> None:
-    """With no arguments the whole check; with --merge-calibration only the
-    readings behind the merged-adapter budgets (merge_calibration)."""
-    if sys.argv[1:] not in ([], ["--merge-calibration"]):
-        sys.exit("usage: python3 chip_smoke.py [--merge-calibration]")
+    """With no arguments the whole check; with --readings the check and the
+    reading phases it leaves out (the module docstring); with
+    --merge-calibration only the readings behind the merged-adapter budgets
+    (merge_calibration)."""
+    if sys.argv[1:] not in ([], ["--readings"], ["--merge-calibration"]):
+        sys.exit("usage: python3 chip_smoke.py [--readings | --merge-calibration]")
+    global READINGS
     calibrate = sys.argv[1:] == ["--merge-calibration"]
+    readings = READINGS = sys.argv[1:] == ["--readings"]
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's kernels run only on an NVIDIA GPU")
     name = torch.cuda.get_device_name(0)
@@ -6492,19 +7376,27 @@ def main() -> None:
         return
 
     phase("phase 2: kernels vs their plain versions")
-    phase_card_rates()
-    kernels = phase_kernels()
-    kernels.update(phase_backward_kernels())
-    kernels.update(phase_wkv_kernels())
-    kernels.update(phase_fused_kernels())
-    kernels.update(phase_collect_kernel())
+    kernels, part_s = {}, {}
+    for part in (phase_card_rates, phase_kernels, phase_backward_kernels, phase_wkv_kernels,
+                 phase_fused_kernels, phase_collect_kernel):
+        t0 = time.perf_counter()
+        kernels.update(part() or {})
+        part_s[part.__name__] = round(time.perf_counter() - t0, 1)
+    print(f"  phase 2's seconds by part: {part_s}")
     torch.cuda.empty_cache()
 
     phase(f"phase 22: tensor-parallel serving, tp={TP} ranks on this host's card(s): the "
-          f"24-layer 1B6 in fp32 / bf16 / int8c, python -m rwkv_lm_ext_tpu_torch.serve.cli "
+          f"{TP_LAYERS}-layer 1B6 in fp32 / bf16 / int8c, python -m rwkv_lm_ext_tpu_torch.serve.cli "
           f"--tp {TP}")
     with tempfile.TemporaryDirectory() as tp_tmp:
         tp_launches = phase_tp(Path(tp_tmp), smi)
+    torch.cuda.empty_cache()
+
+    phase(f"phase 23: multi-process training, {MP} ranks on this host's card(s): dp (ZeRO "
+          f"AdamW), tp and GPipe pp at the 1B6 widths; python -m rwkv_lm_ext_tpu_torch.train.cli "
+          f"sft --dp {MP}")
+    with tempfile.TemporaryDirectory() as mp_tmp:
+        phase_multiprocess(Path(mp_tmp), smi)
     torch.cuda.empty_cache()
 
     phase("phase 3: synthetic RWKV-6-World-1B6, bf16, embeddings served over HTTP")
@@ -6545,6 +7437,8 @@ def main() -> None:
         server.start()
         server_q = CliServer(int8c_cli_args(path))
         server_q.start()
+        server_qs = serving_stack_server(path, files, quantized=True)
+        server_qs.start()
         phase("phase 15a: CUDA-graph decode blocks against eager blocks, bf16")
         phase_graph_blocks(model, "bf16")
         phase("phase 15b: the serving stack through the CLI (batcher, slot adapters, prefix "
@@ -6559,14 +7453,12 @@ def main() -> None:
 
         phase(f"phase 14b: fused decode, 24 layers, int8c, B={B}")
         fused_counts_q = phase_fused_decode(model_q, reference, prompt_q, "int8c", seed=19)
-        server = serving_stack_server(path, files, quantized=True)
-        server.start()
         phase("phase 15c: CUDA-graph decode blocks against eager blocks, int8c")
         phase_graph_blocks(model_q, "int8c")
         phase("phase 15d: the serving stack through the CLI, int8c")
         full = load_state_dict_into(RWKV(rwkv6_1b6(dtype="float32"), device=DEV), model.state_dict())
         serving["int8c"] = phase_serving_stack(path, files, model_q, "int8c", reference, full,
-                                               server=server)
+                                               server=server_qs)
         del reference, full
         for label, r in serving.items():
             print(f"  reading: the batcher through the CLI ({label}, {SERVE_SLOTS} slots, "
@@ -6574,51 +7466,60 @@ def main() -> None:
                   f"{SERVE_NEW} new tokens): {r['tok_s']:.1f} tok/s aggregate ({r['wall']:.2f} s) "
                   f"on {smi}")
 
-        phase("phase 6: serving readings (not benchmark cells)")
-        phase_throughput(model, cfg, "bf16", smi)
-        phase_decode_readings(model, "bf16", smi)
-        phase("phase 14c: decode-step ablation, bf16 (readings)")
-        # the spliced variants (step_attprep, step_ffnblk) are left out to
-        # keep the script inside its time limit (PERF.md §5 has their
-        # readings): call phase_decode_ablation(model, "bf16", smi) for all four
-        phase_decode_ablation(model, "bf16", smi, variants=("step", "step_fused"))
+        if readings:
+            phase("phase 6: serving readings (not benchmark cells)")
+            phase_throughput(model, cfg, "bf16", smi)
+            phase_decode_readings(model, "bf16", smi)
+            phase("phase 14c: decode-step ablation, bf16 (readings)")
+            # the spliced variants (step_attprep, step_ffnblk) are left out to
+            # keep the script inside its time limit (PERF.md §5 has their
+            # readings): call phase_decode_ablation(model, "bf16", smi) for all four
+            phase_decode_ablation(model, "bf16", smi, variants=("step", "step_fused"))
         phase(f"phase 21: speculative decoding, 24 layers, bf16: python -m "
               f"rwkv_lm_ext_tpu_torch.serve.cli --draft-layers {SPEC_DRAFT_LAYERS} | --draft, "
               f"SpeculativeEngine, the collect forward (B.15)")
         collect_launches = phase_speculative(model, path, tmp, smi)
         del model
-        # int8c's generate readings and its decode-step ablation (phase 14d)
-        # are left out to keep the script inside its time limit (PERF.md §5
-        # has earlier readings)
-        phase_throughput(model_q, cfg, "int8c", smi)
+        # int8c's decode-step ablation (phase 14d) is left out to keep the
+        # script inside its time limit (PERF.md §5 has earlier readings)
+        if readings:
+            phase_throughput(model_q, cfg, "int8c", smi)
         del model_q
         phase("phase 14e: the decode step on a transposed state, op-level comparison (readings)")
         bench_counts = phase_transposed_bench(smi)
         torch.cuda.empty_cache()
 
+        if readings:
+            phase(f"phase 8: LoRA train steps of the 24-layer model (B={TB}, T={T}, bf16)")
+            phase_train_readings(path, smi)
+
+        # the train.cli subprocesses of phases 9 and 12 run beside phases 7,
+        # 11 and 9 (checks, no reading)
+        print("  phases 9 and 12: their train.cli subprocesses start")
+        sft_clis = start_sft_clis(path, tmp)
+        mlm_clis = start_mlm_clis(path, tmp)
         phase(f"phase 7: training gradients, kernel route vs plain route (2 layers, full width, "
               f"B={TB}, T={T})")
         phase_train_grads(path)
-
-        phase(f"phase 8: LoRA train steps of the 24-layer model (B={TB}, T={T}, bf16)")
-        phase_train_readings(path, smi)
-
-        phase("phase 9: training through python -m rwkv_lm_ext_tpu_torch.train.cli sft")
-        train_counts = phase_train_cli(path, tmp)
 
         phase(f"phase 11: full-parameter mlm gradients over fp32 master weights, kernel route vs "
               f"plain route (2 layers, full width, B={TB}, T={T})")
         phase_mlm_grads(path)
 
+        phase("phase 9: training through python -m rwkv_lm_ext_tpu_torch.train.cli sft")
+        train_counts = phase_train_cli(path, tmp, sft_clis)
+
         phase("phase 12: training through python -m rwkv_lm_ext_tpu_torch.train.cli mlm | mae")
-        mlm_counts = phase_mlm_cli(path, tmp)
+        mlm_counts, fill_mask_server = phase_mlm_cli(path, tmp, mlm_clis)
 
         phase("phase 10b: /fill_mask through python -m rwkv_lm_ext_tpu_torch.serve.cli --encoder, "
               "on the encoder that phase 12 trained")
-        fill_mask_counts = phase_fill_mask(str(tmp / "mlm" / "encoder-step4.pth"), n_layer=4)
+        fill_mask_counts = phase_fill_mask(str(tmp / "mlm" / "encoder-step4.pth"), n_layer=4,
+                                           server=fill_mask_server)
 
-        phase("phase 13: encoder readings (not benchmark cells)")
-        phase_encoder_readings(path, smi)
+        if readings:
+            phase("phase 13: encoder readings (not benchmark cells)")
+            phase_encoder_readings(path, smi)
 
         phase(f"phase 16a: reranking and contrastive gradients, kernel route vs plain route (2 "
               f"layers, full width, B={TB}, T={T})")
@@ -6628,29 +7529,35 @@ def main() -> None:
         trained = phase_contrastive_cli(path, tmp)
         phase("phase 16c: /rerank through python -m rwkv_lm_ext_tpu_torch.serve.cli "
               "--cross-adapter, on the adapters that phase 16b trained")
-        rerank = phase_rerank(path, trained["out"])
-        phase("phase 16d: reranking and contrastive training readings (not benchmark cells)")
-        phase_contrastive_readings(path, rerank.pop("reranker"), smi)
+        rerank = phase_rerank(path, trained["out"], trained.pop("server"))
+        reranker = rerank.pop("reranker")
+        if readings:
+            phase("phase 16d: reranking and contrastive training readings (not benchmark cells)")
+            phase_contrastive_readings(path, reranker, smi)
+        del reranker
 
         phase(f"phase 17a: PEFT gradients, kernel route vs plain route (QLoRA int8c / int8 / nf4, TBPTT, "
               f"full, dots; 2 layers, full width, B={TB}, T={T})")
+        # phase 17b's train.cli subprocesses run beside phase 17a (checks, no reading)
+        peft_clis = start_peft_clis(path, tmp)
         phase_peft_grads(path)
         phase("phase 17b: python -m rwkv_lm_ext_tpu_torch.train.cli sft --train-type pissa | "
               "slot-lora | full --lisa-k | --chunk-ctx, --quant int8c | nf4; serve.cli --pissa-init")
-        phase_peft_cli(path, tmp)
-        phase("phase 17c: PEFT training readings (not benchmark cells)")
-        phase_peft_readings(path, smi)
+        phase_peft_cli(path, tmp, peft_clis)
+        if readings:
+            phase("phase 17c: PEFT training readings (not benchmark cells)")
+            phase_peft_readings(path, smi)
         torch.cuda.empty_cache()
 
         phase("phase 18a: B.14 (wkv4) against its plain version; K1 and B.9 on RWKV-5 decays")
         kernels.update(phase_wkv4_kernel(smi))
         phase_v5_kernels(smi)
-        phase("phase 18b: synthetic RWKV-5-World-1B5 (v5.2, 24 layers, bf16): embeddings, "
-              "generation, python -m rwkv_lm_ext_tpu_torch.serve.cli")
+        phase(f"phase 18b: synthetic RWKV-5-World-1B5 (v5.2, {FAMILY_SERVE_LAYERS} layers, bf16): "
+              "embeddings, generation, python -m rwkv_lm_ext_tpu_torch.serve.cli")
         phase_v5_serving(smi, tmp)
         torch.cuda.empty_cache()
-        phase("phase 18c: synthetic RWKV-4-World-1.5B (24 layers, bf16): logits, generation, the "
-              "batcher")
+        phase(f"phase 18c: synthetic RWKV-4-World-1.5B ({FAMILY_SERVE_LAYERS} layers, bf16): logits, "
+              "generation, the batcher")
         v4_launches = phase_v4_serving(smi)
         torch.cuda.empty_cache()
 

@@ -118,8 +118,9 @@ class ModelConfig:
 class TrainConfig:
     """Optimizer and schedule settings, the JAX TrainConfig's fields and
     defaults (rwkv_lm_ext_tpu/config.py:117-140). ``dp``/``tp`` and
-    ``shard_opt_state`` are kept for parity; the port trains on one device
-    so far. ``grad_checkpoint`` is a utils.remat spec (False, True, "dots"
+    ``shard_opt_state`` are kept for parity: the port's multi-process
+    training takes its ranks from the mesh (train/loop.py) and always
+    shards the moments over dp. ``grad_checkpoint`` is a utils.remat spec (False, True, "dots"
     or "dots_nobatch"); ``chunk_ctx`` > 0 makes TBPTT the default loss."""
 
     lr_init: float = 3e-4

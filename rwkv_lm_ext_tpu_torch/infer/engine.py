@@ -285,6 +285,9 @@ class GenerationEngine:
                  fused_prep: Optional[bool] = None, state_cache=None,
                  adapter_ids: Optional[Dict[str, int]] = None, mesh=None):
         refuse_chunk_dependent(model.cfg, "GenerationEngine")
+        if mesh is not None and mesh.dp > 1:
+            raise ValueError(f"serving takes dp = 1, not dp={mesh.dp}: replicas behind one "
+                             "server are not ported (ROADMAP A.12)")
         self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
         if self.mesh is not None:
             from rwkv_lm_ext_tpu_torch.parallel.tp import shard_model

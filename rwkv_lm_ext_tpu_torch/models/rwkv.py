@@ -232,6 +232,10 @@ class TimeMix(nn.Module):
         # RWKV.add_state_params
         self.register_parameter("time_state", None)
 
+    # tensor-parallel training (parallel.tp.shard_for_training): the
+    # conjugate collective before the column-parallel decay product
+    tp_copy = None
+
     def _maas(self) -> torch.Tensor:
         """(6, C) stacked [maa_x, maa_w, maa_k, maa_v, maa_r, maa_g]."""
         return torch.cat([
@@ -254,6 +258,8 @@ class TimeMix(nn.Module):
         g = F.silu(self.gate(xg, ops))
         # data-dependent decay in fp32: it feeds exp(-exp(w))
         ww = torch.tanh(xw.float() @ self.time_decay_w1.float())
+        if self.tp_copy is not None:
+            ww = self.tp_copy(ww)
         w = self.time_decay.float().reshape(-1) + ww @ self.time_decay_w2.float()
         return r, k, v, g, w, xln
 

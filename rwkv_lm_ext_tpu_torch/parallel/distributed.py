@@ -29,15 +29,26 @@ submitted, and refuses only that request (infer/continuous.py
 ``LockstepBatcherDriver``). Under NCCL the control messages go through a gloo
 group of their own, on host tensors.
 
-``make_hybrid_mesh`` and ``local_batch_to_global`` belong to multi-process
-training, which is not ported yet (ROADMAP A.12, training part).
+Training's half (JAX :78-110, :138-155): ``make_hybrid_mesh`` builds the
+(dp, tp) mesh over every process with JAX's guard that a tp group stays on
+one host (the ranks of a host are consecutive: process-major order), and
+``local_batch_to_global`` states the global batch: each rank's rows are its
+own slice of it, the global batch is the ranks' rows in rank order, and every
+rank must hold the same shape (it raises by name otherwise). The collectives
+below (``all_reduce``, ``broadcast``, ``all_gather_into``, ``isend`` /
+``recv``) stage card tensors through host memory under gloo and count
+themselves in ``STATS`` (calls and bytes), which the trainers read as
+"collectives a step".
 """
 from __future__ import annotations
 
 import datetime
 import json
 import os
-from typing import Optional
+import socket
+import sys
+import threading
+from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -47,6 +58,9 @@ COLLECTIVE_TIMEOUT_S = 300.0
 
 _control_group = None     # gloo group for broadcast_obj under NCCL
 _backend: Optional[str] = None
+
+# collectives issued by this process (the helpers below): calls and bytes
+STATS = {"calls": 0, "bytes": 0}
 
 
 def init_method(coordinator: str) -> str:
@@ -127,6 +141,14 @@ def rank_device(platform: str) -> torch.device:
     return torch.device("cuda", 0)
 
 
+def collective_device() -> torch.device:
+    """Where a small tensor made for a collective lives: this rank's card
+    under NCCL, else the CPU."""
+    if backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
 def process_count() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
@@ -144,6 +166,171 @@ def host_staged(t: torch.Tensor) -> bool:
     """Whether a collective on ``t`` goes through host memory: a card tensor
     under gloo."""
     return t.device.type == "cuda" and backend() == "gloo"
+
+
+def _count(t: torch.Tensor) -> None:
+    STATS["calls"] += 1
+    STATS["bytes"] += t.numel() * t.element_size()
+
+
+def all_reduce(t: torch.Tensor, group=None, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` reduced over ``group`` (None: every process), in place; returns
+    it. A card tensor under gloo goes through host memory."""
+    _count(t)
+    if host_staged(t):
+        h = t.cpu()
+        dist.all_reduce(h, op=op, group=group)
+        t.copy_(h)
+    else:
+        dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """``t`` of global rank ``src`` into ``t`` of every rank of ``group``."""
+    _count(t)
+    if host_staged(t):
+        h = t.cpu()
+        dist.broadcast(h, src=src, group=group)
+        t.copy_(h)
+    else:
+        dist.broadcast(t, src=src, group=group)
+    return t
+
+
+def all_gather_into(outs: List[torch.Tensor], t: torch.Tensor, group=None) -> None:
+    """Every rank's ``t`` into ``outs`` (one tensor a rank of ``group``, in
+    its rank order); ``outs`` may be views of one buffer."""
+    _count(t)
+    if host_staged(t):
+        parts = [torch.empty(o.shape, dtype=o.dtype) for o in outs]
+        dist.all_gather(parts, t.cpu(), group=group)
+        for o, h in zip(outs, parts):
+            o.copy_(h)
+    else:
+        dist.all_gather(outs, t.contiguous(), group=group)
+
+
+class _Sent:
+    """An ``isend`` in flight and the buffer it reads (kept alive until
+    ``wait``)."""
+
+    def __init__(self, work, buf: torch.Tensor):
+        self.work, self.buf = work, buf
+
+    def wait(self) -> None:
+        self.work.wait()
+        self.buf = None
+
+
+def isend(t: torch.Tensor, dst: int) -> _Sent:
+    """Start sending ``t`` to global rank ``dst``; ``wait()`` the handle
+    before ``t`` changes."""
+    _count(t)
+    src = t.cpu() if host_staged(t) else t.contiguous()
+    return _Sent(dist.isend(src, dst), src)
+
+
+def recv(t: torch.Tensor, src: int) -> torch.Tensor:
+    """Receive into ``t`` from global rank ``src``; returns ``t``."""
+    _count(t)
+    if host_staged(t):
+        h = torch.empty(t.shape, dtype=t.dtype)
+        dist.recv(h, src)
+        t.copy_(h)
+    else:
+        dist.recv(t, src)
+    return t
+
+
+def new_groups(blocks: List[List[int]]):
+    """This rank's group among ``blocks`` (lists of global ranks that
+    partition every process). Every rank creates every group, in the same
+    order (``torch.distributed.new_group`` is a collective of the whole
+    world); one block of every process is the world group itself."""
+    if len(blocks) == 1:
+        return dist.group.WORLD
+    mine = None
+    wait = datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S)
+    for ranks in blocks:
+        g = dist.new_group(ranks=list(ranks), timeout=wait)
+        if process_index() in ranks:
+            mine = g
+    return mine
+
+
+def host_names() -> List[str]:
+    """Every process's host name, in rank order."""
+    names = [None] * process_count()
+    dist.all_gather_object(names, socket.gethostname(), group=_control_group)
+    return names
+
+
+def check_on_one_host(blocks: List[List[int]], what: str) -> None:
+    """Raise, as JAX's meshes do, where a group of ``what`` (tp, pp) spans
+    hosts: its collectives would cross the slow links every step."""
+    if process_count() == 1:
+        return
+    hosts = host_names()
+    for i, ranks in enumerate(blocks):
+        seen = sorted({hosts[r] for r in ranks})
+        if len(seen) > 1:
+            raise RuntimeError(
+                f"{what} group {i} (ranks {list(ranks)}) spans hosts {seen}: start the ranks of "
+                f"one host consecutively (process-major order) so that each {what} group stays "
+                "on one host")
+
+
+def make_hybrid_mesh(dp: Optional[int] = None, tp: int = 1):
+    """The (dp, tp) training mesh over every process (JAX :78-110): dp
+    spans processes outermost, rank = d * tp + t, so a tp group is ``tp``
+    consecutive ranks and must stay on one host (``check_on_one_host``).
+    ``dp`` defaults to the processes over tp."""
+    from rwkv_lm_ext_tpu_torch.parallel.mesh import make_mesh
+
+    world = process_count()
+    dp = dp or world // tp
+    if dp * tp != world:
+        raise ValueError(f"dp*tp={dp * tp} must be the number of processes ({world}): the port "
+                         "runs one rank a process")
+    check_on_one_host([list(range(d * tp, (d + 1) * tp)) for d in range(dp)], "tp")
+    return make_mesh(dp=dp, tp=tp)
+
+
+def local_batch_to_global(batch: Dict[str, torch.Tensor], group, dp: int, *,
+                          counts: Optional[torch.Tensor] = None, row_axis: int = 0):
+    """The port's statement of the global batch (JAX :138-155): this
+    rank's ``batch`` holds its own rows of it, the global batch is the dp
+    ranks' rows in rank order. Checks that every rank of ``group`` (the dp
+    group) holds leaves of the same shapes, and raises by name otherwise;
+    sums ``counts`` (an int64 vector of per-rank token counts, or None) over
+    the ranks in the same collective. Returns (global rows along
+    ``row_axis``, the summed counts)."""
+    keys = sorted(batch)
+    rows = batch[keys[0]].shape[row_axis]
+    if dp == 1:
+        return rows, counts
+    shape = []
+    for k in keys:
+        dims = list(batch[k].shape)[:4]
+        shape += dims + [-1] * (4 - len(dims))
+    extra = (torch.zeros(0, dtype=torch.int64) if counts is None
+             else counts.reshape(-1).to("cpu", torch.int64))
+    mine = torch.cat([torch.tensor(shape, dtype=torch.int64), extra]).to(collective_device())
+    parts = [torch.empty_like(mine) for _ in range(dp)]
+    all_gather_into(parts, mine, group)
+    n = len(shape)
+    for r, part in enumerate(parts):
+        if not torch.equal(part[:n].cpu(), mine[:n].cpu()):
+            theirs = part[:n].cpu().reshape(len(keys), 4).tolist()
+            raise ValueError(
+                f"every rank must hold a batch of the same shape: dp rank {r} holds "
+                f"{dict(zip(keys, ([d for d in s if d >= 0] for s in theirs)))}, this rank "
+                f"{ {k: list(batch[k].shape) for k in keys} }")
+    total = None
+    if counts is not None:
+        total = torch.stack([p[n:] for p in parts]).sum(0).reshape(counts.shape).to(counts.device)
+    return rows * dp, total
 
 
 def broadcast_obj(obj=None):
@@ -174,3 +361,15 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _backend = _control_group = None
+
+
+def leave_within(seconds: float) -> None:
+    """``shutdown``, or exit the process at once (code 1) if leaving takes
+    more than ``seconds``: no rank outlives its command."""
+    leaving = threading.Thread(target=shutdown, daemon=True)
+    leaving.start()
+    leaving.join(seconds)
+    if leaving.is_alive():
+        print(f"rank could not leave its process group in {seconds:g} s; exiting",
+              file=sys.stderr, flush=True)
+        os._exit(1)

@@ -34,9 +34,15 @@ crosses a rank's boundary, else the packed leaf stays whole on every rank and
 each rank dequantizes it and keeps its slice.
 
 ``state_shardings``' counterpart is ``init_model_state`` on a rank's config
-(``local_config``): the WKV state of the rank's heads. ``make_mesh`` takes
-``dp=1`` only: a dp axis (the batch over replicas) is not ported (ROADMAP
-A.12).
+(``local_config``): the WKV state of the rank's heads.
+
+``make_mesh(dp, tp)`` is JAX's ``make_mesh`` (:25-32) over the processes:
+rank = d * tp + t, as JAX's (dp, tp) device array reshapes. A ``Mesh`` carries
+both of this rank's groups: ``group`` (its tp group: the tp ranks of its dp
+index) and ``dp_group`` (the dp ranks of its tp index); ``rank`` is the rank
+within the tp group, ``dp_rank`` within the dp group. Training takes any
+(dp, tp); serving takes dp = 1 and refuses more by name (serve.cli, the
+engine): a dp axis of replicas behind one server is not ported (ROADMAP A.12).
 """
 from __future__ import annotations
 
@@ -47,8 +53,10 @@ import torch
 import torch.distributed as dist
 
 from rwkv_lm_ext_tpu_torch.parallel.distributed import (
+    all_gather_into,
+    all_reduce,
     backend,
-    host_staged,
+    new_groups,
     process_count,
     process_index,
 )
@@ -58,14 +66,21 @@ COLUMN = ("receptance", "key", "value", "gate")   # att's column-parallel projec
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One tensor-parallel group: ``tp`` ranks, this process's ``rank``,
-    the process group (None at tp=1) and its backend."""
+    """A (dp, tp) mesh as this process sees it: ``rank`` within its tp
+    ``group`` (None at tp=1), ``dp_rank`` within its ``dp_group`` (None at
+    dp=1), and the backend."""
 
     dp: int
     tp: int
     rank: int
     group: object = None
     backend: Optional[str] = None
+    dp_rank: int = 0
+    dp_group: object = None
+
+    # a (dp, tp) mesh has no pipeline axis (parallel.pipeline.PipeMesh's
+    # ``tp`` is 1 likewise), so that a trainer reads either kind alike
+    pp = 1
 
     @property
     def graph_capture(self) -> bool:
@@ -77,37 +92,33 @@ class Mesh:
         return {"tp": self.tp, "rank": self.rank, "backend": self.backend or "none"}
 
     def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
-        """``t`` reduced over the ranks, in place; returns it."""
-        if host_staged(t):
-            h = t.cpu()
-            dist.all_reduce(h, op=op, group=self.group)
-            t.copy_(h)
-        else:
-            dist.all_reduce(t, op=op, group=self.group)
-        return t
+        """``t`` reduced over the tp ranks, in place; returns it."""
+        return all_reduce(t, self.group, op)
 
     def all_gather_last(self, t: torch.Tensor) -> torch.Tensor:
-        """The ranks' ``t`` joined along the last axis, in rank order."""
-        src = t.cpu() if host_staged(t) else t.contiguous()
-        parts = [torch.empty_like(src) for _ in range(self.tp)]
-        dist.all_gather(parts, src, group=self.group)
-        return torch.cat(parts, -1).to(t.device)
+        """The tp ranks' ``t`` joined along the last axis, in rank order."""
+        parts = [torch.empty_like(t) for _ in range(self.tp)]
+        all_gather_into(parts, t, self.group)
+        return torch.cat(parts, -1)
 
 
 def make_mesh(dp: int = 1, tp: Optional[int] = None) -> Mesh:
-    """The serving mesh: ``dp=1`` (a dp axis is refused by name) and ``tp``
-    ranks, every process of the group (default: the group's size)."""
-    if dp != 1:
-        raise ValueError(f"make_mesh: dp={dp} is not ported; serving takes dp=1 (a data-parallel "
-                         "axis comes with the training slice, ROADMAP A.12)")
+    """The (dp, tp) mesh over every process of the group: rank = d * tp + t
+    (module docstring); ``tp`` defaults to the processes over dp. Every
+    process must call it, in the same order as its other group calls."""
     world = process_count()
-    tp = world if tp is None else tp
-    if tp != world:
-        raise ValueError(f"make_mesh: tp={tp} must be the number of processes ({world}): one "
-                         "tensor-parallel group spans them all")
-    if tp == 1:
+    tp = world // dp if tp is None else tp
+    if dp * tp != world:
+        raise ValueError(f"make_mesh: dp*tp={dp * tp} must be the number of processes ({world}): "
+                         "the port runs one rank a process")
+    if world == 1:
         return Mesh(dp=1, tp=1, rank=0)
-    return Mesh(dp=1, tp=tp, rank=process_index(), group=dist.group.WORLD, backend=backend())
+    me = process_index()
+    tp_blocks = [list(range(d * tp, (d + 1) * tp)) for d in range(dp)]
+    tp_group = new_groups(tp_blocks) if tp > 1 else None
+    dp_group = new_groups([list(range(t, world, tp)) for t in range(tp)]) if dp > 1 else None
+    return Mesh(dp=dp, tp=tp, rank=me % tp, group=tp_group, backend=backend(), dp_rank=me // tp,
+                dp_group=dp_group)
 
 
 def _parts(key: str) -> Tuple[Optional[str], Optional[str]]:

@@ -37,13 +37,40 @@ single-process int8c codes and products bit for bit. int8, nf4 and fp4
 dequantize on use; a 4-bit leaf whose blocks would cross a rank's boundary
 stays whole and is sliced after dequantizing (``SlicedLinear``).
 
-Serving only: the collectives have no backward. Refused by name: RWKV-4 (one
-head of width C: nothing to split), the legacy options, slot-LoRA and
-unmerged LoRA projections, and widths that do not divide by tp.
+``shard_model`` serves: its collectives run forward only. Refused by name:
+RWKV-4 (one head of width C: nothing to split), the legacy options, slot-LoRA
+and unmerged LoRA projections, and widths that do not divide by tp.
+
+Training (``shard_for_training``) cuts the same layout and puts Megatron's
+conjugate pair of collectives into the model by hooks, so that no module is
+renamed:
+
+- before each column-parallel projection (att receptance / key / value /
+  gate, ffn key, the head) and before ``time_decay_w2`` (its product is
+  column-parallel too), ``copy_to_tp``: the identity forward, an all-reduce
+  (sum over tp) of the input's gradient backward;
+- after each row-parallel one (att output, ffn value), ``reduce_from_tp``:
+  the all-reduce forward (in fp32, rounded once), the identity backward;
+- after the head, ``gather_from_tp``: the all-gather of the logits forward,
+  the rank's slice of their gradient backward.
+
+So K2 (whole on every rank), its backward B.5, the LayerNorms, ``emb``,
+``time_maa_*``, ``time_decay_w1`` and ``ffn.receptance`` see the same inputs
+and get the same, whole gradients on every rank. Unmerged (or merged) LoRA
+under tp: a column-parallel projection keeps A whole and cuts B along its
+output, a row-parallel one cuts A along its input and adds its partial
+low-rank product to the base's partial product before the one all-reduce.
+The whole factor beside a cut one (A of a column-parallel projection, B of a
+row-parallel one) gets a partial gradient on each rank: it is marked
+``tp_partial`` and the optimizer sums it over tp (train/optim.py). Every cut
+parameter carries ``tp_axis``; ``whole_state_dict`` gathers them back for
+the files that rank 0 writes. Quantized bases and slot-LoRA are refused under
+tp training by name (ROADMAP A.12).
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -51,7 +78,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from rwkv_lm_ext_tpu_torch.adapters.quant import QuantLinear, int8_product
-from rwkv_lm_ext_tpu_torch.models.rwkv import KERNEL_OPS, Linear, Ops
+from rwkv_lm_ext_tpu_torch.models.rwkv import KERNEL_OPS, Linear, Ops, TimeMix
+from rwkv_lm_ext_tpu_torch.parallel.distributed import all_gather_into
 from rwkv_lm_ext_tpu_torch.parallel.mesh import COLUMN, Mesh, local_config, quant_split
 
 
@@ -220,3 +248,167 @@ def shard_model(model, mesh: Mesh):
     model.cfg = local
     model.tp_mesh = mesh
     return model
+
+
+# ---------------------------------------------------------------------------
+# training: the differentiable collectives and the rank's trainable part
+# ---------------------------------------------------------------------------
+
+def _reduced(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """A copy of ``t`` summed over the tp ranks in fp32, in ``t``'s dtype."""
+    out = t.float().clone() if t.dtype == torch.float32 else t.float()
+    return mesh.all_reduce(out.contiguous()).to(t.dtype)
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduced(g, ctx.mesh), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, mesh):
+        return _reduced(y, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, mesh):
+        ctx.mesh, ctx.n = mesh, y.shape[-1]
+        return mesh.all_gather_last(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, n = ctx.mesh.rank, ctx.n
+        return g[..., r * n:(r + 1) * n].contiguous(), None
+
+
+def copy_to_tp(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Identity forward; the input's gradient summed over tp backward."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _CopyToTP.apply(x, mesh)
+    return x
+
+
+def reduce_from_tp(y: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The partial products summed over tp; the identity backward."""
+    return _ReduceFromTP.apply(y, mesh)
+
+
+def gather_from_tp(y: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The ranks' last-axis slices joined; the rank's slice of the gradient
+    backward."""
+    return _GatherFromTP.apply(y, mesh)
+
+
+def _cut_trainable(module: nn.Module, name: str, dim: int, mesh: Mesh) -> None:
+    """Replace parameter ``name`` by the rank's slice along ``dim``, keeping
+    whether it trains, and mark it ``tp_axis``."""
+    p = getattr(module, name, None)
+    if p is None:
+        return
+    cut = nn.Parameter(_cut(p.data, dim, mesh.tp, mesh.rank), requires_grad=p.requires_grad)
+    cut.tp_axis = dim
+    setattr(module, name, cut)
+
+
+def _mark_partial(p: nn.Parameter) -> None:
+    p.tp_partial = True
+
+
+def _cut_train_projection(proj: nn.Module, axis: int, mesh: Mesh) -> None:
+    """Cut a dense projection, or a LoRA one (the module docstring's
+    layout), in place for training."""
+    from rwkv_lm_ext_tpu_torch.adapters.lora import LoraLinear
+
+    if type(proj) is Linear:
+        _cut_trainable(proj, "weight", axis, mesh)
+        return
+    if isinstance(proj, LoraLinear) and type(proj.base) is Linear:
+        _cut_trainable(proj.base, "weight", axis, mesh)
+        if axis == 0:      # column-parallel: B (r, out) by its output, A whole
+            _cut_trainable(proj, "lora_B", 1, mesh)
+            _mark_partial(proj.lora_A)
+        else:              # row-parallel: A (in, r) by its input, B whole
+            _cut_trainable(proj, "lora_A", 0, mesh)
+            _mark_partial(proj.lora_B)
+        return
+    raise ValueError(f"tensor-parallel training takes dense projections or LoRA over a dense "
+                     f"base, not {type(proj).__name__}"
+                     + (f" over {type(proj.base).__name__}" if hasattr(proj, "base") else "")
+                     + " (quantized bases and slot-LoRA are not ported under tp, ROADMAP A.12)")
+
+
+def _column(parent: nn.Module, name: str, mesh: Mesh) -> nn.Module:
+    proj = getattr(parent, name)
+    _cut_train_projection(proj, 0, mesh)
+    proj.register_forward_pre_hook(lambda m, args: (copy_to_tp(args[0], mesh),) + args[1:])
+    return proj
+
+
+def _row(parent: nn.Module, name: str, mesh: Mesh) -> None:
+    proj = getattr(parent, name)
+    _cut_train_projection(proj, 1, mesh)
+    proj.register_forward_hook(lambda m, args, out: reduce_from_tp(out, mesh))
+
+
+def shard_for_training(model, mesh: Mesh):
+    """Cut ``model`` (a whole RWKV-5/6 on the rank's device, dense or with
+    LoRA over a dense base, its trainable parameters already chosen) into
+    this rank's trainable part in place, with the conjugate collectives
+    (module docstring); returns it. At tp=1 it is left as it is."""
+    if mesh.tp == 1 or is_sharded(model):
+        return model
+    cfg = model.cfg
+    check_shardable(cfg, mesh.tp)
+    local = local_config(cfg, mesh.tp)
+    for block in model.blocks:
+        att, ffn = block.att, block.ffn
+        for name in COLUMN:
+            if getattr(att, name, None) is not None:
+                _column(att, name, mesh)
+        _row(att, "output", mesh)
+        decay_axis = att.time_decay.dim() - 1 if att.time_decay.dim() == 3 else 0
+        _cut_trainable(att, "time_decay", decay_axis, mesh)
+        if isinstance(att, TimeMix):
+            _cut_trainable(att, "time_decay_w2", 1, mesh)
+            att.tp_copy = functools.partial(copy_to_tp, mesh=mesh)
+        _cut_trainable(att, "time_faaaa", 0, mesh)
+        _cut_trainable(att, "time_state", 0, mesh)
+        _cut_trainable(att.ln_x, "weight", 0, mesh)
+        _cut_trainable(att.ln_x, "bias", 0, mesh)
+        att.cfg = local
+        _column(ffn, "key", mesh)
+        _row(ffn, "value", mesh)
+    head = _column(model, "head", mesh)
+    head.register_forward_hook(lambda m, args, out: gather_from_tp(out, mesh))
+    model.cfg = local
+    model.tp_mesh = mesh
+    return model
+
+
+def whole_state_dict(model, mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+    """The model's parameters whole, detached, on the CPU, under the whole
+    model's names: the ``tp_axis`` ones gathered over the tp ranks (a
+    collective: every rank calls it, rank 0 writes the files)."""
+    out = {}
+    for name, p in model.state_dict(keep_vars=True).items():
+        axis = getattr(p, "tp_axis", None)
+        t = p.detach()
+        if axis is not None and mesh is not None and mesh.tp > 1:
+            src = t.contiguous()
+            parts = [torch.empty_like(src) for _ in range(mesh.tp)]
+            all_gather_into(parts, src, mesh.group)
+            t = torch.cat(parts, axis)
+        out[name] = t.cpu()
+    return out

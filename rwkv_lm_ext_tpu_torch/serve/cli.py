@@ -89,7 +89,6 @@ import signal
 import subprocess
 import sys
 import tempfile
-import threading
 
 import torch
 
@@ -122,9 +121,9 @@ from rwkv_lm_ext_tpu_torch.infer.states_registry import StatesRegistry
 from rwkv_lm_ext_tpu_torch.parallel.distributed import (
     init_distributed,
     is_main_process,
+    leave_within,
     process_count,
     rank_device,
-    shutdown,
 )
 from rwkv_lm_ext_tpu_torch.parallel.mesh import make_mesh
 from rwkv_lm_ext_tpu_torch.parallel.tp import shard_model
@@ -409,13 +408,7 @@ def serve_multiprocess(args: argparse.Namespace, argv: list) -> None:
 def _leave_group() -> None:
     """Leave the process group, or exit at once if that takes more than
     TEARDOWN_S: no rank outlives its server."""
-    leaving = threading.Thread(target=shutdown, daemon=True)
-    leaving.start()
-    leaving.join(TEARDOWN_S)
-    if leaving.is_alive():
-        print(f"rank could not leave its process group in {TEARDOWN_S:g} s; exiting",
-              file=sys.stderr, flush=True)
-        os._exit(1)
+    leave_within(TEARDOWN_S)
 
 
 def _exit_on_signal(signum, frame):

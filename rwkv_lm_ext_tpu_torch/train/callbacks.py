@@ -28,7 +28,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from rwkv_lm_ext_tpu_torch.adapters.lora import lora_state_dict
+from rwkv_lm_ext_tpu_torch.adapters.lora import adapter_state_dict, lora_state_dict
 
 
 class MetricsLogger:
@@ -86,6 +86,42 @@ def save_model_checkpoint(model, path: str) -> None:
     the base checkpoint's flat layout; the RetroMAE decoder stays out."""
     torch.save({k: v.detach().float().contiguous().cpu() for k, v in model.state_dict().items()
                 if not k.startswith("onelayer_decoder.")}, path)
+
+
+def gather_model_state(model, mesh) -> Optional[Dict[str, torch.Tensor]]:
+    """The whole model's parameters on the CPU, on rank 0 of a tp or pp run
+    (None on the others; every rank calls it): tp slices gathered over the
+    tp ranks (parallel.tp.whole_state_dict), pipeline stages sent to the
+    first stage of dp index 0."""
+    import torch.distributed as dist
+
+    from rwkv_lm_ext_tpu_torch.parallel.tp import whole_state_dict
+
+    if getattr(mesh, "pp", 1) == 1:
+        return whole_state_dict(model, mesh)
+    if mesh.dp_rank != 0:
+        return None
+    mine = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    parts = [None] * mesh.pp if mesh.stage == 0 else None
+    dist.gather_object(mine, parts, dst=0, group=mesh.pp_group)
+    if mesh.stage != 0:
+        return None
+    return {k: v for part in parts for k, v in part.items()}
+
+
+def save_model_state(state: Dict[str, torch.Tensor], path: str) -> None:
+    """``save_model_checkpoint`` of a gathered state dict."""
+    torch.save({k: v.float().contiguous() for k, v in state.items()
+                if not k.startswith("onelayer_decoder.")}, path)
+
+
+def save_lora_state(state: Dict[str, torch.Tensor], path: str) -> None:
+    """``save_lora_checkpoint`` of a gathered state dict: its
+    ``<path>.lora_A`` (in, r) / ``.lora_B`` (r, out) pairs in the reference
+    layout."""
+    paths = [k[:-len(".lora_A")] for k in state if k.endswith(".lora_A")]
+    torch.save(adapter_state_dict({p: {"A": state[f"{p}.lora_A"], "B": state[f"{p}.lora_B"]}
+                                   for p in paths}), path)
 
 
 @dataclasses.dataclass

@@ -31,15 +31,43 @@ As in JAX, ``--chunk-ctx`` and ``--lisa-k`` act under ``--train-type full``
 only and ``--quant`` under lora, pissa and slot-lora; the other train types
 ignore them.
 
+Multi-process training (``sft`` only), JAX's flags with JAX's meaning:
+``--dp N`` (0, the default: every card of this host, one rank each; 1 on the
+CPU or a one-card host), ``--tp N`` (head-parallel, parallel/tp.py), ``--pp N
+--n-micro M`` (GPipe, parallel/pipeline.py), ``--coordinator host:port``
+(or ``file://…``) with ``--num-processes`` and ``--process-id`` (or
+RWKV_COORDINATOR / RWKV_NUM_PROCESSES / RWKV_PROCESS_ID with ``RWKV_DIST=1``).
+torch.distributed runs one rank a process: started alone, ``--dp/--tp/--pp``
+make this process rank 0, which starts the other ranks of this host (the
+same arguments with a ``file://`` rendezvous in a fresh directory), and a rank
+that fails makes the command exit non-zero within ``WORKER_EXIT_S``; across
+hosts the same command runs on every host with ``--coordinator``. The
+backend is NCCL where every rank has a card of its own, gloo where ranks
+share a card or on the CPU (printed at start-up). The batch follows JAX: on
+one host ``--micro-bsz`` makes the global batch (each bucket's batch must
+divide by dp: a rank trains its rows, ``parallel.local_batch_to_global``),
+under ``--coordinator`` each process's sampler shard contributes
+``--micro-bsz`` rows (the bucket sampler's ``world_size`` / ``rank`` over the
+dp ranks). The step is the global batch's (train/loop.py), AdamW's moments
+are sharded over dp (train/optim.py ``ShardedOptimizer``), rank 0 alone logs
+and writes the .pth files, and ``--save-train-state`` writes one file a rank
+plus a manifest (checkpoint/orbax_io.py), resumed at the same dp / tp / pp.
+Under ``--dp``: every ``sft`` train type; under ``--tp``: ``full`` and
+``lora`` (dense base); under ``--pp``: ``full`` (with JAX's asserts: no
+``--accumulate-grad-batches``, ``--lisa-k`` or ``--chunk-ctx``, the batch
+divisible by ``--n-micro``; the pipeline loss has no L2Wrap, as JAX's).
+
 Refused, by argparse (exit 2), and why:
 - ``--stack-layers`` and ``--bwd-transpose``: TPU layout workarounds (the
   scan-over-layers tree for XLA's compile time; a stored W^T for a transpose
   XLA materialized), with no counterpart in torch (ROADMAP "Not to port");
-- ``--dp``, ``--tp``, ``--pp``, ``--n-micro`` and ``--coordinator`` (and
-  ``--num-processes``, ``--process-id``): multi-process training (dp with a
-  ZeRO-sharded optimizer, GPipe pp, sequence parallelism), the training part
-  of ROADMAP A.12; the serving part (rwkv_lm_ext_tpu_torch/parallel,
-  ``serve.cli --tp``) is ported;
+- every command but ``sft`` under ``--dp``, ``--tp`` or ``--pp`` above 1 or
+  ``--coordinator``: their losses couple the rows of the global batch
+  (in-batch negatives, which JAX's GSPMD computes over the global array), so
+  they need an autograd all-gather of the pooled embeddings (ROADMAP A.12);
+  the other multi-process combinations outside the scope above (``--tp`` and
+  ``--pp`` together, ``--pp`` beside a train type but ``full``, ``--tp``
+  under ``--quant`` or a train type but ``full`` and ``lora``);
 - ``--wandb-project``: it needs a network service;
 - ``--quant`` under ``mlm``, ``mae``, ``bi-encoder`` and ``cross-encoder``:
   the JAX ``bi-encoder`` and ``cross-encoder`` accept it and never read it
@@ -106,8 +134,12 @@ import argparse
 import functools
 import json
 import os
+import shutil
 import subprocess
+import sys
+import tempfile
 import threading
+import time
 from typing import Callable, Iterator
 
 import numpy as np
@@ -130,7 +162,11 @@ from rwkv_lm_ext_tpu_torch.adapters.slot_lora import (
     split_slot_stacks,
 )
 from rwkv_lm_ext_tpu_torch.checkpoint.convert import load_rwkv_checkpoint
-from rwkv_lm_ext_tpu_torch.checkpoint.orbax_io import load_checkpoint, save_checkpoint
+from rwkv_lm_ext_tpu_torch.checkpoint.orbax_io import (
+    load_rank_checkpoint,
+    save_checkpoint,
+    save_rank_checkpoint,
+)
 from rwkv_lm_ext_tpu_torch.config import TrainConfig
 from rwkv_lm_ext_tpu_torch.data.buckets import BucketBatchSampler, LengthBucketedDataset
 from rwkv_lm_ext_tpu_torch.config import EMB_ID
@@ -154,11 +190,25 @@ from rwkv_lm_ext_tpu_torch.models.heads import (
     init_embedding_head,
     init_layer_norm,
 )
+from rwkv_lm_ext_tpu_torch.parallel.distributed import (
+    broadcast,
+    init_distributed,
+    leave_within,
+    make_hybrid_mesh,
+    process_count,
+    process_index,
+    rank_device,
+)
+from rwkv_lm_ext_tpu_torch.parallel.pipeline import make_pp_mesh
+from rwkv_lm_ext_tpu_torch.parallel.tp import shard_for_training
 from rwkv_lm_ext_tpu_torch.train.callbacks import (
     LisaSchedule,
     MetricsLogger,
+    gather_model_state,
     save_lora_checkpoint,
+    save_lora_state,
     save_model_checkpoint,
+    save_model_state,
     save_score_head,
     save_states_checkpoint,
 )
@@ -169,6 +219,7 @@ from rwkv_lm_ext_tpu_torch.train.loop import (
     encoder_crossencoder_loss_fn,
     instructor_loss_fn,
     mae_loss_fn,
+    make_pp_train_step,
     make_train_step,
     mlm_loss_fn,
     sft_loss_fn,
@@ -220,6 +271,40 @@ def _common_args(p: argparse.ArgumentParser) -> None:
                    help="a train_state.pth to resume from (pair it with --skip-steps)")
     p.add_argument("--platform", default="cuda",
                    help="torch device: cuda (default) or cpu (the kernels' plain versions)")
+    p.add_argument("--dtype", default=None, choices=["bfloat16", "float32"],
+                   help="compute dtype (default: the checkpoint's, bf16); the trained "
+                        "parameters stay fp32 masters where the command keeps them")
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel ranks (sft): 0 = every card of this host, one rank each "
+                        "(1 on the CPU)")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks (sft full / lora)")
+    p.add_argument("--pp", type=int, default=1, help="pipeline stages (sft full)")
+    p.add_argument("--n-micro", type=int, default=4,
+                   help="GPipe micro-batches a step when --pp > 1")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port (or file://path) of the rendezvous, for a run across hosts")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+
+
+# seconds rank 0 waits for the ranks it started to finish after it has, and
+# the bound on leaving the process group
+WORKER_EXIT_S = 60.0
+TEARDOWN_S = 10.0
+# set for the ranks that rank 0 starts on its host: they take their rows of
+# the global batch, as rank 0 does, not a sampler shard
+SPLIT_ENV = "RWKV_TRAIN_SPLIT_ROWS"
+
+
+def _mesh(args):
+    """This process's mesh in a multi-process run (a parallel.mesh.Mesh or a
+    parallel.pipeline.PipeMesh, both with ``dp``, ``dp_rank``, ``tp`` and
+    ``pp``), or None in a single-process one."""
+    return getattr(args, "mesh", None)
+
+
+def _main_process(args) -> bool:
+    return _mesh(args) is None or process_index() == 0
 
 
 def _jsonl(path: str):
@@ -236,11 +321,34 @@ def _sizes(args, ds, least: int = 1) -> dict:
 
 def _bucketed(args, ds, sizes, collate) -> Callable[[int], Iterator]:
     """batches(epoch) -> the collated batches of one epoch, the buckets'
-    orders drawn from seed + epoch."""
+    orders drawn from seed + epoch. A dp rank (``args.mesh``) takes its
+    sampler shard (``args.shard``: --coordinator) or its rows of the global
+    batch (one host: every bucket's batch must divide by dp, and under --pp a
+    rank's rows by --n-micro)."""
+    mesh = _mesh(args)
+    shard = mesh is not None and args.shard
+    world, rank = (mesh.dp, mesh.dp_rank) if shard else (1, 0)
+    split = mesh is not None and not shard and mesh.dp > 1
+    if mesh is not None:
+        used = {b.fixed_len for b in ds.buckets if b.examples}
+        for fixed_len, n in sorted((k, v) for k, v in sizes.items() if k in used):
+            if split and n % mesh.dp:
+                raise SystemExit(
+                    f"--micro-bsz {args.micro_bsz}: the {fixed_len}-token bucket's batch of {n} "
+                    f"rows (micro_bsz * 64 // length) does not divide over dp={mesh.dp}")
+            local = n // mesh.dp if split else n
+            if mesh.pp > 1 and local % args.n_micro:
+                raise SystemExit(f"--n-micro {args.n_micro}: a rank's batch of {local} rows "
+                                 f"(bucket {fixed_len}) does not divide into micro-batches")
+
     def batches(epoch: int):
-        sampler = BucketBatchSampler(ds, sizes, seed=args.seed + epoch)
+        sampler = BucketBatchSampler(ds, sizes, seed=args.seed + epoch, world_size=world,
+                                     rank=rank)
         for fixed_len, examples in sampler.batches():
-            yield collate(examples, fixed_len)
+            batch = collate(examples, fixed_len)
+            if split:
+                batch = {k: np.array_split(v, mesh.dp)[mesh.dp_rank] for k, v in batch.items()}
+            yield batch
 
     return batches
 
@@ -297,10 +405,12 @@ def _wrap_save(args, save_fn, optimizer):
     last upload before it exits, where JAX's drops it."""
     def wrapped(step):
         save_fn(step)
-        if args.save_train_state:
-            save_checkpoint(os.path.join(args.output_dir, "train_state.pth"),
-                            optimizer.state_dict())
-        if args.upload_cmd:
+        path = os.path.join(args.output_dir, "train_state.pth")
+        if args.save_train_state and _mesh(args) is None:
+            save_checkpoint(path, optimizer.state_dict())
+        elif args.save_train_state:
+            save_rank_checkpoint(path, optimizer.state_dict(), process_index(), process_count())
+        if args.upload_cmd and _main_process(args):
             cmd = args.upload_cmd.format(dir=args.output_dir)
             threading.Thread(target=subprocess.run, args=(cmd,),
                              kwargs={"shell": True, "check": False}).start()
@@ -315,11 +425,16 @@ def _run_loop(args, tc: TrainConfig, step_fn, batches, save_fn, device, eval_fn=
     (where the command has it) and at each epoch's end.
     --resume-train-state restores ``step_fn.optimizer`` first."""
     os.makedirs(args.output_dir, exist_ok=True)
+    mesh = _mesh(args)
+    main = _main_process(args)
     if args.resume_train_state:
-        step_fn.optimizer.load_state_dict(load_checkpoint(args.resume_train_state))
+        step_fn.optimizer.load_state_dict(
+            load_rank_checkpoint(args.resume_train_state, process_index(), process_count()))
     save_fn = _wrap_save(args, save_fn, step_fn.optimizer)
     schedule = make_schedule(tc)
-    logger = MetricsLogger(args.output_dir)
+    logger = MetricsLogger(args.output_dir if main else None)
+    # a step trains the global batch: dp ranks' rows alike
+    row_share = mesh.dp if mesh is not None else 1
     step = steps = tokens = 0   # steps and tokens since the last log
     for epoch in range(args.epochs):
         epoch_losses = []
@@ -337,8 +452,8 @@ def _run_loop(args, tc: TrainConfig, step_fn, batches, save_fn, device, eval_fn=
                      for k, v in batch.items()}
             metrics = step_fn(batch)
             epoch_losses.append(float(metrics["loss"]))
-            steps, tokens = steps + 1, tokens + _tokens(batch)
-            if step % args.log_every == 0:
+            steps, tokens = steps + 1, tokens + _tokens(batch) * row_share
+            if step % args.log_every == 0 and main:
                 m = logger.on_step(step, metrics, schedule(step), steps=steps, tokens=tokens)
                 steps = tokens = 0
                 print(f"step {step}: {json.dumps(m)}", flush=True)
@@ -391,9 +506,12 @@ def _refusal(cfg, command: str, train_type: str = ""):
     return None
 
 
-def _load_checkpoint(path: str, command: str, train_type: str = "", **kw):
-    """``load_rwkv_checkpoint``, refusing by name (``_refusal``) what the JAX
+def _load_checkpoint(path: str, command: str, train_type: str = "", *, dtype=None, **kw):
+    """``load_rwkv_checkpoint`` (``dtype``: the compute dtype, --dtype, or the
+    checkpoint's default), refusing by name (``_refusal``) what the JAX
     command cannot train."""
+    if dtype is not None:
+        kw["dtype"] = dtype
     model, cfg = load_rwkv_checkpoint(path, **kw)
     why = _refusal(cfg, command, train_type)
     if why:
@@ -405,7 +523,8 @@ def _full_model(args):
     """(device, model, cfg) for a command that trains every parameter: fp32
     master weights, cast to the compute dtype at each use."""
     device = resolve_device(args.platform)
-    model, cfg = _load_checkpoint(args.model, args.command, device=device, param_dtype="float32")
+    model, cfg = _load_checkpoint(args.model, args.command, dtype=args.dtype, device=device,
+                                  param_dtype="float32")
     return device, model, cfg
 
 
@@ -424,7 +543,7 @@ def _lora_model(args):
     """(device, model, cfg, lc) with a fresh LoRA adapter (seed --seed)
     applied; only the adapter trains."""
     device = resolve_device(args.platform)
-    model, cfg = _load_checkpoint(args.model, args.command, device=device)
+    model, cfg = _load_checkpoint(args.model, args.command, dtype=args.dtype, device=device)
     lc = LoraConfig(r=args.lora_r, alpha=args.lora_alpha)
     apply_lora(model, lc, init_lora_params(model, lc, torch.Generator(device).manual_seed(args.seed)))
     apply_trainable_mask(model, trainable_mask(model, "lora"))
@@ -441,14 +560,24 @@ def _lora_sft(args, device, lc):
     if lc.pissa:
         # the SVD of the checkpoint's values, the fp32 residual kept as JAX
         # keeps it, cast at every use
-        model, _ = _load_checkpoint(args.model, "sft", device=device, param_dtype="float32")
+        model, _ = _load_checkpoint(args.model, "sft", dtype=args.dtype, device=device,
+                                    param_dtype="float32")
         adapter, _ = pissa_init(model, lc, gen)
-        os.makedirs(args.output_dir, exist_ok=True)
-        torch.save(adapter_state_dict(adapter), os.path.join(args.output_dir, "init_pissa.pth"))
+        mesh = _mesh(args)
+        if mesh is not None:
+            # every dp rank trains on rank 0's residual base (its adapter is
+            # the optimizer's to broadcast)
+            for path in adapter:
+                broadcast(model.get_submodule(path).weight.data, 0, mesh.dp_group)
+        if _main_process(args):
+            os.makedirs(args.output_dir, exist_ok=True)
+            torch.save(adapter_state_dict(adapter),
+                       os.path.join(args.output_dir, "init_pissa.pth"))
         if quant:
             quantize_model(model, quant)
     else:
-        model, _ = _load_checkpoint(args.model, "sft", device=device, quant=quant)
+        model, _ = _load_checkpoint(args.model, "sft", dtype=args.dtype, device=device,
+                                    quant=quant)
         adapter = init_lora_params(model, lc, gen)
     if args.peft_checkpoint:
         loaded = torch.load(args.peft_checkpoint, map_location=device, weights_only=True)
@@ -474,25 +603,57 @@ def _lisa_step(step_fn, model, args):
     return step
 
 
+def _save_whole(args, model, path_fn, writer) -> Callable[[int], None]:
+    """save_fn(step) of a multi-process run: every rank joins in gathering
+    the model's whole parameters (``gather_model_state``: tp slices, pipeline
+    stages), and rank 0 writes ``writer(state, path_fn(step))``."""
+    def save_fn(step):
+        state = gather_model_state(model, args.mesh)
+        if _main_process(args):
+            writer(state, path_fn(step))
+
+    return save_fn
+
+
+def _on_main(args, save_fn) -> Callable[[int], None]:
+    """save_fn for the replicated parameters of a dp run: rank 0 writes."""
+    if _mesh(args) is None:
+        return save_fn
+    return lambda step: save_fn(step) if _main_process(args) else None
+
+
 def cmd_sft(args) -> None:
-    device = resolve_device(args.platform)
+    mesh = _mesh(args)
+    device = resolve_device(args.platform) if mesh is None else rank_device(args.platform)
     tokenizer = WorldTokenizer(args.vocab)
     batches, task_names = _sft_batches(args, tokenizer, want_tasks=args.train_type == "slot-lora")
     tc = _train_config(args, batches)
     remat = tc.grad_checkpoint
     out = args.output_dir
+    whole = mesh is not None and (mesh.tp > 1 or mesh.pp > 1)
     if args.train_type == "full":
         # every parameter over fp32 masters; TBPTT when --chunk-ctx
-        model, cfg = _load_checkpoint(args.model, "sft", device=device, param_dtype="float32")
+        model, cfg = _load_checkpoint(args.model, "sft", dtype=args.dtype, device=device,
+                                      param_dtype="float32")
         apply_trainable_mask(model, trainable_mask(model, "full"))
-        step_fn = make_train_step(model, tc)
+        if mesh is not None and mesh.pp > 1:
+            step_fn = make_pp_train_step(model, tc, mesh, n_micro=args.n_micro)
+        else:
+            if mesh is not None:
+                shard_for_training(model, mesh)
+            step_fn = make_train_step(model, tc, mesh=mesh)
         if args.lisa_k > 0:
             step_fn = _lisa_step(step_fn, model, args)
 
         def save_fn(step):
             save_model_checkpoint(model, os.path.join(out, f"model-step{step}.pth"))
 
-        _run_loop(args, tc, step_fn, batches, save_fn, device)
+        if whole:
+            save_fn = _save_whole(args, model,
+                                  lambda step: os.path.join(out, f"model-step{step}.pth"),
+                                  save_model_state)
+        _run_loop(args, tc, step_fn, batches, save_fn if whole else _on_main(args, save_fn),
+                  device)
         return
     if args.train_type in ("lora", "pissa"):
         lc = LoraConfig(r=args.lora_r, alpha=args.lora_alpha, pissa=args.train_type == "pissa")
@@ -501,25 +662,32 @@ def cmd_sft(args) -> None:
 
         def save_fn(step):
             save_lora_checkpoint(model, os.path.join(out, f"lora-step{step}.pth"))
+
+        if whole:
+            save_fn = _save_whole(args, model,
+                                  lambda step: os.path.join(out, f"lora-step{step}.pth"),
+                                  save_lora_state)
     elif args.train_type == "slot-lora":
         # one adapter a task, trained jointly: each row routes to its task's
         # rows of the stacks (adapters.slot_lora)
         lc = LoraConfig(r=args.lora_r, alpha=args.lora_alpha)
         quant = None if args.quant == "none" else args.quant
-        model, _ = _load_checkpoint(args.model, "sft", device=device, quant=quant)
+        model, _ = _load_checkpoint(args.model, "sft", dtype=args.dtype, device=device,
+                                    quant=quant)
         stacks, name_to_id = init_slot_stacks(model, lc, task_names,
                                               torch.Generator(device).manual_seed(args.seed))
         apply_slot_stacks(model, stacks, torch.zeros(1, dtype=torch.int64, device=device), lc)
 
-        def loss_fn(model_, batch):
+        def loss_fn(model_, batch, counts=None):
             set_slot_idx(model_, batch["adapter_ids"])
-            return sft_loss_fn(model_, batch, remat=remat)
+            return sft_loss_fn(model_, batch, remat=remat, counts=counts)
 
         def save_fn(step):
             for name, adapter in split_slot_stacks(slot_stacks(model), name_to_id).items():
                 torch.save(adapter_state_dict(adapter), os.path.join(out, f"lora-{name}-step{step}.pth"))
     else:   # state / states: only the per-layer initial WKV states train
-        model, _ = _load_checkpoint(args.model, "sft", args.train_type, device=device)
+        model, _ = _load_checkpoint(args.model, "sft", args.train_type, dtype=args.dtype,
+                                    device=device)
         model.add_state_params()
         loss_fn = functools.partial(sft_loss_fn, remat=remat, use_state_params=True)
 
@@ -527,8 +695,11 @@ def cmd_sft(args) -> None:
             save_states_checkpoint(model, os.path.join(out, f"states-step{step}.pth"))
 
     apply_trainable_mask(model, trainable_mask(model, args.train_type))
-    step_fn = make_train_step(model, tc, loss_fn)
-    _run_loop(args, tc, step_fn, batches, save_fn, device)
+    if mesh is not None:
+        shard_for_training(model, mesh)
+    step_fn = make_train_step(model, tc, loss_fn, mesh=mesh)
+    _run_loop(args, tc, step_fn, batches, _on_main(args, save_fn) if not whole else save_fn,
+              device)
 
 
 def _text_batches(args, tokenizer, vocab_size: int, mae: bool) -> Callable[[int], Iterator]:
@@ -768,7 +939,133 @@ def cmd_encoder_crossencoder(args) -> None:
     _train_full(args, model, tc, loss_fn, batches, device, "encoder-cross")
 
 
+def _refuse_parallel(parser: argparse.ArgumentParser, args) -> None:
+    """Exit 2, by name, on a multi-process flag outside what is ported (the
+    module docstring); resolve --dp 0 (every card of this host)."""
+    multi = args.dp > 1 or args.tp > 1 or args.pp > 1 or args.coordinator is not None
+    if args.command != "sft":
+        if multi:
+            parser.error(f"multi-process training of {args.command} is not ported: its loss "
+                         "couples the rows of the global batch (in-batch negatives need an "
+                         "autograd all-gather of the pooled embeddings, ROADMAP A.12); only sft "
+                         "trains under --dp / --tp / --pp / --coordinator")
+        args.dp = 1
+        return
+    if min(args.dp, args.tp - 1, args.pp - 1, args.n_micro - 1) < 0:
+        parser.error("--dp must be >= 0, --tp, --pp and --n-micro >= 1")
+    if args.tp > 1 and args.pp > 1:
+        parser.error("--tp and --pp together are not ported (JAX's meshes are (dp, tp) or "
+                     "(dp, pp))")
+    if args.pp > 1:
+        if args.train_type != "full":
+            parser.error(f"--pp takes --train-type full only (as JAX), not {args.train_type}")
+        if args.accumulate_grad_batches != 1:
+            parser.error("--pp pipelines micro-batches itself: use --n-micro, not "
+                         "--accumulate-grad-batches")
+        if args.lisa_k or args.chunk_ctx:
+            parser.error("--pp does not compose with --lisa-k or --chunk-ctx (JAX's pipeline "
+                         "step has neither)")
+    if args.tp > 1:
+        if args.train_type not in ("full", "lora"):
+            parser.error(f"--tp trains --train-type full or lora, not {args.train_type} "
+                         "(ROADMAP A.12)")
+        if args.quant != "none":
+            parser.error("--tp with --quant is not ported: tensor-parallel training takes a "
+                         "dense base (ROADMAP A.12)")
+    if args.dp == 0:
+        if args.coordinator is not None or os.environ.get("RWKV_DIST") == "1":
+            args.dp = 0      # resolved from the number of processes at start-up
+        elif args.platform == "cuda" and torch.cuda.is_available():
+            args.dp = max(1, torch.cuda.device_count() // (args.tp * args.pp))
+        else:
+            args.dp = 1
+
+
+def _start_workers(args, argv: list, world: int) -> tuple:
+    """On one host: the world - 1 other ranks as processes of this command
+    with a file rendezvous in a fresh directory. Returns (processes,
+    directory)."""
+    tmp = tempfile.mkdtemp(prefix="rwkv_train_")
+    args.coordinator = "file://" + os.path.join(tmp, "rendezvous")
+    args.num_processes, args.process_id = world, 0
+    env = dict(os.environ, **{SPLIT_ENV: "1"})
+    workers = [
+        subprocess.Popen([sys.executable, "-m", "rwkv_lm_ext_tpu_torch.train.cli", *argv,
+                          "--dp", str(args.dp), "--coordinator", args.coordinator,
+                          "--num-processes", str(world), "--process-id", str(rank)], env=env)
+        for rank in range(1, world)]
+    return workers, tmp
+
+
+def _watch(workers: list, done: threading.Event) -> None:
+    """Rank 0's guard: when a rank it started fails, stop the others and
+    exit non-zero at once (rank 0 may be waiting in a collective). Ends
+    when every rank has exited 0 or rank 0 sets ``done`` (it failed itself
+    and stops them, or it returned)."""
+    while not done.is_set():
+        for w in workers:
+            code = w.poll()
+            if code not in (None, 0) and not done.is_set():
+                print(f"a rank exited with code {code}; stopping the run", file=sys.stderr,
+                      flush=True)
+                for other in workers:
+                    if other.poll() is None:
+                        other.kill()
+                os._exit(1)
+        if all(w.poll() == 0 for w in workers):
+            return
+        time.sleep(0.5)
+
+
+def train_multiprocess(args, argv: list) -> None:
+    """One rank of a multi-process ``sft`` run (the module docstring)."""
+    local = (args.coordinator is None and args.num_processes is None
+             and not os.environ.get("RWKV_COORDINATOR"))
+    split = local or os.environ.get(SPLIT_ENV) == "1"
+    workers, tmp, done = [], None, threading.Event()
+    if local:
+        workers, tmp = _start_workers(args, argv, args.dp * args.tp * args.pp)
+        threading.Thread(target=_watch, args=(workers, done), daemon=True).start()
+    try:
+        if args.platform == "cuda":
+            resolve_device("cuda")
+        init_distributed(args.coordinator, args.num_processes, args.process_id,
+                         platform=args.platform)
+        world = process_count()
+        dp = args.dp or world // (args.tp * args.pp)
+        if args.pp > 1:
+            mesh = make_pp_mesh(dp=dp, pp=args.pp)
+        else:
+            mesh = make_hybrid_mesh(dp=dp, tp=args.tp)
+        args.mesh, args.shard = mesh, not split
+        if process_index() == 0:
+            print(f"ranks: dp={dp} tp={args.tp} pp={args.pp} of {world} processes, "
+                  f"{'rows of the global batch' if split else 'sampler shards'}", flush=True)
+        args.fn(args)
+    except BaseException:
+        done.set()
+        for w in workers:      # a failed rank 0 ends the run at once
+            if w.poll() is None:
+                w.kill()
+        raise
+    finally:
+        done.set()
+        deadline = time.monotonic() + WORKER_EXIT_S
+        for w in workers:
+            try:
+                w.wait(timeout=max(deadline - time.monotonic(), 0.1))
+            except subprocess.TimeoutExpired:
+                w.kill()
+                w.wait()
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+        leave_within(TEARDOWN_S)
+    if any(w.returncode for w in workers):
+        raise SystemExit(f"a rank exited with code {max(w.returncode for w in workers)}")
+
+
 def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
     parser = argparse.ArgumentParser(prog="rwkv_lm_ext_tpu_torch.train")
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("sft")
@@ -859,6 +1156,11 @@ def main(argv=None) -> None:
                    help="the causal model as the encoder, seq_emb added to its token states")
     p.set_defaults(fn=functools.partial(cmd_mlm, mae=True))
     args = parser.parse_args(argv)
+    _refuse_parallel(parser, args)
+    if args.command == "sft" and (args.dp * args.tp * args.pp != 1 or args.coordinator
+                                  or args.num_processes or os.environ.get("RWKV_DIST") == "1"):
+        train_multiprocess(args, argv)
+        return
     args.fn(args)
 
 if __name__ == "__main__":

@@ -19,28 +19,40 @@ import torch
 IGNORE_INDEX = -100
 
 
-def _ce_with_ignore(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def _ce_with_ignore(logits: torch.Tensor, labels: torch.Tensor,
+                    count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The cross entropy summed over the labels that are not -100, over
+    their count, or over ``count`` when given (a data-parallel rank: the
+    global batch's count, so that the ranks' terms sum to the global mean)."""
     logits = logits.float()
     valid = labels != IGNORE_INDEX
     safe = torch.where(valid, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (logz - gold) * valid
-    return nll.sum() / valid.sum().clamp_min(1)
+    return nll.sum() / (valid.sum() if count is None else count).clamp_min(1)
 
 
-def l2_wrap_penalty(logits: torch.Tensor) -> torch.Tensor:
+def l2_wrap_penalty(logits: torch.Tensor, positions: Optional[int] = None) -> torch.Tensor:
     """Pushes down the per-position max logit (the reference's L2Wrap);
-    ties share the gradient, as jnp.max's does."""
+    ties share the gradient, as jnp.max's does. The mean is over the
+    positions of ``logits``, or over ``positions`` (the global batch's B * T
+    on a data-parallel rank)."""
     mx = logits.float().amax(dim=-1)
-    return 1e-4 * 0.5 * (mx ** 2).mean()
+    if positions is None:
+        return 1e-4 * 0.5 * (mx ** 2).mean()
+    return 1e-4 * 0.5 * (mx ** 2).sum() / positions
 
 
-def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, *, l2_wrap: bool = True) -> torch.Tensor:
-    """logits (B, T, V), labels (B, T) already shifted by the collator."""
-    loss = _ce_with_ignore(logits, labels)
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, *, l2_wrap: bool = True,
+                   count: Optional[torch.Tensor] = None,
+                   positions: Optional[int] = None) -> torch.Tensor:
+    """logits (B, T, V), labels (B, T) already shifted by the collator;
+    ``count`` / ``positions``: a data-parallel rank's global denominators
+    (``_ce_with_ignore``, ``l2_wrap_penalty``)."""
+    loss = _ce_with_ignore(logits, labels, count)
     if l2_wrap:
-        loss = loss + l2_wrap_penalty(logits)
+        loss = loss + l2_wrap_penalty(logits, positions)
     return loss
 
 

@@ -223,7 +223,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             'data.converters', 'data.tokenizer_glm', 'eval.cli', 'eval.tasks',\n"
         "             'eval.mteb_adapter', 'apps.kg', 'apps.rag', 'utils.profiling',\n"
         "             'models.collect', 'ops.wkv_collect', 'infer.speculative',\n"
-        "             'parallel.distributed', 'parallel.mesh', 'parallel.tp'):\n"
+        "             'parallel.distributed', 'parallel.mesh', 'parallel.tp',\n"
+        "             'parallel.pipeline'):\n"
         "    assert p.__name__ + '.' + name in sys.modules, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0].startswith('jax')\n"
         "             or m.split('.')[0] == 'rwkv_lm_ext_tpu')\n"

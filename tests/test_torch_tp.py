@@ -290,10 +290,13 @@ def test_quantize_rows_given_equals_quantize_rows_at_its_scale():
 
 
 def test_refusals_by_name():
-    with pytest.raises(ValueError, match="dp=2 is not ported"):
+    with pytest.raises(ValueError, match="must be the number of processes"):
         make_mesh(dp=2)
     with pytest.raises(ValueError, match="must be the number of processes"):
         make_mesh(tp=2)
+    tiny = RWKV(ModelConfig(n_layer=1, n_embd=32, vocab_size=64, head_size=16), device="cpu")
+    with pytest.raises(ValueError, match="serving takes dp = 1"):
+        GenerationEngine(tiny, mesh=Mesh(dp=2, tp=1, rank=0))
     assert make_mesh().tp == 1 and process_count() == 1
     mesh = Mesh(dp=1, tp=2, rank=0)
     v4 = RWKV(ModelConfig(n_layer=1, n_embd=32, vocab_size=64, head_size=32, version=4.0),

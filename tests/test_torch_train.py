@@ -287,8 +287,8 @@ def tiny_run(tmp_path_factory):
     return tmp
 
 
-def _cli(tmp, *extra):
-    cmd = [sys.executable, "-m", "rwkv_lm_ext_tpu_torch.train.cli", "sft", "--platform", "cpu",
+def _cli(tmp, *extra, command="sft"):
+    cmd = [sys.executable, "-m", "rwkv_lm_ext_tpu_torch.train.cli", command, "--platform", "cpu",
            "--model", str(tmp / "tiny.pth"), "--train-data", str(tmp / "sft.jsonl"),
            "--micro-bsz", "2", "--max-steps", "2", "--log-every", "1", "--warmup-steps", "0",
            *extra]
@@ -321,9 +321,12 @@ def test_train_cli_sft(tiny_run, train_type):
         assert np.abs(sd["blocks.1.att.time_state"]).max() > 0
 
 
-# TPU layout workarounds (ROADMAP "Not to port") and parallelism (A.12)
-@pytest.mark.parametrize("flag", [["--stack-layers"], ["--bwd-transpose"], ["--tp", "2"],
-                                  ["--pp", "2"]])
+# TPU layout workarounds (ROADMAP "Not to port") and the multi-process
+# combinations that are not ported (A.12): tp under a trainer whose loss
+# couples the rows, pp beside a train type but full
+@pytest.mark.parametrize("flag", [["--stack-layers"], ["--bwd-transpose"],
+                                  ["bi-encoder", "--tp", "2"], ["--pp", "2"]])
 def test_train_cli_refuses_unported_options(tiny_run, flag):
-    proc = _cli(tiny_run, "--output-dir", str(tiny_run / "refused"), *flag)
+    command = flag.pop(0) if not flag[0].startswith("--") else "sft"
+    proc = _cli(tiny_run, "--output-dir", str(tiny_run / "refused"), *flag, command=command)
     assert proc.returncode == 2 and "error" in proc.stderr

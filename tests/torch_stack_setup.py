@@ -53,6 +53,31 @@ def jax_params(seed: int = 0, *, n_layer: int = 2, n_embd: int = 128, vocab_size
     return params, cfg
 
 
+def seeded_weights(seed: int, *, n_layer: int = 2, n_embd: int = 128, vocab_size: int = 1000,
+                   head_size: int = 64):
+    """(port state dict, JAX params, JAX cfg): ``_params``' geometry and
+    filling (the zero-initialised projections and the low-rank mixers
+    seeded), drawn by the port's initialiser and numpy and carried into the
+    JAX tree with ``state_dict_to_params``, so that no JAX op compiles for
+    it. fp32."""
+    from rwkv_lm_ext_tpu.checkpoint.convert import state_dict_to_params
+    from rwkv_lm_ext_tpu_torch.config import ModelConfig
+    from rwkv_lm_ext_tpu_torch.models.init import init_rwkv_params
+
+    shape = dict(n_layer=n_layer, n_embd=n_embd, vocab_size=vocab_size, head_size=head_size)
+    sd = init_rwkv_params(ModelConfig(**shape, dtype="float32"),
+                          generator=torch.Generator().manual_seed(seed), device="cpu")
+    rng = np.random.default_rng(seed)
+    for key in sd:
+        if key.endswith(("att.output.weight", "ffn.value.weight", "ffn.receptance.weight",
+                         "time_maa_w1", "time_maa_w2", "time_decay_w1", "time_decay_w2")):
+            fan_in = sd[key].shape[-1] if key.endswith(".weight") else sd[key].shape[-2]
+            sd[key] = torch.from_numpy(rng.normal(size=tuple(sd[key].shape)) * 0.5
+                                       / np.sqrt(fan_in)).float()
+    jcfg = JaxModelConfig(**shape, dtype="float32", param_dtype="float32")
+    return sd, state_dict_to_params({k: v.numpy() for k, v in sd.items()}, jcfg), jcfg
+
+
 def torch_model(params, cfg):
     """The port's model on the same weights, fp32, on the CPU (any family:
     ``checkpoint_config`` tells v5.0 from its missing gate)."""

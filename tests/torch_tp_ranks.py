@@ -1,7 +1,7 @@
 """The ranks of the tensor-parallel CPU tests (tests/test_torch_tp*.py).
 
 ``Pair(job, d)`` starts two processes, ``python tests/torch_tp_ranks.py
-<job> <rank> <d>``, which join a gloo group through a file rendezvous in
+<job> <rank> <d>`` (or another ``script`` with the same command line), which join a gloo group through a file rendezvous in
 ``d`` (no TCP port, so pytest-xdist workers never collide), run ``job`` on
 the inputs the test wrote to ``d`` and save their results to
 ``d/<job>-<rank>.pt``; ``results()`` waits for them (``run_pair`` does both).
@@ -32,10 +32,10 @@ class Pair:
     once; ``results()`` waits for them (the test computes its references
     meanwhile)."""
 
-    def __init__(self, job: str, d: Path):
+    def __init__(self, job: str, d: Path, script: str = __file__):
         env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
         self.job, self.d = job, d
-        self.procs = [subprocess.Popen([sys.executable, __file__, job, str(r), str(d)], cwd=REPO,
+        self.procs = [subprocess.Popen([sys.executable, script, job, str(r), str(d)], cwd=REPO,
                                        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
                       for r in range(TP)]
