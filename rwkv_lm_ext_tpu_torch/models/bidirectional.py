@@ -255,11 +255,14 @@ def mae_forward(
     return out
 
 
-def dupmae_bow_loss(ot_logits: torch.Tensor, bag_word_weight: torch.Tensor) -> torch.Tensor:
+def dupmae_bow_loss(ot_logits: torch.Tensor, bag_word_weight: torch.Tensor,
+                    rows: Optional[int] = None) -> torch.Tensor:
     """Cross entropy between the max-pooled vocabulary logits (B, V) and the
-    document's bag-of-words distribution (B, V)."""
+    document's bag-of-words distribution (B, V), the mean over the rows (or
+    the sum over ``rows``: a data-parallel rank's global row count)."""
     logp = torch.log_softmax(ot_logits.float(), dim=-1)
-    return -(bag_word_weight * logp).sum(-1).mean()
+    per_row = -(bag_word_weight * logp).sum(-1)
+    return per_row.mean() if rows is None else per_row.sum() / rows
 
 
 # ---------------------------------------------------------------------------

@@ -168,6 +168,23 @@ class Dropout:
             return torch.as_tensor(self.mask_fn(site, layer, tuple(shape)), device=device)
         return torch.rand(shape, generator=self.generator, device=device) < (1.0 - self.rate)
 
+    def rows(self, rank: int, n: int) -> "Dropout":
+        """This dropout on rank ``rank`` of ``n`` data-parallel ranks that
+        each hold an equal share of the global batch's rows: every mask is
+        drawn for the global batch (n times the rows, from the same generator
+        in the same order as one process draws it) and the rank keeps its
+        rows, so a row's masks do not depend on n."""
+        if n == 1:
+            return self
+
+        def mask_fn(site, layer, shape):
+            b = shape[0]
+            device = self.generator.device if self.generator is not None else "cpu"
+            full = self.keep(site, layer, (b * n,) + tuple(shape[1:]), device)
+            return full[rank * b:(rank + 1) * b]
+
+        return Dropout(self.rate, mask_fn=mask_fn)
+
     def block_masks(self, layer: int, shape, device) -> Optional[tuple]:
         """(rate, attention keep, channel-mix keep) for layer ``layer``, or
         None at rate 0."""

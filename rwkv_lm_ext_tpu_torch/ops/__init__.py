@@ -10,6 +10,10 @@ its forward launch and its backward kernel (``wkv4_bwd``) each of its own.
 The collecting WKV (B.15, the speculative verify pass) counts its forward
 launch; it has no backward. B.4's given-scale entry (``quantize_rows_given``,
 the tensor-parallel int8c projections) counts its own launches.
+
+``wkv_chunked`` (ops/wkv_chunked.py, JAX's XLA ``chunked`` backend and the
+local scan of sequence parallelism, exported here as JAX's ops package
+exports it) is B.8 on CUDA tensors: it counts as ``wkv``.
 """
 from rwkv_lm_ext_tpu_torch.ops.decode_fused import (
     att_prep_fused,
@@ -21,6 +25,7 @@ from rwkv_lm_ext_tpu_torch.ops.ln import layer_norm
 from rwkv_lm_ext_tpu_torch.ops.quant import quantize_rows, quantize_rows_given
 from rwkv_lm_ext_tpu_torch.ops.wkv import wkv, wkv_bwd_state_pass
 from rwkv_lm_ext_tpu_torch.ops.wkv4 import wkv4, wkv4_bwd
+from rwkv_lm_ext_tpu_torch.ops.wkv_chunked import wkv_chunked  # noqa: F401
 from rwkv_lm_ext_tpu_torch.ops.wkv_collect import wkv6_collect
 from rwkv_lm_ext_tpu_torch.ops.wkv_decode import (
     wkv6_decode_step,

@@ -8,8 +8,10 @@ PyTorch loop over T launches about fifteen operations a token and a layer,
 and autograd through it about thirty more. ``wkv4_plain`` is that loop, the
 scan's body in the same order of operations; the tests and the on-card
 comparison use it, and autograd through it is the plain version of the
-backward kernel. ``wkv4_parallel`` (:65-131, the associative-scan form that the JAX package
-keeps for sequence parallelism) is not ported.
+backward kernel. ``wkv4_parallel`` (:65-131) is JAX's associative-scan
+form of the same recurrence, a log-depth inclusive scan (Hillis-Steele over
+T) in plain PyTorch ops: in the JAX package too it is an XLA function and
+not a Pallas kernel, and no model path calls it there or here.
 
 The state is (aa, bb, pp), each (B, C) fp32; a fresh sequence starts at aa =
 bb = 0 and pp = -1e38 (``init_wkv4_state``). ``out_state`` may be the input
@@ -194,3 +196,56 @@ def wkv4(
 
 
 wkv4.launches = 0
+
+
+def _combine(x, y, wf):
+    """JAX's ``comb``: segment ``x`` (p, a, b, n) followed by segment ``y``;
+    the earlier one decays by y's length times w, then the two merge in
+    logsumexp form."""
+    xp, xa, xb, xn = x
+    yp, ya, yb, yn = y
+    xp = xp + yn * wf
+    m = torch.maximum(xp, yp)
+    e1 = torch.exp(xp - m)
+    e2 = torch.exp(yp - m)
+    return m, e1 * xa + e2 * ya, e1 * xb + e2 * yb, xn + yn
+
+
+def wkv4_parallel(
+    k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+    initial_state: Optional[Wkv4State] = None,
+) -> Tuple[torch.Tensor, Wkv4State]:
+    """``wkv4`` as a log-space associative scan (JAX ops/wkv4.py:65-131): k,
+    v (B, T, C), w and u (C,), initial_state (aa, bb, pp) each (B, C) or None.
+    Returns y (B, T, C) fp32 and the final (aa, bb, pp). The element of a
+    position is (p = k_t, a = v_t, b = 1, n = 1), the initial state is
+    prepended as (pp0, aa0, bb0, n = 0), and the inclusive scan at concat
+    index t is the state before token t. The scan is Hillis-Steele over the
+    T + 1 elements (ceil(log2(T + 1)) rounds); JAX's ``associative_scan``
+    sums in another tree, so the two differ from each other and from the
+    sequential ``wkv4`` by fp32 rounding only. Plain PyTorch ops on any
+    device, differentiable by autograd."""
+    B, T, C = k.shape
+    kf, vf = k.float(), v.float()
+    wf, uf = w.float(), u.float()
+    if initial_state is None:
+        initial_state = init_wkv4_state(B, C, k.device)
+    aa0, bb0, pp0 = (s.float() for s in initial_state)
+    f32 = dict(dtype=torch.float32, device=k.device)
+    elems = (torch.cat([pp0[:, None], kf], 1), torch.cat([aa0[:, None], vf], 1),
+             torch.cat([bb0[:, None], torch.ones(B, T, C, **f32)], 1),
+             torch.cat([torch.zeros(B, 1, 1, **f32), torch.ones(B, T, 1, **f32)], 1))
+    d = 1
+    while d < T + 1:
+        merged = _combine(tuple(e[:, :-d] for e in elems), tuple(e[:, d:] for e in elems), wf)
+        elems = tuple(torch.cat([e[:, :d], m], 1) for e, m in zip(elems, merged))
+        d *= 2
+    P, A, Bb, _ = elems
+    sp, sa, sb = P[:, :T], A[:, :T], Bb[:, :T]
+    ww = uf + kf
+    m = torch.maximum(sp, ww)
+    e1 = torch.exp(sp - m)
+    e2 = torch.exp(ww - m)
+    y = (e1 * sa + e2 * vf) / (e1 * sb + e2)
+    # the final state as tensors of their own: B.14 takes contiguous states
+    return y, (A[:, T].contiguous(), Bb[:, T].contiguous(), P[:, T].contiguous())

@@ -6,8 +6,9 @@ server's messages and holds the collectives, the hybrid (dp, tp) mesh and the
 statement of the global batch; ``mesh`` holds the dp and tp groups and the
 head-parallel layout; ``tp`` cuts a model into a rank's part, for serving
 (``shard_model``) or training (``shard_for_training``, with differentiable
-collectives); ``pipeline`` is GPipe over a pp group. Sequence parallelism
-(sequence.py with ops/wkv_chunked.py) is not ported yet (ROADMAP A.12).
+collectives); ``pipeline`` is GPipe over a pp group; ``sequence`` cuts the
+time axis over an sp group (JAX's ``parallel/__init__.py`` exports its
+functions too).
 """
 from rwkv_lm_ext_tpu_torch.parallel.distributed import (  # noqa: F401
     broadcast_obj,
@@ -23,5 +24,10 @@ from rwkv_lm_ext_tpu_torch.parallel.pipeline import (  # noqa: F401
     PipeMesh,
     make_pp_mesh,
     pipeline_loss,
+)
+from rwkv_lm_ext_tpu_torch.parallel.sequence import (  # noqa: F401
+    make_sp_mesh,
+    rwkv_forward_sequence_parallel,
+    wkv6_sequence_parallel,
 )
 from rwkv_lm_ext_tpu_torch.parallel.tp import shard_for_training, shard_model  # noqa: F401

@@ -39,6 +39,21 @@ below (``all_reduce``, ``broadcast``, ``all_gather_into``, ``isend`` /
 ``recv``) stage card tensors through host memory under gloo and count
 themselves in ``STATS`` (calls and bytes), which the trainers read as
 "collectives a step".
+
+Two of them are differentiable, for the losses and the scans whose result
+on one rank depends on the others' rows: ``all_gather_autograd`` (JAX's
+``lax.all_gather`` and its transpose: forward the ranks' tensors stacked
+along a new leading axis, backward each rank's slice of the gradient summed
+over the ranks) and ``ppermute_next`` (JAX's ``lax.ppermute`` with the pairs
+(i, i + 1 mod n): forward rank i's tensor to rank i + 1, backward the
+gradient back to rank i). The contrastive trainers gather the pooled
+embeddings of the global batch through the first (train/loop.py), sequence
+parallelism the shards' WKV states through the first and the token-shift
+boundary rows through the second (parallel/sequence.py). Both run on every
+rank of ``group`` in the same order, forward and backward: a rank whose loss
+does not read the result must still keep it in its graph (a zero-weighted
+use), so that its backward joins the others'. They go through the counted
+helpers above, so ``STATS`` counts them too; their backward sums in fp32.
 """
 from __future__ import annotations
 
@@ -241,6 +256,71 @@ def recv(t: torch.Tensor, src: int) -> torch.Tensor:
     else:
         dist.recv(t, src)
     return t
+
+
+def group_size(group=None) -> int:
+    """Ranks of ``group`` (None: every process)."""
+    return dist.get_world_size(group) if dist.is_initialized() else 1
+
+
+def group_rank(group=None) -> int:
+    """This process's rank within ``group`` (None: every process)."""
+    return dist.get_rank(group) if dist.is_initialized() else 0
+
+
+def _gathered(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``t`` stacked along a new leading axis, in rank order."""
+    out = torch.empty((group_size(group),) + tuple(t.shape), dtype=t.dtype, device=t.device)
+    all_gather_into(list(out.unbind(0)), t.contiguous(), group)
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _gathered(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        summed = all_reduce(g.float().contiguous().clone(), ctx.group)
+        return summed[group_rank(ctx.group)].to(g.dtype), None
+
+
+class _PermuteNext(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        n, r = group_size(group), group_rank(group)
+        return _gathered(t, group)[(r - 1) % n].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        n, r = group_size(ctx.group), group_rank(ctx.group)
+        return _gathered(g.contiguous(), ctx.group)[(r + 1) % n].clone(), None
+
+
+def all_gather_autograd(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The ranks' ``t`` (each of the same shape) stacked along a new
+    leading axis in rank order, as ``lax.all_gather``; differentiable: each
+    rank's gradient is its slice of the gradient summed over the ranks (the
+    transpose of the gather, a reduce-scatter, here an all-reduce of the
+    whole gradient of which a rank keeps its slice). Alone in a process it
+    is ``t[None]``."""
+    if group_size(group) == 1:
+        return t[None]
+    return _AllGather.apply(t, group)
+
+
+def ppermute_next(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Rank i's ``t`` on rank (i + 1) mod n, as ``lax.ppermute`` with the
+    pairs (i, i + 1 mod n); differentiable: the gradient goes back the
+    reverse way. The boundary rows it carries are a few KB, so it is one
+    all-gather of which each rank keeps its predecessor's tensor: no send
+    has to be paired with a receive. Alone in a process it is ``t``."""
+    if group_size(group) == 1:
+        return t
+    return _PermuteNext.apply(t, group)
 
 
 def new_groups(blocks: List[List[int]]):

@@ -31,10 +31,11 @@ As in JAX, ``--chunk-ctx`` and ``--lisa-k`` act under ``--train-type full``
 only and ``--quant`` under lora, pissa and slot-lora; the other train types
 ignore them.
 
-Multi-process training (``sft`` only), JAX's flags with JAX's meaning:
-``--dp N`` (0, the default: every card of this host, one rank each; 1 on the
-CPU or a one-card host), ``--tp N`` (head-parallel, parallel/tp.py), ``--pp N
---n-micro M`` (GPipe, parallel/pipeline.py), ``--coordinator host:port``
+Multi-process training, JAX's flags with JAX's meaning:
+``--dp N`` (every command; 0, the default: every card of this host, one rank
+each; 1 on the CPU or a one-card host), ``--tp N`` (``sft``; head-parallel,
+parallel/tp.py), ``--pp N --n-micro M`` (``sft``; GPipe,
+parallel/pipeline.py), ``--coordinator host:port``
 (or ``file://…``) with ``--num-processes`` and ``--process-id`` (or
 RWKV_COORDINATOR / RWKV_NUM_PROCESSES / RWKV_PROCESS_ID with ``RWKV_DIST=1``).
 torch.distributed runs one rank a process: started alone, ``--dp/--tp/--pp``
@@ -52,19 +53,22 @@ dp ranks). The step is the global batch's (train/loop.py), AdamW's moments
 are sharded over dp (train/optim.py ``ShardedOptimizer``), rank 0 alone logs
 and writes the .pth files, and ``--save-train-state`` writes one file a rank
 plus a manifest (checkpoint/orbax_io.py), resumed at the same dp / tp / pp.
-Under ``--dp``: every ``sft`` train type; under ``--tp``: ``full`` and
-``lora`` (dense base); under ``--pp``: ``full`` (with JAX's asserts: no
-``--accumulate-grad-batches``, ``--lisa-k`` or ``--chunk-ctx``, the batch
+Under ``--dp``: every ``sft`` train type and every other command, each on
+the global batch's loss (train/loop.py: the coupled losses gather the pooled
+embeddings of the global batch, the means take the global counts, an
+``encoder-crossencoder`` rank keeps whole groups of G rows, ``simcse
+--dropout-noise`` draws each row's masks as one process does), rank 0 alone
+running ``nli``'s STS-b evaluation; under ``--tp``: ``sft`` ``full`` and
+``lora`` (dense base); under ``--pp``: ``sft`` ``full`` (with JAX's asserts:
+no ``--accumulate-grad-batches``, ``--lisa-k`` or ``--chunk-ctx``, the batch
 divisible by ``--n-micro``; the pipeline loss has no L2Wrap, as JAX's).
 
 Refused, by argparse (exit 2), and why:
 - ``--stack-layers`` and ``--bwd-transpose``: TPU layout workarounds (the
   scan-over-layers tree for XLA's compile time; a stored W^T for a transpose
   XLA materialized), with no counterpart in torch (ROADMAP "Not to port");
-- every command but ``sft`` under ``--dp``, ``--tp`` or ``--pp`` above 1 or
-  ``--coordinator``: their losses couple the rows of the global batch
-  (in-batch negatives, which JAX's GSPMD computes over the global array), so
-  they need an autograd all-gather of the pooled embeddings (ROADMAP A.12);
+- every command but ``sft`` under ``--tp`` or ``--pp`` above 1: their
+  tensor-parallel and pipeline forms are the next slice of ROADMAP A.12;
   the other multi-process combinations outside the scope above (``--tp`` and
   ``--pp`` together, ``--pp`` beside a train type but ``full``, ``--tp``
   under ``--quant`` or a train type but ``full`` and ``lora``);
@@ -307,6 +311,12 @@ def _main_process(args) -> bool:
     return _mesh(args) is None or process_index() == 0
 
 
+def _device(args) -> torch.device:
+    """This process's device: the --platform device alone, the rank's own
+    in a multi-process run."""
+    return resolve_device(args.platform) if _mesh(args) is None else rank_device(args.platform)
+
+
 def _jsonl(path: str):
     with open(path, "r", encoding="utf-8") as f:
         for line in f:
@@ -320,18 +330,24 @@ def _sizes(args, ds, least: int = 1) -> dict:
 
 
 def _bucketed(args, ds, sizes, collate) -> Callable[[int], Iterator]:
-    """batches(epoch) -> the collated batches of one epoch, the buckets'
-    orders drawn from seed + epoch. A dp rank (``args.mesh``) takes its
-    sampler shard (``args.shard``: --coordinator) or its rows of the global
-    batch (one host: every bucket's batch must divide by dp, and under --pp a
-    rank's rows by --n-micro)."""
+    """batches(epoch) -> the batches ``collate(examples, length, epoch)``
+    makes of one epoch, the buckets' orders drawn from seed + epoch. A dp
+    rank (``args.mesh``) takes its sampler shard (``args.shard``:
+    --coordinator) or its rows of the global batch (one host: every
+    bucket's batch must divide by dp, and under --pp a rank's rows by
+    --n-micro). Every rank collates the global batch (so that masks drawn
+    in the collate are the single process's) and keeps its rows; a batch of
+    whole examples splits into equal shares of them, so an example's rows
+    (``encoder-crossencoder``'s G pairs) stay on one rank."""
     mesh = _mesh(args)
     shard = mesh is not None and args.shard
     world, rank = (mesh.dp, mesh.dp_rank) if shard else (1, 0)
     split = mesh is not None and not shard and mesh.dp > 1
     if mesh is not None:
-        used = {b.fixed_len for b in ds.buckets if b.examples}
-        for fixed_len, n in sorted((k, v) for k, v in sizes.items() if k in used):
+        # the sampler's batch size of each bucket in use (1 where ``sizes``
+        # has none: nli at a --max-seq-len that is not a bucket length)
+        used = sorted({b.fixed_len for b in ds.buckets if b.examples})
+        for fixed_len, n in ((k, sizes.get(k, 1)) for k in used):
             if split and n % mesh.dp:
                 raise SystemExit(
                     f"--micro-bsz {args.micro_bsz}: the {fixed_len}-token bucket's batch of {n} "
@@ -345,7 +361,7 @@ def _bucketed(args, ds, sizes, collate) -> Callable[[int], Iterator]:
         sampler = BucketBatchSampler(ds, sizes, seed=args.seed + epoch, world_size=world,
                                      rank=rank)
         for fixed_len, examples in sampler.batches():
-            batch = collate(examples, fixed_len)
+            batch = collate(examples, fixed_len, epoch)
             if split:
                 batch = {k: np.array_split(v, mesh.dp)[mesh.dp_rank] for k, v in batch.items()}
             yield batch
@@ -374,7 +390,8 @@ def _sft_batches(args, tokenizer, *, want_tasks: bool = False):
         task_to_id = {n: i + 1 for i, n in enumerate(task_names)}
         for e in exs:
             e["adapter_id"] = task_to_id[e["task"]]
-    return _bucketed(args, ds, _sizes(args, ds), sft_collate), task_names
+    return _bucketed(args, ds, _sizes(args, ds),
+                     lambda examples, n, epoch: sft_collate(examples, n)), task_names
 
 
 def _group_accum(batch_iter, accum: int):
@@ -522,7 +539,7 @@ def _load_checkpoint(path: str, command: str, train_type: str = "", *, dtype=Non
 def _full_model(args):
     """(device, model, cfg) for a command that trains every parameter: fp32
     master weights, cast to the compute dtype at each use."""
-    device = resolve_device(args.platform)
+    device = _device(args)
     model, cfg = _load_checkpoint(args.model, args.command, dtype=args.dtype, device=device,
                                   param_dtype="float32")
     return device, model, cfg
@@ -530,19 +547,19 @@ def _full_model(args):
 
 def _train_full(args, model, tc, loss_fn, batches, device, prefix: str, eval_fn=None) -> None:
     """Train every parameter of the model and of the heads attached to it;
-    save ``{prefix}-step{N}.pth`` in the base checkpoint's layout."""
+    save ``{prefix}-step{N}.pth`` in the base checkpoint's layout (rank 0)."""
     def save_fn(step):
         save_model_checkpoint(model, os.path.join(args.output_dir, f"{prefix}-step{step}.pth"))
 
     apply_trainable_mask(model, trainable_mask(model, "full"))
-    step_fn = make_train_step(model, tc, loss_fn)
-    _run_loop(args, tc, step_fn, batches, save_fn, device, eval_fn)
+    _run_loop(args, tc, make_train_step(model, tc, loss_fn, mesh=_mesh(args)), batches,
+              _on_main(args, save_fn), device, eval_fn)
 
 
 def _lora_model(args):
     """(device, model, cfg, lc) with a fresh LoRA adapter (seed --seed)
     applied; only the adapter trains."""
-    device = resolve_device(args.platform)
+    device = _device(args)
     model, cfg = _load_checkpoint(args.model, args.command, dtype=args.dtype, device=device)
     lc = LoraConfig(r=args.lora_r, alpha=args.lora_alpha)
     apply_lora(model, lc, init_lora_params(model, lc, torch.Generator(device).manual_seed(args.seed)))
@@ -624,7 +641,7 @@ def _on_main(args, save_fn) -> Callable[[int], None]:
 
 def cmd_sft(args) -> None:
     mesh = _mesh(args)
-    device = resolve_device(args.platform) if mesh is None else rank_device(args.platform)
+    device = _device(args)
     tokenizer = WorldTokenizer(args.vocab)
     batches, task_names = _sft_batches(args, tokenizer, want_tasks=args.train_type == "slot-lora")
     tc = _train_config(args, batches)
@@ -710,18 +727,14 @@ def _text_batches(args, tokenizer, vocab_size: int, mae: bool) -> Callable[[int]
     for row in _jsonl(args.train_data):
         ids = tokenizer.encode(row["text"] if isinstance(row, dict) else row)
         ds.add({"input_ids": ids}, min(len(ids) + 1, args.ctx_len))
-    sizes = _sizes(args, ds)
 
-    def batches(epoch: int):
-        sampler = BucketBatchSampler(ds, sizes, seed=args.seed + epoch)
-        for fixed_len, examples in sampler.batches():
-            if mae:
-                yield mae_collate(examples, fixed_len, bag_of_words=args.dup_mae,
-                                  vocab_size=vocab_size, seed=args.seed + epoch)
-            else:
-                yield mlm_collate(examples, fixed_len, seed=args.seed + epoch, emb_id=1)
+    def collate(examples, fixed_len, epoch):
+        if mae:
+            return mae_collate(examples, fixed_len, bag_of_words=args.dup_mae,
+                               vocab_size=vocab_size, seed=args.seed + epoch)
+        return mlm_collate(examples, fixed_len, seed=args.seed + epoch, emb_id=1)
 
-    return batches
+    return _bucketed(args, ds, _sizes(args, ds), collate)
 
 
 def cmd_mlm(args, mae: bool = False) -> None:
@@ -752,7 +765,7 @@ def _contrastive_batches(args, tokenizer, collate) -> Callable[[int], Iterator]:
             ex["label"] = row["label"]
         ds.add(ex, min(len(ex.get("query", [])) + 1, args.ctx_len))
     return _bucketed(args, ds, _sizes(args, ds),
-                     lambda examples, n: collate(examples, min(n * 2, args.ctx_len)))
+                     lambda examples, n, epoch: collate(examples, min(n * 2, args.ctx_len)))
 
 
 def cmd_bi_encoder(args) -> None:
@@ -765,7 +778,8 @@ def cmd_bi_encoder(args) -> None:
     def save_fn(step):
         save_lora_checkpoint(model, os.path.join(args.output_dir, f"bi-encoder-step{step}.pth"))
 
-    _run_loop(args, tc, make_train_step(model, tc, loss_fn), batches, save_fn, device)
+    _run_loop(args, tc, make_train_step(model, tc, loss_fn, mesh=_mesh(args)), batches,
+              _on_main(args, save_fn), device)
 
 
 def cmd_cross_encoder(args) -> None:
@@ -781,7 +795,8 @@ def cmd_cross_encoder(args) -> None:
         save_lora_checkpoint(model, os.path.join(args.output_dir, f"cross-encoder-step{step}.pth"))
         save_score_head(model.score, os.path.join(args.output_dir, f"score-step{step}.pth"))
 
-    _run_loop(args, tc, make_train_step(model, tc, loss_fn), batches, save_fn, device)
+    _run_loop(args, tc, make_train_step(model, tc, loss_fn, mesh=_mesh(args)), batches,
+              _on_main(args, save_fn), device)
 
 
 def _nli_batches(args, tokenizer) -> Callable[[int], Iterator]:
@@ -797,7 +812,8 @@ def _nli_batches(args, tokenizer) -> Callable[[int], Iterator]:
     ds = LengthBucketedDataset()
     for r in rows:
         ds.add({k: tokenizer.encode(v)[: L - 1] for k, v in r.items()}, L)
-    return _bucketed(args, ds, {L: args.micro_bsz}, triplet_collate)
+    return _bucketed(args, ds, {L: args.micro_bsz},
+                     lambda examples, n, epoch: triplet_collate(examples, n))
 
 
 def cmd_nli(args) -> None:
@@ -826,6 +842,8 @@ def cmd_nli(args) -> None:
                     for i in range(0, len(sentences), Bv)])
 
         def eval_fn(step, epoch):
+            if not _main_process(args):     # rank 0 alone evaluates
+                return
             out = evaluator(encode, epoch=epoch, steps=step)
             print(f"nli eval step {step}: cosine_spearman={out['cosine_spearman']:.4f} "
                   f"cosine_pearson={out['cosine_pearson']:.4f}", flush=True)
@@ -845,7 +863,7 @@ def _simcse_batches(args, tokenizer) -> Callable[[int], Iterator]:
             a = b = tokenizer.encode(row["text"])
         ds.add({"a": a, "b": b}, min(max(len(a), len(b)) + 1, args.ctx_len))
 
-    def collate(examples, n):
+    def collate(examples, n, epoch):
         return {k: np.stack([_pad_to(e[k][: n - 1] + [1], n, 0) for e in examples])
                 for k in ("a", "b")}
 
@@ -878,7 +896,7 @@ def _instructor_batches(args, tokenizer) -> Callable[[int], Iterator]:
               if k in row}
         ds.add(ex, min(len(ex["query"]) + 1, args.ctx_len))
 
-    def collate(examples, n):
+    def collate(examples, n, epoch):
         return {k: np.stack([_pad_to(e[k][: n - 1] + [1], n, 0) for e in examples])
                 for k in ("query", "positive", "negative") if k in examples[0]}
 
@@ -922,7 +940,7 @@ def _encoder_crossencoder_batches(args, tokenizer) -> Callable[[int], Iterator]:
         pairs = [q + [2] + d + [1] for d in docs]
         ds.add({"pairs": pairs}, min(max(map(len, pairs)), args.ctx_len))
 
-    def collate(examples, n):
+    def collate(examples, n, epoch):
         return {"input_ids": np.stack([_pad_to(p[:n], n, 0) for e in examples for p in e["pairs"]])}
 
     return _bucketed(args, ds, _sizes(args, ds), collate)
@@ -942,17 +960,12 @@ def cmd_encoder_crossencoder(args) -> None:
 def _refuse_parallel(parser: argparse.ArgumentParser, args) -> None:
     """Exit 2, by name, on a multi-process flag outside what is ported (the
     module docstring); resolve --dp 0 (every card of this host)."""
-    multi = args.dp > 1 or args.tp > 1 or args.pp > 1 or args.coordinator is not None
-    if args.command != "sft":
-        if multi:
-            parser.error(f"multi-process training of {args.command} is not ported: its loss "
-                         "couples the rows of the global batch (in-batch negatives need an "
-                         "autograd all-gather of the pooled embeddings, ROADMAP A.12); only sft "
-                         "trains under --dp / --tp / --pp / --coordinator")
-        args.dp = 1
-        return
     if min(args.dp, args.tp - 1, args.pp - 1, args.n_micro - 1) < 0:
         parser.error("--dp must be >= 0, --tp, --pp and --n-micro >= 1")
+    if args.command != "sft" and (args.tp > 1 or args.pp > 1):
+        parser.error(f"multi-process training of {args.command} is not ported under --tp / --pp "
+                     "(its tensor-parallel and pipeline forms are the next slice of ROADMAP "
+                     "A.12); it trains under --dp / --coordinator")
     if args.tp > 1 and args.pp > 1:
         parser.error("--tp and --pp together are not ported (JAX's meshes are (dp, tp) or "
                      "(dp, pp))")
@@ -1018,7 +1031,8 @@ def _watch(workers: list, done: threading.Event) -> None:
 
 
 def train_multiprocess(args, argv: list) -> None:
-    """One rank of a multi-process ``sft`` run (the module docstring)."""
+    """One rank of a multi-process run of any command (the module
+    docstring)."""
     local = (args.coordinator is None and args.num_processes is None
              and not os.environ.get("RWKV_COORDINATOR"))
     split = local or os.environ.get(SPLIT_ENV) == "1"
@@ -1157,8 +1171,8 @@ def main(argv=None) -> None:
     p.set_defaults(fn=functools.partial(cmd_mlm, mae=True))
     args = parser.parse_args(argv)
     _refuse_parallel(parser, args)
-    if args.command == "sft" and (args.dp * args.tp * args.pp != 1 or args.coordinator
-                                  or args.num_processes or os.environ.get("RWKV_DIST") == "1"):
+    if (args.dp * args.tp * args.pp != 1 or args.coordinator or args.num_processes
+            or os.environ.get("RWKV_DIST") == "1"):
         train_multiprocess(args, argv)
         return
     args.fn(args)

@@ -42,18 +42,39 @@ they count among its trainable parameters. With ``accumulate_grad_batches`` >
 micro losses and gradients, as ``micro`` does (:151-157).
 
 ``make_train_step(mesh=)`` is the step of one rank of a (dp, tp) mesh
-(parallel/mesh.py): JAX computes the loss on the global batch, so a dp rank
-(which holds its own rows, ``local_batch_to_global``) divides its masked
-cross-entropy sum by the global batch's token count and its L2Wrap sum by
-the global B * T, both known before the forward (one small all-reduce of the
-counts, a micro-batch's and, under TBPTT, a chunk's: the batch carries them
-to the loss as its ``counts`` argument); the ranks' terms then sum
-to JAX's loss, and their gradients to its gradient (train/optim.py
-``ShardedOptimizer``, the ZeRO AdamW over dp). ``make_pp_train_step`` trains a
-pipeline stage (parallel/pipeline.py) with the moments of its parameters.
+(parallel/mesh.py): JAX computes the loss on the global batch, so the ranks'
+loss terms must sum to that loss and their gradients (summed by
+train/optim.py ``ShardedOptimizer``, the ZeRO AdamW over dp) to its gradient.
+A dp rank holds its own rows (``local_batch_to_global``); before the forward
+one small collective gives it the global counts of each micro-batch
+(``GlobalBatch``: the rows, and each token-label field's count of labels
+that are not -100, under TBPTT a chunk's), which the step passes to the loss
+as its ``counts`` argument. By loss:
+
+- a mean over tokens or rows (the causal LM with L2Wrap over the global B *
+  T, the MLM and RetroMAE cross entropies, the DupMAE bag-of-words term, the
+  cross-encoder's MSE, the encoder cross-encoder's group softmax) divides
+  its rank's sum by the global count;
+- a loss that couples the rows (in-batch InfoNCE, CoSENT, the symmetric
+  InfoNCE of instructor and the encoder bi-encoder, SimCSE) gathers the
+  pooled embeddings of the global batch with ``all_gather_autograd``
+  (parallel/distributed.py) and takes the global loss over dp: every rank
+  computes the same global loss, its backward sums each rank's slice of the
+  embedding gradient over the ranks, so the ranks' gradients sum to the
+  global loss's and their terms to the loss;
+- ``encoder-crossencoder``'s rows come in groups of G (a query and its G
+  documents); the dp split keeps a group on one rank (train/cli.py cuts a
+  batch of whole examples into equal shares of its rows), so its softmax over
+  each group needs no gather.
+
+Under ``simcse_loss_fn(dropout=)`` a dp rank draws each mask for the global
+batch and keeps its rows (``Dropout.rows``), so a row's masks do not change
+with dp. ``make_pp_train_step`` trains a pipeline stage (parallel/pipeline.py)
+with the moments of its parameters.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable, Dict, Optional
 
@@ -85,19 +106,57 @@ from rwkv_lm_ext_tpu_torch.train.losses import (
     symmetric_infonce,
 )
 from rwkv_lm_ext_tpu_torch.models.state import init_model_state
+from rwkv_lm_ext_tpu_torch.parallel.distributed import all_gather_autograd
 from rwkv_lm_ext_tpu_torch.train.optim import ShardedOptimizer, make_optimizer
 
+# the token-label fields whose counts a dp step gathers (-100: not a target)
+LABEL_KEYS = ("labels", "encoder_labels", "decoder_labels")
 
-def _denominators(counts, T: int, chunk: Optional[int] = None) -> dict:
-    """``causal_lm_loss``'s global denominators from ``counts`` (a dp rank's
-    (valid labels a chunk (chunks,), rows) of the global batch, module
+
+@dataclasses.dataclass
+class GlobalBatch:
+    """What a dp rank's loss knows of the global (micro-)batch (the module
+    docstring): its ``rows``, ``valid[key]`` the count of labels that are
+    not -100 of each token-label field (int64; ``labels`` (chunks,), one a
+    TBPTT chunk), and the dp ``group`` with ``dp`` ranks, this one
+    ``dp_rank``, over which a coupled loss gathers."""
+
+    rows: int
+    valid: Dict[str, torch.Tensor]
+    group: object = None
+    dp: int = 1
+    dp_rank: int = 0
+
+
+def _denominators(counts: Optional[GlobalBatch], T: int, chunk: Optional[int] = None) -> dict:
+    """``causal_lm_loss``'s global denominators from ``counts`` (module
     docstring); {} on one rank."""
     if counts is None:
         return {}
-    valid, rows = counts
+    valid = counts.valid["labels"]
     if chunk is not None:
         return {"count": valid[chunk]}
-    return {"count": valid.sum(), "positions": rows * T}
+    return {"count": valid.sum(), "positions": counts.rows * T}
+
+
+def _count(counts: Optional[GlobalBatch], key: str):
+    """The global count of ``key``'s targets, or None on one rank."""
+    return None if counts is None else counts.valid[key].sum()
+
+
+def _global_rows(x: torch.Tensor, counts: Optional[GlobalBatch]) -> torch.Tensor:
+    """The global batch's rows of ``x`` (each rank's, in rank order), with
+    the gather's gradient; ``x`` itself on one rank."""
+    if counts is None or counts.dp == 1:
+        return x
+    return all_gather_autograd(x, counts.group).flatten(0, 1)
+
+
+def _coupled(loss_fn, counts: Optional[GlobalBatch], *embeddings) -> torch.Tensor:
+    """A loss that couples the rows, on the global batch's embeddings: on a
+    dp rank the global loss over dp (the module docstring)."""
+    value = loss_fn(*(None if e is None else _global_rows(e, counts) for e in embeddings))
+    return value if counts is None else value / counts.dp
 
 
 def sft_loss_fn(model, batch: Dict[str, torch.Tensor], *, remat=True,
@@ -137,27 +196,31 @@ def tbptt_loss_fn(model, batch: Dict[str, torch.Tensor], *, chunk_ctx: int, rema
 
 
 def mlm_loss_fn(model, batch: Dict[str, torch.Tensor], *, remat: bool = True,
-                mode: str = "average", reference: bool = False) -> torch.Tensor:
+                mode: str = "average", reference: bool = False, counts=None) -> torch.Tensor:
     """Masked-LM loss of the bidirectional encoder with the tied head:
     batch = {"input_ids" (B, T), "labels" (B, T)}, labels -100 off the masked
-    positions."""
+    positions; ``counts``: a dp rank's ``GlobalBatch``."""
     hidden = encoder_forward(model, batch["input_ids"], mode=mode, remat=remat,
                              reference=reference)
-    return mlm_loss(mlm_logits(model, hidden), batch["labels"])
+    return mlm_loss(mlm_logits(model, hidden), batch["labels"], count=_count(counts, "labels"))
 
 
 def mae_loss_fn(model, batch: Dict[str, torch.Tensor], *, remat: bool = True,
                 dup_mae: bool = False, mode: str = "average", bidirectional: bool = True,
-                reference: bool = False) -> torch.Tensor:
+                reference: bool = False, counts=None) -> torch.Tensor:
     """RetroMAE loss: the encoder's MLM loss plus the one-layer decoder's
     (``model.onelayer_decoder``), plus the DupMAE bag-of-words loss when
-    ``dup_mae`` and the batch carries ``bag_word_weight``."""
+    ``dup_mae`` and the batch carries ``bag_word_weight``; ``counts``: a dp
+    rank's ``GlobalBatch`` (each term over its own global count)."""
     out = mae_forward(model, batch["encoder_input_ids"], batch["decoder_input_ids"],
                       bidirectional=bidirectional, mode=mode, remat=remat, reference=reference)
-    loss = mlm_loss(out["encoder_logits"], batch["encoder_labels"])
-    loss = loss + mlm_loss(out["decoder_logits"], batch["decoder_labels"])
+    loss = mlm_loss(out["encoder_logits"], batch["encoder_labels"],
+                    count=_count(counts, "encoder_labels"))
+    loss = loss + mlm_loss(out["decoder_logits"], batch["decoder_labels"],
+                           count=_count(counts, "decoder_labels"))
     if dup_mae and "bag_word_weight" in batch:
-        loss = loss + dupmae_bow_loss(out["ot_logits"], batch["bag_word_weight"])
+        loss = loss + dupmae_bow_loss(out["ot_logits"], batch["bag_word_weight"],
+                                      rows=None if counts is None else counts.rows)
     return loss
 
 
@@ -172,85 +235,113 @@ def _triplet(embed, batch):
 
 
 def contrastive_loss_fn(model, batch, *, loss: str = "infonce", pooling: str = "weightedmean",
-                        remat: bool = True, reference: bool = False) -> torch.Tensor:
+                        remat: bool = True, reference: bool = False, counts=None) -> torch.Tensor:
     """``bi-encoder`` and ``nli``: pooled embeddings of the triplet, in-batch
-    InfoNCE (scale 20, ``loss="infonce"``) or CoSENT (``"cosent"``)."""
+    InfoNCE (scale 20, ``loss="infonce"``) or CoSENT (``"cosent"``), over the
+    global batch on a dp rank (``counts``)."""
     fn = in_batch_infonce if loss == "infonce" else cosent_loss
-    return fn(*_triplet(lambda t: embed_sequences(model, t, pooling_type=pooling, remat=remat,
-                                                  reference=reference), batch))
+    return _coupled(fn, counts, *_triplet(lambda t: embed_sequences(
+        model, t, pooling_type=pooling, remat=remat, reference=reference), batch))
 
 
-def cross_encoder_loss_fn(model, batch, *, remat: bool = True,
-                          reference: bool = False) -> torch.Tensor:
+def cross_encoder_loss_fn(model, batch, *, remat: bool = True, reference: bool = False,
+                          counts=None) -> torch.Tensor:
     """``cross-encoder``: ``model.score`` at the cls position of ``q [sep] d
-    [cls]`` rows, MSE on the 0/1 labels."""
+    [cls]`` rows, MSE on the 0/1 labels (over the global rows on a dp
+    rank)."""
     scores = classify_sequences(model, batch["input_ids"], model.score, remat=remat,
                                 reference=reference)
-    return classification_loss(scores, batch["labels"])
+    return classification_loss(scores, batch["labels"],
+                               rows=None if counts is None else counts.rows)
 
 
 def simcse_loss_fn(model, batch, *, pooling: str = "weightedmean", temperature: float = 0.05,
-                   remat: bool = True, reference: bool = False, dropout=None) -> torch.Tensor:
+                   remat: bool = True, reference: bool = False, dropout=None,
+                   counts=None) -> torch.Tensor:
     """``simcse``: pooled embeddings of a and b, in-batch cross entropy at the
-    temperature. With ``dropout`` (a models.rwkv.Dropout: ``--dropout-noise``)
-    each side is a view of its own, its masks drawn after the other's, as the
-    JAX closure draws them from two split keys."""
+    temperature, over the global batch on a dp rank. With ``dropout`` (a
+    models.rwkv.Dropout: ``--dropout-noise``) each side is a view of its own,
+    its masks drawn after the other's, as the JAX closure draws them from two
+    split keys (a dp rank's: its rows of the global batch's masks)."""
+    if dropout is not None and counts is not None:
+        dropout = dropout.rows(counts.dp_rank, counts.dp)
+
     def embed(tokens):
         return embed_sequences(model, tokens, pooling_type=pooling, embedding_id=1, remat=remat,
                                reference=reference, dropout=dropout)
 
-    return simcse_loss(embed(batch["a"]), embed(batch["b"]), temperature=temperature)
+    return _coupled(functools.partial(simcse_loss, temperature=temperature), counts,
+                    embed(batch["a"]), embed(batch["b"]))
 
 
 def instructor_loss_fn(model, batch, *, pooling: str = "weightedmean",
                        temperature: float = 0.05, remat: bool = True,
-                       reference: bool = False) -> torch.Tensor:
+                       reference: bool = False, counts=None) -> torch.Tensor:
     """``instructor``: instruction-prefixed triplets through the dense +
-    LayerNorm head (``model.dense``, ``model.ln_dense``), symmetric InfoNCE.
-    The JAX closure runs ``instructor_embed`` without remat; the gradient is
-    the same either way."""
-    return symmetric_infonce(*_triplet(lambda t: instructor_embed(
-        model, t, model.dense, model.ln_dense, pooling_type=pooling, remat=remat,
-        reference=reference), batch), temperature=temperature)
+    LayerNorm head (``model.dense``, ``model.ln_dense``), symmetric InfoNCE
+    (over the global batch on a dp rank). The JAX closure runs
+    ``instructor_embed`` without remat; the gradient is the same either
+    way."""
+    return _coupled(functools.partial(symmetric_infonce, temperature=temperature), counts,
+                    *_triplet(lambda t: instructor_embed(
+                        model, t, model.dense, model.ln_dense, pooling_type=pooling,
+                        remat=remat, reference=reference), batch))
 
 
 def encoder_biencoder_loss_fn(model, batch, *, mode: str = "average", temperature: float = 0.05,
-                              remat: bool = True, reference: bool = False) -> torch.Tensor:
+                              remat: bool = True, reference: bool = False,
+                              counts=None) -> torch.Tensor:
     """``encoder-biencoder``: bidirectional sentence embeddings of the
-    triplet, symmetric InfoNCE."""
-    return symmetric_infonce(*_triplet(lambda t: encode_sentence(
-        model, t, mode=mode, remat=remat, reference=reference), batch), temperature=temperature)
+    triplet, symmetric InfoNCE (over the global batch on a dp rank)."""
+    return _coupled(functools.partial(symmetric_infonce, temperature=temperature), counts,
+                    *_triplet(lambda t: encode_sentence(model, t, mode=mode, remat=remat,
+                                                        reference=reference), batch))
 
 
 def encoder_crossencoder_loss_fn(model, batch, *, group_size: int, mode: str = "average",
-                                 remat: bool = True, reference: bool = False) -> torch.Tensor:
+                                 remat: bool = True, reference: bool = False,
+                                 counts=None) -> torch.Tensor:
     """``encoder-crossencoder``: (B * G, T) ``q [sep] d [cls]`` rows, the
     bidirectional sentence embedding times ``model.score``, group softmax
-    with the positive in column 0 of each group of G."""
+    with the positive in column 0 of each group of G (a dp rank holds whole
+    groups and divides by the global count of them)."""
+    if batch["input_ids"].shape[0] % group_size:
+        raise ValueError(f"encoder-crossencoder rows come in groups of {group_size}: a batch of "
+                         f"{batch['input_ids'].shape[0]} rows splits one")
     emb = encode_sentence(model, batch["input_ids"], mode=mode, remat=remat, reference=reference)
     scores = emb.float() @ model.score.weight.float().T
-    return group_softmax_loss(scores.reshape(-1, group_size))
+    return group_softmax_loss(scores.reshape(-1, group_size),
+                              count=None if counts is None else counts.rows // group_size)
 
 
 def _global_counts(batch: Dict[str, torch.Tensor], mesh, tc: TrainConfig) -> list:
-    """A dp rank's micro-batches' global counts, the losses' ``counts``: one
-    (valid labels a chunk (chunks,) int64, rows) a micro-batch, from one
-    collective (``local_batch_to_global``: it also checks that every rank
-    holds the same shapes)."""
+    """A dp rank's micro-batches' ``GlobalBatch``, the losses' ``counts``:
+    the global rows and, for each token-label field of ``LABEL_KEYS`` the
+    batch has (``labels`` a TBPTT chunk at a time), its count of targets,
+    from one collective (``local_batch_to_global``: it also checks that
+    every rank holds the same shapes)."""
     from rwkv_lm_ext_tpu_torch.parallel.distributed import local_batch_to_global
 
-    if "labels" not in batch:
-        raise ValueError("a data-parallel step takes causal-LM batches ({'input_ids', 'labels'}): "
-                         "the other trainers' losses couple the rows of the global batch (ROADMAP "
-                         "A.12)")
     accum = tc.accumulate_grad_batches > 1
-    labels = batch["labels"] if accum else batch["labels"][None]
-    A, B, T = labels.shape
-    chunks = T // tc.chunk_ctx if tc.chunk_ctx and T % tc.chunk_ctx == 0 else 1
-    valid = (labels != -100).reshape(A, B, chunks, T // chunks).sum((1, 3))
+    lead = 1 if accum else 0
+    first = next(iter(batch.values()))
+    A = first.shape[0] if accum else 1
+    keys, parts = [], []
+    for key in LABEL_KEYS:
+        if key not in batch or batch[key].dim() != 2 + lead:   # not (B, T) token labels
+            continue
+        labels = batch[key] if accum else batch[key][None]
+        T = labels.shape[2]
+        chunks = (T // tc.chunk_ctx if key == "labels" and tc.chunk_ctx and T % tc.chunk_ctx == 0
+                  else 1)
+        parts.append((labels != -100).reshape(A, labels.shape[1], chunks, T // chunks).sum((1, 3)))
+        keys.append((key, chunks))
+    valid = (torch.cat(parts, 1) if parts
+             else torch.zeros(A, 0, dtype=torch.int64, device=first.device))
     rows, total = local_batch_to_global(batch, mesh.dp_group, mesh.dp, counts=valid,
-                                        row_axis=1 if accum else 0)
-    return [(total[a], rows) for a in range(A)]
+                                        row_axis=lead)
+    return [GlobalBatch(rows, dict(zip((k for k, _ in keys), total[a].split([c for _, c in keys]))),
+                        mesh.dp_group, mesh.dp, mesh.dp_rank) for a in range(A)]
 
 
 def make_train_step(model, tc: TrainConfig, loss_fn: Optional[Callable] = None, *, mesh=None):
@@ -264,10 +355,9 @@ def make_train_step(model, tc: TrainConfig, loss_fn: Optional[Callable] = None, 
 
     ``mesh`` (parallel.mesh.Mesh, dp or tp > 1; the model already cut by
     parallel.tp.shard_for_training where tp > 1) makes it one rank's step:
-    the loss of the global batch (module docstring; a dp step takes the
-    causal-LM losses, and passes them the global counts as ``counts=``) and
-    the ZeRO AdamW
-    (``ShardedOptimizer``); "loss" is the global batch's."""
+    the loss of the global batch (module docstring; a dp step passes each
+    micro-batch's ``GlobalBatch`` to the loss as ``counts=``) and the ZeRO
+    AdamW (``ShardedOptimizer``); "loss" is the global batch's."""
     if loss_fn is None and tc.chunk_ctx:
         loss_fn = functools.partial(tbptt_loss_fn, chunk_ctx=tc.chunk_ctx, remat=tc.grad_checkpoint)
     elif loss_fn is None:

@@ -9,6 +9,11 @@ losses of the contrastive and reranking trainers: ``_cos_sim_matrix``,
 form: the -1e12 mask, a zero prepended to the flattened differences, the
 division by n^2 + 1), ``symmetric_infonce``, ``group_softmax_loss``,
 ``simcse_loss`` and ``classification_loss``.
+
+The means over tokens or rows take an optional global denominator
+(``count``, ``positions``, ``rows``): a data-parallel rank's share of the
+global batch's mean (train/loop.py). The losses that couple the rows take the
+global batch's embeddings instead (train/loop.py gathers them).
 """
 from __future__ import annotations
 
@@ -56,10 +61,11 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, *, l2_wrap: bool 
     return loss
 
 
-def mlm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def mlm_loss(logits: torch.Tensor, labels: torch.Tensor,
+             count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """logits (B, T, V), labels (B, T) with -100 on the unmasked positions;
-    no L2Wrap."""
-    return _ce_with_ignore(logits, labels)
+    no L2Wrap; ``count``: a data-parallel rank's global count of targets."""
+    return _ce_with_ignore(logits, labels, count)
 
 
 def _cos_sim_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -117,11 +123,12 @@ def symmetric_infonce(query: torch.Tensor, positive: torch.Tensor,
     return 0.5 * (_ce_with_ignore(s_qc, labels) + _ce_with_ignore(s_pq, labels))
 
 
-def group_softmax_loss(scores: torch.Tensor) -> torch.Tensor:
+def group_softmax_loss(scores: torch.Tensor, count: Optional[int] = None) -> torch.Tensor:
     """scores (B, G), column 0 each group's positive: cross entropy with
-    target 0."""
+    target 0; ``count``: a data-parallel rank's global count of groups."""
     labels = torch.zeros(scores.shape[0], dtype=torch.long, device=scores.device)
-    return _ce_with_ignore(scores.float(), labels)
+    return _ce_with_ignore(scores.float(), labels,
+                           None if count is None else torch.tensor(count, device=scores.device))
 
 
 def simcse_loss(emb_a: torch.Tensor, emb_b: torch.Tensor, *,
@@ -132,8 +139,12 @@ def simcse_loss(emb_a: torch.Tensor, emb_b: torch.Tensor, *,
     return _ce_with_ignore(scores, _diagonal(scores.shape[0], scores.device))
 
 
-def classification_loss(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """MSE on the labels for (B,) scores, else cross entropy."""
+def classification_loss(scores: torch.Tensor, labels: torch.Tensor,
+                        rows: Optional[int] = None) -> torch.Tensor:
+    """MSE on the labels for (B,) scores, else cross entropy; ``rows``: a
+    data-parallel rank's global row count (its share of the mean)."""
     if scores.dim() == 1:
-        return ((scores - labels.float()) ** 2).mean()
-    return _ce_with_ignore(scores, labels)
+        sq = (scores - labels.float()) ** 2
+        return sq.mean() if rows is None else sq.sum() / rows
+    return _ce_with_ignore(scores, labels,
+                           None if rows is None else torch.tensor(rows, device=scores.device))

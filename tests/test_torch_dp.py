@@ -420,7 +420,7 @@ def test_cli_multiprocess_run_writes_the_single_process_files(cli_runs, name, ex
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["bi-encoder", "--dp", "2"], "multi-process training of bi-encoder is not ported"),
+    (["bi-encoder", "--tp", "2"], "multi-process training of bi-encoder is not ported"),
     (["sft", "--tp", "2", "--pp", "2"], "--tp and --pp together"),
     (["sft", "--pp", "2", "--train-type", "full", "--accumulate-grad-batches", "2"],
      "use --n-micro"),

@@ -224,7 +224,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             'eval.mteb_adapter', 'apps.kg', 'apps.rag', 'utils.profiling',\n"
         "             'models.collect', 'ops.wkv_collect', 'infer.speculative',\n"
         "             'parallel.distributed', 'parallel.mesh', 'parallel.tp',\n"
-        "             'parallel.pipeline'):\n"
+        "             'parallel.pipeline', 'parallel.sequence', 'ops.wkv_chunked'):\n"
         "    assert p.__name__ + '.' + name in sys.modules, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0].startswith('jax')\n"
         "             or m.split('.')[0] == 'rwkv_lm_ext_tpu')\n"

@@ -28,17 +28,19 @@ RERANK = {"query": "what is rwkv", "documents": ["an RNN", "数据 and text", "a
 
 
 class Pair:
-    """Two rank processes of ``job`` on the inputs in ``d``, started at
-    once; ``results()`` waits for them (the test computes its references
-    meanwhile)."""
+    """Two rank processes of ``job`` on the inputs in ``d`` (``ranks`` of
+    them where given: the script then gets the count as a fourth argument),
+    started at once; ``results()`` waits for them (the test computes its
+    references meanwhile)."""
 
-    def __init__(self, job: str, d: Path, script: str = __file__):
+    def __init__(self, job: str, d: Path, script: str = __file__, ranks: int = TP):
         env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-        self.job, self.d = job, d
-        self.procs = [subprocess.Popen([sys.executable, script, job, str(r), str(d)], cwd=REPO,
-                                       env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True)
-                      for r in range(TP)]
+        self.job, self.d, self.ranks = job, d, ranks
+        extra = [] if ranks == TP else [str(ranks)]
+        self.procs = [subprocess.Popen([sys.executable, script, job, str(r), str(d), *extra],
+                                       cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+                      for r in range(ranks)]
         self.logs = [[] for _ in self.procs]
         self.pumps = [threading.Thread(target=lambda p=p, log=log: log.extend(p.stdout),
                                        daemon=True)
@@ -48,7 +50,7 @@ class Pair:
         self.deadline = time.monotonic() + PAIR_TIMEOUT_S
 
     def results(self) -> list:
-        """Both ranks' results ([rank 0's, rank 1's]); fails on a rank's
+        """The ranks' results ([rank 0's, rank 1's, ...]); fails on a rank's
         error, exit code or time limit, and leaves no process behind."""
         try:
             for p in self.procs:
@@ -62,7 +64,8 @@ class Pair:
                 t.join(timeout=10)
         for r, p in enumerate(self.procs):
             assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{''.join(self.logs[r])}"
-        return [torch.load(self.d / f"{self.job}-{r}.pt", weights_only=False) for r in range(TP)]
+        return [torch.load(self.d / f"{self.job}-{r}.pt", weights_only=False)
+                for r in range(self.ranks)]
 
 
 def run_pair(job: str, d: Path) -> list:

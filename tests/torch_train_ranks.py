@@ -20,6 +20,16 @@ Jobs:
 - ``pp``: ``make_pp_mesh(dp=1, pp=2)``; ``pipeline_loss`` and its
   gradients on a fresh model, then one ``make_pp_train_step`` step; each
   rank returns its stage's values.
+- ``dp_infonce``: ``make_mesh(dp=2)``, a LoRA model and one bi-encoder
+  InfoNCE step (``contrastive_loss_fn``) on the rank's half of a triplet
+  batch: the loss, the norm, the reduced gradients and the trained
+  adapter.
+- ``sp`` (four ranks, ``Pair(..., ranks=4)``): sequence parallelism over
+  ``make_sp_mesh(4)`` and then ``make_sp_mesh(2)`` (two groups of two),
+  each rank on its own time shard: ``wkv6_sequence_parallel``'s y and final
+  state, ``rwkv_forward_sequence_parallel``'s logits, and the gradients of
+  mean(logits^2) summed over the group; then, at sp=2, a shard one step
+  shorter on the group's rank 1, which both ranks refuse by name.
 """
 import sys
 from pathlib import Path
@@ -159,14 +169,80 @@ def job_pp(rank: int, d: Path) -> dict:
     return out
 
 
-JOBS = {"dp": job_dp, "pp": job_pp}
+def job_dp_infonce(rank: int, d: Path) -> dict:
+    import functools
+
+    from rwkv_lm_ext_tpu_torch.config import TrainConfig
+    from rwkv_lm_ext_tpu_torch.parallel.mesh import make_mesh
+    from rwkv_lm_ext_tpu_torch.train.loop import contrastive_loss_fn, make_train_step
+
+    inputs = torch.load(d / "dp_infonce.pt")
+    mesh = make_mesh(dp=TP, tp=1)
+    model = _model(inputs, "dp_lora")
+    loss_fn = functools.partial(contrastive_loss_fn, loss="infonce", pooling="weightedmean",
+                                remat=False)
+    step = make_train_step(model, TrainConfig(**inputs["tc"]), loss_fn, mesh=mesh)
+    out = {}
+    _capture_first_grads(step.optimizer, out)
+    rows = {k: v.chunk(TP)[mesh.dp_rank] for k, v in inputs["batch"].items()}
+    m = step(rows)
+    out.update(loss=float(m["loss"]), norm=float(m["grad_norm"]),
+               params={n: p.detach().clone() for n, p in zip(step.optimizer.names,
+                                                              step.optimizer.params)})
+    return out
 
 
-def main(job: str, rank: int, d: Path) -> None:
+def job_sp(rank: int, d: Path) -> dict:
+    from rwkv_lm_ext_tpu_torch.parallel.distributed import all_reduce
+    from rwkv_lm_ext_tpu_torch.parallel.sequence import (
+        make_sp_mesh,
+        rwkv_forward_sequence_parallel,
+        wkv6_sequence_parallel,
+    )
+
+    inputs = torch.load(d / "sp.pt")
+    results = {}
+    for sp in (4, 2):
+        mesh = make_sp_mesh(sp)
+        out = {"rank": mesh.rank}
+        wk = inputs["wkv"]
+        n = wk["r"].shape[1] // sp
+        shard = slice(mesh.rank * n, (mesh.rank + 1) * n)
+        out["y"], out["state"] = wkv6_sequence_parallel(
+            *(wk[k][:, shard] for k in "rkvw"), wk["u"], mesh=mesh, chunk_size=8)
+        model = _model(inputs, "sp_full")
+        tokens = inputs["tokens"]
+        n = tokens.shape[1] // sp
+        with torch.no_grad():
+            out["logits"] = rwkv_forward_sequence_parallel(
+                model, tokens[:, mesh.rank * n:(mesh.rank + 1) * n], mesh=mesh)
+        tokens = inputs["grad_tokens"]
+        n = tokens.shape[1] // sp
+        logits = rwkv_forward_sequence_parallel(
+            model, tokens[:, mesh.rank * n:(mesh.rank + 1) * n], mesh=mesh)
+        ((logits.float() ** 2).sum() / (tokens.numel() * logits.shape[-1])).backward()
+        out["grads"] = {name: all_reduce(p.grad.clone(), mesh.group)
+                        for name, p in model.named_parameters()}
+        results[sp] = out
+    # shards of two lengths in one group are refused on both of its ranks
+    wk = inputs["wkv"]
+    T = 8 - (mesh.rank == 1)
+    try:
+        wkv6_sequence_parallel(*(wk[k][:, :T] for k in "rkvw"), wk["u"], mesh=mesh)
+        results["mismatch"] = None
+    except ValueError as e:
+        results["mismatch"] = str(e)
+    return results
+
+
+JOBS = {"dp": job_dp, "pp": job_pp, "dp_infonce": job_dp_infonce, "sp": job_sp}
+
+
+def main(job: str, rank: int, d: Path, world: int = TP) -> None:
     from rwkv_lm_ext_tpu_torch.parallel.distributed import init_distributed, shutdown
 
     torch.set_num_threads(1)
-    init_distributed("file://" + str(d / f"{job}.rendezvous"), TP, rank, platform="cpu",
+    init_distributed("file://" + str(d / f"{job}.rendezvous"), world, rank, platform="cpu",
                      timeout=PAIR_TIMEOUT_S)
     try:
         result = JOBS[job](rank, d)
@@ -176,4 +252,4 @@ def main(job: str, rank: int, d: Path) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], int(sys.argv[2]), Path(sys.argv[3]))
+    main(sys.argv[1], int(sys.argv[2]), Path(sys.argv[3]), *map(int, sys.argv[4:]))
